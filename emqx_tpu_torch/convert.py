@@ -4,7 +4,10 @@ For a broker the routing tables are the state. ``tables_from_numpy``
 takes the ``ShapeTables`` and ``SubTable`` that either package's host-side
 table build returns (named tuples of numpy arrays — the JAX package's
 ``build_shape_tables`` / ``build_subtable`` or the port's copies) and
-uploads them, dtypes unchanged, to ``device``.
+uploads them, dtypes unchanged, to ``device``. ``router_tables_from_numpy``
+does the same for the trie backend's ``TrieTables`` + ``SubTable``, and
+``stacked_from_numpy`` for a per-shard pytree stacked on a leading route
+axis (``parallel.sharded.stack_tables``).
 """
 
 from __future__ import annotations
@@ -13,12 +16,53 @@ import numpy as np
 import torch
 
 from emqx_tpu_torch.device import resolve_device
-from emqx_tpu_torch.models.router_engine import ShapeRouterTables
+from emqx_tpu_torch.models.router_engine import (RouterTables,
+                                                 ShapeRouterTables)
 from emqx_tpu_torch.ops.fanout import SubTable
 from emqx_tpu_torch.ops.shapes import ShapeTables
+from emqx_tpu_torch.ops.trie import TrieTables
 
 _SHAPE_PLANES = ("shape_plus_mask", "shape_len", "shape_has_hash",
                  "shape_wild_root", "buckets")
+
+
+def tree_map(fn, tree):
+    """Apply fn to every leaf of a (nested) NamedTuple of tables; None
+    leaves stay None."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, x) for x in tree))
+    return fn(tree)
+
+
+def _upload(dev):
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return up
+
+
+def router_tables_from_numpy(trie, subs, device=None) -> RouterTables:
+    """Upload host-built trie and subscriber tables to ``device`` (``cuda``
+    by default). The node/edge counts become 0-d tensors."""
+    dev = resolve_device(device)
+    if getattr(trie, "cover", None) is not None:
+        raise ValueError("subscription covering is not supported by the port")
+    up = _upload(dev)
+    t = TrieTables(*[up(getattr(trie, k)) for k in TrieTables._fields[:-1]])
+    sub = SubTable(*[up(getattr(subs, k)) for k in SubTable._fields])
+    return RouterTables(trie=t, subs=sub)
+
+
+def stacked_from_numpy(stacked, device=None):
+    """Upload a stacked per-shard pytree (``RouterTables`` or
+    ``ShapeRouterTables`` of [R, ...] numpy planes) to ``device``, every
+    leaf a tensor with its leading route axis."""
+    dev = resolve_device(device)
+    inner = stacked[0]
+    if getattr(inner, "cover", None) is not None:
+        raise ValueError("subscription covering is not supported by the port")
+    return tree_map(_upload(dev), stacked)
 
 
 def tables_from_numpy(shapes, subs, device=None) -> ShapeRouterTables:
@@ -28,9 +72,7 @@ def tables_from_numpy(shapes, subs, device=None) -> ShapeRouterTables:
     if getattr(shapes, "cover", None) is not None:
         raise ValueError("subscription covering is not supported by the port")
 
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
+    up = _upload(dev)
     st = ShapeTables(**{k: up(getattr(shapes, k)) for k in _SHAPE_PLANES},
                      n_shapes=int(shapes.n_shapes),
                      n_filters=int(shapes.n_filters))

@@ -9,10 +9,13 @@
 //
 // Input [R, n] int32 row-major (a 1D input is R = 1). Rows of at most
 // SHORT = 32 elements (the route window's [W*B, NSc] match-width scans,
-// a million rows of length 1 at the bench shape) take one thread per row,
-// a serial scan. Longer rows: blocks run in no order, so the TPU's carried
-// total becomes two passes over tiles of TILE = 4096 elements
-// (1024 threads x 4):
+// a million rows of length 1 at the bench shape; the trie NFA's [B, 2w]
+// emission and frontier scans) take one thread per row, a serial scan.
+// Rows of at most MID = 1024 (the mesh path's [B, 64] fan-out segment
+// scans) take one warp per row: 32 elements per step, __shfl_up_sync
+// within the warp, the running total carried in a register. Longer rows:
+// blocks run in no order, so the TPU's carried total becomes two passes
+// over tiles of TILE = 4096 elements (1024 threads x 4):
 //   1. tile_sums: one block per (row, tile) writes the tile's sum
 //      (skipped when a row is a single tile);
 //   2. scan_tiles: one block per (row, tile) adds up the sums of the
@@ -38,6 +41,8 @@ namespace {
 
 constexpr int SHORT = 32;
 constexpr int SHORT_THREADS = 256;
+constexpr int MID = 1024;
+constexpr int MID_THREADS = 256;  // 8 rows (warps) per block
 constexpr int THREADS = 1024;
 constexpr int ITEMS = 4;
 constexpr int TILE = THREADS * ITEMS;
@@ -136,6 +141,30 @@ __global__ void __launch_bounds__(SHORT_THREADS) scan_short_rows(
   }
 }
 
+__global__ void __launch_bounds__(MID_THREADS) scan_mid_rows(
+    const int32_t* __restrict__ x, int32_t* __restrict__ y, int R, int n) {
+  const int lane = threadIdx.x & 31;
+  // one row per warp: every lane of a warp shares r, so a warp past the
+  // last row leaves as a whole and the shuffles below see full warps
+  const int r = blockIdx.x * (MID_THREADS / 32) + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const int32_t* xr = x + size_t(r) * n;
+  int32_t* yr = y + size_t(r) * n;
+  int carry = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    int v = i < n ? __ldg(xr + i) : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(FULL, v, off);
+      if (lane >= off) v += t;
+    }
+    v += carry;
+    if (i < n) yr[i] = v;
+    carry = __shfl_sync(FULL, v, 31);
+  }
+}
+
 }  // namespace
 
 // x, y: [R, n] int32; scratch: R * ceil(n / 4096) int32 (unused when a row
@@ -148,6 +177,13 @@ extern "C" int prefix_sum_launch(const void* x, void* y, void* scratch, int R,
     scan_short_rows<<<(R + SHORT_THREADS - 1) / SHORT_THREADS, SHORT_THREADS,
                       0, s>>>(static_cast<const int32_t*>(x),
                               static_cast<int32_t*>(y), R, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (n <= MID) {
+    const int rows_per_block = MID_THREADS / 32;
+    scan_mid_rows<<<(R + rows_per_block - 1) / rows_per_block, MID_THREADS,
+                    0, s>>>(static_cast<const int32_t*>(x),
+                            static_cast<int32_t*>(y), R, n);
     return static_cast<int>(cudaGetLastError());
   }
   const int tiles = (n + TILE - 1) / TILE;

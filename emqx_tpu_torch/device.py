@@ -26,7 +26,8 @@ def resolve_device(device=None) -> torch.device:
 
 # one count per hand-written kernel: a wrapper adds one exactly where it
 # launches its kernel, so a run can show the main path went through it
-LAUNCHES: dict[str, int] = {"shape_match": 0, "prefix_sum": 0}
+LAUNCHES: dict[str, int] = {"shape_match": 0, "prefix_sum": 0,
+                            "ring_rotate": 0}
 
 
 def count_launch(name: str) -> None:

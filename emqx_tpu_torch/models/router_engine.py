@@ -1,8 +1,9 @@
 """The PUBLISH route window: match → fan-out → shared picks → compaction.
 
-Counterpart of the shape-hash programs of
-``emqx_tpu/models/router_engine.py``: ``post_match`` (:87),
-``route_step_shapes`` (:119), ``route_window_full`` (:683) together with
+Counterpart of ``emqx_tpu/models/router_engine.py``: the table and result
+types (``RouterTables`` :37, ``ExchangeAux`` :63, ``ExchangeResult`` :74),
+``post_match`` (:87), the trie ``route_step`` (:106), ``route_step_shapes``
+(:119), ``route_window_full`` (:683) together with
 ``route_window_full_compact`` (:281), and ``route_digest`` (:631).
 
 ``route_window`` routes W sub-batches in one call. The match, the normal
@@ -21,10 +22,17 @@ import torch
 
 from emqx_tpu_torch.ops.compact import CompactPlanes, compact_result
 from emqx_tpu_torch.ops.fanout import SubTable, fanout_normal, shared_slots
-from emqx_tpu_torch.ops.match import MatchResult
+from emqx_tpu_torch.ops.match import MatchResult, match_batch
 from emqx_tpu_torch.ops.scan import prefix_sum
 from emqx_tpu_torch.ops.shapes import ShapeTables, shape_match
 from emqx_tpu_torch.ops.shared import pick_members
+from emqx_tpu_torch.ops.trie import TrieTables
+
+
+class RouterTables(NamedTuple):
+    """Device routing state for the trie-NFA backend (general shapes)."""
+    trie: TrieTables
+    subs: SubTable
 
 
 class ShapeRouterTables(NamedTuple):
@@ -45,6 +53,26 @@ class RouteResult(NamedTuple):
     overflow: torch.Tensor      # [B] any capacity overflow → host fallback
     new_cursors: torch.Tensor   # [G]
     occur: torch.Tensor         # [G] shared-slot occurrences this batch
+
+
+class ExchangeAux(NamedTuple):
+    """Per-shard companions the exchange stage needs on device, stacked on
+    the route axis next to the shard tables."""
+    seg_len: torch.Tensor   # [R, F_cap] int32 fan-out segment length per fid
+    fid_slow: torch.Tensor  # [R, F_cap] bool: a matched fid here → unclean
+    fid_off: torch.Tensor   # [R] int32 global-fid base per shard
+
+
+class ExchangeResult(NamedTuple):
+    """Each (dp, dest) shard's final delivery plan after the exchange:
+    only the rows whose sessions it owns (sid % R == dest), received from
+    every source shard around the route ring, as (msg, sid, gfid |
+    packed_opt << 24) int32 triples in (source asc, msg asc, row asc)
+    order."""
+    plan: torch.Tensor      # [dp, R_dst, E, 3] int32, -1 pad
+    plan_cnt: torch.Tensor  # [dp, R_dst] int32 (clamped to E)
+    src_cnt: torch.Tensor   # [dp, R_dst, R_src] int32 segment boundaries
+    ok: torch.Tensor        # [dp, R] int32 bitmask: 1=msgs clean, 2=caps fit
 
 
 class CompactRouteResult(NamedTuple):
@@ -68,6 +96,18 @@ def post_match(subs: SubTable, mr: MatchResult, cursors: torch.Tensor,
         shared_sids=sids, shared_rows=sp.rows, shared_opts=sp.opts,
         overflow=mr.overflow | fr.overflow | slot_oflow,
         new_cursors=sp.new_cursors, occur=sp.occur)
+
+
+def route_step(tables: RouterTables, cursors, topics, lens, is_dollar,
+               msg_hash, strategy: int, *, frontier_cap: int = 16,
+               match_cap: int = 64, fanout_cap: int = 128,
+               slot_cap: int = 16, scan=prefix_sum) -> RouteResult:
+    """Trie-NFA route step: match + fan-out + shared picks."""
+    mr = match_batch(tables.trie, topics, lens, is_dollar,
+                     frontier_cap=frontier_cap, match_cap=match_cap,
+                     scan=scan)
+    return post_match(tables.subs, mr, cursors, msg_hash, strategy,
+                      fanout_cap=fanout_cap, slot_cap=slot_cap, scan=scan)
 
 
 def route_step_shapes(tables: ShapeRouterTables, cursors, topics, lens,

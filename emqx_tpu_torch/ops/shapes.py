@@ -31,7 +31,7 @@ import torch
 
 from emqx_tpu_torch.ops.fold import launch_shape_match
 from emqx_tpu_torch.ops.intern import HASH, PLUS
-from emqx_tpu_torch.ops.match import MatchResult
+from emqx_tpu_torch.ops.match import MatchResult, _mul
 
 BK = 8                  # filter entries per bucket (one row read wide)
 DEFAULT_SHAPE_CAP = 32  # max distinct shapes per table
@@ -336,13 +336,6 @@ def build_shape_tables(words: np.ndarray, lens: np.ndarray,
 
 
 # --- plain PyTorch path: uint32 carried in int64 masked to 32 bits -------
-
-def _mul(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a * c) mod 2^32 for a in [0, 2^32) and a 32-bit constant c, with
-    every intermediate below 2^49 (no int64 wraparound)."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
-
 
 def _fold_t(h, w, l: int):
     h = h ^ ((_mul(w, 0x85EBCA77) + ((l * 0x9E3779B1) & _M32)) & _M32)

@@ -1,0 +1,394 @@
+"""The sharded route step and the device-to-device exchange over a mesh.
+
+Counterpart of ``emqx_tpu/parallel/sharded.py``: ``stack_tables`` (:36),
+``put_sharded`` (:45, without the ledger), ``update_shard`` (:84),
+``make_sharded_route_step`` (:115) and ``make_exchange_step`` (:240).
+
+Each route shard owns a disjoint filter subset compiled into its own
+tables (same array shapes, different contents, stacked on a leading
+axis); publish batches split over dp rows. The reference runs one
+``shard_map`` program per device; the port is single-controller in the
+same way, and writes the collectives out as tensor ops over the grid:
+``all_gather``/``psum`` over 'dp' or 'route' become sums and stacks over
+that axis of a tensor, and the one device-to-device movement — the ring
+rotation of the exchange — goes through kernel 3 (``ops/exchange``).
+
+Placement: the stacked tables and the step's planes live on the mesh's
+first device (``mesh.grid[0][0]``); a shard whose grid cell names another
+device gets its slice, and its exchange blocks, moved there. On one card
+(the mesh ``chip_smoke.py`` drives) nothing moves but the ring's blocks.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from emqx_tpu_torch.convert import stacked_from_numpy, tree_map
+from emqx_tpu_torch.models.router_engine import (ExchangeResult,
+                                                 RouteResult)
+from emqx_tpu_torch.ops.compact import _rows_searchsorted
+from emqx_tpu_torch.ops.exchange import ring_rotate
+from emqx_tpu_torch.ops.fanout import fanout_normal, shared_slots
+from emqx_tpu_torch.ops.match import flatten_tries, match_batch
+from emqx_tpu_torch.ops.scan import prefix_sum
+from emqx_tpu_torch.ops.shapes import shape_match
+from emqx_tpu_torch.ops.shared import STRATEGY_ROUND_ROBIN, pick_members
+
+
+def _leaves(tree) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def stack_tables(tables_list: list):
+    """Stack per-shard table pytrees on a new leading axis (host, numpy).
+
+    All shards must share array shapes — build each with the same
+    node/slot/filter capacities."""
+    first = tables_list[0]
+    cols = [_leaves(t) for t in tables_list]
+    stacked = iter([np.stack(xs) for xs in zip(*cols)])
+    return tree_map(lambda _x: next(stacked), first)
+
+
+def put_sharded(mesh, tables_stacked, cursors_stacked):
+    """Upload stacked tables and cursors [R, G] to the mesh's first
+    device."""
+    dev = mesh.grid[0][0]
+    return (stacked_from_numpy(tables_stacked, dev),
+            torch.as_tensor(np.asarray(cursors_stacked)).to(dev))
+
+
+def update_shard(tables_stacked, shard_idx: int, shard_tables,
+                 donate: bool = True):
+    """Write ONE shard's tables into the stacked tensors: an in-place
+    slice write (nothing else moves). ``donate=False`` clones the stacked
+    tensors first, so a caller still holding them keeps the old contents.
+
+    Raises IndexError for a shard index out of range and ValueError when
+    the shard's shapes diverge from the stacked capacity classes."""
+    full = _leaves(tables_stacked)
+    new = _leaves(shard_tables)
+    n_shards = full[0].shape[0]
+    if not 0 <= shard_idx < n_shards:
+        raise IndexError(f"shard_idx {shard_idx} out of range "
+                         f"[0, {n_shards})")
+    if len(full) != len(new) or any(
+            tuple(f.shape[1:]) != tuple(np.shape(n))
+            for f, n in zip(full, new)):
+        raise ValueError(
+            "shard tables shapes diverge from the stacked capacity "
+            "classes; rebuild every shard with matching capacities")
+    if not donate:
+        tables_stacked = tree_map(torch.clone, tables_stacked)
+    for f, n in zip(_leaves(tables_stacked), new):
+        f[shard_idx].copy_(torch.as_tensor(np.asarray(n)))
+    return tables_stacked
+
+
+def _route_groups(mesh) -> list:
+    """Route shards grouped by device: [(device, [r, ...])]. Every dp row
+    of a route shard must share its device (its tables live there)."""
+    groups: dict = {}
+    for r in range(mesh.route):
+        col = {mesh.grid[d][r] for d in range(mesh.dp)}
+        if len(col) != 1:
+            raise ValueError(f"route shard {r} spans devices {sorted(map(str, col))}"
+                             "; put each route shard's dp rows on one device")
+        groups.setdefault(col.pop(), []).append(r)
+    return list(groups.items())
+
+
+def _flatten_subs(subs):
+    """Stacked per-shard SubTables ([n, ...]) → one table laid end to
+    end: CSR offsets of shard r shifted by r * (its value array's
+    length). Segment ids (filter ids, slot ids) index shard r's rows at
+    r * (F_cap + 1) and r * (G + 1)."""
+    n = subs.sub_start.shape[0]
+    dev = subs.sub_start.device
+    ar = torch.arange(n, device=dev, dtype=torch.int32)[:, None]
+
+    def csr(starts, values):
+        return (starts + ar * values.shape[1]).reshape(-1), values.reshape(-1)
+
+    sub_start, sub_row = csr(subs.sub_start, subs.sub_row)
+    fs_start, fs_slot = csr(subs.fs_start, subs.fs_slot)
+    shared_start, shared_row = csr(subs.shared_start, subs.shared_row)
+    return type(subs)(sub_start, sub_row, subs.sub_opts.reshape(-1),
+                      fs_start, fs_slot, shared_start, shared_row,
+                      subs.shared_opts.reshape(-1))
+
+
+def make_sharded_route_step(mesh, *, backend: str = "trie",
+                            frontier_cap: int = 16, match_cap: int = 64,
+                            fanout_cap: int = 128, slot_cap: int = 16,
+                            scan=prefix_sum):
+    """The multi-shard route step for `mesh` ('dp', 'route').
+
+    backend: 'trie' (RouterTables shards) or 'shapes' (ShapeRouterTables
+    shards). ``scan`` defaults to the kernel wrapper; ``prefix_sum_ref``
+    gives the reference path.
+
+    step(tables [R, ...], cursors [R, G], topics [B, L], lens [B],
+         is_dollar [B], msg_hash [B], strategy) -> RouteResult
+    with per-topic planes [B, R, ...] (local filter ids per shard) and
+    new_cursors/occur [R, G]. B must divide by dp; dp row d serves rows
+    d*b .. (d+1)*b-1 (b = B / dp).
+
+    The route shards that share a device match, fan out and expand
+    their shared slots in one pass over their tables laid end to end
+    (``flatten_tries``, ``_flatten_subs``), each against the whole batch;
+    each (dp, route) cell then picks its shared members on its own.
+    """
+    if backend not in ("trie", "shapes"):
+        raise ValueError(f"unknown backend {backend!r}")
+    dp, R = mesh.dp, mesh.route
+    home = mesh.grid[0][0]
+    groups = _route_groups(mesh)
+    if backend == "shapes":      # shape tables do not lay end to end
+        groups = [(dev, [r]) for dev, rs in groups for r in rs]
+    flat_cache: dict = {}
+
+    def flat(tables, dev, rs):
+        """The group's tables on its device, laid end to end; rebuilt
+        when the stacked tensors change (``update_shard`` writes in
+        place and bumps their version)."""
+        leaves = _leaves(tables)
+        key = tuple((x.data_ptr(), x._version) for x in leaves)
+        hit = flat_cache.get((dev, tuple(rs)))
+        if hit is not None and hit[0] == key:
+            return hit[1]
+        sel = torch.tensor(rs, device=tables.subs.sub_start.device)
+        part = tree_map(lambda x: x.index_select(0, sel).to(dev), tables)
+        if backend == "trie":
+            part = part._replace(trie=flatten_tries(part.trie))
+        per_shard = [tree_map(lambda x, j=j: x[j], tables)
+                     for j in rs] if dev == tables.subs.sub_start.device \
+            else [tree_map(lambda x, j=j: x[j].to(dev), tables) for j in rs]
+        out = (part._replace(subs=_flatten_subs(part.subs)), per_shard)
+        flat_cache[(dev, tuple(rs))] = (key, out)
+        return out
+
+    def match_post(part, n, topics, lens, is_dollar):
+        """n shards' match + fan-out + shared slots over n copies of the
+        batch; filter ids come back shard-local."""
+        B = topics.shape[0]
+
+        def rep(x):
+            return x.repeat((n,) + (1,) * (x.dim() - 1))
+
+        if backend == "shapes":
+            mr = shape_match(tree_map(lambda x: x[0], part.shapes), topics,
+                             lens, is_dollar)
+        else:
+            mr = match_batch(part.trie, rep(topics), rep(lens),
+                             rep(is_dollar), frontier_cap=frontier_cap,
+                             match_cap=match_cap, scan=scan, shards=n)
+        shard = torch.arange(n * B, device=topics.device,
+                             dtype=torch.int32)[:, None] // B
+        seg = torch.where(mr.matches >= 0, mr.matches
+                          + shard * (part.subs.sub_start.shape[0] // n), -1)
+        fr = fanout_normal(part.subs, seg, fanout_cap=fanout_cap, scan=scan)
+        sids, slot_oflow = shared_slots(part.subs, seg, slot_cap=slot_cap,
+                                        scan=scan)
+        return mr, fr, sids, slot_oflow
+
+    def step(tables, cursors, topics, lens, is_dollar, msg_hash,
+             strategy: int) -> RouteResult:
+        B = topics.shape[0]
+        if B % dp:
+            raise ValueError(f"batch {B} does not split over dp={dp}")
+        b = B // dp
+        G = cursors.shape[1]
+        is_rr = strategy == STRATEGY_ROUND_ROBIN
+        planes: dict = {}            # r -> ([B, ...] planes, its tables)
+        for dev, rs in groups:
+            part, per_shard = flat(tables, dev, rs)
+            mr, fr, sids, so = match_post(
+                part, len(rs), *(x.to(dev) for x in (topics, lens,
+                                                     is_dollar)))
+            for j, r in enumerate(rs):
+                rows = slice(j * B, (j + 1) * B)
+                planes[r] = ([x[rows] for x in (
+                    mr.matches, mr.counts, fr.rows, fr.opts, fr.counts,
+                    sids, mr.overflow | fr.overflow | so)], per_shard[j])
+
+        # cross-dp deterministic round robin: each dp row rebases its
+        # cursors by the occurrences seen in lower dp rows (the
+        # reference's all_gather over 'dp'), and the route shard advances
+        # by the total
+        outs: list = [None] * R
+        new_cursors, occur = [], []
+        for r in range(R):
+            (m, mc, rows, opts, fc, sids, ovf), t_r = planes[r]
+            dev = sids.device
+            cur = cursors[r].to(dev)
+            occ_all = torch.stack([
+                torch.bincount(v[v >= 0].long(), minlength=G)[:G]
+                for v in sids.view(dp, -1)]).to(cursors.dtype)  # [dp, G]
+            prefix = torch.cumsum(occ_all, 0, dtype=cursors.dtype) - occ_all
+            total = occ_all.sum(0, dtype=cursors.dtype)
+            picks = [pick_members(
+                t_r.subs, (cur + prefix[d]) if is_rr else cur,
+                sids[d * b:(d + 1) * b], strategy,
+                msg_hash[d * b:(d + 1) * b].to(dev), scan=scan)
+                for d in range(dp)]
+            outs[r] = [x.to(home) for x in (
+                m, mc, rows, opts, fc, sids,
+                torch.cat([p.rows for p in picks]),
+                torch.cat([p.opts for p in picks]), ovf)]
+            new_cursors.append((cur + total if is_rr else cur.clone())
+                               .to(home))
+            occur.append(total.to(home))
+
+        def plane(i):
+            return torch.stack([outs[r][i] for r in range(R)], dim=1)
+
+        return RouteResult(
+            matches=plane(0), match_counts=plane(1), rows=plane(2),
+            opts=plane(3), fan_counts=plane(4), shared_sids=plane(5),
+            shared_rows=plane(6), shared_opts=plane(7), overflow=plane(8),
+            new_cursors=torch.stack(new_cursors),
+            occur=torch.stack(occur))
+
+    return step
+
+
+def _merge(recv: torch.Tensor, cnts: torch.Tensor, E: int, scan):
+    """Stage 4: the source-major merge. recv [dp, R_dst, R_src, E, 3],
+    cnts [dp, R_src, R_dst] → (plan [dp, R, E, 3], plan_cnt [dp, R],
+    src_cnt [dp, R_dst, R_src], tot [dp, R])."""
+    dp, R = recv.shape[0], recv.shape[1]
+    dev = recv.device
+    src_cnt = cnts.transpose(1, 2).clamp(max=E).contiguous()
+    ends = scan(src_cnt)
+    starts = ends - src_cnt
+    tot = ends[..., -1]
+    c = torch.arange(E, dtype=torch.int32, device=dev)
+    src_of = torch.searchsorted(ends, c.expand(dp, R, E).contiguous(),
+                                right=True, out_int32=True).clamp(max=R - 1)
+    col = (c - torch.gather(starts, 2, src_of.long())).clamp(0, E - 1)
+    di = torch.arange(dp, device=dev)[:, None, None]
+    ti = torch.arange(R, device=dev)[None, :, None]
+    plan = recv[di, ti, src_of.long(), col.long()]
+    ok_rows = c < torch.clamp(tot, max=E)[..., None]
+    plan = torch.where(ok_rows[..., None], plan, -1)
+    return plan, torch.clamp(tot, max=E), src_cnt, tot
+
+
+def make_exchange_step(mesh, *, seg_cap: int, scan=prefix_sum,
+                       rotate=ring_rotate):
+    """The exchange program for `mesh` ('dp', 'route'), segment capacity
+    E = seg_cap. Per (dp, route) shard it
+
+      1. flags its messages unclean (capacity overflow, a shared-slot hit,
+         or a matched fid on the slow mask) and combines the verdict
+         across 'route': a message is clean only if every shard saw it
+         clean;
+      2. attributes each fan-out row to its matched fid (per-row
+         searchsorted over the segment ends) and packs (msg, sid,
+         gfid | opt << 24) records per owning delivery shard (sid % R)
+         into [R, E, 3] segments, counting overflow;
+      3. rotates the segments R-1 rounds around the route ring with
+         ``rotate`` (kernel 3, each block straight into the receiver's
+         recv slot), so shard (d, t) holds every source's rows for t;
+      4. merges the received segments source-major into one plan [E, 3].
+
+    exch(matches [B,R,M], rows [B,R,F], opts [B,R,F], shared_sids
+         [B,R,K], overflow [B,R], aux: ExchangeAux) -> ExchangeResult
+
+    The attribution equals the reference's flat offset-encoded
+    searchsorted whenever no message overflows its fan-out cap (segment
+    ends stay below F + 1); a window with such a message reports
+    ok & 1 == 0 either way.
+    """
+    dp, R = mesh.dp, mesh.route
+    E = int(seg_cap)
+    one_device = len(mesh.devices()) == 1
+
+    def exch(matches, rows, opts, shared_sids, overflow,
+             aux) -> ExchangeResult:
+        B, _, M = matches.shape
+        F = rows.shape[2]
+        b = B // dp
+        dev = matches.device
+        seg_len, fid_slow, fid_off = (x.to(dev) for x in aux)
+        rix = torch.arange(R, device=dev)[None, :, None]
+
+        # 1. clean verdict, combined across every route shard
+        valid_m = matches >= 0
+        mc = matches.clamp(min=0).long()
+        slowfid = (valid_m & fid_slow[rix, mc]).any(-1)         # [B, R]
+        bad_local = overflow | (shared_sids >= 0).any(-1) | slowfid
+        bad = bad_local.any(1).view(dp, b).any(1)               # [dp]
+
+        # 2. row -> fid attribution + per-dest segment pack
+        sl = torch.where(valid_m, seg_len[rix, mc], 0).to(torch.int32)
+        ends = scan(sl.reshape(B * R, M)).view(B, R, M)
+        total = ends[..., -1]
+        Fe = max(1, min(F, int(total.max()) if total.numel() else 0))
+        js = torch.arange(Fe, dtype=torch.int32, device=dev)
+        fidx = _rows_searchsorted(ends.view(B * R, M),
+                                  js.expand(B * R, Fe)).clamp(max=M - 1)
+        gfid = torch.gather(mc.view(B * R, M), 1, fidx.long()).view(
+            B, R, Fe).to(torch.int32) + fid_off.view(1, R, 1)
+        rows_e = rows[..., :Fe]
+        valid_row = (js < total[..., None]) & (rows_e >= 0)
+        word2 = gfid | ((opts[..., :Fe].to(torch.int32) & 0x3F) << 24)
+        dest = torch.where(valid_row, torch.remainder(rows_e, R), -1)
+        msg = torch.arange(B, dtype=torch.int32, device=dev)[:, None, None]
+
+        def by_cell(x):       # [B, R, Fe] -> [dp*R, b*Fe], (d, r) rows
+            return x.view(dp, b, R, Fe).permute(0, 2, 1, 3).reshape(
+                dp * R, b * Fe)
+
+        f_dest = by_cell(dest)
+        rec = torch.stack([by_cell(msg.expand(B, R, Fe)), by_cell(rows_e),
+                           by_cell(word2)], dim=-1)            # [dp*R, n, 3]
+        spill = R * E
+        idx = torch.full_like(f_dest, spill)
+        cnts = []
+        for t in range(R):
+            m_t = f_dest == t
+            rank = scan(m_t.to(torch.int32)) - 1
+            idx = torch.where(m_t & (rank < E), t * E + rank, idx)
+            cnts.append(m_t.sum(-1, dtype=torch.int32))
+        buf = torch.full((dp * R, spill + 1, 3), -1, dtype=torch.int32,
+                         device=dev)
+        buf.scatter_(1, idx.long()[..., None].expand(-1, -1, 3), rec)
+        seg = buf[:, :spill].reshape(dp, R, R, E, 3)   # [d, src, dst, E, 3]
+        cnts = torch.stack(cnts, -1).view(dp, R, R)     # [d, src, dst]
+        pair_ovf = (cnts > E).any(-1)                   # [dp, R_src]
+
+        # 3. ring rotation: recv[d, t, s] ends up holding seg[d, s, t]
+        recv = torch.empty((dp, R, R, E, 3), dtype=torch.int32, device=dev)
+        ar = torch.arange(R, device=dev)
+        recv[:, ar, ar] = seg[:, ar, ar]                # own block
+        if one_device:
+            cell_seg = [[seg[d, r] for r in range(R)] for d in range(dp)]
+            cell_recv = [[recv[d, t] for t in range(R)] for d in range(dp)]
+        else:
+            cell_seg = [[seg[d, r].to(mesh.grid[d][r]) for r in range(R)]
+                        for d in range(dp)]
+            cell_recv = [[recv[d, t].to(mesh.grid[d][t]) for t in range(R)]
+                         for d in range(dp)]
+        for k in range(1, R):
+            sends = [[cell_seg[d][r][(r + k) % R] for r in range(R)]
+                     for d in range(dp)]
+            slots = [[cell_recv[d][t][(t - k) % R] for t in range(R)]
+                     for d in range(dp)]
+            rotate(sends, k, out=slots)
+        if not one_device:
+            recv = torch.stack([torch.stack([x.to(dev) for x in row])
+                                for row in cell_recv])
+
+        # 4. source-major merge into the per-dest delivery plan
+        plan, plan_cnt, src_cnt, tot = _merge(recv, cnts, E, scan)
+        ok = (torch.where(bad, 0, 1)[:, None]
+              | torch.where(pair_ovf | (tot > E), 0, 2)).to(torch.int32)
+        return ExchangeResult(plan=plan, plan_cnt=plan_cnt,
+                              src_cnt=src_cnt, ok=ok)
+
+    return exch

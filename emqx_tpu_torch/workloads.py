@@ -129,3 +129,32 @@ def pattern_population(rng, n_filters: int, n_topics: int, L: int = 8,
     topics = [tpats[r(0, len(tpats))]() for _ in range(n_topics)]
     t, tl, dol, _ = encode_topics(intern, topics, L)
     return intern, words, flens, t, tl, dol
+
+
+def mesh_population(subs: int, level_cap: int = 16) -> dict:
+    """The mesh phase's population: ``device_filter_set`` as filter
+    strings ``device/d{id}/+/n{num}/#`` with words padded to
+    ``level_cap`` levels, and one normal subscriber per filter whose
+    session id is the filter's population fid (id * nums + num), packed
+    opts 1. No shared groups: a shared hit sends its window to the host
+    gather."""
+    fs = device_filter_set(subs)
+    F = fs["ids"] * fs["nums"]
+    words = np.full((F, level_cap), I.PAD, np.int32)
+    words[:, :fs["rows"].shape[1]] = fs["rows"]
+    filters = [f"device/d{i}/+/n{n}/#" for i in range(fs["ids"])
+               for n in range(fs["nums"])]
+    return {**fs, "F": F, "filters": filters, "words": words,
+            "sub_start": np.arange(F + 1, dtype=np.int64),
+            "sub_row": np.arange(F, dtype=np.int32),
+            "sub_opts": np.ones(F, np.int8)}
+
+
+def mesh_topic_batch(pop: dict, rng, B: int, level_cap: int = 16):
+    """One Zipf-skewed window for the mesh population: encoded [B,
+    level_cap] topics, lens [B], and each topic's one expected session
+    (= its filter's population fid)."""
+    tp, tl = device_topic_batch(pop, rng, B)
+    wide = np.full((B, level_cap), I.PAD, np.int32)
+    wide[:, :tp.shape[1]] = tp
+    return wide, tl, expected_fids(pop, tp)

@@ -14,6 +14,7 @@ import torch
 from emqx_tpu_torch.convert import tables_from_numpy
 from emqx_tpu_torch.device import LAUNCHES
 from emqx_tpu_torch.models.router_engine import route_window
+from emqx_tpu_torch.ops.exchange import ring_rotate, ring_rotate_ref
 from emqx_tpu_torch.ops.fanout import build_subtable
 from emqx_tpu_torch.ops.fold import launch_shape_match
 from emqx_tpu_torch.ops.scan import prefix_sum, prefix_sum_ref
@@ -33,7 +34,8 @@ def cuda():
 
 @pytest.mark.parametrize("shape", [(1,), (4095,), (4097,), (3, 10000),
                                    (8, 131072), (1 << 20, 1), (5000, 8),
-                                   (300, 32), (300, 33)])
+                                   (300, 32), (300, 33), (300, 64),
+                                   (300, 1024), (300, 1025)])
 def test_prefix_sum_kernel(cuda, shape):
     x = torch.randint(-3, 4, shape, device=cuda, dtype=torch.int32)
     before = LAUNCHES["prefix_sum"]
@@ -87,3 +89,67 @@ def test_route_window_kernel_vs_plain(cuda):
         assert torch.equal(a, b)
     for a, b in zip(k.compact, p.compact):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rows", [24576, 1001])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_ring_rotate_kernel(cuda, rows, k):
+    """One launch moves a 2 x 4 grid of [rows, 3] blocks k hops, equal to
+    the plain version and to torch.roll; 1001 rows leave a scalar tail,
+    and the offset view misaligns every block."""
+    flat = torch.randint(-2 ** 31, 2 ** 31 - 1, (2 * 4 * rows * 3 + 1,),
+                         device=cuda, dtype=torch.int32)
+    for x in (flat[:-1].view(2, 4, rows, 3), flat[1:].view(2, 4, rows, 3)):
+        blocks = [[x[d, r] for r in range(4)] for d in range(2)]
+        before = LAUNCHES["ring_rotate"]
+        got = ring_rotate(blocks, k)
+        assert LAUNCHES["ring_rotate"] == before + 1
+        want = ring_rotate_ref(blocks, k)
+        rolled = torch.roll(x, k, dims=1)
+        for d in range(2):
+            for r in range(4):
+                assert torch.equal(got[d][r], want[d][r])
+                assert torch.equal(got[d][r], rolled[d, r])
+
+
+def test_ring_rotate_two_cards(cuda):
+    """A ring across two cards: each block lands on the other card through
+    a peer write."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices for the peer write")
+    a = torch.arange(3 * 777, dtype=torch.int32, device="cuda:0").view(-1, 3)
+    b = (-a).to("cuda:1")
+    got = ring_rotate([[a, b]], 1)
+    assert got[0][1].device.index == 1 and got[0][0].device.index == 0
+    assert torch.equal(got[0][1].cpu(), a.cpu())
+    assert torch.equal(got[0][0].cpu(), b.cpu())
+
+
+def test_mesh_step_and_exchange_kernel_vs_plain(cuda):
+    """The mesh path on one card: step planes and ExchangeResult with the
+    kernels equal the plain path."""
+    from emqx_tpu_torch.parallel.serving import ShardedRouteEngine
+    from emqx_tpu_torch.parallel.sharded import (make_exchange_step,
+                                                 make_sharded_route_step)
+    from emqx_tpu_torch.workloads import mesh_population, mesh_topic_batch
+    pop = mesh_population(20000)
+    eng = ShardedRouteEngine.from_columnar(
+        pop["filters"], pop["words"], pop["lens"], pop["sub_start"],
+        pop["sub_row"], pop["sub_opts"], pop["intern"], n_devices=8, dp=2,
+        device=cuda, batch=4096)
+    tp, tl, _ = mesh_topic_batch(pop, np.random.RandomState(0), 4096)
+    staged = [torch.from_numpy(x).to(cuda) for x in (
+        tp, tl, np.zeros(4096, bool), np.zeros(4096, np.int32))]
+    cur = eng.cursors.clone()
+    k = eng.step(eng.tables, cur, *staged, 0)
+    p = make_sharded_route_step(eng.mesh, scan=prefix_sum_ref)(
+        eng.tables, cur, *staged, 0)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    planes = (k.matches, k.rows, k.opts, k.shared_sids, k.overflow)
+    ek = eng.exchange_step(2048)(*planes, eng.aux)
+    ep = make_exchange_step(eng.mesh, seg_cap=2048, scan=prefix_sum_ref,
+                            rotate=ring_rotate_ref)(*planes, eng.aux)
+    for a, b in zip(ek, ep):
+        assert torch.equal(a, b)
+    assert int(ek.ok.min()) == 3

@@ -24,7 +24,10 @@ MODULES = [
     "emqx_tpu_torch.ops.fold", "emqx_tpu_torch.ops.scan",
     "emqx_tpu_torch.ops.shapes", "emqx_tpu_torch.ops.fanout",
     "emqx_tpu_torch.ops.shared", "emqx_tpu_torch.ops.compact",
-    "emqx_tpu_torch.models.router_engine", "chip_smoke",
+    "emqx_tpu_torch.models.router_engine", "emqx_tpu_torch.ops.trie",
+    "emqx_tpu_torch.ops.exchange", "emqx_tpu_torch.parallel.mesh",
+    "emqx_tpu_torch.parallel.sharded", "emqx_tpu_torch.parallel.serving",
+    "chip_smoke",
 ]
 
 
@@ -78,6 +81,20 @@ class TestDefaultDevice:
         plan = RouteEngine.from_subscriptions(subs, device="cpu").route(
             ["a/b"])[0]
         assert list(plan.fids) == [0] and list(plan.rows) == [1]
+
+    def test_mesh_and_sharded_engine(self):
+        from emqx_tpu_torch.parallel.mesh import make_mesh
+        from emqx_tpu_torch.parallel.serving import ShardedRouteEngine
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh(8, dp=2)
+        subs = {"a/+": [(1, 0)]}
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ShardedRouteEngine.from_subscriptions(subs, n_devices=2)
+        eng = ShardedRouteEngine.from_subscriptions(
+            subs, n_devices=2, device="cpu", batch=2)
+        plan = eng.route(["a/b"])[0]
+        assert list(plan.rows) == [1]
+        assert eng.filters[int(plan.fids[0])] == "a/+"
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -200,7 +200,8 @@ def test_chip_smoke_main_path_on_cpu():
     import chip_smoke
     b = chip_smoke.bench_engine(torch.device("cpu"), 5000, 256, 3, seed=7)
     r = chip_smoke.drive_main_path(b, timed_windows=2)
-    assert r["launches"] == {"shape_match": 0, "prefix_sum": 0}
+    assert r["launches"] == {"shape_match": 0, "prefix_sum": 0,
+                             "ring_rotate": 0}
     assert tuple(r["n_entries"].shape) == (3, 256)
     assert b["eng"].stats == {"windows": 4, "dense_windows": 0,
                               "host_messages": 0}
