@@ -8,12 +8,15 @@ failed phase ends the run with a non-zero exit code.
 
 Phases:
 1. versions, and the card's name and power limit (nvidia-smi);
-2. build both kernels from emqx_tpu_torch/csrc (one nvcc each, in
+2. build the three kernels from emqx_tpu_torch/csrc (one nvcc each, in
    parallel);
 3. each kernel against its plain PyTorch version on the card, exact
-   integer equality: prefix_sum at several lengths, shape_match (fold
-   planes and matches) on a ~100k-filter six-pattern population and on
-   the 10M-subscription bench population;
+   integer equality: prefix_sum against torch.cumsum at every row kind
+   and at the main paths' shapes, on unaligned views, past int32
+   wraparound, over 2000 calls back to back, across state-buffer growth
+   and on two streams at once; shape_match (fold planes and matches) on a
+   ~100k-filter six-pattern population and on the 10M-subscription bench
+   population;
 4. the main path at full size: 10M subscriptions on device/{id}/+/{num}/#,
    50% of filters in 16-filter, 8-member $share groups under round robin,
    B=131072, W=8, fanout_cap=4, slot_cap=2. RouteEngine.route() routes one
@@ -23,9 +26,13 @@ Phases:
    population's known answer (fid = id*nums + num, one normal
    subscriber); round robin must be fair within a window. Then timed
    windows (encoded topics staged on the card) give matches/s and the
-   window latency, torch.profiler splits one window's device time, and
-   each kernel is timed at the main path's shapes beside its bound, its
-   plain version and a library call;
+   window latency, torch.profiler splits one window's device time (and
+   must show one prefix_sum kernel entry per wrapper call), and each
+   kernel is timed at the main path's shapes beside its bound, its plain
+   version and a library call; prefix_sum at every shape the route()
+   window launched it with, beside its launches per window, an empty
+   kernel at the same grid (the launch floor), torch.cumsum and the
+   wrapper call;
 5. the kernels JSON line, the card line, and the result line last
    (after phases 6 and 7);
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
@@ -44,12 +51,14 @@ Phases:
    gather of the same window; timed windows (all served by the
    exchange) give the window latency and matches/s; torch.profiler
    splits one window; ring_rotate is timed at its main-path shape
-   beside its bound, its plain version and torch.roll.
+   beside its bound, its plain version and torch.roll, and prefix_sum at
+   every shape of the mesh's route() window, as in phase 4.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -131,28 +140,73 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 
 def check_prefix_sum(dev) -> int:
+    """Kernel 2 against torch.cumsum (int32) on the card, exact: every
+    row kind, unaligned views, wraparound, epoch reuse over 2000 calls,
+    state-buffer growth, and two streams at once."""
     import torch
 
     from emqx_tpu_torch.ops.scan import prefix_sum, prefix_sum_ref
     g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(shape, lo=0, hi=3):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
     err = 0
-    shapes = [(1,), (7,), (1000,), (1024,), (5000,), (16384,), (131072,),
-              (262144,), (8, 131072), (1 << 24,), (1 << 20, 1), (4096, 8),
-              (1000, 32), (1000, 33), (524288, 64), (1000, 1024),
-              (1000, 1025)]
-    for shape in shapes:
-        hi = 2 if shape == (1 << 24,) else 3
-        x = torch.randint(0, hi, shape, generator=g, device=dev,
-                          dtype=torch.int32)
+
+    def check(x, what):
+        nonlocal err
         err = max(err, exact(prefix_sum(x), prefix_sum_ref(x),
-                             f"prefix_sum {shape}"))
-    x = torch.randint(-5, 6, (3, 9000), generator=g, device=dev,
-                      dtype=torch.int32)
-    err = max(err, exact(prefix_sum(x), prefix_sum_ref(x),
-                         "prefix_sum signed"))
+                             f"prefix_sum {what}"))
+
+    shapes = [(1,), (7,), (1000,), (1024,), (5000,), (16384,), (131072,),
+              (262144,), (1 << 20,), (8, 131072), (8, 65536),
+              (8, 65536 + 17), (1 << 24,), (1 << 20, 1), (4096, 8),
+              (524288, 4), (8, 4), (524288, 16), (1000, 32), (1000, 33),
+              (524288, 64), (1000, 1024), (1000, 1025), (32, 65536)]
+    for shape in shapes:
+        check(rand(shape, hi=2 if shape == (1 << 24,) else 3), shape)
+    check(rand((3, 9000), -5, 6), "signed")
+    cases = len(shapes) + 1
+    # unaligned views: every row start off the 16-byte grid
+    for shape in ((8, 65536), (1 << 20,), (1000, 64), (1000, 100),
+                  (4096, 8), (1 << 20, 1)):
+        flat = rand((int(np.prod(shape)) + 1,))
+        check(flat[1:].view(shape), f"{shape} unaligned")
+        cases += 1
+    # running totals past 2^31 wrap as torch.cumsum's
+    for shape in ((1 << 20,), (8, 65536 + 17), (1000, 64), (4096, 8)):
+        check(rand(shape, 1 << 30, (1 << 31) - 1), f"{shape} wraparound")
+        cases += 1
+    # 2000 calls back to back on two alternating inputs, one state buffer
+    ab, ys = (rand((262144,)), rand((262144,), 3, 9)), [None, None]
+    for i in range(2000):
+        ys[i % 2] = prefix_sum(ab[i % 2])
+    for k in range(2):
+        err = max(err, exact(ys[k], prefix_sum_ref(ab[k]),
+                             f"prefix_sum call {1999 + k}"))
+    # the state buffer grows between small, large and small calls
+    for shape in ((5000,), (1 << 24,), (5000,), (8, 131072), (1 << 22,),
+                  (3000,)):
+        check(rand(shape, hi=2), f"{shape} growth")
+    # two streams at once, each with its own state buffer
+    xs = [rand((1 << 22,)), rand((8, 131072))]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    outs = [None, None]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    for _ in range(50):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[k] = prefix_sum(xs[k])
     torch.cuda.synchronize()
-    log(f"phase 3: prefix_sum == torch.cumsum at {len(shapes) + 1} shapes "
-        f"(exact)")
+    for k in range(2):
+        err = max(err, exact(outs[k], prefix_sum_ref(xs[k]),
+                             f"prefix_sum stream {k}"))
+    torch.cuda.synchronize()
+    log(f"phase 3: prefix_sum == torch.cumsum at {cases} shapes and views "
+        f"(incl. unaligned and wraparound), over 2000 calls back to back, "
+        f"across state-buffer growth and on two streams at once (exact)")
     return err
 
 
@@ -307,6 +361,7 @@ def drive_main_path(b: dict, timed_windows: int) -> dict:
     plans = eng.route(strings, msg_hash=b["mh"].reshape(-1))
     sync()
     launches = dict(D.LAUNCHES)
+    shapes = dict(D.LAUNCH_SHAPES["prefix_sum"])
     t_route = time.time() - t0
     check_plans(plans, fid, F, n_shared)
     del plans, strings
@@ -344,7 +399,7 @@ def drive_main_path(b: dict, timed_windows: int) -> dict:
         raise AssertionError("cursors did not thread through the windows")
     lat_ms = np.array(lat) * 1e3
     W, B = fid.shape
-    return {"launches": launches, "t_route": t_route,
+    return {"launches": launches, "shapes": shapes, "t_route": t_route,
             "n_entries": n_entries, "lat_ms": lat_ms,
             "mps": len(lat) * W * B / float(np.sum(lat)),
             "p50": float(np.percentile(lat_ms, 50)),
@@ -356,14 +411,15 @@ def _dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0))
 
 
-def device_ms(fn, reps: int):
+def device_ms(fn, reps: int, warmup: bool = True):
     """Device time per call of fn(): torch.profiler's kernels and copies
     (the host's launch cost excluded), with the per-entry rows. Falls
     back to CUDA events around the calls when the profiler sees no
     device activity (rows then None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -378,6 +434,61 @@ def device_ms(fn, reps: int):
     if not rows:
         return cuda_ms(fn, reps), None
     return sum(_dev_us(e) for e in rows) / 1e3 / reps, rows
+
+
+PS_KERNEL = re.compile(r"ps_(?:copy|short|mid|long)")
+
+
+def scan_entries(rows) -> int:
+    """Kernel 2's device entries among torch.profiler rows."""
+    return sum(e.count for e in rows if PS_KERNEL.search(e.key))
+
+
+def time_scan_shapes(dev, shapes: dict, where: str) -> list:
+    """Kernel 2 at every shape one window launched it with: launches per
+    window, device time (the profiler must show one kernel entry per
+    call and nothing else), the byte bound, an empty kernel at the same
+    grid (the launch floor, not the bound), torch.cumsum, and the wrapper
+    call back to back. Inputs are 0/1 masks, as on the paths."""
+    import torch
+
+    from emqx_tpu_torch.ops.scan import empty_kernel, prefix_sum, scan_plan
+    out = []
+    for shape, count in sorted(shapes.items(), key=lambda kv: kv[0]):
+        x = (torch.rand(shape, device=dev) < 0.5).to(torch.int32)
+        n = shape[-1]
+        plan = scan_plan(x.numel() // n, n, True)
+        ms, rows = device_ms(lambda: prefix_sum(x), 200)
+        entries = None
+        if rows is not None:
+            # the profiler may lose one record of a run of 200 tiny
+            # kernels; two kernels per call would show as 400
+            found = scan_entries(rows)
+            entries = found / 200
+            others = [e.key for e in rows if not PS_KERNEL.search(e.key)]
+            if not 199 <= found <= 200 or others:
+                raise AssertionError(f"prefix_sum {shape}: {found} kernel "
+                                     f"entries for 200 calls, others "
+                                     f"{others}")
+        d = {"shape": list(shape), "where": where,
+             "launches_per_window": count, "ms": ms,
+             "floor_ms": device_ms(lambda: empty_kernel(plan.grid, dev),
+                                   200)[0],
+             "library_ms": device_ms(lambda: torch.cumsum(
+                 x, dim=-1, dtype=torch.int32), 50)[0],
+             "call_ms": cuda_ms(lambda: prefix_sum(x), 200),
+             "entries_per_call": entries,
+             "plan": f"{plan.path} items {plan.items} vec {int(plan.vec)} "
+                     f"tiles {plan.tiles} grid {plan.grid}"}
+        d["bound_ms"], d["bound_by"] = bound_ms(2 * x.numel() * 4, x.numel())
+        log(f"kernel prefix_sum {where} {tuple(shape)} x{count}/window "
+            f"[{d['plan']}]: {ms:.4f} ms, {entries} kernel entries per call "
+            f"(bound {d['bound_ms']:.4f} ms by {d['bound_by']}; empty-kernel "
+            f"floor {d['floor_ms']:.4f} ms), torch.cumsum "
+            f"{d['library_ms']:.4f} ms; {d['call_ms']:.4f} ms per wrapper "
+            f"call back to back")
+        out.append(d)
+    return out
 
 
 def time_kernels(b: dict, n_entries) -> tuple:
@@ -424,34 +535,33 @@ def time_kernels(b: dict, n_entries) -> tuple:
                                               n_entries.numel())
     ps["err"] = exact(prefix_sum(n_entries), prefix_sum_ref(n_entries),
                       "prefix_sum compact offsets")
-    flags = (torch.rand(SLOT_CAP * b["staged"][0].shape[1],
-                        device=t8.device) < 0.5).to(torch.int32)
-    short = torch.ones((n, NSc), dtype=torch.int32, device=t8.device)
-    rk = {"ms": device_ms(lambda: prefix_sum(flags), 200)[0],
-          "library_ms": device_ms(lambda: torch.cumsum(
-              flags, dim=-1, dtype=torch.int32), 200)[0],
-          "n": flags.numel(),
-          "short_ms": device_ms(lambda: prefix_sum(short), 200)[0],
-          "short_lib_ms": device_ms(lambda: torch.cumsum(
-              short, dim=-1, dtype=torch.int32), 20)[0]}
-    return sm, ps, rk
+    return sm, ps
 
 
-def profile_windows(b: dict, p50_ms: float, n: int = 3) -> None:
+def profile_window(label: str, fn, p50_ms: float, n: int = 3) -> None:
     """Where a window's device time goes: the ten largest device entries
-    over n profiled windows, and the device's idle share of the
-    unprofiled p50 window (one stream, so device entries do not
-    overlap)."""
-    eng, staged = b["eng"], b["staged"]
-    busy, rows = device_ms(lambda: eng.route_encoded(*staged), n)
+    over n profiled windows, the device's idle share of the unprofiled
+    p50 window (one stream, so device entries do not overlap), and kernel
+    2's device entries against its wrapper calls (one each)."""
+    from emqx_tpu_torch import device as D
+    fn()
+    D.reset_launches()
+    busy, rows = device_ms(fn, n, warmup=False)
+    calls = D.LAUNCHES["prefix_sum"] / n
     if rows is None:
-        log("profile: the profiler saw no device time (not measured)")
+        log(f"{label}: the profiler saw no device time (not measured)")
         return
-    log(f"profile: device busy {busy:.3f} ms per window, idle share "
+    log(f"{label}: device busy {busy:.3f} ms per window, idle share "
         f"{1 - busy / p50_ms:.3f} of the p50 window {p50_ms:.3f} ms")
     for e in sorted(rows, key=_dev_us, reverse=True)[:10]:
-        log(f"profile:   {_dev_us(e) / 1e3 / n:9.3f} ms  "
+        log(f"{label}:   {_dev_us(e) / 1e3 / n:9.3f} ms  "
             f"{e.count / n:6.1f}x  {e.key[:90]}")
+    entries = scan_entries(rows) / n
+    log(f"{label}: prefix_sum {entries:g} kernel entries per window for "
+        f"{calls:g} wrapper calls")
+    if entries != calls:
+        raise AssertionError(f"{label}: prefix_sum kernel entries {entries} "
+                             f"!= wrapper calls {calls} per window")
 
 
 def check_ring_rotate(dev, E: int, dp: int, R: int) -> int:
@@ -577,6 +687,7 @@ def drive_mesh(m: dict, timed_windows: int) -> dict:
     plans = eng.route(strings, msg_hash=np.zeros(B, np.int32))
     sync()
     launches = dict(D.LAUNCHES)
+    shapes = dict(D.LAUNCH_SHAPES["prefix_sum"])
     t_route = time.time() - t0
     if eng.stats["exchange_windows"] != served0 + 1:
         raise AssertionError(f"route() window not served: {eng.stats}")
@@ -631,7 +742,8 @@ def drive_mesh(m: dict, timed_windows: int) -> dict:
         fell_back += not rb.served
         check_mesh_records(rb, want, m["pop_fid"])
     lat_ms = np.array(lat) * 1e3
-    return {"launches": launches, "t_route": t_route, "E": E,
+    return {"launches": launches, "shapes": shapes, "t_route": t_route,
+            "E": E,
             "err_ring": err_ring, "lat_ms": lat_ms, "served": served,
             "fell_back": fell_back, "n_sessions": n_sessions,
             "mps": len(lat) * B / float(np.sum(lat)),
@@ -675,26 +787,9 @@ def time_ring_rotate(eng, E: int) -> dict:
     return out
 
 
-def time_mid_scan(eng) -> dict:
-    """Kernel 2 at the mesh step's fan-out segment scan: one row of
-    match_cap ends per (shard, message)."""
-    import torch
-
-    from emqx_tpu_torch.ops.scan import prefix_sum
-    shape = (eng.n_route * eng.batch, eng.match_cap)
-    x = torch.randint(0, 2, shape, device=eng.device, dtype=torch.int32)
-    out = {"shape": shape,
-           "ms": device_ms(lambda: prefix_sum(x), 100)[0],
-           "library_ms": device_ms(lambda: torch.cumsum(
-               x, dim=-1, dtype=torch.int32), 100)[0]}
-    out["bound_ms"], out["bound_by"] = bound_ms(2 * x.numel() * 4,
-                                                x.numel())
-    return out
-
-
 def mesh_phase(dev) -> tuple:
     """Phases 6 and 7; returns (ring_rotate's kernel entry, the mesh
-    summary)."""
+    summary, kernel 2's per-shape timings on the mesh window)."""
     import torch
     m = mesh_engine(dev, MESH_SUBS, MESH_BATCH, SEED)
     eng = m["eng"]
@@ -718,17 +813,16 @@ def mesh_phase(dev) -> tuple:
         f"{r['lat_ms'].max():.3f} ms; {r['mps']:.0f} topic-matches/s")
     if r["fell_back"]:
         raise AssertionError("a timed mesh window fell back")
-    profile_mesh(eng, m["staged"], r["p50"])
+    staged = m["staged"]
+    profile_window("profile mesh", lambda: eng.route_encoded(*staged),
+                   r["p50"])
     rr = time_ring_rotate(eng, r["E"])
     log(f"kernel ring_rotate {eng.n_dp}x{eng.n_route} x [{r['E']}, 3]: "
         f"{rr['ms']:.4f} ms (bound {rr['bound_ms']:.4f} ms by "
         f"{rr['bound_by']}: {rr['bytes'] / 1e6:.2f} MB), plain "
         f"{rr['plain_ms']:.4f} ms, torch.roll {rr['library_ms']:.4f} ms; "
         f"{rr['call_ms']:.4f} ms per wrapper call back to back")
-    ps = time_mid_scan(eng)
-    log(f"kernel prefix_sum {ps['shape']} fan-out segment rows (warp per "
-        f"row): {ps['ms']:.4f} ms (bound {ps['bound_ms']:.4f} ms by "
-        f"{ps['bound_by']}), torch.cumsum {ps['library_ms']:.4f} ms")
+    scan_shapes = time_scan_shapes(eng.device, r["shapes"], "mesh")
     kernel = {"name": "ring_rotate", "route": "cuda",
               "source": "emqx_tpu_torch/csrc/ring_rotate.cu",
               "replaces": "emqx_tpu/ops/pallas_exchange.py:67",
@@ -744,19 +838,7 @@ def mesh_phase(dev) -> tuple:
                "window_p99_ms": r["p99"],
                "window_max_ms": float(r["lat_ms"].max()),
                "route_call_s": r["t_route"], "launches": launches}
-    return kernel, summary
-
-
-def profile_mesh(eng, staged, p50_ms: float, n: int = 3) -> None:
-    busy, rows = device_ms(lambda: eng.route_encoded(*staged), n)
-    if rows is None:
-        log("profile mesh: the profiler saw no device time (not measured)")
-        return
-    log(f"profile mesh: device busy {busy:.3f} ms per window, idle share "
-        f"{1 - busy / p50_ms:.3f} of the p50 window {p50_ms:.3f} ms")
-    for e in sorted(rows, key=_dev_us, reverse=True)[:10]:
-        log(f"profile mesh:   {_dev_us(e) / 1e3 / n:9.3f} ms  "
-            f"{e.count / n:6.1f}x  {e.key[:90]}")
+    return kernel, summary, scan_shapes
 
 
 def main() -> int:
@@ -807,8 +889,10 @@ def main() -> int:
         f"{r['p99']:.3f} ms, max {r['lat_ms'].max():.3f} ms; "
         f"{r['mps']:.0f} topic-matches/s")
 
-    profile_windows(b, r["p50"])
-    sm, ps, rk = time_kernels(b, r["n_entries"])
+    eng, staged = b["eng"], b["staged"]
+    profile_window("profile", lambda: eng.route_encoded(*staged), r["p50"])
+    del eng, staged
+    sm, ps = time_kernels(b, r["n_entries"])
     err_scan = max(err_scan, ps["err"])
     log(f"kernel shape_match [{WINDOW * BATCH}, 8]: {sm['ms']:.4f} ms "
         f"(bound {sm['bound_ms']:.4f} ms by {sm['bound_by']}: "
@@ -818,10 +902,7 @@ def main() -> int:
         f"(bound {ps['bound_ms']:.4f} ms by {ps['bound_by']}), plain "
         f"{ps['plain_ms']:.4f} ms, torch.cumsum {ps['library_ms']:.4f} ms; "
         f"{ps['call_ms']:.4f} ms per wrapper call back to back")
-    log(f"kernel prefix_sum ({rk['n']},) rank run ids: {rk['ms']:.4f} ms, "
-        f"torch.cumsum {rk['library_ms']:.4f} ms")
-    log(f"kernel prefix_sum ({WINDOW * BATCH}, 1) short rows: "
-        f"{rk['short_ms']:.4f} ms, torch.cumsum {rk['short_lib_ms']:.4f} ms")
+    scan_shapes = time_scan_shapes(dev, r["shapes"], "shape-hash")
     summary = {
         "subs": b["F"], "batch": BATCH, "window": WINDOW,
         "timed_windows": TIMED_WINDOWS, "topic_matches_per_s": r["mps"],
@@ -830,7 +911,7 @@ def main() -> int:
         "route_call_s": r["t_route"], "card": card}
     del b, r
     torch.cuda.empty_cache()
-    ring, mesh = mesh_phase(dev)
+    ring, mesh, mesh_scan_shapes = mesh_phase(dev)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"GB; whole run {time.time() - t_all:.1f} s")
 
@@ -846,7 +927,8 @@ def main() -> int:
          "replaces": "emqx_tpu/ops/pallas_scan.py:79",
          "launches": launches["prefix_sum"], "max_abs_err": err_scan,
          **{k: ps[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")}},
+                               "library_ms")},
+         "shapes": scan_shapes + mesh_scan_shapes},
         ring,
     ]
     log(json.dumps({"summary": summary, "mesh": mesh}))

@@ -28,12 +28,19 @@ def resolve_device(device=None) -> torch.device:
 # launches its kernel, so a run can show the main path went through it
 LAUNCHES: dict[str, int] = {"shape_match": 0, "prefix_sum": 0,
                             "ring_rotate": 0}
+# the same launches by input shape, for a wrapper that passes its shape
+LAUNCH_SHAPES: dict[str, dict[tuple, int]] = {"prefix_sum": {}}
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, shape: tuple | None = None) -> None:
     LAUNCHES[name] += 1
+    if shape is not None:
+        per = LAUNCH_SHAPES[name]
+        per[shape] = per.get(shape, 0) + 1
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for per in LAUNCH_SHAPES.values():
+        per.clear()

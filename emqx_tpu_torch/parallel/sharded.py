@@ -348,18 +348,18 @@ def make_exchange_step(mesh, *, seg_cap: int, scan=prefix_sum,
         rec = torch.stack([by_cell(msg.expand(B, R, Fe)), by_cell(rows_e),
                            by_cell(word2)], dim=-1)            # [dp*R, n, 3]
         spill = R * E
-        idx = torch.full_like(f_dest, spill)
-        cnts = []
-        for t in range(R):
-            m_t = f_dest == t
-            rank = scan(m_t.to(torch.int32)) - 1
-            idx = torch.where(m_t & (rank < E), t * E + rank, idx)
-            cnts.append(m_t.sum(-1, dtype=torch.int32))
+        # every destination's rank in one scan over the stacked masks; a
+        # record matches at most one t, so the least slot is its own
+        ts = torch.arange(R, dtype=f_dest.dtype, device=dev)[:, None, None]
+        m = f_dest == ts                                # [R, dp*R, n]
+        rank = scan(m.to(torch.int32).reshape(R * dp * R, -1)).view(
+            m.shape) - 1
+        idx = torch.where(m & (rank < E), ts * E + rank, spill).amin(0)
         buf = torch.full((dp * R, spill + 1, 3), -1, dtype=torch.int32,
                          device=dev)
         buf.scatter_(1, idx.long()[..., None].expand(-1, -1, 3), rec)
         seg = buf[:, :spill].reshape(dp, R, R, E, 3)   # [d, src, dst, E, 3]
-        cnts = torch.stack(cnts, -1).view(dp, R, R)     # [d, src, dst]
+        cnts = m.sum(-1, dtype=torch.int32).t().reshape(dp, R, R)
         pair_ovf = (cnts > E).any(-1)                   # [dp, R_src]
 
         # 3. ring rotation: recv[d, t, s] ends up holding seg[d, s, t]

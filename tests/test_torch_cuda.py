@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from emqx_tpu_torch.convert import tables_from_numpy
-from emqx_tpu_torch.device import LAUNCHES
+from emqx_tpu_torch.device import LAUNCH_SHAPES, LAUNCHES
 from emqx_tpu_torch.models.router_engine import route_window
 from emqx_tpu_torch.ops.exchange import ring_rotate, ring_rotate_ref
 from emqx_tpu_torch.ops.fanout import build_subtable
@@ -35,12 +35,76 @@ def cuda():
 @pytest.mark.parametrize("shape", [(1,), (4095,), (4097,), (3, 10000),
                                    (8, 131072), (1 << 20, 1), (5000, 8),
                                    (300, 32), (300, 33), (300, 64),
-                                   (300, 1024), (300, 1025)])
+                                   (300, 1024), (300, 1025), (262144,),
+                                   (1 << 20,), (8, 65536), (8, 65536 + 17),
+                                   (524288, 4), (8, 4)])
 def test_prefix_sum_kernel(cuda, shape):
     x = torch.randint(-3, 4, shape, device=cuda, dtype=torch.int32)
     before = LAUNCHES["prefix_sum"]
+    at_shape = LAUNCH_SHAPES["prefix_sum"].get(shape, 0)
     assert torch.equal(prefix_sum(x), prefix_sum_ref(x))
     assert LAUNCHES["prefix_sum"] == before + 1
+    assert LAUNCH_SHAPES["prefix_sum"][shape] == at_shape + 1
+
+
+@pytest.mark.parametrize("shape", [(8, 65536), (1 << 20,), (1000, 64),
+                                   (1000, 100), (4096, 8), (1 << 20, 1)])
+def test_prefix_sum_unaligned_view(cuda, shape):
+    """A view one element into its storage: every row start off the
+    16-byte grid (long, mid, short and length-1 rows)."""
+    flat = torch.randint(-3, 4, (int(np.prod(shape)) + 1,), device=cuda,
+                         dtype=torch.int32)
+    x = flat[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    assert torch.equal(prefix_sum(x), prefix_sum_ref(x))
+
+
+@pytest.mark.parametrize("shape", [(1 << 20,), (8, 65536 + 17), (1000, 64),
+                                   (4096, 8)])
+def test_prefix_sum_wraparound(cuda, shape):
+    """Running totals far past 2^31 wrap exactly as torch.cumsum's."""
+    x = torch.randint(1 << 30, (1 << 31) - 1, shape, device=cuda,
+                      dtype=torch.int32)
+    assert torch.equal(prefix_sum(x),
+                       torch.cumsum(x, dim=-1, dtype=torch.int32))
+
+
+def test_prefix_sum_epoch_reuse(cuda):
+    """2000 calls back to back on one state buffer, alternating two
+    inputs: a status word of an older call never leaks into a newer one."""
+    ab = (torch.randint(0, 3, (262144,), device=cuda, dtype=torch.int32),
+          torch.randint(3, 9, (262144,), device=cuda, dtype=torch.int32))
+    ys = [None, None]
+    for i in range(2000):
+        ys[i % 2] = prefix_sum(ab[i % 2])
+    for k in range(2):
+        assert torch.equal(ys[k], prefix_sum_ref(ab[k]))
+
+
+def test_prefix_sum_state_growth(cuda):
+    """Small, large and small long-row calls: the state buffer grows, and
+    every call is exact before and after."""
+    for shape in ((5000,), (1 << 24,), (5000,), (8, 131072), (1 << 22,),
+                  (3000,)):
+        x = torch.randint(0, 2, shape, device=cuda, dtype=torch.int32)
+        assert torch.equal(prefix_sum(x), prefix_sum_ref(x))
+
+
+def test_prefix_sum_two_streams(cuda):
+    """Two streams scanning at once, each with its own state buffer."""
+    xs = [torch.randint(0, 3, (1 << 22,), device=cuda, dtype=torch.int32),
+          torch.randint(0, 3, (8, 131072), device=cuda, dtype=torch.int32)]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    outs = [None, None]
+    for _ in range(50):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[k] = prefix_sum(xs[k])
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert torch.equal(outs[k], prefix_sum_ref(xs[k]))
 
 
 def _pattern_tables(dev, seed, n_filters=3000, n_topics=5000):
