@@ -34,7 +34,7 @@ Phases:
    kernel at the same grid (the launch floor), torch.cumsum and the
    wrapper call;
 5. the kernels JSON line, the card line, and the result line last
-   (after phases 6 and 7);
+   (after phases 6, 7 and 8);
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
    every hop count at the mesh phase's [E, 3] block and at a ragged
    [1001, 3] block (aligned and unaligned), and across two cards with
@@ -52,11 +52,27 @@ Phases:
    exchange) give the window latency and matches/s; torch.profiler
    splits one window; ring_rotate is timed at its main-path shape
    beside its bound, its plain version and torch.roll, and prefix_sum at
-   every shape of the mesh's route() window, as in phase 4.
+   every shape of the mesh's route() window, as in phase 4;
+8. the broker's serving path over live TCP at bench.py's e2e size
+   (run_e2e(100_000, 16, 8, 32_000 // 8), bench.py:1981-2002): the port's
+   Node with its Listener on 127.0.0.1, 99,856 filters
+   device/d{i}/+/n{n}/# subscribed in SUBSCRIBE packets of 512 over 16
+   connections (half in 2-member $share/bg groups on different
+   connections, round robin; the rest plain at QoS 0), the bench's
+   warm-up, then 32,000 PUBLISHes from 8 connections (every 4th at QoS 1
+   with pipelined PUBACKs) at dispatch_depth 2 and again at 1 on the same
+   node, the launch counters set to 0 around each flood. Each flood must
+   deliver every message exactly once to a connection holding its
+   filter, in publish order per publisher at every subscriber (per
+   delivery class, see _flood), grow routing.device.batches, launch
+   shape_match and prefix_sum, and route at least 90% of its messages
+   through the device engine. One engine window of flood topics is held
+   against the plain path, every plane and the cursors.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -437,6 +453,7 @@ def device_ms(fn, reps: int, warmup: bool = True):
 
 
 PS_KERNEL = re.compile(r"ps_(?:copy|short|mid|long)")
+PROFILE_TRIES = 3
 
 
 def scan_entries(rows) -> int:
@@ -458,18 +475,32 @@ def time_scan_shapes(dev, shapes: dict, where: str) -> list:
         x = (torch.rand(shape, device=dev) < 0.5).to(torch.int32)
         n = shape[-1]
         plan = scan_plan(x.numel() // n, n, True)
-        ms, rows = device_ms(lambda: prefix_sum(x), 200)
-        entries = None
-        if rows is not None:
-            # the profiler may lose one record of a run of 200 tiny
-            # kernels; two kernels per call would show as 400
+        # one kernel entry per call and nothing else: 199 or 200 entries
+        # for 200 calls (two kernels per call would show as 400). The
+        # profiler now and then loses a larger share of the records of
+        # such a run (169 of 200 once), so a short count is profiled
+        # again, up to PROFILE_TRIES times in all
+        seen = []
+        for _ in range(PROFILE_TRIES):
+            ms, rows = device_ms(lambda: prefix_sum(x), 200)
+            if rows is None:
+                break
             found = scan_entries(rows)
-            entries = found / 200
             others = [e.key for e in rows if not PS_KERNEL.search(e.key)]
-            if not 199 <= found <= 200 or others:
+            seen.append(found)
+            if others or found > 200:
                 raise AssertionError(f"prefix_sum {shape}: {found} kernel "
                                      f"entries for 200 calls, others "
                                      f"{others}")
+            if found >= 199:
+                break
+        else:
+            raise AssertionError(f"prefix_sum {shape}: {seen} kernel "
+                                 f"entries for 200 calls")
+        if len(seen) > 1:
+            log(f"kernel prefix_sum {where} {tuple(shape)}: profiler "
+                f"records lost, entries per 200 calls by try {seen}")
+        entries = seen[-1] / 200 if seen else None
         d = {"shape": list(shape), "where": where,
              "launches_per_window": count, "ms": ms,
              "floor_ms": device_ms(lambda: empty_kernel(plan.grid, dev),
@@ -545,18 +576,28 @@ def profile_window(label: str, fn, p50_ms: float, n: int = 3) -> None:
     2's device entries against its wrapper calls (one each)."""
     from emqx_tpu_torch import device as D
     fn()
-    D.reset_launches()
-    busy, rows = device_ms(fn, n, warmup=False)
-    calls = D.LAUNCHES["prefix_sum"] / n
-    if rows is None:
-        log(f"{label}: the profiler saw no device time (not measured)")
-        return
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        D.reset_launches()
+        busy, rows = device_ms(fn, n, warmup=False)
+        calls = D.LAUNCHES["prefix_sum"] / n
+        if rows is None:
+            log(f"{label}: the profiler saw no device time (not measured)")
+            return
+        entries = scan_entries(rows) / n
+        seen.append(entries)
+        # one kernel per wrapper call; a short count is a lost profiler
+        # record (see time_scan_shapes) and is profiled again
+        if entries >= calls:
+            break
+    if len(seen) > 1:
+        log(f"{label}: profiler records lost, prefix_sum entries per "
+            f"window by try {seen}")
     log(f"{label}: device busy {busy:.3f} ms per window, idle share "
         f"{1 - busy / p50_ms:.3f} of the p50 window {p50_ms:.3f} ms")
     for e in sorted(rows, key=_dev_us, reverse=True)[:10]:
         log(f"{label}:   {_dev_us(e) / 1e3 / n:9.3f} ms  "
             f"{e.count / n:6.1f}x  {e.key[:90]}")
-    entries = scan_entries(rows) / n
     log(f"{label}: prefix_sum {entries:g} kernel entries per window for "
         f"{calls:g} wrapper calls")
     if entries != calls:
@@ -841,6 +882,535 @@ def mesh_phase(dev) -> tuple:
     return kernel, summary, scan_shapes
 
 
+# ---- phase 8: the broker's serving path over live TCP --------------------
+
+E2E_FILTERS = 100_000      # bench.py run_e2e(100_000, 16, 8, 32_000 // 8)
+E2E_SUB_CONNS = 16
+E2E_PUB_CONNS = 8
+E2E_MSGS = 32_000
+E2E_SUB_CHUNK = 512        # filters per SUBSCRIBE packet
+E2E_MIN_DEVICE_SHARE = 0.9
+E2E_DEPTHS = (2, 1)
+
+
+def e2e_grid(n_filters: int) -> tuple:
+    """bench.py's e2e population: ids x nums filters device/d{i}/+/n{n}/#,
+    SHARED_PCT of them in 2-member $share/bg groups."""
+    ids = max(8, int(np.sqrt(n_filters)))
+    return ids, max(1, n_filters // ids)
+
+
+def e2e_shared(i: int, n: int, nums: int) -> bool:
+    return (i * nums + n) % 100 < SHARED_PCT
+
+
+# (total, staging + replay, readback staging) seconds per serving dispatch
+_DISPATCHES: list = []
+
+
+def _time_dispatches(eng) -> None:
+    """Record each serving dispatch's host time, and the parts of it spent
+    staging its inputs and replaying the graph (``_replay``) and starting
+    its pinned readback (``_pinned``): what a slow window waited on (the
+    rest is the engine lock and the eager path)."""
+    import threading
+    cur = {"thread": None}
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if cur["thread"] == threading.get_ident():
+                    cur[key] += time.perf_counter() - t0
+        return call
+
+    eng._replay = timed(eng._replay, "replay")
+    eng._pinned = timed(eng._pinned, "pin")
+    dispatch = eng.dispatch
+
+    def timed_dispatch(h):
+        cur.update(thread=threading.get_ident(), replay=0.0, pin=0.0)
+        t0 = time.perf_counter()
+        try:
+            dispatch(h)
+        finally:
+            cur["thread"] = None
+            _DISPATCHES.append((time.perf_counter() - t0, cur["replay"],
+                                cur["pin"]))
+
+    eng.dispatch = timed_dispatch
+
+
+async def _subscribe_population(port: int, n_filters: int, n_sub: int):
+    """bench.py:1219-1243: each subscriber connection takes its own plain
+    filters and shared groups, plus the second membership of the previous
+    connection's groups (2 members per group on different sockets), in
+    SUBSCRIBE packets of E2E_SUB_CHUNK filters."""
+    from emqx_tpu_torch.client import Client
+    from emqx_tpu_torch.mqtt import packet as P
+    ids, nums = e2e_grid(n_filters)
+    subs, n_shared, n_entries = [], 0, 0
+    for c in range(n_sub):
+        cl = Client(port=port, clientid=f"esub{c}")
+        await cl.connect()
+        batch = []
+        for cc, second in ((c, False), ((c - 1) % n_sub, True)):
+            for i in range(cc, ids, n_sub):
+                for n in range(nums):
+                    f = f"device/d{i}/+/n{n}/#"
+                    if e2e_shared(i, n, nums):
+                        n_shared += not second
+                        batch.append((f"$share/bg/{f}", P.SubOpts(qos=1)))
+                    elif not second:
+                        batch.append((f, P.SubOpts(qos=0)))
+        for k in range(0, len(batch), E2E_SUB_CHUNK):
+            ack = await cl.subscribe(batch[k:k + E2E_SUB_CHUNK], timeout=60)
+            if any(rc >= 0x80 for rc in ack.reason_codes):
+                raise AssertionError(f"esub{c}: a SUBSCRIBE was refused")
+        n_entries += len(batch)
+        subs.append(cl)
+    return subs, ids, nums, n_shared, n_entries
+
+
+async def _warm_up(node, pub, subs, nums: int) -> None:
+    """bench.py:1254-1280: 64 publishes through the node, the full-size
+    batch class through route_batch, then wait for the snapshot and its
+    fused window class (the batcher routes host-side until the classes
+    are warm)."""
+    import asyncio
+
+    from emqx_tpu_torch.broker.message import make
+    for k in range(64):
+        await pub.publish(f"device/d0/x/n{k % nums}/t", b"w", qos=0)
+    for _ in range(200):
+        await asyncio.sleep(0.05)
+        if sum(cl.messages.qsize() for cl in subs) >= 64:
+            break
+    for cl in subs:
+        while not cl.messages.empty():
+            cl.messages.get_nowait()
+    eng = node.device_engine
+    eng.route_batch([make("w", 0, "warmup/none/t", b"")
+                     for _ in range(1024)])
+    # a large first snapshot builds in the background (route_batch then
+    # declines): wait for it, and for its fused window class
+    for _ in range(1200):
+        b = eng._built
+        if b is not None and (b.backend != "shapes" or eng.max_fuse() > 1):
+            break
+        await asyncio.sleep(0.05)
+    if eng._built is None:
+        raise AssertionError("no snapshot after the warm-up")
+
+
+async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
+                 seed: int) -> dict:
+    """bench.py:1283-1366: every publisher floods its share of `total`
+    messages to device/d{i}/x/n{n}/t (each matches exactly one filter),
+    every 4th at QoS 1 with pipelined PUBACKs; drainers record every
+    delivery. Checks exactly-once delivery to the right connection and
+    per-publisher order at every subscriber."""
+    import asyncio
+    import struct
+
+    from emqx_tpu_torch import device as D
+    n_sub, n_pub = len(subs), len(pubs)
+    per_pub = total // n_pub
+    got = [[] for _ in range(n_sub)]   # (pub, seq, i, n, qos) per conn
+    lat: list[float] = []
+    fmt = "<dIIII"
+
+    async def drain(c, cl):
+        while True:
+            m = await cl.messages.get()
+            t, p, s, i, n = struct.unpack(fmt, m.payload)
+            lat.append(time.perf_counter() - t)
+            got[c].append((p, s, i, n, m.qos))
+
+    async def flood(p, cl):
+        r = np.random.RandomState(seed + p)
+        acks = []
+        for k in range(per_pub):
+            i, n = int(r.randint(0, ids)), int(r.randint(0, nums))
+            fut = cl.publish_start(
+                f"device/d{i}/x/n{n}/t",
+                struct.pack(fmt, time.perf_counter(), p, k, i, n),
+                qos=1 if k % 4 == 0 else 0)
+            if fut is not None:
+                acks.append(fut)
+            if len(acks) >= 256:
+                await asyncio.wait_for(asyncio.gather(*acks), 60)
+                acks.clear()
+            if cl.needs_drain:
+                await cl.drain()
+            if k % 64 == 63:
+                await asyncio.sleep(0)
+        await asyncio.wait_for(asyncio.gather(*acks), 60)
+
+    m = node.metrics
+    stages = ("prepare", "dispatch", "card", "consume")
+    # a device failure raises on the card; these stay 0 or the flood
+    # left the kernels without saying so
+    faults = ("routing.device.dispatch_failed",
+              "routing.device.rebuild_failed",
+              "routing.device.host_fallback")
+    before = {k: m.val(k) for k in (
+        "messages.routed.device", "routing.device.batches",
+        "routing.device.windows", "routing.device.bypassed",
+        "routing.device.compact_overflow",
+        "routing.device.messages", "routing.host.route_us",
+        "routing.host.messages", *faults,
+        *(f"routing.device.{s}_us" for s in stages))}
+    pb = node.publish_batcher
+    pb.route_lat.clear()
+    # (the JAX reference's batcher, driven by the CPU tests, keeps no
+    # samples and its engine no `failed`)
+    samples = getattr(pb, "cost_samples", {})
+    for q in samples.values():
+        q.clear()
+    drainers = [asyncio.get_running_loop().create_task(drain(c, cl))
+                for c, cl in enumerate(subs)]
+    D.reset_launches()
+    _DISPATCHES.clear()
+    t0 = time.time()
+    try:
+        await asyncio.gather(*[flood(p, cl) for p, cl in enumerate(pubs)])
+        deadline = time.time() + 120
+        while sum(map(len, got)) < per_pub * n_pub \
+                and time.time() < deadline:
+            await asyncio.sleep(0.01)
+        dt = time.time() - t0
+        await asyncio.sleep(0.2)         # a duplicate would land by now
+    finally:
+        for d in drainers:
+            d.cancel()
+    launches = dict(D.LAUNCHES)
+    delta = {k: m.val(k) - v for k, v in before.items()}
+    sent = per_pub * n_pub
+    failed = getattr(node.device_engine, "failed", None)
+    if failed is not None or any(delta[k] for k in faults):
+        raise AssertionError(
+            f"the device path failed during the flood: "
+            f"{ {k: delta[k] for k in faults} }, engine {failed!r}")
+
+    seen = np.zeros((n_pub, per_pub), np.int64)
+    wrong_conn = 0
+    queued = any(getattr(ch.session, "enqueue_count", 0)
+                 for _cid, ch in node.cm.all_channels()
+                 if getattr(ch, "session", None) is not None)
+    for c, rows in enumerate(got):
+        last = {}
+        for p, s, i, n, qos in rows:
+            seen[p, s] += 1
+            own = i % n_sub
+            shared = e2e_shared(i, n, nums)
+            ok = {own, (own + 1) % n_sub} if shared else {own}
+            wrong_conn += c not in ok
+            # publish order per publisher at this subscriber, held per
+            # delivery class: the consume delivers a window's clean
+            # messages (plain filters) before its shared-group ones, the
+            # reference's ordering contract (emqx_tpu/broker/deliver.py
+            # :50-55, per-topic order as MQTT requires). A QoS 1 delivery
+            # waiting for the session's inflight window may also let a
+            # later QoS 0 one pass (MQTT orders per QoS), so when any
+            # session queued, the order is held per QoS too
+            key = (p, shared, qos) if queued else (p, shared)
+            if last.get(key, -1) >= s:
+                raise AssertionError(
+                    f"esub{c}: publisher {p} out of order ({s} after "
+                    f"{last[key]}, shared={shared})")
+            last[key] = s
+    if (seen != 1).any():
+        raise AssertionError(
+            f"exactly-once violated: {int((seen == 0).sum())} lost, "
+            f"{int((seen > 1).sum())} duplicated of {sent}")
+    if wrong_conn:
+        raise AssertionError(f"{wrong_conn} deliveries to a connection "
+                             f"that does not hold the filter")
+    lat_ms = np.sort(np.array(lat)) * 1e3
+    return {"sent": sent, "delivered": int(seen.sum()),
+            "per_sec": int(round(int(seen.sum()) / dt)),
+            "device_routed": delta["messages.routed.device"],
+            "batches": delta["routing.device.batches"],
+            "device_bypassed": delta["routing.device.bypassed"],
+            "windows": delta["routing.device.windows"],
+            "compact_overflow": delta["routing.device.compact_overflow"],
+            # host time per message of each stage of the device path (the
+            # card's time per message under "card"), and of the host path
+            "device_us_per_msg": {
+                s: delta[f"routing.device.{s}_us"]
+                / max(1, delta["routing.device.messages"]) for s in stages},
+            "host_us_per_msg": delta["routing.host.route_us"]
+            / max(1, delta["routing.host.messages"]),
+            "lat_p50_ms": float(np.percentile(lat_ms, 50)),
+            "lat_p99_ms": float(np.percentile(lat_ms, 99)),
+            "route_lat": pb.lat_percentiles(),
+            "launches": launches, "order_per_qos": queued,
+            "dev_msg_us": (getattr(pb, "_dev_msg_s", 0) or 0) * 1e6,
+            "host_msg_us": (pb._host_msg_s or 0) * 1e6,
+            "samples_us": {k: _spread(q) for k, q in samples.items()},
+            "dispatch_ms": {
+                "n": len(_DISPATCHES),
+                "sum": sum(d[0] for d in _DISPATCHES) * 1e3,
+                "slowest": [[round(x * 1e3, 3) for x in d]
+                            for d in sorted(_DISPATCHES, reverse=True)[:3]]},
+            "got": got}
+
+
+def _spread(samples) -> dict:
+    """The chooser's samples of one path over a flood (us per message):
+    their count and quantiles."""
+    a = np.asarray(samples, np.float64) * 1e6
+    if not a.size:
+        return {"n": 0}
+    return {"n": int(a.size), **{k: float(np.percentile(a, p)) for k, p in
+                                 (("min", 0), ("p10", 10), ("p50", 50),
+                                  ("p90", 90), ("max", 100))}}
+
+
+async def _profiled_flood(node, subs, pubs, ids: int, nums: int,
+                          total: int, seed: int) -> dict:
+    """One flood under torch.profiler: the card's busy time (kernels and
+    copies, summed by the profiler) against the flood's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        f = await _flood(node, subs, pubs, ids, nums, total, seed)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and _dev_us(e) > 0]
+    busy = sum(_dev_us(e) for e in rows) / 1e6
+    top = sorted(rows, key=_dev_us, reverse=True)[:6]
+    return {"wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall, "windows": f["windows"],
+            "per_sec": f["per_sec"],
+            "top": [(e.key[:60], round(_dev_us(e) / 1e3, 3), e.count)
+                    for e in top]}
+
+
+def e2e_window_check(node, ids: int, nums: int, seed: int, batches: int,
+                     batch: int) -> int:
+    """Engine windows (prepare_window → dispatch → materialize) of flood
+    topics held against the same windows on the plain path (the plain
+    shape match and scan) on the same device, each from the cursors its
+    engine window started with: every plane of the route result and of
+    the CSR readback, and the cursors, bit for bit. On the card the
+    windows are CUDA graph replays — two in a row, so the second replays
+    over the first's state. The windows are abandoned afterwards (nothing
+    is delivered). Returns max |diff| (0)."""
+    import torch
+
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.models.router_engine import route_window
+    from emqx_tpu_torch.ops.scan import prefix_sum_ref
+    from emqx_tpu_torch.ops.shapes import shape_match_ref
+    from emqx_tpu_torch.ops.shared import STRATEGY_ROUND_ROBIN
+    eng = node.device_engine
+    dev = eng.device
+    r = np.random.RandomState(seed)
+    err = 0
+    for rep in range(2):
+        lives = [[make("cmp", 0, f"device/d{r.randint(0, ids)}/x/"
+                       f"n{r.randint(0, nums)}/t", b"")
+                  for _ in range(batch)] for _ in range(batches)]
+        h = eng.prepare_window(lives, gate_cold=False)
+        if h is None or h.built.backend != "shapes" or h.pcap is None:
+            raise AssertionError("the compared window did not take the "
+                                 "shape-hash route window with a CSR "
+                                 "readback")
+        if dev.type == "cuda" and rep == 0:
+            # the class captured now if the flood has not warmed it
+            Wp, Bp = h.enc[0].shape[:2]
+            with torch.cuda.stream(eng._warm_stream):
+                eng._warm_dispatch(h.built, eng._tables, eng._cursors, Wp,
+                                   Bp, h.pcap)
+        cur0 = eng._cursors.clone()
+        eng.dispatch(h)
+        eng.materialize(h)
+        if dev.type == "cuda" and not h.graphed:
+            raise AssertionError("the compared window was not a graph "
+                                 "replay")
+        enc4, len4, dol4 = h.enc
+        staged = [torch.from_numpy(a).to(dev) for a in (enc4, len4, dol4)]
+        mh = torch.zeros(len4.shape, dtype=torch.int32, device=dev)
+        p_out = route_window(eng._tables, cur0, *staged, mh,
+                             STRATEGY_ROUND_ROBIN, fanout_cap=eng.fanout_cap,
+                             slot_cap=eng.slot_cap, payload_cap=h.pcap,
+                             match=shape_match_ref, scan=prefix_sum_ref)
+        for name in p_out.res._fields:
+            err = max(err, exact(getattr(h.res, name),
+                                 getattr(p_out.res, name),
+                                 f"e2e window {name}"))
+        for name in p_out.compact._fields:
+            err = max(err, exact(getattr(h.cres, name),
+                                 getattr(p_out.compact, name),
+                                 f"e2e window compact {name}"))
+        err = max(err, exact(eng._cursors, p_out.res.new_cursors[-1],
+                             "e2e window cursors"))
+        eng.abandon(h)
+    return err
+
+
+def e2e_drive(dev, n_filters: int = E2E_FILTERS,
+              n_sub: int = E2E_SUB_CONNS, n_pub: int = E2E_PUB_CONNS,
+              total: int = E2E_MSGS, depths=E2E_DEPTHS,
+              min_device_share: float = E2E_MIN_DEVICE_SHARE,
+              window=(8, 1024), seed: int = SEED, report=None,
+              pin_device: bool = False, profile: bool = False) -> dict:
+    """Phase 8: the port's Node with its Listener on 127.0.0.1, the
+    bench.py e2e population subscribed over TCP, the bench warm-up, then
+    one flood per dispatch depth in `depths` on the same node, and one
+    engine window held against the plain path after the first flood.
+    ``report(depth, flood)`` sees each flood's numbers before its checks;
+    ``pin_device`` pins the batcher's device/host chooser to the device
+    (for a rehearsal on the CPU, where the host path wins; never in the
+    measured run). With ``profile`` one more flood at the first depth runs
+    under torch.profiler for the card's busy time (not one of the
+    measured floods). Raises on any failed check."""
+    import asyncio
+
+    async def run():
+        from emqx_tpu_torch.broker.connection import Listener
+        from emqx_tpu_torch.broker.node import Node
+        from emqx_tpu_torch.client import Client
+        node = Node({"broker": {"dispatch_depth": depths[0]}}, device=dev)
+        _time_dispatches(node.device_engine)
+        if pin_device:
+            node.publish_batcher._device_worth_it = lambda: True
+        lst = Listener(node, bind="127.0.0.1", port=0)
+        await lst.start()
+        clients = []
+        try:
+            t0 = time.time()
+            subs, ids, nums, n_shared, n_entries = \
+                await _subscribe_population(lst.port, n_filters, n_sub)
+            clients += subs
+            t_sub = time.time() - t0
+            pubs = []
+            for c in range(n_pub):
+                cl = Client(port=lst.port, clientid=f"epub{c}")
+                await cl.connect()
+                pubs.append(cl)
+            clients += pubs
+            t0 = time.time()
+            await _warm_up(node, pubs[0], subs, nums)
+            t_warm = time.time() - t0
+            out = {"filters": ids * nums, "shared_filters": n_shared,
+                   "subscriptions": n_entries, "subscribe_s": t_sub,
+                   "warm_up_s": t_warm,
+                   "backend": node.device_engine._built.backend,
+                   "floods": {}}
+            # the routing state is long-lived (~1M objects at 100k
+            # subscriptions): frozen out of the cyclic collector, no full
+            # collection rescans it in the middle of a flood
+            gc.collect()
+            gc.freeze()
+            for k, depth in enumerate(depths):
+                # the batcher's consumer reads the depth when it starts,
+                # and it parks between floods
+                node.publish_batcher.dispatch_depth = depth
+                f = await _flood(node, subs, pubs, ids, nums, total,
+                                 seed + 100 * k)
+                if report is not None:
+                    report(depth, f)
+                if f["batches"] <= 0:
+                    raise AssertionError(f"depth {depth}: no device batch "
+                                         f"during the flood")
+                share = f["device_routed"] / f["sent"]
+                if share < min_device_share:
+                    raise AssertionError(
+                        f"depth {depth}: {share:.3f} of the flood was "
+                        f"routed by the device engine (< "
+                        f"{min_device_share})")
+                if dev.type == "cuda" and (f["launches"]["shape_match"] == 0
+                                           or f["launches"]["prefix_sum"]
+                                           == 0):
+                    raise AssertionError(f"depth {depth}: a kernel was not "
+                                         f"launched: {f['launches']}")
+                if dev.type == "cuda" and out["backend"] == "shapes" \
+                        and f["launches"]["shape_match"] != f["windows"]:
+                    # one fold+probe per shape-hash window; warm-ups are
+                    # recorded, not counted
+                    raise AssertionError(
+                        f"depth {depth}: {f['launches']['shape_match']} "
+                        f"shape_match launches for {f['windows']} windows")
+                out["floods"][depth] = f
+                if k == 0:
+                    out["window_err"] = e2e_window_check(
+                        node, ids, nums, seed + 1, *window)
+            if profile:
+                node.publish_batcher.dispatch_depth = depths[0]
+                out["profiled"] = await _profiled_flood(
+                    node, subs, pubs, ids, nums, total, seed + 1000)
+            out["stats"] = node.device_engine.stats()
+            return out
+        finally:
+            gc.unfreeze()
+            for cl in clients:
+                await cl.disconnect()
+            await lst.stop()
+            await node.publish_batcher.stop()
+            node.publish_batcher.close()
+
+    return asyncio.run(run())
+
+
+def e2e_phase(dev, card: str) -> dict:
+    """Phase 8 at bench.py's e2e size on the card; prints its lines."""
+    def report(depth, f):
+        row = {k: f[k] for k in ("sent", "delivered", "per_sec",
+                                 "device_routed", "batches",
+                                 "device_bypassed")}
+        samples = {k: {q: round(v, 2) for q, v in d.items()}
+                   for k, d in f["samples_us"].items()}
+        stage_us = {k: round(v, 2) for k, v in f["device_us_per_msg"].items()}
+        disp = dict(f["dispatch_ms"], sum=round(f["dispatch_ms"]["sum"], 3))
+        log(f"phase 8 dispatch_depth={depth}: {json.dumps(row)}")
+        log(f"phase 8 dispatch_depth={depth}: client PUBLISH->deliver p50 "
+            f"{f['lat_p50_ms']:.3f} ms, p99 {f['lat_p99_ms']:.3f} ms; "
+            f"batcher route latency {json.dumps(f['route_lat'])}; "
+            f"{f['windows']} device windows ({f['compact_overflow']} read "
+            f"dense: CSR payload overflow); launches {f['launches']}; "
+            f"chooser: device {f['dev_msg_us']:.2f} us per message, host "
+            f"{f['host_msg_us']:.2f} us per message, its samples (us per "
+            f"message) {json.dumps(samples)}; us per message: device "
+            f"path {json.dumps(stage_us)}, host path "
+            f"{f['host_us_per_msg']:.2f}; dispatches {json.dumps(disp)} (ms: "
+            f"the slowest as total, staging + replay, readback staging)")
+
+    r = e2e_drive(dev, report=report, profile=True)
+    log(f"phase 8: {r['filters']} filters ({r['shared_filters']} in "
+        f"2-member $share groups) subscribed as {r['subscriptions']} "
+        f"subscriptions over {E2E_SUB_CONNS} connections in "
+        f"{r['subscribe_s']:.1f} s; warm-up {r['warm_up_s']:.1f} s; "
+        f"backend {r['backend']}")
+    log("phase 8: two engine windows (prepare_window/dispatch/materialize, "
+        "CUDA graph replays) == plain path: every plane, CSR payload and "
+        "cursors (exact)")
+    p = r["profiled"]
+    log(f"phase 8 profiled flood (depth {E2E_DEPTHS[0]}): device busy "
+        f"{p['device_busy_s'] * 1e3:.1f} ms of {p['wall_s']:.2f} s, idle "
+        f"share {p['idle_share']:.4f}, {p['windows']} windows, "
+        f"{p['per_sec']} msgs/s under the profiler; largest device "
+        f"entries (name, ms, count): {p['top']}")
+    for depth, f in r["floods"].items():
+        log(f"phase 8 dispatch_depth={depth}: every message delivered once "
+            f"to a connection holding its filter; per-publisher order held "
+            f"at every subscriber for plain and for shared deliveries"
+            f"{' (per QoS: a session queued)' if f['order_per_qos'] else ''}"
+            f"; {f['device_routed'] / f['sent']:.3f} of it routed by the "
+            f"device engine")
+    log(card)
+    return r
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -912,26 +1482,44 @@ def main() -> int:
     del b, r
     torch.cuda.empty_cache()
     ring, mesh, mesh_scan_shapes = mesh_phase(dev)
+    torch.cuda.empty_cache()
+    e2e = e2e_phase(dev, card)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"GB; whole run {time.time() - t_all:.1f} s")
+
+    def by_path(name):
+        """The kernel's launches on every path this script drives, each
+        counted from 0 just before the path ran."""
+        out = {"shape-hash route()": launches[name],
+               "mesh route()": mesh["launches"][name]}
+        for depth, f in e2e["floods"].items():
+            out[f"e2e flood depth {depth}"] = f["launches"][name]
+        return out
 
     kernels = [
         {"name": "shape_match", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/shape_match.cu",
          "replaces": "emqx_tpu/ops/pallas_fold.py:121",
-         "launches": launches["shape_match"], "max_abs_err": err_fold,
+         "launches": launches["shape_match"],
+         "launches_by_path": by_path("shape_match"),
+         "max_abs_err": max(err_fold, e2e["window_err"]),
          **{k: sm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")}},
         {"name": "prefix_sum", "route": "cuda",
          "source": "emqx_tpu_torch/csrc/prefix_sum.cu",
          "replaces": "emqx_tpu/ops/pallas_scan.py:79",
-         "launches": launches["prefix_sum"], "max_abs_err": err_scan,
+         "launches": launches["prefix_sum"],
+         "launches_by_path": by_path("prefix_sum"),
+         "max_abs_err": max(err_scan, e2e["window_err"]),
          **{k: ps[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
          "shapes": scan_shapes + mesh_scan_shapes},
-        ring,
+        dict(ring, launches_by_path=by_path("ring_rotate")),
     ]
-    log(json.dumps({"summary": summary, "mesh": mesh}))
+    e2e_out = {k: v for k, v in e2e.items() if k != "floods"}
+    e2e_out["floods"] = {d: {k: v for k, v in f.items() if k != "got"}
+                         for d, f in e2e["floods"].items()}
+    log(json.dumps({"summary": summary, "mesh": mesh, "e2e": e2e_out}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,168 @@
+"""Config store: schema-defaulted nested map with zone overrides.
+
+Parity: emqx_config.erl (get/put with zone- and listener-scoped lookups,
+emqx_config.erl:63-100) + the mqtt/zone portions of emqx_schema.erl. The
+port's copy of ``emqx_tpu/broker/config.py``, cut to the sections its
+channel, connection, listener and node read; the HOCON file boot and the
+runtime-override handlers are not part of the port.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Optional
+
+# schema defaults — the reference's emqx_schema.erl zone/mqtt roots
+DEFAULTS: dict = {
+    "mqtt": {
+        "max_packet_size": 1024 * 1024,
+        "max_clientid_len": 65535,
+        "max_topic_levels": 128,
+        "max_qos_allowed": 2,
+        "max_topic_alias": 65535,
+        "retain_available": True,
+        "wildcard_subscription": True,
+        "shared_subscription": True,
+        "ignore_loop_deliver": False,
+        "strict_mode": False,
+        "response_information": "",
+        "server_keepalive": 0,           # 0 = accept client value
+        "keepalive_backoff": 0.75,
+        "max_subscriptions": 0,
+        "upgrade_qos": False,
+        "max_inflight": 32,
+        "retry_interval": 30,
+        "max_awaiting_rel": 100,
+        "await_rel_timeout": 300,
+        "session_expiry_interval": 7200,
+        "max_mqueue_len": 1000,
+        "mqueue_priorities": {},
+        "mqueue_default_priority": "lowest",
+        "mqueue_store_qos0": True,
+        "use_username_as_clientid": False,
+        "peer_cert_as_username": None,
+        "idle_timeout": 15,
+    },
+    "broker": {
+        "shared_subscription_strategy": "round_robin",
+        "shared_dispatch_ack_enabled": False,
+        # None = the built-in 256 (device_engine.resolve_rebuild_threshold)
+        "rebuild_threshold": None,
+        "device_min_batch": 4,
+    },
+    "zones": {},                 # zone name -> {mqtt: {...}} overrides
+    "listeners": {},             # name -> {type,bind,zone,...}
+    "authz": {"no_match": "allow", "deny_action": "ignore", "sources": []},
+    "force_shutdown": {"max_mqueue_len": 10000, "max_awaiting_rel": 0},
+    "rate_limit": {
+        "max_conn_rate": 0,          # new connections/sec per listener
+        "conn_messages_in": 0,       # packets/sec per connection
+        "conn_bytes_in": 0,          # bytes/sec per connection
+        "quota_messages_routing": 0,  # publishes/sec per connection
+    },
+}
+
+
+def deep_merge(base: dict, over: dict) -> dict:
+    out = dict(base)
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def check_schema(conf: dict, schema: Optional[dict] = None,
+                 path: str = "") -> list[str]:
+    """Type-check a config against the DEFAULTS tree
+    (the hocon_schema:check_plain analog). Duration strings ("30s") and
+    size strings ("1MB") are coerced in place where the schema default is
+    numeric; unknown keys are allowed (feature apps read their own
+    sections). Returns a list of error strings."""
+    from emqx_tpu_torch.utils.hocon import parse_duration, parse_size
+    schema = DEFAULTS if schema is None else schema
+    errors: list[str] = []
+    for key, val in list(conf.items()):
+        here = f"{path}.{key}" if path else key
+        if key not in schema:
+            continue
+        want = schema[key]
+        if isinstance(want, dict) and path not in ("zones", "listeners"):
+            if not isinstance(val, dict):
+                errors.append(f"{here}: expected object, got "
+                              f"{type(val).__name__}")
+            elif here not in ("zones", "listeners", "mqueue_priorities"):
+                errors.extend(check_schema(val, want, here))
+            continue
+        if isinstance(want, bool):
+            if not isinstance(val, bool):
+                errors.append(f"{here}: expected bool, got {val!r}")
+            continue
+        if isinstance(want, (int, float)) and not isinstance(want, bool):
+            if isinstance(val, str):
+                coerced = parse_duration(val)
+                if coerced is None:
+                    coerced = parse_size(val)
+                if coerced is None:
+                    errors.append(f"{here}: expected number, got {val!r}")
+                else:
+                    conf[key] = type(want)(coerced) \
+                        if isinstance(want, int) and \
+                        float(coerced).is_integer() else coerced
+            elif isinstance(val, bool) or \
+                    not isinstance(val, (int, float)):
+                errors.append(f"{here}: expected number, got {val!r}")
+            continue
+        if isinstance(want, str) and val is not None and \
+                not isinstance(val, str):
+            errors.append(f"{here}: expected string, got {val!r}")
+        if isinstance(want, list) and not isinstance(val, list):
+            errors.append(f"{here}: expected array, got {val!r}")
+    return errors
+
+
+class Config:
+    def __init__(self, overrides: Optional[dict] = None):
+        self._c = deep_merge(copy.deepcopy(DEFAULTS), overrides or {})
+
+    def get(self, *path, default: Any = None) -> Any:
+        """get('mqtt') or get('mqtt', 'max_inflight')."""
+        cur: Any = self._c
+        for p in path:
+            if not isinstance(cur, dict) or p not in cur:
+                return default if default is not None else (
+                    {} if len(path) == 1 else None)
+            cur = cur[p]
+        return cur
+
+    def put(self, path: "tuple | list", value: Any) -> None:
+        cur = self._c
+        for p in path[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[path[-1]] = value
+
+    def get_zone(self, zone: Optional[str], *path, default: Any = None) -> Any:
+        """Zone-scoped lookup falling back to global (emqx_config:get_zone_conf)."""
+        if zone:
+            zconf = self._c.get("zones", {}).get(zone, {})
+            cur: Any = zconf
+            found = True
+            for p in path:
+                if not isinstance(cur, dict) or p not in cur:
+                    found = False
+                    break
+                cur = cur[p]
+            if found:
+                return cur
+        return self.get(*path, default=default)
+
+    def mqtt(self, zone: Optional[str] = None) -> dict:
+        base = self.get("mqtt")
+        if zone:
+            return deep_merge(base, self._c.get("zones", {})
+                              .get(zone, {}).get("mqtt", {}))
+        return base
+
+    def to_dict(self) -> dict:
+        return copy.deepcopy(self._c)

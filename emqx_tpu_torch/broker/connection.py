@@ -1,0 +1,287 @@
+"""Per-client connection task + the TCP listener.
+
+Parity: emqx_connection.erl (per-client recvloop with {active,N}-style
+read batching :318-345,404-516, keepalive + idle timeout, force-shutdown
+policy) and emqx_listeners.erl (listener lifecycle :126-138). One asyncio
+task per socket replaces the reference's per-connection BEAM process; the
+read loop drains whatever bytes are available and feeds the streaming frame
+parser, so a burst of packets is handled as one batch (the P10 batching
+window).
+
+The port's copy of ``emqx_tpu/broker/connection.py`` on the per-packet
+ingress path (``broker.columnar_ingress = false``). Not part of the port:
+columnar PUBLISH bursts and the SO_REUSEPORT acceptor lanes that ride
+them, TLS, the congestion alarm and the overload governor's shed hooks.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from typing import Optional
+
+from emqx_tpu_torch.broker.channel import Channel, ProtocolError
+from emqx_tpu_torch.broker.limiter import (ConnectionLimiter,
+                                           ForceShutdownPolicy, TokenBucket)
+from emqx_tpu_torch.broker.supervise import guard_task
+from emqx_tpu_torch.mqtt import constants as C
+from emqx_tpu_torch.mqtt import packet as P
+from emqx_tpu_torch.mqtt.frame import FrameError, FrameParser, serialize
+
+log = logging.getLogger("emqx_tpu_torch.connection")
+
+READ_CHUNK = 65536
+
+
+class Connection:
+    def __init__(self, node, reader: asyncio.StreamReader,
+                 writer: asyncio.StreamWriter, zone: Optional[str] = None):
+        self.node = node
+        self.reader = reader
+        self.writer = writer
+        peer = writer.get_extra_info("peername") or ("?", 0)
+        sock = writer.get_extra_info("sockname") or ("?", 0)
+        self.parser = FrameParser(
+            max_size=node.config.mqtt(zone).get("max_packet_size"),
+            strict=node.config.mqtt(zone).get("strict_mode", False))
+        self.channel = Channel(
+            node, {"peername": peer, "sockname": sock, "zone": zone},
+            send=self._send_packets, close=self._request_close)
+        self.last_rx = time.monotonic()
+        self._out: list[bytes] = []   # packets written this loop turn
+        self._closing: Optional[str] = None
+        self._timer_task: Optional[asyncio.Task] = None
+        rl = node.config.get_zone(zone, "rate_limit") or {}
+        self.limiter = ConnectionLimiter(
+            rl.get("conn_messages_in") or None,
+            rl.get("conn_bytes_in") or None)
+        fs = node.config.get_zone(zone, "force_shutdown") or {}
+        self.force_shutdown = ForceShutdownPolicy(
+            fs.get("max_mqueue_len", 0), fs.get("max_awaiting_rel", 0))
+
+    # ---- outbound ----
+    def _send_packets(self, pkts: list[P.Packet]) -> None:
+        """Serialize now, write once per event-loop turn: a window's
+        deliveries to one connection leave in one socket write, in
+        order, instead of one write (and one send) each."""
+        if self.writer.is_closing():
+            return
+        data = b"".join(serialize(p, self.channel.proto_ver) for p in pkts)
+        self.node.metrics.inc("bytes.sent", len(data))
+        if not self._out:
+            asyncio.get_running_loop().call_soon(self._flush)
+        self._out.append(data)
+
+    def _flush(self) -> None:
+        if self._out:
+            data = b"".join(self._out)
+            self._out.clear()
+            if not self.writer.is_closing():
+                self.writer.write(data)
+
+    def _request_close(self, reason: str) -> None:
+        if self._closing is None:
+            self._closing = reason
+            if not self.writer.is_closing():
+                self._flush()
+                self.writer.close()
+
+    # ---- main loop (emqx_connection:recvloop) ----
+    async def run(self) -> None:
+        self._timer_task = guard_task(
+            asyncio.ensure_future(self._timers()), "conn-timers",
+            self.node.metrics)
+        reason = "closed"
+        try:
+            idle_timeout = self.node.config.mqtt(
+                self.channel.zone).get("idle_timeout", 15)
+            while self._closing is None:
+                timeout = (idle_timeout
+                           if self.channel.conn_state == "idle" else None)
+                try:
+                    data = await asyncio.wait_for(
+                        self.reader.read(READ_CHUNK), timeout)
+                except asyncio.TimeoutError:
+                    reason = "idle_timeout"
+                    break
+                if not data:
+                    reason = "closed"
+                    break
+                self.last_rx = time.monotonic()
+                self.node.metrics.inc("bytes.received", len(data))
+                try:
+                    items = self.parser.feed(data)
+                except FrameError as e:
+                    reason = f"frame_error:{e.code}"
+                    self._frame_error_out(e)
+                    break
+                for n_done, item in enumerate(items, 1):
+                    try:
+                        if type(item) is not P.Publish:
+                            # acks owed for earlier PUBLISHes go first
+                            await self.channel.flush_acks()
+                        await self.channel.handle_in(item)
+                    except ProtocolError as e:
+                        reason = f"protocol_error:0x{e.rc:02x}"
+                        self._protocol_error_out(e)
+                        break
+                    if n_done % 64 == 0:
+                        # one read can carry hundreds of frames; without
+                        # a scheduling point the whole burst handles
+                        # back-to-back and stalls every other task for
+                        # tens of ms (handle_in's awaits don't yield
+                        # unless they actually block)
+                        await asyncio.sleep(0)
+                if items:
+                    await self.channel.flush_acks()
+                    await self._drain()
+                    # ingress rate limit: a depleted bucket pauses reading
+                    # (the {active,N}-off backpressure, emqx_connection
+                    # ensure_rate_limit)
+                    pause = self.limiter.check(len(items), len(data))
+                    if pause > 0:
+                        self.node.metrics.inc("connection.rate_limited")
+                        await asyncio.sleep(pause)
+            reason = self._closing or reason
+        except (ConnectionResetError, BrokenPipeError):
+            reason = "closed"
+        except asyncio.CancelledError:
+            reason = "shutdown"
+        except Exception:
+            log.exception("connection crashed")
+            reason = "internal_error"
+        finally:
+            if self._timer_task:
+                self._timer_task.cancel()
+            self.channel.terminate(self._closing or reason)
+            self._flush()
+            try:
+                # graceful close first (flushes the DISCONNECT we may have
+                # just written); a stuck peer that can never drain falls
+                # into the timeout and gets hard-aborted
+                if not self.writer.is_closing():
+                    self.writer.close()
+                await asyncio.wait_for(self.writer.wait_closed(), 5)
+            except (asyncio.CancelledError, KeyboardInterrupt, SystemExit):
+                try:
+                    self.writer.transport.abort()
+                except Exception:  # noqa: BLE001 — transport already gone
+                    pass
+                raise               # preserve the cancellation contract
+            except Exception:       # TimeoutError, reset mid-flush, ...
+                try:
+                    self.writer.transport.abort()
+                except Exception:  # noqa: BLE001 — transport already gone
+                    pass
+
+    def _frame_error_out(self, e: FrameError) -> None:
+        if self.channel.proto_ver == C.MQTT_V5 and \
+                self.channel.conn_state == "connected":
+            self._send_packets([P.Disconnect(
+                reason_code=C.RC_MALFORMED_PACKET)])
+
+    def _protocol_error_out(self, e: ProtocolError) -> None:
+        if self.channel.proto_ver == C.MQTT_V5 and \
+                self.channel.conn_state == "connected":
+            self._send_packets([P.Disconnect(reason_code=e.rc)])
+        self._request_close(f"protocol_error_0x{e.rc:02x}")
+
+    async def _drain(self) -> None:
+        self._flush()
+        try:
+            await self.writer.drain()
+        except (ConnectionResetError, BrokenPipeError):
+            self._request_close("closed")
+
+    # ---- keepalive + retry timers (emqx_channel timer table) ----
+    async def _timers(self) -> None:
+        backoff = self.node.config.mqtt(
+            self.channel.zone).get("keepalive_backoff", 0.75)
+        retry_iv = self.node.config.mqtt(
+            self.channel.zone).get("retry_interval", 30)
+        last_retry = time.monotonic()
+        while True:
+            await asyncio.sleep(1.0)
+            now = time.monotonic()
+            ka = self.channel.keepalive
+            if (ka and self.channel.conn_state == "connected"
+                    and now - self.last_rx > ka * 2 * backoff):
+                if self.channel.proto_ver == C.MQTT_V5:
+                    self._send_packets([P.Disconnect(
+                        reason_code=C.RC_KEEP_ALIVE_TIMEOUT)])
+                self._request_close("keepalive_timeout")
+                return
+            if retry_iv and now - last_retry >= retry_iv:
+                last_retry = now
+                self.channel.retry_deliveries()
+            why = self.force_shutdown.violated(self.channel.session)
+            if why is not None:
+                self.node.metrics.inc("connection.force_shutdown")
+                self._request_close(f"force_shutdown:{why}")
+                return
+
+
+class Listener:
+    """One TCP listener (emqx_listeners:start_listener/3)."""
+
+    def __init__(self, node, *, bind: str = "0.0.0.0", port: int = 1883,
+                 zone: Optional[str] = None, max_connections: int = 1024000,
+                 name: str = "tcp:default"):
+        self.node = node
+        self.bind = bind
+        self.port = port
+        self.zone = zone
+        self.name = name
+        self.max_connections = max_connections
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._conns: set[asyncio.Task] = set()
+        self.current_conns = 0
+        rate = (node.config.get_zone(zone, "rate_limit") or {}) \
+            .get("max_conn_rate", 0)
+        self._accept_bucket = TokenBucket(rate) if rate else None
+
+    async def _on_client(self, reader: asyncio.StreamReader,
+                         writer: asyncio.StreamWriter) -> None:
+        if self.current_conns >= self.max_connections:
+            writer.close()
+            return
+        if self._accept_bucket is not None \
+                and self._accept_bucket.consume() > 0:
+            # accept-rate limit: drop the connection (esockd max_conn_rate)
+            self.node.metrics.inc("connection.accept_limited")
+            writer.close()
+            return
+        self.current_conns += 1
+        conn = Connection(self.node, reader, writer, self.zone)
+        task = asyncio.current_task()
+        self._conns.add(task)
+        try:
+            await conn.run()
+        finally:
+            self.current_conns -= 1
+            self._conns.discard(task)
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(
+            self._on_client, self.bind, self.port)
+        if self.port == 0:   # ephemeral port for tests
+            self.port = self._server.sockets[0].getsockname()[1]
+        log.info("listener %s started on %s:%d", self.name, self.bind,
+                 self.port)
+
+    async def stop(self) -> None:
+        # stop accepting first so no connection slips in during the cancel
+        # window; then cancel handlers (py3.12 wait_closed blocks until
+        # every handler coroutine finishes, so cancel before waiting)
+        if self._server is None:
+            return
+        self._server.close()
+        for t in list(self._conns):
+            t.cancel()
+        if self._conns:
+            await asyncio.gather(*self._conns, return_exceptions=True)
+        try:
+            await asyncio.wait_for(self._server.wait_closed(), 2)
+        except asyncio.TimeoutError:
+            pass

@@ -1,0 +1,1657 @@
+"""Device route engine: the route window wired into the serving path.
+
+The port's ``DeviceRouteEngine`` (``emqx_tpu/broker/device_engine.py``
+:561-3889) for the path with the optional layers off — no topic dedup or
+match cache, no delta overlay, no subscription covering, no supervision,
+HBM ledger, tracing, latency observatory or overload hooks, inline
+delivery, CSR readback on. It compiles the live routing state (Router
+filter universe + Broker subscriber/shared-group membership) into device
+tables, runs the route window over publish micro-batches and consumes the
+result into session deliveries, replacing the per-message host publish
+path (emqx_broker.erl:199-308: match_routes → dispatch fold → shared pick).
+
+Serving is staged so the asyncio event loop never waits on the device:
+``prepare_window()`` (loop: encode), ``dispatch()`` (the route window's
+launches on the card — on the loop, since they only enqueue work and hold
+the GIL throughout, where an executor thread would wait for the busy loop
+at every GIL hand-off; on an executor thread when the device is the CPU),
+``materialize()`` (executor thread: device→host readback),
+``finish_sub()`` (loop: consume one sub-batch into deliveries).
+``route_batch()`` is the synchronous composition for callers without a
+pipeline.
+
+On the card: the shape-hash window is ``models/router_engine.route_window``
+(kernels 1 and 2), the trie window ``route_step_compact`` (kernel 2); the
+choice of trie over shapes follows the reference (more shapes than
+``shape_cap``, or filters deeper than 20 levels). Dispatches run on a CUDA
+stream of the engine's own and the device cursors stay on the card between
+windows. Each shape-hash window class is captured as a CUDA graph by its
+warm dispatch (``_capture``), and a serving dispatch copies its window
+into the graph's static inputs and replays it: one launch where the eager
+window makes ~300, which on the card's host cost as much as the trie walk
+the window replaces. Every plane materialize will read is copied at
+dispatch return into pinned host buffers (``non_blocking``) with an event
+recorded behind it — materialize waits on that event only, so at the
+batcher's ``dispatch_depth >= 2`` window W's readback crosses while
+window W+1 dispatches.
+
+On the card a failed dispatch, readback, warm-up, graph capture or
+snapshot build is an error, never a quiet detour through the host trie:
+the window's publishers get the exception, and a background failure is
+kept (``failed``) and raised to every later batch. On the CPU the
+reference's behaviour stands: the window is routed on the host and a
+failed warm leaves its class cold. Messages the window flags overflow or
+too deep are completed on the host on both, as in the reference.
+
+Snapshot/consistency model (as the reference with the overlay off):
+
+- The compiled tables are an immutable snapshot; mutations keep flowing
+  into the authoritative host dicts and are tracked relative to it:
+  - a built filter whose subscriber membership changed is DIRTY — its
+    deliveries come from the live host dict instead of the device rows;
+  - a filter added since the build is a DELTA filter: it matches through
+    the host delta ``HostTrie`` until the next rebuild;
+  - a (filter, group) shared slot that changed is dirty likewise; a group
+    added to a built filter is dispatched host-side until the next
+    rebuild.
+- Past ``rebuild_threshold`` distinct stale entities the snapshot is
+  recompiled in the background, double-buffered: the state is captured in
+  chunks on the loop, compiled, uploaded and warmed off the loop, and
+  swapped in once no dispatched window is outstanding; mutations during
+  the build are journaled and replayed against the new snapshot.
+
+Delivery attribution: device fan-out rows for one message are the
+concatenation of per-filter CSR segments in match order, so the host walks
+the matched fids and slices the rows by the *built* segment lengths.
+Messages flagged overflow/too-deep fall back to the full host path.
+Shared subscriptions: device picks drive delivery for every strategy;
+sticky rides the cursor as an affinity pointer seeded by the capture.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import contextlib
+import itertools
+import logging
+import threading
+import time
+import zlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from emqx_tpu_torch.broker.deliver import OPT_TABLE
+from emqx_tpu_torch.broker.message import Message
+from emqx_tpu_torch.broker.supervise import guard_task
+from emqx_tpu_torch import device as D
+from emqx_tpu_torch.convert import router_tables_from_numpy, tables_from_numpy
+from emqx_tpu_torch.device import resolve_device
+from emqx_tpu_torch.models import router_engine as RE
+from emqx_tpu_torch.ops import intern as I
+from emqx_tpu_torch.ops.fanout import build_subtable
+from emqx_tpu_torch.ops.match import encode_topics_str
+from emqx_tpu_torch.ops.shapes import ShapeCapacityError, build_shape_tables
+from emqx_tpu_torch.ops.shared import (STRATEGIES, STRATEGY_HASH_CLIENT,
+                                       STRATEGY_HASH_TOPIC,
+                                       STRATEGY_ROUND_ROBIN)
+from emqx_tpu_torch.ops.trie import HostTrie, build_tables
+from emqx_tpu_torch.utils import topic as T
+
+log = logging.getLogger("emqx.device")
+
+_PACKED_KEYS = {"qos", "nl", "rap", "rh"}
+
+
+def resolve_rebuild_threshold(configured=None) -> int:
+    """``broker.rebuild_threshold``, default 256. It must be a positive
+    integer — anything else is a deployment error worth failing loudly
+    on."""
+    if configured is None:
+        return 256
+    val = int(configured)
+    if val <= 0:
+        raise ValueError(f"rebuild_threshold must be > 0, got {val}")
+    return val
+
+
+_snapshot_ids = itertools.count(1)
+
+# windows whose pinned host buffers (inputs and readback) are alive at
+# once: the batcher dispatches up to its pipeline depth (8) of windows
+# ahead of their settle, each holding its readback until consumed
+_PINNED_SETS = 8
+
+
+class _CsrRes:
+    """Host side of one compacted readback: the CSR planes plus the
+    always-small dense overflow/occur planes consume needs anyway.
+    finish_sub dispatches on this type vs the dense 8-tuple."""
+
+    __slots__ = ("off", "c3", "pay", "overflow", "occur")
+
+    def __init__(self, off, c3, pay, overflow, occur):
+        self.off = off            # [W, B+1] combined payload offsets
+        self.c3 = c3              # [W, B, 3] (match, fanout, shared)
+        self.pay = pay            # [W, P] flat payload
+        self.overflow = overflow  # [W, B] host-fallback lanes
+        self.occur = occur        # [W, G] cursor writeback input
+
+
+def _pack_opts(opts: dict) -> int:
+    return ((int(opts.get("qos", 0)) & 0x3)
+            | ((1 if opts.get("nl") else 0) << 2)
+            | ((1 if opts.get("rap") else 0) << 3)
+            | ((int(opts.get("rh", 0)) & 0x3) << 4))
+
+
+def _is_rich(opts: dict) -> bool:
+    """Subopts that the packed byte cannot carry (v5 subscription ids etc.)
+    force the filter onto the host dict path."""
+    return any(k not in _PACKED_KEYS and k != "share" and v is not None
+               for k, v in opts.items())
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(2, (x - 1).bit_length())
+
+
+def capture_shared(broker, f: str) -> dict:
+    """Per-filter shared-group capture for a device snapshot: the local
+    SharedGroup members with their subopts, and each group's cursor.
+
+    For the `sticky` strategy the returned cursor is the sticky member's
+    INDEX in the members list (establishing affinity on the first capture
+    if none exists) — the device pick reinterprets the cursor as the
+    affinity pointer and never advances it. Establishing affinity is the
+    one write this otherwise read-only capture performs, and it is
+    idempotent: it only runs when no live member holds affinity and always
+    picks members[0] of the insertion-ordered members dict."""
+    sticky_mode = broker.shared_strategy == "sticky"
+    out = {}
+    for g, grp in (broker.shared.get(f) or {}).items():
+        if not grp.members:
+            continue
+        members = list(grp.members.items())
+        cursor = grp.cursor
+        if sticky_mode:
+            if grp.sticky not in grp.members:
+                grp.sticky = members[0][0]   # establish affinity
+            cursor = next(i for i, (sid, _) in enumerate(members)
+                          if sid == grp.sticky)
+        out[g] = (members, cursor)
+    return out
+
+
+class _Graph:
+    """One shape-hash route window of class (W, Bp[, P]) captured as a
+    CUDA graph on one snapshot: its static inputs (the window's encoded
+    topics, lens, '$' flags, message hashes, and the cursors it starts
+    from), its static outputs, and the kernel launches one replay makes.
+    A dispatch copies its window into the inputs and replays: one launch
+    of the graph instead of the window's ~300 eager launches."""
+
+    __slots__ = ("graph", "inputs", "cursors", "out", "launches")
+
+    def __init__(self, graph, inputs, cursors, out, launches):
+        self.graph = graph
+        self.inputs = inputs      # (topics, lens, dollar, msg_hash)
+        self.cursors = cursors
+        self.out = out            # CompactRouteResult of static tensors
+        self.launches = launches  # [(kernel, shape)] per replay
+
+
+class _Built:
+    """One compiled snapshot (host-side indexes of the device tables)."""
+
+    __slots__ = ("fid_of", "fid_filter", "seg_len", "slot_of", "slot_key",
+                 "n_slots", "backend", "seg_np", "fid_shared", "fid_rich",
+                 "sid", "match_width")
+
+    def __init__(self):
+        self.fid_of: dict[str, int] = {}
+        self.fid_filter: list[str] = []
+        self.seg_len: list[int] = []
+        self.slot_of: dict[tuple, int] = {}       # (filter, group) -> slot
+        self.slot_key: list[tuple] = []           # slot -> (filter, group)
+        self.n_slots = 0
+        self.backend = "trie"
+        self.sid = next(_snapshot_ids)
+        # width of one match row: shape capacity for the shapes backend,
+        # match_cap for the trie NFA
+        self.match_width = 0
+        # vectorized-consume companions (set once at build):
+        self.seg_np = np.zeros(0, np.int64)       # seg_len as an array
+        self.fid_shared = np.zeros(0, bool)       # fid has shared groups
+        self.fid_rich = np.zeros(0, bool)         # fid has rich subopts
+
+
+class _Handle:
+    """One in-flight dispatched WINDOW of 1..W publish micro-batches
+    (prepare → dispatch → materialize → finish_sub per batch). Host-side
+    metadata pins the snapshot the dispatch ran against; the engine defers
+    snapshot swaps until no handle is outstanding. `refs` counts the
+    attached sub-batches: the handle releases when every sub has been
+    finished or abandoned."""
+
+    __slots__ = ("subs", "built", "dev_shared", "enc", "res", "cres",
+                 "np_res", "refs", "pcap", "host", "ev_start", "event",
+                 "launch_s", "cost_s", "msg_hash", "cursors0", "graphed",
+                 "n_msgs", "error")
+
+    def __init__(self, subs, built, dev_shared):
+        self.subs = subs          # list of (msgs, too_long)
+        self.built = built
+        self.dev_shared = dev_shared
+        self.enc = None       # (topics [Wp, Bp, L], lens, dollar) numpy
+        self.res = None       # device RouteResult, fields [W, ...]
+        self.cres = None      # device CompactPlanes (CSR readback)
+        self.np_res = None    # host views: dense tuple OR _CsrRes
+        self.refs = len(subs)
+        self.n_msgs = sum(len(msgs) for msgs, _t in subs)
+        self.pcap = None      # payload class: CSR-compact this dispatch
+        self.host = None      # pinned host copies started at dispatch
+        self.ev_start = None  # CUDA events around the window's device
+        self.event = None     # work (and behind the pinned copies)
+        self.msg_hash = None  # [Wp, Bp] per-message hashes (numpy)
+        self.cursors0 = None  # the device cursors the window started from
+        self.graphed = False  # dispatched as a CUDA graph replay
+        self.launch_s = 0.0   # host time of the dispatch's launches
+        # what this window costs to serve: the host work of prepare,
+        # dispatch and consume, plus the card's time past the launches
+        # (the events) — the batcher's device/host chooser reads it
+        self.cost_s = 0.0
+        self.error = None     # why the window was abandoned, when fatal
+
+
+class DeviceRouteEngine:
+    # window sub-batch count classes and the standard (W, Bp) ladder the
+    # batcher's warm gate checks
+    _W_CLASSES = (1, 8)
+    _STD_CLASSES = ((1, 64), (1, 256), (1, 1024), (8, 1024))
+
+    # payload classes are multiples of the batch class Bp (entries per
+    # message budget): 8 covers trickle fan-out, 32 the fan-out ≤ ~10
+    # regime, 128 heavy fan-out. Beyond 128 the compacted payload
+    # approaches the dense planes and compaction stops paying — the
+    # chooser returns None (dense readback).
+    _PAYLOAD_MULTS = (8, 32, 128)
+
+    def __init__(self, node, *, device=None,
+                 rebuild_threshold: Optional[int] = None,
+                 max_levels: int = 16, frontier_cap: int = 16,
+                 match_cap: int = 64, fanout_cap: int = 128,
+                 slot_cap: int = 16, shape_cap: int = 32):
+        self.node = node
+        self.broker = node.broker
+        self.router = node.broker.router
+        self.device = resolve_device(device)
+        self.rebuild_threshold = resolve_rebuild_threshold(
+            rebuild_threshold)
+        self.max_levels = max_levels
+        self.frontier_cap = frontier_cap
+        self.match_cap = match_cap
+        self.fanout_cap = fanout_cap
+        self.slot_cap = slot_cap
+        self.shape_cap = shape_cap
+
+        self.intern = I.InternTable()
+        self._built: Optional[_Built] = None
+        self._tables = None            # device RouterTables/ShapeRouterTables
+        self._cursors = None           # device [G]
+        self.dirty_filters: set[str] = set()
+        self.dirty_slots: set[tuple] = set()
+        self.new_slots_by_filter: dict[str, set[str]] = {}
+        # hostside-mask memo: the mask only changes when the dirty set or
+        # the snapshot does, so it is memoized on (snapshot id, dirty
+        # version) — the version bumps on subscribe/unsubscribe churn
+        self._dirty_ver = 0
+        self._hostside_memo: Optional[tuple] = None
+        self._delta_trie = HostTrie()
+        self._delta_filter: dict[int, str] = {}
+        self._delta_fid_of: dict[str, int] = {}
+        self._next_delta_fid = 0
+        self._enc_cache: dict[str, list] = {}  # filter -> interned words
+
+        # class readiness: the BATCHER routes a batch to the device only
+        # when its (W, Bp) class is warm for the current snapshot
+        # signature. A class becomes warm after one dispatch at it — the
+        # first one builds the kernels and fills the allocator, so first
+        # use never stalls live traffic; background warm tasks run that
+        # dispatch off the serving path.
+        self._warm_classes: set = set()      # {(snapshot, W, Bp[, cP])}
+        self._extra_classes: set = set()     # non-standard (W, Bp) wanted
+        self._wanted_compact: set = set()    # (W, Bp, P) the path asked
+        # on the card, shape-hash windows replay CUDA graphs captured by
+        # the warm dispatches: {(snapshot, W, Bp, P, strategy): _Graph}
+        self._graphs: dict = {}
+        self._fuse_warm_task = None
+        # background rebuild machinery
+        self._outstanding = 0          # dispatched-but-unfinished handles
+        self._journal: Optional[list] = None   # churn while a build runs
+        self._building = False
+        self._pending_swap = None
+        self._rebuild_task = None
+        # CSR readback: payload capacity quantizes onto _PAYLOAD_MULTS * Bp
+        # classes sized by a peak-biased EWMA of recent window totals, with
+        # a dense-readback fallback when a window outgrows its class
+        self._pay_ewma: dict[int, float] = {}   # Bp -> peak entry total
+
+        # one stream for serving dispatches, one for background warms (a
+        # stream is never shared by two threads at once: kernel 2's
+        # look-back words are per stream), and one lock around all of the
+        # engine's device work, so windows never interleave and a graph
+        # capture never runs beside another thread's device calls (those
+        # can invalidate it)
+        cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if cuda else None
+        self._warm_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._cuda_lock = threading.RLock()
+        # on the card a dispatch only enqueues kernels and copies (no host
+        # sync), so the batcher runs it on the loop; on the CPU the window
+        # is the computation itself and keeps its executor thread
+        self.dispatch_on_loop = cuda
+        # on the card a device failure raises (see the module docstring);
+        # a failure off the serving path is kept here and re-raised
+        self.fail_on_device_error = cuda
+        self.failed: Optional[BaseException] = None
+
+        # wire change notifications
+        self.router.on_route_change = self.note_route_change
+        self.broker.device_engine = self
+
+    # ---- churn tracking -------------------------------------------------
+    def staleness(self) -> int:
+        """Distinct stale entities vs the snapshot (filters/slots serving
+        host-side) — the rebuild trigger. A set-size measure, so repeated
+        churn on one filter counts once."""
+        return (len(self.dirty_filters) + len(self.dirty_slots)
+                + sum(len(v) for v in self.new_slots_by_filter.values())
+                + len(self._delta_filter))
+
+    def _mark_dirty(self, f: str) -> None:
+        """dirty_filters.add with the hostside-memo version bump (only
+        on actual growth — the subscribe path's double notification
+        must not churn the memo key twice for one event)."""
+        if f not in self.dirty_filters:
+            self.dirty_filters.add(f)
+            self._dirty_ver += 1
+
+    def _hostside_mask(self, b) -> np.ndarray:
+        """Per-fid host-side delivery mask of snapshot `b` (rich subopts
+        OR dirty membership), memoized on (snapshot id, dirty version)."""
+        if not self.dirty_filters:
+            return b.fid_rich
+        key = (b.sid, self._dirty_ver)
+        memo = self._hostside_memo
+        if memo is not None and memo[0] == key:
+            return memo[1]
+        hs = b.fid_rich.copy()
+        for f in self.dirty_filters:
+            fid = b.fid_of.get(f)
+            if fid is not None:
+                hs[fid] = True
+        self._hostside_memo = (key, hs)
+        return hs
+
+    def _enc_filter(self, f: str) -> list:
+        """Interned level ids of a filter, memoized across builds (word
+        ids are append-only for the process lifetime)."""
+        w = self._enc_cache.get(f)
+        if w is None:
+            w = self._enc_cache[f] = self.intern.encode_filter(
+                T.tokens(f))
+        return w
+
+    def note_route_change(self, topic_filter: str, added: bool) -> None:
+        """Router filter-universe change."""
+        if self._journal is not None:
+            self._journal.append(("route", topic_filter, added))
+        removed_words = None
+        if not added:
+            removed_words = self._enc_cache.pop(topic_filter, None)
+        if self._built is None:
+            return
+        if added:
+            if topic_filter in self._built.fid_of:
+                self._mark_dirty(topic_filter)
+            elif topic_filter not in self._delta_fid_of:
+                words = self._enc_filter(topic_filter)
+                fid = self._next_delta_fid
+                self._next_delta_fid += 1
+                self._delta_trie.insert(words, fid)
+                self._delta_filter[fid] = topic_filter
+                self._delta_fid_of[topic_filter] = fid
+        else:
+            if topic_filter in self._built.fid_of:
+                self._mark_dirty(topic_filter)
+            fid = self._delta_fid_of.pop(topic_filter, None)
+            if fid is not None:
+                words = removed_words if removed_words is not None \
+                    else self.intern.encode_filter(T.tokens(topic_filter))
+                self._delta_trie.delete(words)
+                self._delta_filter.pop(fid, None)
+
+    def note_member_change(self, real: str, group: Optional[str]) -> None:
+        """Broker membership change (subscribe/unsubscribe/opts update)."""
+        if self._journal is not None:
+            self._journal.append(("member", real, group))
+        if self._built is None:
+            return
+        if group is None:
+            if real in self._built.fid_of:
+                self._mark_dirty(real)
+        else:
+            if (real, group) in self._built.slot_of:
+                self.dirty_slots.add((real, group))
+            elif real in self._built.fid_of:
+                self.new_slots_by_filter.setdefault(real, set()).add(group)
+            # delta filters' shared groups dispatch host-side via the
+            # consume sweep over live broker.shared — nothing to track
+
+    # ---- snapshot compile ----------------------------------------------
+    def rebuild(self) -> None:
+        """Compile router+broker state into fresh device tables and swap,
+        synchronously (first build / callers without a loop). The
+        background path is `maybe_background_rebuild`."""
+        self._apply_build(self._build_from_capture(
+            self._capture_state_sync()), journal=())
+
+    def _capture_state_sync(self):
+        """Point-in-time copy of the routing state (sync, may stall)."""
+        broker, router = self.broker, self.router
+        exact, wild = list(router.exact), list(router.wildcards)
+        filters = exact + wild
+        subs = {f: list(broker.subs[f].items())
+                for f in filters if broker.subs.get(f)}
+        shared = {}
+        for f in filters:
+            cap = capture_shared(broker, f)
+            if cap:
+                shared[f] = cap
+        return exact, wild, subs, shared
+
+    async def _capture_state_async(self, chunk: int = 1024):
+        """Chunked capture: yields to the loop between chunks so serving
+        continues; mutations landing mid-capture are journaled and
+        replayed at swap, so a half-captured filter at worst serves
+        host-side."""
+        broker, router = self.broker, self.router
+        exact, wild = list(router.exact), list(router.wildcards)
+        filters = exact + wild
+        subs: dict = {}
+        shared: dict = {}
+        for i in range(0, len(filters), chunk):
+            for f in filters[i:i + chunk]:
+                s = broker.subs.get(f)
+                if s:
+                    subs[f] = list(s.items())
+                cap = capture_shared(broker, f)
+                if cap:
+                    shared[f] = cap
+            await asyncio.sleep(0)
+        return exact, wild, subs, shared
+
+    def _build_from_capture(self, capture):
+        """Compile a captured state into device tables (loop-free: safe on
+        an executor thread). Returns (built, dev_tables, dev_cursors) or
+        None when the filter set is empty."""
+        exact, wild, subs_cap, shared_cap = capture
+        filters = sorted(exact) + sorted(wild)
+        if not filters:
+            return None
+
+        b = _Built()
+        b.fid_of = {f: i for i, f in enumerate(filters)}
+        b.fid_filter = filters
+        n = len(filters)
+        words = [self._enc_filter(f) for f in filters]
+        L = max(1, max(len(w) for w in words))
+        rows = np.zeros((n, L), np.int32)
+        lens = np.zeros(n, np.int64)
+        for i, w in enumerate(words):
+            rows[i, :len(w)] = w
+            lens[i] = len(w)
+
+        normal: dict[int, list] = {}
+        filter_slots: dict[int, list] = {}
+        shared_members: dict[int, list] = {}
+        cursors0: list[int] = []
+        rich: set[str] = set()
+        seg_len = [0] * n
+        for f, fid in b.fid_of.items():
+            subs = subs_cap.get(f)
+            if subs:
+                entries = []
+                for sid, opts in subs:
+                    if _is_rich(opts):
+                        rich.add(f)
+                    entries.append((sid, _pack_opts(opts)))
+                normal[fid] = entries
+                seg_len[fid] = len(entries)
+            for g in sorted(shared_cap.get(f, {})):
+                members_raw, cursor = shared_cap[f][g]
+                slot = len(b.slot_key)
+                b.slot_of[(f, g)] = slot
+                b.slot_key.append((f, g))
+                members = []
+                for sid, opts in members_raw:
+                    if _is_rich(opts):
+                        rich.add(f)
+                    members.append((sid, _pack_opts(opts)))
+                shared_members[slot] = members
+                filter_slots.setdefault(fid, []).append(slot)
+                cursors0.append(cursor)
+        b.seg_len = seg_len
+        b.n_slots = len(b.slot_key)
+        b.seg_np = np.asarray(seg_len, np.int64)
+        b.fid_shared = np.zeros(max(1, n), bool)
+        for fid in filter_slots:
+            b.fid_shared[fid] = True
+        b.fid_rich = np.zeros(max(1, n), bool)
+        for f in rich:
+            b.fid_rich[b.fid_of[f]] = True
+
+        # pow2 capacity classes: a new signature only when a class grows
+        filter_cap = _next_pow2(n)
+        total_subs = sum(seg_len)
+        total_members = sum(len(m) for m in shared_members.values())
+        subs_tbl = build_subtable(
+            filter_cap, normal, filter_slots, shared_members,
+            slot_cap=_next_pow2(max(1, b.n_slots)),
+            sub_rows_cap=_next_pow2(max(1, total_subs)),
+            fs_rows_cap=_next_pow2(max(1, b.n_slots)),
+            member_rows_cap=_next_pow2(max(1, total_members)))
+
+        st = None
+        if L <= 20:
+            try:
+                st = build_shape_tables(rows, lens, shape_cap=self.shape_cap)
+            except ShapeCapacityError:
+                st = None
+        cur = np.zeros(max(1, len(cursors0)), np.int32)
+        if cursors0:
+            cur[:len(cursors0)] = cursors0
+        dev = self.device
+        if st is not None:
+            with self._cuda_lock:
+                tables = tables_from_numpy(st, subs_tbl, dev)
+            b.backend = "shapes"
+            b.match_width = int(st.shape_plus_mask.shape[0])
+        else:
+            node_cap = _next_pow2(max(256, 2 * (int(lens.sum()) + 1)))
+            trie = build_tables(rows, lens, node_capacity=node_cap,
+                                slot_capacity=4 * node_cap)
+            with self._cuda_lock:
+                tables = router_tables_from_numpy(trie, subs_tbl, dev)
+            b.backend = "trie"
+            b.match_width = self.match_cap
+        with self._cuda_lock:
+            return b, tables, torch.from_numpy(cur).to(dev)
+
+    def _apply_build(self, result, journal) -> None:
+        """Swap a finished build in and rebase churn tracking onto it by
+        replaying the journal of mutations that happened during the build."""
+        if self.device.type == "cuda":
+            # the old tables may still be read by finished-but-unreleased
+            # stream work; the new ones were uploaded on another stream
+            with self._cuda_lock:
+                torch.cuda.synchronize(self.device)
+        self._reset_deltas()
+        sid = None
+        if result is None:
+            self._built = None
+            self._tables = None
+            self._cursors = None
+        else:
+            b, tables, cursors = result
+            self._built = b
+            self._tables = tables
+            self._cursors = cursors
+            sid = b.sid
+            # demand for compact classes resets with the snapshot too
+            self._wanted_compact.clear()
+        # warmth and graphs belong to one snapshot (a graph holds its
+        # tables' addresses); a background build warmed the new one
+        self._warm_classes = {e for e in self._warm_classes if e[0] == sid}
+        self._graphs = {k: g for k, g in self._graphs.items()
+                        if k[0] == sid}
+        # replay churn that raced the build: journaled note_* calls are
+        # idempotent against the fresh snapshot (worst case marks a filter
+        # the build already captured as dirty — correct, just host-side
+        # until the next rebuild)
+        for entry in journal:
+            if entry[0] == "route":
+                self.note_route_change(entry[1], entry[2])
+            else:
+                self.note_member_change(entry[1], entry[2])
+        self.node.metrics.inc("routing.device.rebuilds")
+
+    def _reset_deltas(self) -> None:
+        self.dirty_filters = set()
+        self._dirty_ver += 1
+        self._hostside_memo = None
+        self.dirty_slots = set()
+        self.new_slots_by_filter = {}
+        self._delta_trie = HostTrie()
+        self._delta_filter = {}
+        self._delta_fid_of = {}
+        self._next_delta_fid = 0
+
+    def _compaction_reason(self) -> Optional[str]:
+        """Why the current snapshot should recompile, or None: distinct
+        stale entities (incl. every delta filter) past the threshold."""
+        if self._built is None:
+            return None
+        return "churn" if self.staleness() >= self.rebuild_threshold \
+            else None
+
+    def _count_compaction(self, reason: str) -> None:
+        m = self.node.metrics
+        m.inc("routing.device.compactions")
+        m.inc(f"routing.device.compaction.{reason}")
+
+    # ---- background rebuild (double-buffered) ---------------------------
+    def _fail(self, e: BaseException) -> None:
+        """A device failure off the serving path (a background build,
+        warm-up or graph capture): on the card it is kept and raised to
+        every later batch; on the CPU the caller's fallback stands."""
+        if self.fail_on_device_error and self.failed is None:
+            self.failed = e
+
+    def _check_failed(self) -> None:
+        if self.failed is not None:
+            raise RuntimeError("the device route engine failed") \
+                from self.failed
+
+    def poll_rebuild(self) -> None:
+        """The one rebuild policy, called on the batch cadence: a small
+        first build runs inline; a big first build or a compaction trigger
+        runs double-buffered in the background."""
+        self._check_failed()
+        if self._building:
+            return
+        if self._built is None:
+            n = len(self.router.exact) + len(self.router.wildcards)
+            if n == 0:
+                return
+            if n <= 4096 or not self.maybe_background_rebuild():
+                self.rebuild()
+        else:
+            reason = self._compaction_reason()
+            if reason is not None and self.maybe_background_rebuild():
+                self._count_compaction(reason)
+
+    def maybe_background_rebuild(self, executor=None) -> bool:
+        """Kick a background rebuild when churn crossed the threshold (or
+        no snapshot exists). Returns True when one is running/queued after
+        the call. Requires a running loop; sync callers use rebuild()."""
+        if self._building:
+            return True
+        if self._built is not None \
+                and self._compaction_reason() is None:
+            return False
+        if self._built is None \
+                and not (self.router.exact or self.router.wildcards):
+            return False    # nothing to compile yet
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return False
+        self._building = True
+        self._journal = []
+        self._rebuild_task = guard_task(
+            loop.create_task(self._background_rebuild(executor)),
+            "device-rebuild", self.node.metrics)
+        return True
+
+    async def _background_rebuild(self, executor=None) -> None:
+        loop = asyncio.get_running_loop()
+        try:
+            capture = await self._capture_state_async()
+            result = await loop.run_in_executor(
+                executor, self._build_from_capture, capture)
+            if result is not None:
+                await loop.run_in_executor(executor, self._warm_compile,
+                                           result)
+            self._pending_swap = (result,)   # 1-tuple: result may be None
+            self._try_swap()
+        except Exception as e:
+            log.exception("background snapshot rebuild failed")
+            self._journal = None
+            self._building = False
+            self._pending_swap = None
+            self.node.metrics.inc("routing.device.rebuild_failed")
+            # on the CPU serving stays on the old snapshot + host deltas
+            self._fail(e)
+
+    def _warm_dispatch(self, b, tables, cursors, Wp: int, Bp: int,
+                       P: Optional[int]) -> None:
+        """One dispatch of class (Wp, Bp[, P]) over an all-pad window with
+        throwaway cursors, run to completion on the warm stream: it builds
+        the kernels at first use and sizes the allocator for the class.
+        Matches nothing, advances nothing. A shape-hash window on the card
+        is then captured as a CUDA graph for the serving dispatches. Its
+        kernel launches are recorded, not counted: they serve no traffic."""
+        with self._cuda_lock, D.recording_launches():
+            self._warm_dispatch_locked(b, tables, cursors, Wp, Bp, P)
+
+    def _warm_dispatch_locked(self, b, tables, cursors, Wp: int, Bp: int,
+                              P: Optional[int]) -> None:
+        dev = self.device
+        enc = torch.zeros((Wp, Bp, self.max_levels), dtype=torch.int32,
+                          device=dev)
+        z = torch.zeros((Wp, Bp), dtype=torch.int32, device=dev)
+        zb = torch.zeros((Wp, Bp), dtype=torch.bool, device=dev)
+        cur = torch.zeros_like(cursors)
+        kw = dict(fanout_cap=self.fanout_cap, slot_cap=self.slot_cap)
+        strat = STRATEGIES.get(self.broker.shared_strategy,
+                               STRATEGY_ROUND_ROBIN)
+        if b.backend == "shapes":
+            RE.route_window(tables, cur, enc, z, zb, z, strat,
+                            payload_cap=P, **kw)
+            if self._warm_stream is not None:
+                self._warm_stream.synchronize()
+                gr = self._capture(b, tables, cur, (enc, z, zb, z.clone()),
+                                   Wp, Bp, P, strat)
+                # a graph's first replay (its upload to the card) and the
+                # first pinned host blocks of a size are slow — 15.7 ms of
+                # dispatch for the first window one run served (PERF.md):
+                # paid here, not by a window that serves traffic,
+                # with as many pinned sets of the inputs and readback as
+                # serving keeps in flight (held together, so the host
+                # allocator caches that many)
+                self._replay(gr, [t.cpu().numpy() for t in gr.inputs], cur)
+                held = [self._pinned(t) for t in
+                        (*self._planes(gr.out.res, gr.out.compact),
+                         *gr.inputs)
+                        for _ in range(_PINNED_SETS)]
+                self._warm_stream.synchronize()
+                del held
+        elif P is not None:
+            RE.route_step_compact(tables, cur, enc[0], z[0], zb[0], z[0],
+                                  STRATEGY_ROUND_ROBIN,
+                                  frontier_cap=self.frontier_cap,
+                                  match_cap=self.match_cap, payload_cap=P,
+                                  **kw)
+        else:
+            RE.route_step(tables, cur, enc[0], z[0], zb[0], z[0],
+                          STRATEGY_ROUND_ROBIN,
+                          frontier_cap=self.frontier_cap,
+                          match_cap=self.match_cap, **kw)
+        if self._warm_stream is not None:
+            self._warm_stream.synchronize()
+
+    def _capture(self, b, tables, cursors, inputs, Wp: int, Bp: int,
+                 P: Optional[int], strat: int) -> _Graph:
+        """Capture the shape-hash window of class (Wp, Bp[, P]) over the
+        static `inputs` and `cursors` as a CUDA graph for the serving
+        dispatches. A failed capture raises."""
+        graph = torch.cuda.CUDAGraph()
+        # a stream of its own (a failed capture leaves its stream
+        # unusable), and the capture API rather than torch.cuda.graph,
+        # whose entry also synchronizes the card and empties the memory
+        # caches under the serving stream's feet
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with D.recording_launches() as launches, torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = RE.route_window(tables, cursors, *inputs, strat,
+                                      fanout_cap=self.fanout_cap,
+                                      slot_cap=self.slot_cap, payload_cap=P)
+            finally:
+                graph.capture_end()
+        gr = self._graphs[(b.sid, Wp, Bp, P, strat)] = _Graph(
+            graph, inputs, cursors, out, launches)
+        return gr
+
+    @staticmethod
+    def _replay(gr, arrays, cursors) -> None:
+        """One replay of a captured window over `arrays` (the window's
+        encoded topics, lens, '$' flags and message hashes, staged through
+        pinned memory), starting from `cursors`; the launches it makes are
+        counted."""
+        for dst, a in zip(gr.inputs, arrays):
+            dst.copy_(torch.from_numpy(a).pin_memory(), non_blocking=True)
+        gr.cursors.copy_(cursors)
+        gr.graph.replay()
+        for name, shape in gr.launches:
+            D.count_launch(name, shape)
+
+    @staticmethod
+    def _pinned(t: torch.Tensor) -> torch.Tensor:
+        """`t` on its way into pinned host memory (in stream order)."""
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+            t, non_blocking=True)
+
+    def _note_warm(self, b, Wp: int, Bp: int, P: Optional[int]) -> None:
+        """Class (Wp, Bp[, P]) of snapshot `b` has dispatched once. On the
+        card a shape-hash class is warm only once its graph is captured:
+        its eager window costs ~300 launches where the replay costs one."""
+        if b.backend == "shapes" and self._warm_stream is not None:
+            strat = STRATEGIES.get(self.broker.shared_strategy,
+                                   STRATEGY_ROUND_ROBIN)
+            if (b.sid, Wp, Bp, P, strat) not in self._graphs:
+                return
+        self._warm_classes.add(self._class_key(b.sid, Wp, Bp, P))
+
+    def _on(self, stream):
+        return torch.cuda.stream(stream) if stream is not None \
+            else contextlib.nullcontext()
+
+    def _std_classes(self, b) -> list:
+        """The shape-hash classes warmed ahead of traffic: every standard
+        (W, Bp) — and any oversized Bp the batcher asked for — with the
+        dense readback and with each payload class the chooser can pick
+        for it."""
+        out = []
+        dense = self._dense_msg_entries(b)
+        for Wp, Bp in self._STD_CLASSES + tuple(sorted(self._extra_classes)):
+            out.append((Wp, Bp, None))
+            out += [(Wp, Bp, m * Bp) for m in self._PAYLOAD_MULTS
+                    if m < dense]
+        return out
+
+    def _warm_compile(self, result) -> None:
+        """Warm the standard window classes for a fresh snapshot before it
+        swaps in, so neither the swap nor the first window at a class
+        stalls serving."""
+        b, tables, cursors = result
+        if b.backend == "shapes":
+            classes = self._std_classes(b)
+        else:       # the trie backend never fuses, nor warms ahead
+            classes = [(1, Bp, None) for W, Bp in self._STD_CLASSES
+                       if W == 1]
+        with self._on(self._warm_stream):
+            for Wp, Bp, P in classes:
+                self._warm_dispatch(b, tables, cursors, Wp, Bp, P)
+                if b.backend == "shapes":
+                    self._note_warm(b, Wp, Bp, P)
+
+    def _try_swap(self) -> None:
+        """Apply a finished background build if no dispatch is in flight
+        (handles pin the snapshot they were dispatched against)."""
+        if not self._building or self._pending_swap is None \
+                or self._outstanding > 0:
+            return
+        (result,) = self._pending_swap
+        journal = self._journal or ()
+        self._pending_swap = None
+        self._journal = None
+        self._building = False
+        self._apply_build(result, journal)
+
+    # ---- the serving path ----------------------------------------------
+    def device_shared_active(self) -> bool:
+        """Device picks serve every device-supported strategy."""
+        return self.broker.shared_strategy in STRATEGIES
+
+    def _host_shared_dispatch(self, f: str, gname: str, msg) -> bool:
+        """One group's host-side dispatch: the local strategy pick."""
+        broker = self.broker
+        g = broker.shared.get(f, {}).get(gname)
+        return bool(g and g.members
+                    and broker._shared_pick_deliver(gname, f, g, msg))
+
+    def prepare(self, msgs: list[Message], gate_cold: bool = True):
+        """Stage 1 (event loop): encode ONE micro-batch (window of 1)."""
+        return self.prepare_window([msgs], gate_cold=gate_cold)
+
+    def max_fuse(self) -> int:
+        """How many batches the serving path may fuse per dispatch right
+        now: 1 until the CURRENT snapshot's fused window class is warm,
+        then the largest class. Trie-backend snapshots never fuse."""
+        W, Bp = self._STD_CLASSES[-1]
+        if self._built is None or self._built.backend != "shapes" \
+                or (self._built.sid, W, Bp) not in self._warm_classes:
+            return 1
+        return W
+
+    def _batch_class(self, n_msgs: int) -> int:
+        """Quantize a batch size onto the standard Bp ladder, or the next
+        pow2 beyond it."""
+        for _w, Bp in self._STD_CLASSES:
+            if _w == 1 and n_msgs <= Bp:
+                return Bp
+        return _next_pow2(n_msgs)
+
+    def batch_class_warm(self, n_msgs: int) -> bool:
+        """True when a single batch of n_msgs would dispatch into an
+        already-warm (1, Bp) class for the CURRENT snapshot — the batcher
+        routes host-side (and kicks the background warm) otherwise."""
+        self._check_failed()
+        if self._built is None:
+            return False
+        if self._built.backend != "shapes":
+            # the trie backend has no background warm of every class;
+            # its first use warms in-path, as in the reference
+            return True
+        Bp = self._batch_class(n_msgs)
+        if (self._built.sid, 1, Bp) in self._warm_classes:
+            return True
+        if Bp > self._STD_CLASSES[-1][1]:
+            # oversized batch class (max_publish_batch > 1024): queue it
+            # for the background warm, or it would be locked out forever
+            self._extra_classes.add((1, Bp))
+        return False
+
+    def _dense_msg_entries(self, b=None) -> int:
+        """Dense readback cost per message lane in int32-equivalent
+        entries: match plane + fan rows/opts + shared slot/row/opts."""
+        b = b or self._built
+        return b.match_width + 2 * self.fanout_cap + 3 * self.slot_cap
+
+    def _choose_payload_cap(self, Bp: int) -> Optional[int]:
+        """Payload class for a (·, Bp) dispatch, or None for dense: a
+        peak-biased EWMA of recent per-window-row entry totals with 2x
+        headroom, quantized onto the _PAYLOAD_MULTS * Bp ladder. A window
+        that still outgrows its class reads the dense planes of the SAME
+        dispatch (row_overflow), so an undershoot costs bytes, never
+        correctness."""
+        if self._built is None:
+            return None
+        dense = self._dense_msg_entries()
+        mults = [m for m in self._PAYLOAD_MULTS if m < dense]
+        if not mults:
+            return None         # tiny caps: nothing to compact away
+        ew = self._pay_ewma.get(Bp)
+        if ew is None:
+            # no traffic measured at this class yet: start mid-ladder
+            return mults[min(1, len(mults) - 1)] * Bp
+        for m in mults:
+            if m * Bp >= 2.0 * ew:
+                return m * Bp
+        return None             # sustained heavy fan-out: dense wins
+
+    def _note_payload(self, Bp: int, totals: np.ndarray) -> None:
+        """Feed the EWMA from one window's actual per-row entry totals:
+        adopt growth immediately, decay shrinkage slowly."""
+        s = float(totals.max()) if totals.size else 0.0
+        ew = self._pay_ewma.get(Bp)
+        self._pay_ewma[Bp] = s if (ew is None or s > ew) \
+            else 0.8 * ew + 0.2 * s
+
+    @staticmethod
+    def _class_key(sid, Wp, Bp, P=None) -> tuple:
+        """The one warm-class key layout: (snapshot, W, Bp[, cP])."""
+        return (sid, Wp, Bp) + ((f"c{P}",) if P is not None else ())
+
+    def _gate_compact(self, Wp: int, Bp: int,
+                      gate_cold: bool) -> Optional[int]:
+        """Choose + warm-gate the payload class for one dispatch. Returns
+        the class, or None to read back dense (unprofitable, or the class
+        is cold on the serving path: it dispatches dense while the
+        background warm brings the class online)."""
+        pcap = self._choose_payload_cap(Bp)
+        if pcap is None:
+            return None
+        if gate_cold and self._class_key(self._built.sid, Wp, Bp, pcap) \
+                not in self._warm_classes:
+            self._wanted_compact.add((Wp, Bp, pcap))
+            self._kick_class_warm()
+            self.node.metrics.inc("routing.device.cold_compact_class")
+            return None
+        return pcap
+
+    def _kick_class_warm(self) -> None:
+        """Warm every standard (W, Bp) class and every demand-registered
+        compact class the CURRENT snapshot is missing, off the serving
+        path (an executor thread on the warm stream)."""
+        if self._fuse_warm_task is not None or self._built is None:
+            return
+        b = self._built
+        wanted = set(self._wanted_compact)
+        if b.backend == "shapes":
+            wanted.update(self._std_classes(b))
+        missing = [e for e in sorted(wanted, key=lambda e: (e[0], e[1],
+                                                            e[2] or 0))
+                   if self._class_key(b.sid, *e) not in self._warm_classes]
+        if not missing:
+            return
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return
+        tables, cursors = self._tables, self._cursors
+
+        def warm():
+            with self._on(self._warm_stream):
+                for Wp, Bp, P in missing:
+                    if self._built is not b:
+                        return      # a newer snapshot swapped in
+                    self._warm_dispatch(b, tables, cursors, Wp, Bp, P)
+                    self._note_warm(b, Wp, Bp, P)
+
+        async def run():
+            try:
+                await loop.run_in_executor(None, warm)
+            except Exception as e:  # noqa: BLE001 — on the CPU the
+                # classes stay cold (host-routed) until the next attempt
+                log.exception("class warm failed")
+                self._fail(e)
+            finally:
+                self._fuse_warm_task = None
+
+        self._fuse_warm_task = guard_task(loop.create_task(run()),
+                                          "device-class-warm",
+                                          self.node.metrics)
+
+    def prepare_window(self, lives: list[list[Message]],
+                       gate_cold: bool = True):
+        """Stage 1 (event loop): encode 1..W micro-batches as one fused
+        dispatch window. `gate_cold=False` (sync callers) lets a cold
+        compact class run in-path instead of reading back dense.
+
+        Returns a _Handle, or None when the engine has no snapshot to
+        serve (the caller routes host-side; a background rebuild may be
+        warming up)."""
+        self.poll_rebuild()
+        if self._built is None or not lives:
+            return None
+        t0 = time.perf_counter()
+        self._kick_class_warm()
+        b = self._built
+        subs = []
+        encs = []
+        Bp = 64
+        for msgs in lives:
+            enc, lens, dollar, too_long = encode_topics_str(
+                self.intern, [m.topic for m in msgs], self.max_levels)
+            subs.append((msgs, too_long))
+            encs.append((enc, lens, dollar))
+            Bp = max(Bp, self._batch_class(len(msgs)))
+        if len(lives) > 1:
+            # fused windows run ONLY in the warmed (W, Bp) top standard
+            # class: any other pair would start cold on the serving path
+            Bp = max(Bp, self._STD_CLASSES[-1][1])
+        for Wp in self._W_CLASSES:
+            if len(lives) <= Wp:
+                break
+        else:
+            Wp = _next_pow2(len(lives))
+        enc4 = np.full((Wp, Bp, self.max_levels), I.PAD, np.int32)
+        len4 = np.zeros((Wp, Bp), np.int32)
+        dol4 = np.zeros((Wp, Bp), bool)
+        for k, (enc, lens, dollar) in enumerate(encs):
+            n = enc.shape[0]
+            enc4[k, :n] = enc
+            len4[k, :n] = lens
+            dol4[k, :n] = dollar
+        h = _Handle(subs, b, self.device_shared_active())
+        h.enc = (enc4, len4, dol4)
+        if b.backend == "shapes" or Wp == 1:
+            # CSR readback class for this dispatch (None = dense). The
+            # excluded case is the rare multi-batch trie window, which
+            # dispatches sequential steps and stacks them.
+            h.pcap = self._gate_compact(Wp, Bp, gate_cold)
+        self._outstanding += 1
+        self.node.metrics.inc("routing.device.windows")
+        self.node.metrics.inc("routing.device.window_subs", len(lives))
+        h.cost_s = self._stage("prepare", t0)
+        self.node.metrics.inc("routing.device.messages",
+                              sum(map(len, lives)))
+        return h
+
+    def _stage(self, name: str, t0: float) -> float:
+        """Seconds since t0, also counted (in microseconds) under
+        routing.device.<name>_us: where a window's host time goes."""
+        dt = time.perf_counter() - t0
+        self.node.metrics.inc(f"routing.device.{name}_us", int(dt * 1e6))
+        return dt
+
+    def _msg_hashes(self, msgs, strat_id) -> list[int]:
+        if strat_id == STRATEGY_HASH_TOPIC:
+            return [zlib.crc32(m.topic.encode()) & 0x7FFFFFFF
+                    for m in msgs]
+        if strat_id == STRATEGY_HASH_CLIENT:
+            return [zlib.crc32((m.from_ or "").encode()) & 0x7FFFFFFF
+                    for m in msgs]
+        if strat_id == STRATEGY_ROUND_ROBIN:
+            return [0] * len(msgs)
+        return [(id(m) >> 4) & 0x7FFFFFFF for m in msgs]  # random
+
+    def _h2d(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def dispatch(self, h) -> None:
+        """Stage 2: launch the route window on the card (on the loop; on
+        an executor thread when the device is the CPU).
+        The table/cursor pair is pinned once for the whole dispatch: a
+        snapshot swap racing it can neither mix old and new tables nor
+        have its cursors clobbered by a late write (the identity guard)."""
+        with self._cuda_lock, self._on(self._stream):
+            t0 = time.perf_counter()
+            if self._stream is not None:
+                h.ev_start = torch.cuda.Event(enable_timing=True)
+                h.ev_start.record(self._stream)
+            tables, cursors = self._tables, self._cursors
+            enc4, len4, dol4 = h.enc
+            Wp, Bp = enc4.shape[0], enc4.shape[1]
+            strat = STRATEGIES.get(self.broker.shared_strategy,
+                                   STRATEGY_ROUND_ROBIN)
+            msg_hash = np.zeros((Wp, Bp), np.int32)
+            for k, (msgs, _t) in enumerate(h.subs):
+                msg_hash[k, :len(msgs)] = self._msg_hashes(msgs, strat)
+            h.msg_hash, h.cursors0 = msg_hash, cursors
+            P = h.pcap
+            kw = dict(fanout_cap=self.fanout_cap, slot_cap=self.slot_cap)
+            tkw = dict(frontier_cap=self.frontier_cap,
+                       match_cap=self.match_cap, **kw)
+            gr = self._graphs.get((h.built.sid, Wp, Bp, P, strat))
+            if gr is not None:
+                # the captured window: this window's inputs into its
+                # static tensors, and one replay
+                self._replay(gr, (enc4, len4, dol4, msg_hash), cursors)
+                res, cp = gr.out.res, gr.out.compact
+                h.graphed = True
+            elif h.built.backend == "shapes":
+                topics, lens, dollar, mh = (self._h2d(a) for a in
+                                            (enc4, len4, dol4, msg_hash))
+                out = RE.route_window(tables, cursors, topics, lens, dollar,
+                                      mh, strat, payload_cap=P, **kw)
+                res, cp = out.res, out.compact
+            elif P is not None:
+                topics, lens, dollar, mh = (self._h2d(a) for a in
+                                            (enc4, len4, dol4, msg_hash))
+                out = RE.route_step_compact(tables, cursors, topics[0],
+                                            lens[0], dollar[0], mh[0],
+                                            strat, payload_cap=P, **tkw)
+                res, cp = out.res, out.compact
+            else:
+                # plain trie window: sequential steps, stacked
+                topics, lens, dollar, mh = (self._h2d(a) for a in
+                                            (enc4, len4, dol4, msg_hash))
+                outs, cur = [], cursors
+                for k in range(Wp):
+                    r = RE.route_step(tables, cur, topics[k], lens[k],
+                                      dollar[k], mh[k], strat, **tkw)
+                    cur = r.new_cursors
+                    outs.append(r)
+                res = RE.RouteResult(*[torch.stack(x) for x in zip(*outs)])
+                cp = None
+            if self._tables is tables:   # no swap raced this dispatch
+                # a copy: a graph's outputs are rewritten by its next replay
+                self._cursors = res.new_cursors[-1].clone()
+            self._note_warm(h.built, Wp, Bp, P)
+            h.res, h.cres = res, cp
+            if self._stream is not None:
+                # start every plane materialize will read on its way into
+                # pinned host memory; materialize waits on the event
+                # behind them only (a graph's outputs must be copied
+                # before its next replay rewrites them)
+                h.host = [self._pinned(t) for t in self._planes(h.res, h.cres)]
+                h.event = torch.cuda.Event(enable_timing=True)
+                h.event.record(self._stream)
+            h.launch_s = self._stage("dispatch", t0)
+            h.cost_s += h.launch_s
+
+    @staticmethod
+    def _planes(res, cp) -> list:
+        """The planes a window's readback takes: the CSR planes plus the
+        overflow/occur planes, or the dense planes without a payload
+        class."""
+        if cp is not None:
+            return [cp.offsets, cp.counts3, cp.row_overflow, cp.payload,
+                    res.overflow, res.occur]
+        return [res.matches, res.rows, res.opts, res.shared_sids,
+                res.shared_rows, res.shared_opts, res.overflow, res.occur]
+
+    def _route_again(self, h):
+        """A replayed window's dense planes: the graph's outputs may hold a
+        later replay by now, so the window runs again eagerly from the
+        cursors it started with — the same planes, bit for bit."""
+        with self._cuda_lock, self._on(self._stream):
+            enc4, len4, dol4 = h.enc
+            ins = [self._h2d(a) for a in (enc4, len4, dol4, h.msg_hash)]
+            strat = STRATEGIES.get(self.broker.shared_strategy,
+                                   STRATEGY_ROUND_ROBIN)
+            return RE.route_window(self._tables, h.cursors0, *ins, strat,
+                                   fanout_cap=self.fanout_cap,
+                                   slot_cap=self.slot_cap).res
+
+    def _read(self, planes) -> list:
+        """Synchronous readback, ordered behind the dispatch stream."""
+        with self._cuda_lock, self._on(self._stream):
+            return [t.cpu().numpy() for t in planes]
+
+    def materialize(self, h) -> None:
+        """Stage 3 (executor thread): device→host readback. Every field is
+        [W, ...] (window-stacked). With a payload class the transfer is
+        the CSR planes plus the small overflow/occur planes; a window
+        whose entries outgrew its class reads the dense planes of the SAME
+        dispatch instead (a graph replay's are recomputed, _route_again)."""
+        t0 = time.perf_counter()
+        try:
+            if h.host is not None:
+                h.event.synchronize()
+                planes = [t.numpy() for t in h.host]
+            else:
+                planes = self._read(self._planes(h.res, h.cres))
+            if h.cres is not None:
+                off, c3, rovf, pay, overflow, occur = planes
+                # the EWMA learns from the offsets either way — on the
+                # overflow fallback the totals are what resizes the class
+                self._note_payload(off.shape[1] - 1, off[:, -1])
+                if not rovf.any():
+                    h.np_res = _CsrRes(off, c3, pay, overflow, occur)
+                    return
+                self.node.metrics.inc("routing.device.compact_overflow")
+                res = self._route_again(h) if h.graphed else h.res
+                planes = self._read([res.matches, res.rows, res.opts,
+                                     res.shared_sids, res.shared_rows,
+                                     res.shared_opts]) + [overflow, occur]
+            h.np_res = tuple(planes)
+        finally:
+            if h.event is not None:
+                h.event.synchronize()
+                # the stream's span from the first launch to the last copy;
+                # the kernels run while the host still launches, so only
+                # the part past the launches adds to the window's cost
+                card_s = h.ev_start.elapsed_time(h.event) / 1e3
+                self.node.metrics.inc("routing.device.card_us",
+                                      int(card_s * 1e6))
+                h.cost_s += max(0.0, card_s - h.launch_s)
+            else:       # on the CPU the readback is the host's work
+                h.cost_s += self._stage("materialize", t0)
+
+    def finish_sub(self, h, k: int) -> list[int]:
+        """Stage 4 (event loop): consume sub-batch k of the window into
+        deliveries and release one handle reference.
+
+        The clean common case — no delta/dirty filters, no shared
+        involvement for the message — is consumed by ONE vectorized
+        pre-pass over the whole sub-batch (_consume_batch_fast); the rest
+        walk _consume_one."""
+        t0 = time.perf_counter()
+        try:
+            nr = h.np_res
+            msgs, too_long = h.subs[k]
+            b = h.built
+            csr = isinstance(nr, _CsrRes)
+            if csr:
+                overflow_k, occur_k = nr.overflow[k], nr.occur[k]
+            else:
+                (matches, rows, opts, shared_sids, shared_rows,
+                 shared_opts, overflow, occur) = nr
+                overflow_k, occur_k = overflow[k], occur[k]
+            pending = bool(self._delta_filter)
+            if h.dev_shared and b.n_slots:
+                self._writeback_cursors(occur_k, b)
+            metrics = self.node.metrics
+            broker = self.broker
+            if csr:
+                fast = self._consume_batch_fast_csr(
+                    msgs, nr.off[k], nr.c3[k], nr.pay[k], too_long,
+                    overflow_k, h.dev_shared, b, pending)
+            else:
+                fast = self._consume_batch_fast(
+                    msgs, matches[k], rows[k], opts[k], shared_sids[k],
+                    too_long, overflow_k, h.dev_shared, b, pending)
+            counts: list[int] = []
+            pay = None
+            for i, msg in enumerate(msgs):
+                if fast[i] is not None:
+                    counts.append(fast[i])
+                    continue
+                if too_long[i] or overflow_k[i]:
+                    metrics.inc("routing.device.host_fallback")
+                    counts.append(broker._route(
+                        msg, self.router.match(msg.topic)))
+                    continue
+                if csr:
+                    # the message's valid entries of every plane, in order
+                    # (the layout ops/compact.csr_slices decodes), sliced
+                    # from one Python list of the row: the walk below then
+                    # reads Python ints, not numpy scalars
+                    if pay is None:
+                        off_l = nr.off[k].tolist()
+                        c3_l = nr.c3[k].tolist()
+                        pay = nr.pay[k][:off_l[-1]].tolist()
+                    o = off_l[i]
+                    cm, cf, cs = c3_l[i]
+                    a, bb = o + cm, o + cm + cf
+                    c, d = bb + cf, bb + cf + cs
+                    row6 = (pay[o:a], pay[a:bb], pay[bb:c], pay[c:d],
+                            pay[d:d + cs], pay[d + cs:d + 2 * cs])
+                else:
+                    row6 = tuple(x[k][i].tolist() for x in (
+                        matches, rows, opts, shared_sids, shared_rows,
+                        shared_opts))
+                counts.append(self._consume_one(msg, *row6, h.dev_shared,
+                                                b))
+            metrics.inc("routing.device.batches")
+            return counts
+        finally:
+            h.cost_s += self._stage("consume", t0)
+            self._release_one(h)
+
+    def _consume_batch_fast(self, msgs, m_k, r_k, o_k, ss_k, too_long,
+                            overflow_k, dev_shared: bool, b,
+                            pending: bool = False):
+        """Vectorized consume for provably-clean messages. Returns a list
+        with per-message delivery counts, or None where the slow path
+        must run. Clean requires, globally: no delta filters (`pending`),
+        no post-snapshot shared groups; per message: no too-long/overflow,
+        no dirty/rich matched filter, no shared involvement."""
+        if pending or self.new_slots_by_filter:
+            return [None] * len(msgs)
+        B = len(msgs)
+        mask = m_k[:B] >= 0
+        mi = np.nonzero(mask)[0]
+        fids = m_k[:B][mask]
+        shared_any = (ss_k[:B] >= 0).any(axis=1)
+
+        def fetch(row_msg, col):
+            return r_k[row_msg, col], o_k[row_msg, col]
+
+        return self._fast_deliver(msgs, mi, fids, too_long, overflow_k,
+                                  shared_any, fetch, dev_shared, b)
+
+    def _consume_batch_fast_csr(self, msgs, off_k, c3_k, pay_k, too_long,
+                                overflow_k, dev_shared: bool, b,
+                                pending: bool = False):
+        """_consume_batch_fast over one window row's CSR planes: same
+        clean-message proof and the same vectorized delivery walk, with
+        the 2-D plane gathers replaced by flat payload gathers at each
+        message's family base offsets."""
+        if pending or self.new_slots_by_filter:
+            return [None] * len(msgs)
+        B = len(msgs)
+        cm = c3_k[:B, 0].astype(np.int64)
+        cf = c3_k[:B, 1].astype(np.int64)
+        cs = c3_k[:B, 2]
+        base = off_k[:B].astype(np.int64)
+        total_m = int(cm.sum())
+        mi = np.repeat(np.arange(B), cm)
+        if total_m:
+            mcum = np.cumsum(cm) - cm
+            fids = pay_k[np.arange(total_m) - np.repeat(mcum, cm)
+                         + np.repeat(base, cm)]
+        else:
+            fids = np.zeros(0, np.int32)
+        shared_any = cs[:B] > 0
+        fbase = base + cm           # fan rows start, per message
+        obase = base + cm + cf      # fan opts start, per message
+
+        def fetch(row_msg, col):
+            return (pay_k[fbase[row_msg] + col],
+                    pay_k[obase[row_msg] + col])
+
+        return self._fast_deliver(msgs, mi, fids, too_long, overflow_k,
+                                  shared_any, fetch, dev_shared, b)
+
+    @staticmethod
+    def _attribute_rows(mi_f, fids_f, seg, total: int):
+        """Within each message the fan-out rows are the concatenation of
+        per-filter CSR segments in match order. Returns (row_msg, col,
+        row_fid) — for every fan-out row, its message index, its column
+        within that message's fan-out, and the filter it came from."""
+        csum = np.cumsum(seg) - seg                # global exclusive
+        starts = np.flatnonzero(np.r_[True, mi_f[1:] != mi_f[:-1]])
+        base = np.repeat(csum[starts], np.diff(np.r_[starts,
+                                                     mi_f.size]))
+        within = csum - base                       # offset inside msg
+        row_msg = np.repeat(mi_f, seg)
+        ar = np.arange(total)
+        row_local = ar - np.repeat(csum, seg)
+        col = np.repeat(within, seg) + row_local
+        row_fid = np.repeat(fids_f, seg)
+        return row_msg, col, row_fid
+
+    def _fast_deliver(self, msgs, mi, fids, too_long, overflow_k,
+                      shared_any, fetch, dev_shared: bool, b):
+        """Shared tail of the vectorized fast consume (dense and CSR):
+        per-message clean proof, row attribution, and delivery. `mi`/
+        `fids` list every valid match (message index, filter id) in
+        match order; `fetch(row_msg, col)` gathers the (sid, packed
+        opts) of fan-out entry `col` within message `row_msg`."""
+        broker = self.broker
+        B = len(msgs)
+        hostside = self._hostside_mask(b)
+
+        slow = np.asarray(too_long[:B]) | (overflow_k[:B] != 0)
+        if fids.size:
+            np.logical_or.at(slow, mi, hostside[fids] | b.fid_shared[fids])
+        if dev_shared:
+            slow |= shared_any
+
+        out: list = [None] * B
+        fast_ok = ~slow
+        if not fast_ok.any():
+            return out
+        keep = fast_ok[mi]
+        mi_f, fids_f = mi[keep], fids[keep]
+        seg = b.seg_np[fids_f]
+        total = int(seg.sum())
+        counts = np.zeros(B, np.int64)
+        delivered = 0
+        if total:
+            row_msg, col, row_fid = self._attribute_rows(
+                mi_f, fids_f, seg, total)
+            sid, opt = fetch(row_msg, col)
+            valid = sid >= 0
+            fid_filter = b.fid_filter
+            deliver = broker._deliver
+            # the dict copy: _deliver plants it into the delivered copy's
+            # headers, and the OPT_TABLE entries are frozen
+            for bi, s, ob, fd in zip(row_msg[valid].tolist(),
+                                     sid[valid].tolist(),
+                                     opt[valid].tolist(),
+                                     row_fid[valid].tolist()):
+                if deliver(s, fid_filter[fd], msgs[bi],
+                           dict(OPT_TABLE[ob & 0x3F])):
+                    counts[bi] += 1
+                    delivered += 1
+        if delivered:
+            self.node.metrics.inc("messages.routed.device", delivered)
+        metrics = self.node.metrics
+        hooks = broker.hooks
+        for i in np.flatnonzero(fast_ok).tolist():
+            n = int(counts[i])
+            if n == 0 and not msgs[i].is_sys:
+                metrics.inc("messages.dropped")
+                metrics.inc("messages.dropped.no_subscribers")
+                hooks.run("message.dropped", (msgs[i], "no_subscribers"))
+            out[i] = n
+        return out
+
+    def finish(self, h) -> list[int]:
+        """Stage 4 for single-batch callers (route_batch): window of 1."""
+        return self.finish_sub(h, 0)
+
+    def _release_one(self, h) -> None:
+        """Drop one sub-batch reference; the handle releases at zero."""
+        if h is None or h.built is None:
+            return
+        h.refs -= 1
+        if h.refs <= 0:
+            h.built = None
+            self._outstanding -= 1
+            if self._building:
+                self._try_swap()
+
+    def abandon(self, h, error: Optional[BaseException] = None) -> None:
+        """Release a handle ENTIRELY (error path: on the CPU the caller
+        falls back to the host route for every remaining sub-batch; with
+        `error` every remaining sub-batch raises it). Idempotent."""
+        if h is not None and error is not None:
+            h.error = error
+        if h is not None and h.built is not None:
+            h.refs = 0
+            h.built = None
+            self._outstanding -= 1
+            if self._building:
+                self._try_swap()
+
+    def route_batch(self, msgs: list[Message]) -> Optional[list[int]]:
+        """Route+deliver a micro-batch through the device window,
+        synchronously (publish_batch / tests / warm-up). The pipelined
+        serving path drives the four stages separately via
+        PublishBatcher.
+
+        Returns per-message delivery counts, or None when the engine has
+        no tables to serve (caller falls back to the host path) — also
+        while a background build of the first snapshot runs: building it a
+        second time here would race that build's warm-up and swap."""
+        # a sync rebuild must honor the handle pin: swapping the tables
+        # while the batcher has a dispatch in flight would hand that
+        # dispatch the new tables under the old _Built metadata
+        if self._outstanding == 0 and not self._building \
+                and (self._built is None
+                     or self._compaction_reason() is not None):
+            if self._built is not None:
+                self._count_compaction(self._compaction_reason())
+            self.rebuild()
+        h = self.prepare(msgs, gate_cold=False)
+        if h is None:
+            return None
+        try:
+            self.dispatch(h)
+            self.materialize(h)
+        except Exception:
+            self.abandon(h)
+            raise
+        return self.finish(h)
+
+    def _writeback_cursors(self, occur: np.ndarray, b=None) -> None:
+        """Mirror device round-robin cursor advances into the host
+        SharedGroup state so the host path and the next rebuild stay fair."""
+        if self.broker.shared_strategy != "round_robin":
+            return
+        b = b or self._built
+        for slot in np.flatnonzero(occur[:b.n_slots]):
+            f, gname = b.slot_key[slot]
+            g = self.broker.shared.get(f, {}).get(gname)
+            if g is not None and g.members:
+                g.cursor = (g.cursor + int(occur[slot])) % len(g.members)
+
+    def _consume_one(self, msg, m_row, r_row, o_row, ss_row, sr_row, so_row,
+                     dev_shared: bool, b) -> int:
+        """Turn one message's route rows (lists of Python ints) into
+        deliveries; filters added since the snapshot match through the
+        host delta trie."""
+        broker = self.broker
+        metrics = self.node.metrics
+        n = 0
+        matched: list[str] = []
+        off = 0
+        for fid in m_row:
+            if fid < 0:
+                continue
+            f = b.fid_filter[fid]
+            seg = b.seg_len[fid]
+            matched.append(f)
+            # rich-ness is snapshot state: read it from the handle's
+            # pinned _Built, never from engine-level state
+            if f in self.dirty_filters or b.fid_rich[fid]:
+                n += broker.dispatch(f, msg)
+            else:
+                for k in range(off, off + seg):
+                    sid = r_row[k]
+                    if sid < 0:
+                        continue
+                    if broker._deliver(sid, f, msg,
+                                       dict(OPT_TABLE[o_row[k] & 0x3F])):
+                        n += 1
+                        metrics.inc("messages.routed.device")
+            off += seg
+
+        # filters added since the snapshot: the host delta trie
+        if self._delta_filter:
+            words = T.tokens(msg.topic)[:self.max_levels]
+            ids = self.intern.encode_topic(words)
+            dol = words[0].startswith("$") if words else False
+            host_hit = False
+            for dfid in self._delta_trie.match(ids, dol):
+                f = self._delta_filter.get(dfid)
+                if f is None:
+                    continue
+                matched.append(f)
+                n += broker.dispatch(f, msg)
+                host_hit = True
+            if host_hit:
+                metrics.inc("routing.device.host_delta")
+
+        # shared subscriptions
+        if dev_shared:
+            handled: set[tuple] = set()
+            for k, slot in enumerate(ss_row):
+                if slot < 0:
+                    continue
+                f, gname = b.slot_key[slot]
+                handled.add((f, gname))
+                if (f, gname) in self.dirty_slots:
+                    if self._host_shared_dispatch(f, gname, msg):
+                        n += 1
+                    continue
+                sid = sr_row[k]
+                if sid < 0:
+                    continue
+                if broker._deliver(
+                        sid, f, msg,
+                        dict(OPT_TABLE[so_row[k] & 0x3F], share=gname)):
+                    n += 1
+                    metrics.inc("messages.routed.device")
+                else:
+                    # re-dispatch ONLY when the picked member is actually
+                    # gone (in-flight churn window) or the ack protocol is
+                    # on — a nack from a live member with dispatch_ack off
+                    # is final, matching the host pick's semantics (for
+                    # sticky the re-pick is also where affinity re-homes,
+                    # emqx_shared_sub.erl:269-283)
+                    grp = broker.shared.get(f, {}).get(gname)
+                    gone = grp is None or sid not in grp.members
+                    if (gone or broker.shared_dispatch_ack) and \
+                            self._host_shared_dispatch(f, gname, msg):
+                        n += 1
+            for f in matched:
+                # groups created after the snapshot on matched filters
+                for gname in self.new_slots_by_filter.get(f, ()):
+                    if (f, gname) in handled:
+                        continue
+                    handled.add((f, gname))
+                    if self._host_shared_dispatch(f, gname, msg):
+                        n += 1
+                # delta filters' groups (host dispatch covers them all)
+                if f in self._delta_fid_of:
+                    for gname in list(broker.shared.get(f, {})):
+                        if (f, gname) not in handled:
+                            handled.add((f, gname))
+                            if self._host_shared_dispatch(f, gname, msg):
+                                n += 1
+        else:
+            n += broker._dispatch_shared(msg, matched)
+
+        if n == 0 and not msg.is_sys:
+            metrics.inc("messages.dropped")
+            metrics.inc("messages.dropped.no_subscribers")
+            broker.hooks.run("message.dropped", (msg, "no_subscribers"))
+        return n
+
+    def stats(self) -> dict:
+        b = self._built
+        return {
+            "built": b is not None,
+            "backend": b.backend if b else None,
+            "filters": len(b.fid_filter) if b else 0,
+            "shared_slots": b.n_slots if b else 0,
+            "churn": self.staleness(),
+            "dirty_filters": len(self.dirty_filters),
+            "delta_filters": len(self._delta_filter),
+            "building": self._building,
+            "outstanding": self._outstanding,
+            "payload_ewma": {k: round(v, 1)
+                             for k, v in self._pay_ewma.items()},
+            "device": str(self.device),
+            "messages.routed.device": self.node.metrics.val(
+                "messages.routed.device"),
+            "routing.device.batches": self.node.metrics.val(
+                "routing.device.batches"),
+            "routing.device.bypassed": self.node.metrics.val(
+                "routing.device.bypassed"),
+        }

@@ -1,0 +1,99 @@
+"""Broker node: the composition root of the port's serving path.
+
+A slim counterpart of ``emqx_tpu/broker/node.py`` (:77-88, :237-276,
+:449-460): hooks, metrics, stats, router, broker, connection manager, the
+device route engine and the publish batcher, wired as the reference
+wires them for a single-chip node. The layers the reference also builds
+here (telemetry, flight recorder, supervision, HBM ledger, latency
+observatory, overload governor, delivery lanes, the mesh server, apps,
+gateways and the management API) are not part of the port.
+
+Config keys read under ``broker.``, with the reference's names and
+defaults: ``batch_window_us`` (200), ``max_publish_batch`` (1024),
+``device_min_batch`` (4), ``device_fanout_cap`` (128),
+``device_slot_cap`` (16), ``shared_subscription_strategy``
+("round_robin"), ``shared_dispatch_ack_enabled`` (false),
+``dispatch_depth`` (2) and ``rebuild_threshold`` (256).
+"""
+
+from __future__ import annotations
+
+import asyncio
+from typing import Optional
+
+from emqx_tpu_torch.broker.batcher import (PublishBatcher,
+                                           resolve_dispatch_depth)
+from emqx_tpu_torch.broker.cm import ConnectionManager
+from emqx_tpu_torch.broker.config import Config
+from emqx_tpu_torch.broker.device_engine import (DeviceRouteEngine,
+                                                 resolve_rebuild_threshold)
+from emqx_tpu_torch.broker.hooks import Hooks
+from emqx_tpu_torch.broker.message import Message
+from emqx_tpu_torch.broker.metrics import Metrics, Stats
+from emqx_tpu_torch.broker.pubsub import Broker
+from emqx_tpu_torch.broker.router import Router
+from emqx_tpu_torch.device import resolve_device
+
+
+class Node:
+    """``device=None`` serves on ``cuda`` and raises without a card;
+    ``device="cpu"`` runs the plain PyTorch path on the host."""
+
+    def __init__(self, config: Optional[dict] = None, *, device=None,
+                 name: str = "emqx_tpu_torch@127.0.0.1"):
+        self.name = name
+        self.config = config if hasattr(config, "get_zone") \
+            else Config(config)
+        self.device = resolve_device(device)
+        self.hooks = Hooks()
+        self.metrics = Metrics()
+        self.stats = Stats()
+        perf = self.config.get("broker") or {}
+        rebuild_threshold = resolve_rebuild_threshold(
+            perf.get("rebuild_threshold"))
+        dispatch_depth = resolve_dispatch_depth(perf.get("dispatch_depth"))
+        self.router = Router(
+            use_device=True, device=self.device,
+            rebuild_threshold=rebuild_threshold,
+            device_min_batch=perf.get("device_min_batch", 4))
+        self.broker = Broker(
+            router=self.router, hooks=self.hooks, metrics=self.metrics,
+            shared_strategy=perf.get("shared_subscription_strategy",
+                                     "round_robin"),
+            shared_dispatch_ack=perf.get("shared_dispatch_ack_enabled",
+                                         False))
+        self.device_engine = DeviceRouteEngine(
+            self, device=self.device,
+            rebuild_threshold=rebuild_threshold,
+            fanout_cap=perf.get("device_fanout_cap", 128),
+            slot_cap=perf.get("device_slot_cap", 16))
+        self.publish_batcher = PublishBatcher(
+            self, self.device_engine,
+            window_us=perf.get("batch_window_us", 200),
+            max_batch=perf.get("max_publish_batch", 1024),
+            device_min_batch=perf.get("device_min_batch", 4),
+            dispatch_depth=dispatch_depth)
+        self.cm = ConnectionManager()
+        self.cm.broker = self.broker
+        self.stats.register_stats_fun(self.broker.stats_fun)
+        self.stats.register_stats_fun(self.cm.stats_fun)
+
+    # ---- the PUBLISH entries the channel calls (node.py:449-460) ----
+    async def publish_async(self, msg: Message) -> int:
+        """The channel PUBLISH entry: batched through the device route
+        pipeline."""
+        return await self.publish_batcher.submit(msg)
+
+    def publish_future(self, msg: Message) -> asyncio.Future:
+        """Queue a PUBLISH into the batch window without awaiting it; the
+        future resolves to its delivery count (the channel's QoS 1/2
+        path, which acks in receive order once counts resolve)."""
+        return self.publish_batcher.submit_future(msg)
+
+    def publish_nowait(self, msg: Message) -> bool:
+        """Fire-and-forget PUBLISH (QoS0 path): pipelines into the batch
+        window without serializing the caller's read loop. Returns False
+        when the backpressure bound is hit — the caller must `await
+        publish_async` instead, which both preserves per-publisher
+        ordering and stalls an overloading read loop."""
+        return self.publish_batcher.enqueue(msg)

@@ -42,16 +42,23 @@ def _upload(dev):
     return up
 
 
-def router_tables_from_numpy(trie, subs, device=None) -> RouterTables:
-    """Upload host-built trie and subscriber tables to ``device`` (``cuda``
-    by default). The node/edge counts become 0-d tensors."""
+def trie_from_numpy(trie, device=None) -> TrieTables:
+    """Upload host-built trie tables to ``device`` (``cuda`` by default).
+    The node/edge counts become 0-d tensors."""
     dev = resolve_device(device)
     if getattr(trie, "cover", None) is not None:
         raise ValueError("subscription covering is not supported by the port")
     up = _upload(dev)
-    t = TrieTables(*[up(getattr(trie, k)) for k in TrieTables._fields[:-1]])
-    sub = SubTable(*[up(getattr(subs, k)) for k in SubTable._fields])
-    return RouterTables(trie=t, subs=sub)
+    return TrieTables(*[up(getattr(trie, k))
+                        for k in TrieTables._fields[:-1]])
+
+
+def router_tables_from_numpy(trie, subs, device=None) -> RouterTables:
+    """Upload host-built trie and subscriber tables to ``device`` (``cuda``
+    by default)."""
+    dev = resolve_device(device)
+    sub = SubTable(*[_upload(dev)(getattr(subs, k)) for k in SubTable._fields])
+    return RouterTables(trie=trie_from_numpy(trie, dev), subs=sub)
 
 
 def stacked_from_numpy(stacked, device=None):

@@ -8,6 +8,9 @@ card cannot silently measure the CPU.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 
@@ -32,7 +35,17 @@ LAUNCHES: dict[str, int] = {"shape_match": 0, "prefix_sum": 0,
 LAUNCH_SHAPES: dict[str, dict[tuple, int]] = {"prefix_sum": {}}
 
 
+# per thread: the launches being recorded instead of counted
+# (recording_launches)
+_capture = threading.local()
+
+
 def count_launch(name: str, shape: tuple | None = None) -> None:
+    calls = getattr(_capture, "calls", None)
+    if calls is not None:
+        # captured into a graph (its replays count it) or a warm-up's
+        calls.append((name, shape))
+        return
     LAUNCHES[name] += 1
     if shape is not None:
         per = LAUNCH_SHAPES[name]
@@ -44,3 +57,19 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
     for per in LAUNCH_SHAPES.values():
         per.clear()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """On this thread, the wrappers' launches are recorded into the
+    yielded list instead of counted: within a CUDA graph capture, so each
+    replay of the graph can count the launches it makes (``count_launch``
+    per recorded call), and around launches that serve no traffic (a
+    warm-up). Nests: the outer recording resumes on exit."""
+    calls: list = []
+    outer = getattr(_capture, "calls", None)
+    _capture.calls = calls
+    try:
+        yield calls
+    finally:
+        _capture.calls = outer

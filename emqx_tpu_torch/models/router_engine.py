@@ -3,8 +3,9 @@
 Counterpart of ``emqx_tpu/models/router_engine.py``: the table and result
 types (``RouterTables`` :37, ``ExchangeAux`` :63, ``ExchangeResult`` :74),
 ``post_match`` (:87), the trie ``route_step`` (:106), ``route_step_shapes``
-(:119), ``route_window_full`` (:683) together with
-``route_window_full_compact`` (:281), and ``route_digest`` (:631).
+(:119), ``route_step_compact`` (:235), ``route_window_full`` (:683)
+together with ``route_window_full_compact`` (:281), and ``route_digest``
+(:631).
 
 ``route_window`` routes W sub-batches in one call. The match, the normal
 fan-out and the shared-slot expansion do not depend on the cursors, so
@@ -118,6 +119,26 @@ def route_step_shapes(tables: ShapeRouterTables, cursors, topics, lens,
     mr = match(tables.shapes, topics, lens, is_dollar)
     return post_match(tables.subs, mr, cursors, msg_hash, strategy,
                       fanout_cap=fanout_cap, slot_cap=slot_cap, scan=scan)
+
+
+def route_step_compact(tables: RouterTables, cursors, topics, lens,
+                       is_dollar, msg_hash, strategy: int, *,
+                       frontier_cap: int = 16, match_cap: int = 64,
+                       fanout_cap: int = 128, slot_cap: int = 16,
+                       payload_cap: int = 4096,
+                       scan=prefix_sum) -> CompactRouteResult:
+    """Trie-NFA route step with the fused CSR readback, window-shaped
+    (every plane gains a leading W = 1 axis). The NFA emits matches
+    densely packed, so the compaction skips the hole-closing stage."""
+    r = route_step(tables, cursors, topics, lens, is_dollar, msg_hash,
+                   strategy, frontier_cap=frontier_cap, match_cap=match_cap,
+                   fanout_cap=fanout_cap, slot_cap=slot_cap, scan=scan)
+    r = RouteResult(*[x[None] for x in r])
+    cp = compact_result(r.matches, r.rows, r.opts, r.fan_counts,
+                        r.shared_sids, r.shared_rows, r.shared_opts,
+                        payload_cap=payload_cap, match_holes=False,
+                        scan=scan)
+    return CompactRouteResult(res=r, compact=cp)
 
 
 def route_window(tables: ShapeRouterTables, cursors: torch.Tensor,

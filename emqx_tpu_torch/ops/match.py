@@ -202,20 +202,21 @@ def encode_topics(intern, topic_words: list, max_levels: int):
     too_long [B]) numpy arrays.
 
     Topics longer than max_levels are truncated and flagged via the returned
-    `too_long` mask — the caller must route those to the host fallback.
+    `too_long` mask — the caller must route those to the host fallback. The
+    ids of every topic go through one flat list and one scatter.
     """
     B = len(topic_words)
     L = max_levels
+    n = np.fromiter(map(len, topic_words), np.int64, B)
+    too_long = n > L
+    lens = np.minimum(n, L).astype(np.int32)
+    dollar = np.fromiter((ws[0][:1] == "$" if ws else False
+                          for ws in topic_words), bool, B)
+    look = intern.lookup
+    ids = [look(w) for ws in topic_words
+           for w in (ws if len(ws) <= L else ws[:L])]
     topics = np.full((B, L), PAD, np.int32)
-    lens = np.zeros(B, np.int32)
-    dollar = np.zeros(B, bool)
-    too_long = np.zeros(B, bool)
-    for i, ws in enumerate(topic_words):
-        n = len(ws)
-        if n > L:
-            too_long[i] = True
-            n = L
-        lens[i] = n
-        dollar[i] = ws[0].startswith("$") if ws else False
-        topics[i, :n] = [intern.lookup(w) for w in ws[:n]]
+    rows = np.repeat(np.arange(B), lens)
+    cols = np.arange(rows.size) - np.repeat(np.cumsum(lens) - lens, lens)
+    topics[rows, cols] = ids
     return topics, lens, dollar, too_long

@@ -11,7 +11,8 @@ NFA's emission and rank scans (``ops/match.py``) and the mesh exchange's
 segment and rank scans (``parallel/sharded.py``). The CUDA source
 (``csrc/prefix_sum.cu``) holds the design and its bound; this module holds
 the launch plan (``scan_plan``), so the CPU tests can check it, and the
-look-back status words, one buffer per (device, stream).
+look-back status words, one buffer per (device, stream) — or, for a launch
+captured into a CUDA graph, one of its own that the graph re-zeroes.
 
 Contract shared with the reference: int32 in, int32 out, exact while the
 running total stays below 2^24 (past it both wrap modulo 2^32, as
@@ -161,7 +162,16 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
         return y
     p = scan_plan(R, n, x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    st = _state(x.device, stream, p.state_words) if p.state_words else None
+    st = None
+    if p.state_words and torch.cuda.is_current_stream_capturing():
+        # captured into a CUDA graph, the launch replays with the epoch it
+        # was captured with: it gets status words of its own, zeroed by
+        # the graph itself before every replay
+        st = _State(torch.zeros(p.state_words, dtype=torch.int64,
+                                device=x.device))
+        st.epoch = 1
+    elif p.state_words:
+        st = _state(x.device, stream, p.state_words)
     err = _bind()[0](
         x.data_ptr(), y.data_ptr(), st and st.words.data_ptr(), R, n,
         _PATH_CODE[p.path], p.items, int(p.vec), p.grid, p.tiles,

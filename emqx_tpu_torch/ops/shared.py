@@ -57,17 +57,20 @@ def rank_and_occur(sids: torch.Tensor, n_slots: int, *, scan=prefix_sum):
     is_end = torch.cat([change, one])
     pos = torch.arange(n, dtype=torch.int32, device=dev)
     run_id = scan(is_start.to(torch.int32)) - 1
-    starts = torch.zeros(n, dtype=torch.int32, device=dev)
-    starts[run_id[is_start].long()] = pos[is_start]
+    # scatters through a spare last slot instead of boolean-mask indexing:
+    # a mask index sizes its result on the host (a device sync per call)
+    starts = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    starts.scatter_(0, torch.where(is_start, run_id, n).long(), pos)
     rank_sorted = pos - starts[run_id.long()]
     rank = torch.zeros(n, dtype=torch.int32, device=dev)
     rank[order] = rank_sorted
     rank = torch.where(flat >= 0, rank, 0)
     # occur: at each run END the rank is (count-1); slots are unique there
-    occur = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+    occur = torch.zeros(n_slots + 1, dtype=torch.int32, device=dev)
     last = is_end & (sorted_sids >= 0) & (sorted_sids < n_slots)
-    occur[sorted_sids[last].long()] = rank_sorted[last] + 1
-    return rank.reshape(B, K), occur
+    occur.scatter_(0, torch.where(last, sorted_sids, n_slots).long(),
+                   rank_sorted + 1)
+    return rank.reshape(B, K), occur[:n_slots]
 
 
 def hash_base(msg_hash: torch.Tensor, safe: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,9 @@ flat arrays in one vectorized pass per level, producing
   - per-node terminal filter id
 
 which ``ops/match.match_batch`` walks batched over topics. Numpy only; the
-build output equals the original's array for array. Subscription covering
+build output equals the original's array for array. ``HostTrie`` (:206 of
+the original) is the dynamic dict trie the host router and the engine's
+post-snapshot delta filters match through. Subscription covering
 is not ported: ``cover`` stays ``None`` and ``convert`` refuses cover state.
 """
 
@@ -200,3 +202,87 @@ def _assemble(node_parent, node_word, node_filter, num_nodes, num_filters,
         plus_child=plus_child, hash_child=hash_child, node_filter=nf,
         num_nodes=np.int32(num_nodes), num_edges=np.int32(num_edges),
     )
+
+
+
+
+class HostTrie:
+    """Dynamic dict-based trie over interned word ids.
+
+    Role: (a) accumulator for subscribe/unsubscribe deltas between columnar
+    rebuilds, (b) CPU fallback matcher for topics that overflow the device
+    NFA's static frontier/match/level capacities. Same match semantics as the
+    device NFA and the reference (emqx_trie.erl do_match + root-'$' rule).
+    """
+
+    __slots__ = ("children", "plus", "hash", "filter_id")
+
+    def __init__(self):
+        self.children: dict[int, HostTrie] = {}
+        self.plus: Optional[HostTrie] = None
+        self.hash: Optional[HostTrie] = None
+        self.filter_id: int = -1
+
+    def insert(self, word_ids: list[int], filter_id: int) -> None:
+        node = self
+        for w in word_ids:
+            if w == PLUS:
+                node.plus = node.plus or HostTrie()
+                node = node.plus
+            elif w == HASH:
+                node.hash = node.hash or HostTrie()
+                node = node.hash
+            else:
+                nxt = node.children.get(w)
+                if nxt is None:
+                    nxt = node.children[w] = HostTrie()
+                node = nxt
+        node.filter_id = filter_id
+
+    def delete(self, word_ids: list[int]) -> None:
+        path = [(None, self)]
+        node = self
+        for w in word_ids:
+            nxt = (node.plus if w == PLUS else
+                   node.hash if w == HASH else node.children.get(w))
+            if nxt is None:
+                return
+            path.append((w, nxt))
+            node = nxt
+        node.filter_id = -1
+        # prune empty tails
+        for i in range(len(path) - 1, 0, -1):
+            w, n = path[i]
+            if n.filter_id == -1 and not n.children and n.plus is None and n.hash is None:
+                pnode = path[i - 1][1]
+                if w == PLUS:
+                    pnode.plus = None
+                elif w == HASH:
+                    pnode.hash = None
+                else:
+                    pnode.children.pop(w, None)
+            else:
+                break
+
+    def match(self, word_ids: list[int], is_dollar: bool = False) -> list[int]:
+        """Matching filter ids for a (non-wildcard) topic."""
+        out: list[int] = []
+        self._match(word_ids, 0, is_dollar, out)
+        return out
+
+    def _match(self, ws: list[int], i: int, dollar_root: bool, out: list[int]) -> None:
+        skip_wild = dollar_root and i == 0
+        if not skip_wild and self.hash is not None and self.hash.filter_id >= 0:
+            out.append(self.hash.filter_id)
+        if i == len(ws):
+            if self.filter_id >= 0:
+                out.append(self.filter_id)
+            return
+        if not skip_wild and self.plus is not None:
+            self.plus._match(ws, i + 1, dollar_root, out)
+        nxt = self.children.get(ws[i])
+        if nxt is not None:
+            nxt._match(ws, i + 1, dollar_root, out)
+
+    def is_empty(self) -> bool:
+        return self.filter_id < 0 and not self.children and self.plus is None and self.hash is None

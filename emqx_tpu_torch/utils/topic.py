@@ -2,7 +2,8 @@
 
 A copy of the parts of ``emqx_tpu/utils/topic.py`` the port needs (the
 port imports nothing from ``emqx_tpu``). Pure functions; ``match`` is the
-host oracle and the host fallback of ``engine.RouteEngine``.
+host oracle and the host fallback of ``engine.RouteEngine``; ``levels``,
+``prepend`` and ``feed_var`` serve the broker channel.
 
 Semantics (emqx_topic.erl): levels split on ``/`` and empty levels are
 real; ``+`` matches exactly one level, ``#`` the remaining levels
@@ -123,3 +124,25 @@ def parse(topic_filter: str, options: Optional[dict] = None) -> tuple[str, dict]
             raise TopicError("invalid_topic_filter", topic_filter)
         return parse(filt, {**options, "share": group})
     return topic_filter, options
+
+
+def levels(topic: str) -> int:
+    return len(tokens(topic))
+
+
+def join(ws: Iterable[str]) -> str:
+    return "/".join(ws)
+
+
+def prepend(prefix: Optional[str], topic: str) -> str:
+    """Prepend a mountpoint prefix, ensuring exactly one '/' between parts."""
+    if not prefix:
+        return topic
+    if prefix.endswith("/"):
+        return prefix + topic
+    return prefix + "/" + topic
+
+
+def feed_var(var: str, val: str, topic: str) -> str:
+    """Replace each whole level equal to `var` (e.g. '%c') with `val`."""
+    return join(val if w == var else w for w in tokens(topic))

@@ -107,6 +107,33 @@ def test_prefix_sum_two_streams(cuda):
         assert torch.equal(outs[k], prefix_sum_ref(xs[k]))
 
 
+def test_prefix_sum_in_cuda_graph(cuda):
+    """Long rows (look-back status words) captured into a CUDA graph and
+    replayed back to back with new inputs: each replay exact, and each
+    replay counts its launches through the recording."""
+    from emqx_tpu_torch.device import count_launch, recording_launches
+    xs = [torch.randint(0, 3, (8, 131072), device=cuda, dtype=torch.int32)
+          for _ in range(4)]
+    static = xs[0].clone()
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    graph = torch.cuda.CUDAGraph()
+    with recording_launches() as calls, torch.cuda.stream(stream):
+        graph.capture_begin()
+        out = prefix_sum(static)
+        graph.capture_end()
+    assert calls == [("prefix_sum", (8, 131072))]
+    before = LAUNCHES["prefix_sum"]
+    for x in xs:
+        static.copy_(x)
+        graph.replay()
+        for name, shape in calls:
+            count_launch(name, shape)
+        torch.cuda.synchronize()
+        assert torch.equal(out, prefix_sum_ref(x))
+    assert LAUNCHES["prefix_sum"] == before + len(xs)
+
+
 def _pattern_tables(dev, seed, n_filters=3000, n_topics=5000):
     rng = np.random.default_rng(seed)
     _i, words, flens, t, tl, dol = pattern_population(rng, n_filters,

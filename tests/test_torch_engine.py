@@ -1,0 +1,252 @@
+"""Port vs JAX reference: DeviceRouteEngine's window protocol.
+
+Twin engines — a JAX ``Node(config, use_device=True)`` with the reuse and
+robustness layers switched off (no dedup or match cache, no delta overlay,
+no covering, no supervision, ledger, tracing, latency observatory or
+overload governor, inline delivery, per-packet ingress, CSR readback on)
+and the port's ``Node(device="cpu")`` — get the same sessions and the same
+~500 subscriptions (plain and ``$share``) through ``broker.subscribe``,
+then the same message windows through ``prepare_window`` / ``dispatch``
+/ ``materialize`` / ``finish_sub``. Required exactly equal, under each of
+the five shared strategies and on both backends (shape-hash, and the trie
+forced by more distinct shapes than ``shape_cap``):
+
+- every session's delivery list (filter, topic, message, subopts), shared
+  picks included;
+- the device cursors and the host groups' cursors after every window;
+- the per-message delivery counts;
+
+through subscribe/unsubscribe churn that dirties filters and slots, a
+group added to a built filter, a filter added past the snapshot (the host
+delta ``HostTrie`` route) and an explicit ``rebuild()``. At dispatch
+depth 2 the port splits each window of several batches into two windows
+and dispatches both before it reads either back (two in flight, as the
+batcher's settle ring runs them); windows alternate between the dense and
+the CSR readback.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from emqx_tpu.broker.message import make as jmake
+from emqx_tpu.broker.node import Node as JNode
+from emqx_tpu_torch.broker.node import Node as TNode
+from tests.test_trie_match import rand_filter, rand_topic
+
+torch.set_num_threads(1)
+
+STRATEGIES = ("round_robin", "random", "hash_topic", "hash_clientid",
+              "sticky")
+N_SESSIONS = 40
+
+# the reference path this slice ports: every optional layer off
+JAX_BROKER = {
+    "topic_dedup": False, "match_cache_size": 0, "delta_overlay": False,
+    "subscription_covering": False, "supervise": False,
+    "hbm_ledger": False, "trace": False, "latency_observatory": False,
+    "overload": False, "deliver_lanes": 0, "columnar_ingress": False,
+    "compact_readback": True, "dispatch_depth": 1,
+}
+
+
+class Sink:
+    """A session stand-in: records every delivery in arrival order."""
+
+    def __init__(self):
+        self.got = []
+
+    def deliver(self, topic_filter, msg):
+        so = msg.headers.get("subopts") or {}
+        self.got.append((topic_filter, msg.topic, msg.payload,
+                         tuple(sorted(so.items()))))
+        return True
+
+
+def shapes_population(rng):
+    """~500 filters over a handful of shapes (the shape-hash backend)."""
+    subs = []
+    for i in range(12):
+        for n in range(12):
+            subs.append(f"dev/d{i}/+/n{n}/#")
+            if (i + n) % 3 == 0:
+                subs.append(f"$share/g{(i * n) % 3}/dev/d{i}/+/n{n}/#")
+    for i in range(60):
+        subs.append(f"s/{i}/t")
+        subs.append(f"s/{i}/+")
+        if i % 4 == 0:
+            subs.append(f"$share/q/s/{i}/t")
+    subs += ["s/#", "$share/all/s/+/t", "$SYS/#", "#"]
+    return subs
+
+
+def trie_population(rng):
+    """~500 filters over more shapes than shape_cap (the trie backend)."""
+    fs = sorted({rand_filter(rng) for _ in range(420)})
+    subs = list(fs)
+    subs += [f"$share/g{k % 3}/{f}" for k, f in enumerate(fs) if k % 5 == 0]
+    return subs
+
+
+def shapes_topics(rng, n):
+    out = []
+    for _ in range(n):
+        r = rng.random()
+        if r < 0.6:
+            out.append(f"dev/d{rng.randrange(14)}/x/n{rng.randrange(14)}"
+                       + "/t" * rng.randrange(3))
+        elif r < 0.9:
+            out.append(f"s/{rng.randrange(64)}/t")
+        else:
+            out.append(rng.choice(["$SYS/x", "none", "a/" * 20 + "deep"]))
+    return out
+
+
+class Twin:
+    def __init__(self, strategy, depth, population, topics):
+        self.rng = random.Random(11)
+        self.topics = topics
+        self.depth = depth
+        self.j = JNode({"broker": dict(
+            JAX_BROKER, shared_subscription_strategy=strategy)},
+            use_device=True)
+        self.t = TNode({"broker": {"shared_subscription_strategy": strategy,
+                                   "dispatch_depth": depth}},
+                       device="cpu")
+        self.sinks = ([Sink() for _ in range(N_SESSIONS)],
+                      [Sink() for _ in range(N_SESSIONS)])
+        for node, sinks in zip((self.j, self.t), self.sinks):
+            for i, s in enumerate(sinks):
+                assert node.broker.register(s, f"c{i}") == i
+        for k, f in enumerate(population):
+            # each filter to 1-3 sessions; shared groups get 2-3 members
+            for sid in self.rng.sample(range(N_SESSIONS),
+                                       self.rng.randrange(1, 4)):
+                self.subscribe(sid, f, {"qos": (k + sid) % 3})
+
+    def subscribe(self, sid, f, opts):
+        for node in (self.j, self.t):
+            node.broker.subscribe(sid, f, dict(opts))
+
+    def unsubscribe(self, sid, f):
+        for node in (self.j, self.t):
+            node.broker.unsubscribe(sid, f)
+
+    def window(self, n_batches, gate_cold=True):
+        """One window of n_batches through both engines; the same Message
+        objects go to both (the random strategy hashes their ids)."""
+        lives = [[jmake(f"p{self.rng.randrange(5)}", 0, t, b"%d" % k)
+                  for k, t in enumerate(self.topics(self.rng, 30))]
+                 for _ in range(n_batches)]
+        seed = self.rng.randrange(1 << 30)
+        counts = []
+        for node in (self.j, self.t):
+            eng = node.device_engine
+            random.seed(seed)      # the host pick path's random draws
+            parts = [lives]
+            if node is self.t and self.depth > 1 and len(lives) > 1:
+                parts = [lives[:len(lives) // 2], lives[len(lives) // 2:]]
+            hs = []
+            for part in parts:
+                h = eng.prepare_window(part, gate_cold=gate_cold)
+                assert h is not None
+                eng.dispatch(h)
+                hs.append(h)
+            got = []
+            for h, part in zip(hs, parts):
+                eng.materialize(h)
+                got += [eng.finish_sub(h, k) for k in range(len(part))]
+            counts.append(got)
+        assert counts[0] == counts[1]
+        self.check()
+        return counts[1]
+
+    def check(self):
+        jg, tg = ([s.got for s in sinks] for sinks in self.sinks)
+        assert jg == tg
+        je, te = self.j.device_engine, self.t.device_engine
+        assert np.array_equal(np.asarray(je._cursors),
+                              te._cursors.cpu().numpy())
+        for f, groups in self.j.broker.shared.items():
+            tgroups = self.t.broker.shared[f]
+            for g, grp in groups.items():
+                assert (grp.cursor, grp.sticky) == \
+                    (tgroups[g].cursor, tgroups[g].sticky)
+        assert te._outstanding == 0 and je._outstanding == 0
+
+    def churn(self):
+        """Dirty filters and slots, a new group on a built filter, a
+        post-snapshot filter, then windows against the stale snapshot."""
+        je, te = self.j.device_engine, self.t.device_engine
+        plain = sorted(f for f in self.t.broker.subs)
+        shared = sorted((f, g) for f, gs in self.t.broker.shared.items()
+                        for g in gs)
+        self.subscribe(3, plain[5], {"qos": 1})             # dirty filter
+        sid = next(iter(self.t.broker.subs[plain[9]]))
+        self.unsubscribe(sid, plain[9])                     # dirty filter
+        f, g = shared[1]
+        self.subscribe(7, f"$share/{g}/{f}", {"qos": 0})    # dirty slot
+        self.subscribe(8, f"$share/new/{plain[12]}", {"qos": 1})  # new group
+        self.subscribe(9, "zz/+/late", {"qos": 2})      # delta filter
+        self.subscribe(10, f"$share/dz/{plain[20]}", {"qos": 0})
+        assert te.dirty_filters == je.dirty_filters
+        assert te.dirty_slots == je.dirty_slots
+        assert te.new_slots_by_filter == je.new_slots_by_filter
+        assert set(te._delta_filter.values()) == set(je._delta_filter.values())
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("depth", [1, 2])
+def test_engine_twin_shapes(strategy, depth):
+    twin = Twin(strategy, depth, shapes_population(random.Random(3)),
+                shapes_topics)
+    for k in range(3):
+        twin.window(1 + 3 * k, gate_cold=bool(k % 2))
+    assert twin.t.device_engine._built.backend == "shapes"
+    assert twin.j.device_engine._built.backend == "shapes"
+    twin.churn()
+    twin.topics = lambda rng, n: shapes_topics(rng, n - 2) + [
+        "zz/a/late", f"s/{rng.randrange(60)}/t"]
+    for k in range(2):
+        twin.window(2, gate_cold=bool(k))
+    for node in (twin.j, twin.t):
+        node.device_engine.rebuild()
+    for k in range(2):
+        twin.window(1 + k, gate_cold=bool(k))
+    assert twin.t.device_engine.stats()["delta_filters"] == 0
+    assert twin.t.metrics.val("messages.routed.device") > 0
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_engine_twin_trie(strategy):
+    twin = Twin(strategy, 1, trie_population(random.Random(5)),
+                lambda rng, n: [rand_topic(rng) for _ in range(n)])
+    twin.window(1, gate_cold=False)
+    assert twin.t.device_engine._built.backend == "trie"
+    assert twin.j.device_engine._built.backend == "trie"
+    twin.window(1)
+    twin.window(2)           # a multi-batch trie window: sequential steps
+    twin.depth = 2
+    twin.window(4)           # two such windows in flight on the port
+    twin.churn()
+    twin.window(1, gate_cold=False)
+    for node in (twin.j, twin.t):
+        node.device_engine.rebuild()
+    twin.window(1)
+
+
+def test_route_batch_counts_match_host_path():
+    """route_batch (the sync composition) delivers exactly what the host
+    per-message path delivers, message for message."""
+    rng = random.Random(1)
+    pop = shapes_population(rng)
+    dev, host = (Twin("round_robin", 1, pop, shapes_topics)
+                 for _ in range(2))
+    msgs = [jmake("p", 0, t, b"") for t in shapes_topics(rng, 200)]
+    got = dev.t.device_engine.route_batch(msgs)
+    want = [host.t.broker._route(m, host.t.router.match(m.topic))
+            for m in msgs]
+    assert got == want
+    assert dev.t.metrics.val("routing.device.batches") == 1

@@ -27,7 +27,19 @@ MODULES = [
     "emqx_tpu_torch.models.router_engine", "emqx_tpu_torch.ops.trie",
     "emqx_tpu_torch.ops.exchange", "emqx_tpu_torch.parallel.mesh",
     "emqx_tpu_torch.parallel.sharded", "emqx_tpu_torch.parallel.serving",
-    "chip_smoke",
+    "emqx_tpu_torch.utils.hocon", "emqx_tpu_torch.mqtt",
+    "emqx_tpu_torch.mqtt.constants", "emqx_tpu_torch.mqtt.packet",
+    "emqx_tpu_torch.mqtt.frame", "emqx_tpu_torch.broker",
+    "emqx_tpu_torch.broker.message", "emqx_tpu_torch.broker.hooks",
+    "emqx_tpu_torch.broker.metrics", "emqx_tpu_torch.broker.config",
+    "emqx_tpu_torch.broker.router", "emqx_tpu_torch.broker.pubsub",
+    "emqx_tpu_torch.broker.session", "emqx_tpu_torch.broker.inflight",
+    "emqx_tpu_torch.broker.mqueue", "emqx_tpu_torch.broker.cm",
+    "emqx_tpu_torch.broker.limiter", "emqx_tpu_torch.broker.channel",
+    "emqx_tpu_torch.broker.connection", "emqx_tpu_torch.broker.deliver",
+    "emqx_tpu_torch.broker.supervise", "emqx_tpu_torch.broker.batcher",
+    "emqx_tpu_torch.broker.device_engine", "emqx_tpu_torch.broker.node",
+    "emqx_tpu_torch.client", "chip_smoke",
 ]
 
 
@@ -81,6 +93,16 @@ class TestDefaultDevice:
         plan = RouteEngine.from_subscriptions(subs, device="cpu").route(
             ["a/b"])[0]
         assert list(plan.fids) == [0] and list(plan.rows) == [1]
+
+    def test_node_and_device_engine(self):
+        from emqx_tpu_torch.broker.device_engine import DeviceRouteEngine
+        from emqx_tpu_torch.broker.node import Node
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Node()
+        node = Node(device="cpu")
+        assert node.device_engine.device.type == "cpu"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DeviceRouteEngine(node)
 
     def test_mesh_and_sharded_engine(self):
         from emqx_tpu_torch.parallel.mesh import make_mesh

@@ -1,0 +1,274 @@
+"""Port vs JAX reference: the broker serving over real sockets.
+
+Both Nodes — the JAX package's ``Node(config, use_device=True)`` on the
+path this slice ports, and the port's ``Node(device="cpu")`` at dispatch
+depth 1 and 2 — serve over TCP on 127.0.0.1 at a small size of
+``chip_smoke.py``'s phase 8 population (~2,000 filters
+``device/d{i}/+/n{n}/#``, half of them in 2-member ``$share`` groups, 4
+subscriber and 2 publisher connections, every 4th publish at QoS 1).
+Required: every message delivered exactly once to a connection holding
+its filter, per-publisher order at every subscriber, and equal delivered
+multisets for the plain subscriptions. ``test_chip_smoke_e2e_on_cpu``
+rehearses phase 8 itself at a reduced size.
+"""
+
+import asyncio
+
+import pytest
+import torch
+
+import chip_smoke as cs
+from emqx_tpu.broker.connection import Listener as JListener
+from emqx_tpu.broker.node import Node as JNode
+from emqx_tpu_torch.broker.connection import Listener as TListener
+from emqx_tpu_torch.broker.node import Node as TNode
+from tests.test_torch_engine import JAX_BROKER
+
+torch.set_num_threads(1)
+
+N_FILTERS, N_SUB, N_PUB, N_MSGS = 2000, 4, 2, 500
+TIMEOUT_S = 120
+
+
+async def serve(node, listener_cls) -> dict:
+    """Subscribe the population and flood it through one node."""
+    lst = listener_cls(node, bind="127.0.0.1", port=0)
+    await lst.start()
+    clients = []
+    try:
+        subs, ids, nums, _n, _e = await cs._subscribe_population(
+            lst.port, N_FILTERS, N_SUB)
+        clients += subs
+        from emqx_tpu_torch.client import Client
+        for c in range(N_PUB):
+            cl = Client(port=lst.port, clientid=f"epub{c}")
+            await cl.connect()
+            clients.append(cl)
+        f = await cs._flood(node, subs, clients[N_SUB:], ids, nums, N_MSGS,
+                            cs.SEED)
+        f["nums"] = nums
+        return f
+    finally:
+        for cl in clients:
+            await cl.disconnect()
+        await lst.stop()
+        await node.publish_batcher.stop()
+        node.publish_batcher.close()
+
+
+def run(node, listener_cls) -> dict:
+    return asyncio.run(asyncio.wait_for(serve(node, listener_cls),
+                                        TIMEOUT_S))
+
+
+def plain_multisets(f) -> list:
+    """Per subscriber connection: the sorted (publisher, seq) pairs it
+    received for plain (non-shared) filters."""
+    return [sorted((p, s) for p, s, i, n, _q in rows
+                   if not cs.e2e_shared(i, n, f["nums"]))
+            for rows in f["got"]]
+
+
+@pytest.fixture(scope="module")
+def jax_flood():
+    node = JNode({"broker": JAX_BROKER}, use_device=True)
+    return run(node, JListener)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_live_tcp_twin(jax_flood, depth):
+    f = run(TNode({"broker": {"dispatch_depth": depth}}, device="cpu"),
+            TListener)
+    # _flood raises on a lost, duplicated, misrouted or reordered delivery
+    assert f["delivered"] == f["sent"] == N_MSGS
+    assert jax_flood["delivered"] == N_MSGS
+    assert plain_multisets(f) == plain_multisets(jax_flood)
+    assert any(plain_multisets(f))
+
+
+def test_chip_smoke_e2e_on_cpu():
+    """chip_smoke.py's phase 8 rehearsed on the CPU at a reduced size:
+    the TCP population, the bench warm-up, a flood at dispatch depth 2
+    and 1 on the same node, and the engine window held against the plain
+    path. On the CPU the host path wins the adaptive chooser, so the
+    rehearsal pins it to the device to drive the device path; the kernel
+    launch counts stay 0 here."""
+    r = cs.e2e_drive(torch.device("cpu"), n_filters=1000, n_sub=4,
+                     n_pub=2, total=400, window=(2, 64), pin_device=True)
+    assert r["backend"] == "shapes" and r["window_err"] == 0
+    assert set(r["floods"]) == {1, 2}
+    for f in r["floods"].values():
+        assert f["delivered"] == f["sent"] == 400
+        assert f["batches"] >= 1
+        assert f["launches"]["shape_match"] == 0
+
+
+def _flaky_drive(depth: int, fatal: bool):
+    """600 publishes through the batcher with the engine's dispatch on the
+    loop (``dispatch_on_loop``, as on the card) and its second dispatch
+    raising. ``fatal`` is the engine's ``fail_on_device_error`` (the
+    card's setting). Returns the node, each publish's count or error, and
+    the counts the host route gives."""
+    from emqx_tpu_torch.broker.message import make
+
+    class Sink:
+        def deliver(self, f, m):
+            return True
+
+    async def go():
+        node = TNode({"broker": {"dispatch_depth": depth,
+                                 "max_publish_batch": 64}}, device="cpu")
+        eng = node.device_engine
+        eng.dispatch_on_loop = True
+        eng.fail_on_device_error = fatal
+        node.publish_batcher._device_worth_it = lambda: True
+        sids = [node.broker.register(Sink(), f"c{i}") for i in range(4)]
+        for i in range(40):
+            node.broker.subscribe(sids[i % 4], f"t/{i}/+", {"qos": 0})
+            node.broker.subscribe(sids[(i + 1) % 4], f"$share/g/t/{i}/#",
+                                  {"qos": 1})
+        eng.rebuild()
+        eng._warm_compile((eng._built, eng._tables, eng._cursors))
+        topics = [f"t/{k % 45}/x" for k in range(600)]
+        want = [2 if k % 45 < 40 else 0 for k in range(600)]
+        calls = [0]
+        real = eng.dispatch
+
+        def flaky(h):
+            calls[0] += 1
+            if calls[0] == 2:
+                raise RuntimeError("injected")
+            real(h)
+
+        eng.dispatch = flaky
+        got = await asyncio.gather(*[node.publish_async(make("p", 0, t, b""))
+                                     for t in topics],
+                                   return_exceptions=True)
+        await node.publish_batcher.stop()
+        node.publish_batcher.close()
+        return node, got, want
+
+    return asyncio.run(asyncio.wait_for(go(), TIMEOUT_S))
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_dispatch_on_the_loop(depth):
+    """The batcher path the card takes, driven on the CPU: every count
+    equals the host route's, and a dispatch that raises fails its
+    window's publishers with the error — the window is not routed on the
+    host."""
+    node, got, want = _flaky_drive(depth, fatal=True)
+    failed = [k for k, g in enumerate(got) if isinstance(g, Exception)]
+    assert failed
+    assert all(str(got[k]) == "injected" for k in failed)
+    assert [g for k, g in enumerate(got) if k not in failed] \
+        == [w for k, w in enumerate(want) if k not in failed]
+    assert node.metrics.val("routing.device.batches") >= 1
+    assert node.metrics.val("routing.device.dispatch_failed") == 1
+    assert node.metrics.val("routing.host.messages") == 0
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_dispatch_failure_on_cpu_routes_on_host(depth):
+    """On the CPU the reference's behaviour stands: a window whose
+    dispatch raised is routed on the host, and every count is right."""
+    node, got, want = _flaky_drive(depth, fatal=False)
+    assert got == want
+    assert node.metrics.val("routing.device.dispatch_failed") == 1
+    assert node.metrics.val("routing.host.messages") >= 1
+
+
+@pytest.mark.parametrize("fatal", [True, False])
+def test_warm_failure(fatal):
+    """A background class warm that raises: on the card (``fatal``) the
+    engine keeps the error and every later publish raises it; on the CPU
+    the classes stay cold and the batch is routed on the host."""
+    from emqx_tpu_torch.broker.message import make
+
+    class Sink:
+        def deliver(self, f, m):
+            return True
+
+    async def go():
+        node = TNode(device="cpu")
+        eng = node.device_engine
+        eng.fail_on_device_error = fatal
+        sid = node.broker.register(Sink(), "c0")
+        node.broker.subscribe(sid, "t/+", {"qos": 0})
+        eng.rebuild()
+
+        def boom(*_a):
+            raise RuntimeError("warm")
+
+        eng._warm_dispatch = boom
+        eng._kick_class_warm()
+        await eng._fuse_warm_task
+        got = await asyncio.gather(
+            *[node.publish_async(make("p", 0, "t/x", b""))
+              for _ in range(8)], return_exceptions=True)
+        await node.publish_batcher.stop()
+        node.publish_batcher.close()
+        return eng, got
+
+    eng, got = asyncio.run(asyncio.wait_for(go(), TIMEOUT_S))
+    if fatal:
+        assert str(eng.failed) == "warm"
+        assert all(isinstance(g, RuntimeError) for g in got)
+    else:
+        assert eng.failed is None and got == [1] * 8
+
+
+def test_chooser_decisions_equal_the_reference():
+    """The device/host chooser decides as the reference's does, with the
+    bypass margin: the port keeps the device's estimate per message where
+    the reference keeps it per batch, and over the same states — the
+    reference's batch estimate taken at the batch size it decides for,
+    and divided by the margin — both take the same decision and move the
+    same probe counters, fusion width and bypass count."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from emqx_tpu.broker.batcher import PublishBatcher as JBatcher
+    from emqx_tpu.broker.metrics import Metrics as JMetrics
+    from emqx_tpu_torch.broker.batcher import _BYPASS_MARGIN
+    from emqx_tpu_torch.broker.batcher import PublishBatcher as TBatcher
+    from emqx_tpu_torch.broker.metrics import Metrics as TMetrics
+
+    j = JBatcher(SimpleNamespace(metrics=JMetrics()), None)
+    t = TBatcher(SimpleNamespace(metrics=TMetrics()), None)
+    rng = np.random.RandomState(cs.SEED)
+    decisions = set()
+    dev = None
+    for step in range(3000):
+        n = int(rng.randint(4, 1025))
+        if step >= 2 and rng.rand() < 0.3:
+            # new estimates: the device's around the host's, either side
+            # of the margin
+            host = float(rng.uniform(10e-6, 60e-6))
+            dev = host * float(rng.uniform(0.5, 2 * _BYPASS_MARGIN))
+            t._dev_msg_s = dev
+            t._host_msg_s = j._host_msg_s = host
+        if dev is not None:
+            j._dev_batch_s = dev / _BYPASS_MARGIN * n
+        t._fuse_cwnd = j._fuse_cwnd = int(rng.randint(1, 9))
+        want = j._device_worth_it(n)
+        assert t._device_worth_it() == want, step
+        decisions.add(want)
+        # the producer's counter updates after the decision
+        for b in (j, t):
+            if want:
+                b._since_host_probe += 1
+                b._since_probe = 0
+            else:
+                b._since_probe += 1
+        if step == 0:
+            dev = t._dev_msg_s = 30e-6
+        for name in ("_since_probe", "_since_host_probe", "_fuse_cwnd"):
+            assert getattr(t, name) == getattr(j, name), (step, name)
+        assert t.node.metrics.val("routing.device.bypassed") \
+            == j.node.metrics.val("routing.device.bypassed")
+    assert decisions == {True, False}
+    assert t.node.metrics.val("routing.device.bypassed") > 0
+    t.close()
+    j.close()
