@@ -34,7 +34,7 @@ Phases:
    kernel at the same grid (the launch floor), torch.cumsum and the
    wrapper call;
 5. the kernels JSON line, the card line, and the result line last
-   (after phases 6, 7 and 8);
+   (after phases 6 to 9);
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
    every hop count at the mesh phase's [E, 3] block and at a ragged
    [1001, 3] block (aligned and unaligned), and across two cards with
@@ -66,8 +66,31 @@ Phases:
    filter, in publish order per publisher at every subscriber (per
    delivery class, see _flood), grow routing.device.batches, launch
    shape_match and prefix_sum, and route at least 90% of its messages
-   through the device engine. One engine window of flood topics is held
-   against the plain path, every plane and the cursors.
+   through the device engine. The node runs at the reference's defaults
+   (dedup, match cache 8192, delta overlay on). Two engine windows of
+   flood topics are held against the plain path, every plane and the
+   cursors: a uniform one (the plain window) and one drawn from 512
+   topics (the dedup-cached window);
+9. the reference's default routing layers at phase 8's population, built
+   in-process through broker.subscribe: node A at the defaults, node B
+   with dedup, cache and overlay off, and a host-path node. 9a, the skew
+   traffic of tools/skew_bench.py:82-105 (90% of the lanes on 16 hot
+   topics): a warm-up until every class it wants is captured, then
+   passes of 48 fused windows of 8 x 1024 through prepare_window →
+   dispatch → materialize → finish_sub with two windows in flight, A and
+   B alternating by pass; every pass's deliveries, shared picks and
+   device cursors must be equal on A and B and the host path's counts
+   and deliveries equal A's; in the timed pass at least 90% of A's
+   windows must be cached windows, its cache must hit and no cached class
+   may be cold. 9b, the churn traffic of tools/churn_bench.py:80-160: a
+   sink session subscribes 4 fresh filters churn/{seq}/+ between
+   batches (64 live at most), route_batch of 512 with 25% of the lanes to
+   the fresh filters' topics; per batch A, B and the host path must give
+   equal counts and per-session deliveries, every fresh-filter lane
+   delivered; in the timed pass A routes no delta filter on the host and
+   applies the overlay. Then a cached and an overlay window on A are held
+   against the plain path, and kernel 2 is timed at every shape phase 9
+   adds (in a fresh process: ``--scan-shapes``).
 """
 
 from __future__ import annotations
@@ -520,6 +543,27 @@ def time_scan_shapes(dev, shapes: dict, where: str) -> list:
             f"call back to back")
         out.append(d)
     return out
+
+
+def time_scan_shapes_apart(shapes: dict, where: str) -> list:
+    """time_scan_shapes in a process of its own (this script with
+    ``--scan-shapes``), its lines passed through. Late in a long run the
+    profiler of this process lost kernel records at a small scan shape —
+    191 of 200 entries, three tries in a row (PERF.md), where a
+    fresh process counts 200 of 200 at the same shape — so the shapes
+    phase 9 adds are profiled in a fresh process, with the same check."""
+    if not shapes:
+        return []
+    arg = json.dumps({"where": where, "shapes": [
+        [list(k), v] for k, v in shapes.items()]})
+    out = subprocess.run([sys.executable, __file__, "--scan-shapes", arg],
+                         capture_output=True, text=True, timeout=600)
+    for line in out.stdout.splitlines()[:-1]:
+        log(line)
+    if out.returncode != 0:
+        raise AssertionError(f"kernel 2 timing at {where}'s shapes failed:"
+                             f"\n{out.stdout[-2000:]}{out.stderr[-4000:]}")
+    return json.loads(out.stdout.splitlines()[-1])
 
 
 def time_kernels(b: dict, n_entries) -> tuple:
@@ -1050,7 +1094,7 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
         await asyncio.wait_for(asyncio.gather(*acks), 60)
 
     m = node.metrics
-    stages = ("prepare", "dispatch", "card", "consume")
+    stages = ("prepare", "dispatch", "card", "readback", "consume")
     # a device failure raises on the card; these stay 0 or the flood
     # left the kernels without saying so
     faults = ("routing.device.dispatch_failed",
@@ -1061,7 +1105,7 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
         "routing.device.windows", "routing.device.bypassed",
         "routing.device.compact_overflow",
         "routing.device.messages", "routing.host.route_us",
-        "routing.host.messages", *faults,
+        "routing.host.messages", *faults, *LAYER_COUNTERS,
         *(f"routing.device.{s}_us" for s in stages))}
     pb = node.publish_batcher
     pb.route_lat.clear()
@@ -1137,6 +1181,7 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
             "device_bypassed": delta["routing.device.bypassed"],
             "windows": delta["routing.device.windows"],
             "compact_overflow": delta["routing.device.compact_overflow"],
+            "layers": layer_numbers(delta),
             # host time per message of each stage of the device path (the
             # card's time per message under "card"), and of the host path
             "device_us_per_msg": {
@@ -1157,6 +1202,42 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
                 "slowest": [[round(x * 1e3, 3) for x in d]
                             for d in sorted(_DISPATCHES, reverse=True)[:3]]},
             "got": got}
+
+
+# the routing layers' counters each drive reads around its run
+LAYER_COUNTERS = (
+    "routing.device.cached_windows", "routing.device.cold_cached_class",
+    "routing.device.cold_delta_class", "routing.device.cold_compact_class",
+    "routing.device.eager_windows", "routing.device.delta_applies",
+    "routing.device.host_delta", "routing.device.dedup_lanes",
+    "routing.device.dedup_unique", "routing.device.rebuilds",
+    "routing.device.compactions", "match_cache.hits", "match_cache.misses")
+
+
+# host time of each stage of the device path (card: the stream's span,
+# readback: materialize's host part on the card, its whole on the CPU)
+STAGE_US = tuple(f"routing.device.{s}_us" for s in (
+    "prepare", "dispatch", "card", "readback", "materialize", "consume"))
+
+
+def stage_us(delta: dict) -> dict:
+    """Microseconds per device-routed message of each stage."""
+    per = max(1, delta["routing.device.messages"])
+    return {k.split(".")[-1][:-3]: delta[k] / per for k in STAGE_US}
+
+
+def layer_numbers(delta: dict) -> dict:
+    """The routing layers' counters over one run, the cache hit rate and
+    the dedup ratio (publish lanes per unique topic in the windows whose
+    dedup plan engaged)."""
+    out = {k.rsplit(".", 1)[1] if k.startswith("routing") else k: delta[k]
+           for k in LAYER_COUNTERS}
+    look = delta["match_cache.hits"] + delta["match_cache.misses"]
+    out["hit_rate"] = delta["match_cache.hits"] / look if look else None
+    out["dedup_ratio"] = (delta["routing.device.dedup_lanes"]
+                          / delta["routing.device.dedup_unique"]) \
+        if delta["routing.device.dedup_unique"] else None
+    return out
 
 
 def _spread(samples) -> dict:
@@ -1195,65 +1276,87 @@ async def _profiled_flood(node, subs, pubs, ids: int, nums: int,
                     for e in top]}
 
 
+def hold_against_plain(eng, h, what: str) -> int:
+    """A dispatched and materialized engine window held against the same
+    window's program on the plain path (the plain shape match and scan)
+    on the same device, from the cursors and the overlay version it
+    started with: every plane of the route result, of the CSR readback,
+    of the overlay planes and of their CSR, and the cursors, bit for bit.
+    On the card the window was a CUDA graph replay. Returns max |diff|
+    (0)."""
+    import torch
+
+    from emqx_tpu_torch.ops.scan import prefix_sum_ref
+    from emqx_tpu_torch.ops.shapes import shape_match_ref
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()        # the engine stream's uploads
+    ins = [torch.from_numpy(a).to(eng.device) for a in h.arrays]
+    res, cp, dp, dcp = eng._unwrap(eng._program(
+        h.built.backend, h.tables, h.delta.dev if h.delta is not None
+        else None, h.cursors0, ins, h.strat, h.cls, match=shape_match_ref,
+        scan=prefix_sum_ref))
+    err = 0
+    for got, want, fam in ((h.res, res, ""), (h.cres, cp, "compact "),
+                           (h.dres, dp, "delta "),
+                           (h.dcres, dcp, "delta compact ")):
+        if (got is None) != (want is None):
+            raise AssertionError(f"{what}: {fam}planes present on one "
+                                 f"path only")
+        if got is None:
+            continue
+        for name in want._fields:
+            err = max(err, exact(getattr(got, name), getattr(want, name),
+                                 f"{what} {fam}{name}"))
+    return max(err, exact(eng._cursors, res.new_cursors[-1],
+                          f"{what} cursors"))
+
+
 def e2e_window_check(node, ids: int, nums: int, seed: int, batches: int,
                      batch: int) -> int:
     """Engine windows (prepare_window → dispatch → materialize) of flood
-    topics held against the same windows on the plain path (the plain
-    shape match and scan) on the same device, each from the cursors its
-    engine window started with: every plane of the route result and of
-    the CSR readback, and the cursors, bit for bit. On the card the
-    windows are CUDA graph replays — two in a row, so the second replays
-    over the first's state. The windows are abandoned afterwards (nothing
-    is delivered). Returns max |diff| (0)."""
+    topics held against the plain path (``hold_against_plain``): first a
+    window of uniform topics (at phase 8's size the plain route window:
+    too diverse to deduplicate), then one drawn from 512 of them (the
+    dedup plan engages and the cached window runs). On the card both are
+    CUDA graph replays, one after the other, so the second replays over
+    the first's state. The windows are abandoned afterwards (nothing is
+    delivered). Returns max |diff| (0)."""
     import torch
 
     from emqx_tpu_torch.broker.message import make
-    from emqx_tpu_torch.models.router_engine import route_window
-    from emqx_tpu_torch.ops.scan import prefix_sum_ref
-    from emqx_tpu_torch.ops.shapes import shape_match_ref
-    from emqx_tpu_torch.ops.shared import STRATEGY_ROUND_ROBIN
     eng = node.device_engine
     dev = eng.device
     r = np.random.RandomState(seed)
+    hot = [(r.randint(0, ids), r.randint(0, nums)) for _ in range(512)]
     err = 0
     for rep in range(2):
-        lives = [[make("cmp", 0, f"device/d{r.randint(0, ids)}/x/"
-                       f"n{r.randint(0, nums)}/t", b"")
+        pick = (lambda: (r.randint(0, ids), r.randint(0, nums))) \
+            if rep == 0 else (lambda: hot[r.randint(0, len(hot))])
+        lives = [[make("cmp", 0, "device/d%d/x/n%d/t" % pick(), b"")
                   for _ in range(batch)] for _ in range(batches)]
         h = eng.prepare_window(lives, gate_cold=False)
-        if h is None or h.built.backend != "shapes" or h.pcap is None:
+        if h is None or h.built.backend != "shapes" or h.pcap is None \
+                or (rep == 1 and h.plan is None):
             raise AssertionError("the compared window did not take the "
                                  "shape-hash route window with a CSR "
-                                 "readback")
-        if dev.type == "cuda" and rep == 0:
+                                 "readback" + (" and the dedup plan"
+                                               if rep else ""))
+        if dev.type == "cuda":
             # the class captured now if the flood has not warmed it
             Wp, Bp = h.enc[0].shape[:2]
-            with torch.cuda.stream(eng._warm_stream):
-                eng._warm_dispatch(h.built, eng._tables, eng._cursors, Wp,
-                                   Bp, h.pcap)
-        cur0 = eng._cursors.clone()
+            cls = (Wp, Bp, h.plan.Bm if h.plan is not None else None,
+                   None, h.pcap)
+            if eng._graph_key(h.built, cls, eng._strategy()) \
+                    not in eng._graphs:
+                with torch.cuda.stream(eng._warm_stream):
+                    eng._warm_dispatch(h.built, eng._tables, eng._cursors,
+                                       cls)
         eng.dispatch(h)
         eng.materialize(h)
         if dev.type == "cuda" and not h.graphed:
             raise AssertionError("the compared window was not a graph "
                                  "replay")
-        enc4, len4, dol4 = h.enc
-        staged = [torch.from_numpy(a).to(dev) for a in (enc4, len4, dol4)]
-        mh = torch.zeros(len4.shape, dtype=torch.int32, device=dev)
-        p_out = route_window(eng._tables, cur0, *staged, mh,
-                             STRATEGY_ROUND_ROBIN, fanout_cap=eng.fanout_cap,
-                             slot_cap=eng.slot_cap, payload_cap=h.pcap,
-                             match=shape_match_ref, scan=prefix_sum_ref)
-        for name in p_out.res._fields:
-            err = max(err, exact(getattr(h.res, name),
-                                 getattr(p_out.res, name),
-                                 f"e2e window {name}"))
-        for name in p_out.compact._fields:
-            err = max(err, exact(getattr(h.cres, name),
-                                 getattr(p_out.compact, name),
-                                 f"e2e window compact {name}"))
-        err = max(err, exact(eng._cursors, p_out.res.new_cursors[-1],
-                             "e2e window cursors"))
+        err = max(err, hold_against_plain(eng, h, "e2e window"))
         eng.abandon(h)
     return err
 
@@ -1345,6 +1448,14 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
                 if k == 0:
                     out["window_err"] = e2e_window_check(
                         node, ids, nums, seed + 1, *window)
+            # the floods' uniform traffic leaves the dedup plan idle (a
+            # fused window holds more unique topics than Bp, a single
+            # batch's miss class is its batch class); the checked window
+            # drawn from 512 topics runs the cached program
+            out["cached_windows"] = node.metrics.val(
+                "routing.device.cached_windows")
+            if out["cached_windows"] <= 0:
+                raise AssertionError("phase 8 ran no cached window")
             if profile:
                 node.publish_batcher.dispatch_depth = depths[0]
                 out["profiled"] = await _profiled_flood(
@@ -1384,6 +1495,8 @@ def e2e_phase(dev, card: str) -> dict:
             f"path {json.dumps(stage_us)}, host path "
             f"{f['host_us_per_msg']:.2f}; dispatches {json.dumps(disp)} (ms: "
             f"the slowest as total, staging + replay, readback staging)")
+        log(f"phase 8 dispatch_depth={depth}: routing layers "
+            f"{json.dumps(f['layers'])}")
 
     r = e2e_drive(dev, report=report, profile=True)
     log(f"phase 8: {r['filters']} filters ({r['shared_filters']} in "
@@ -1392,8 +1505,10 @@ def e2e_phase(dev, card: str) -> dict:
         f"{r['subscribe_s']:.1f} s; warm-up {r['warm_up_s']:.1f} s; "
         f"backend {r['backend']}")
     log("phase 8: two engine windows (prepare_window/dispatch/materialize, "
-        "CUDA graph replays) == plain path: every plane, CSR payload and "
-        "cursors (exact)")
+        "CUDA graph replays: the plain window and the dedup-cached window) "
+        "== plain path: every plane, CSR payload and cursors (exact)")
+    log(f"phase 8: {r['cached_windows']} cached windows in all; engine "
+        f"stats {json.dumps(r['stats'])}")
     p = r["profiled"]
     log(f"phase 8 profiled flood (depth {E2E_DEPTHS[0]}): device busy "
         f"{p['device_busy_s'] * 1e3:.1f} ms of {p['wall_s']:.2f} s, idle "
@@ -1407,6 +1522,464 @@ def e2e_phase(dev, card: str) -> dict:
             f"{' (per QoS: a session queued)' if f['order_per_qos'] else ''}"
             f"; {f['device_routed'] / f['sent']:.3f} of it routed by the "
             f"device engine")
+    log(card)
+    return r
+
+
+# ---- phase 9: the reference's default routing layers ----------------------
+
+L_W, L_B = 8, 1024           # the served fused class (8, 1024)
+L_WINDOWS = 48               # windows per pass
+L_PASSES = 3                 # untimed passes before the timed one: 2
+L_HOT = 16                   # tools/skew_bench.py: 90% on 16 hot topics
+L_HOT_SHARE = 0.9
+L_WARM_WINDOWS = 24          # cap on the warm-up windows
+C_BATCH = 512                # tools/churn_bench.py: route_batch of 512
+C_BATCHES = 48               # batches per pass
+C_FRESH = 4                  # fresh subscriptions per batch
+C_LIVE = 64                  # live fresh filters at most
+C_SHARE = 0.25               # lanes to the fresh filters' topics
+LAYERS_OFF = {"topic_dedup": False, "match_cache_size": 0,
+              "delta_overlay": False}
+
+
+class _Sink:
+    """A session stand-in: every delivery (payload, filter) in order."""
+
+    __slots__ = ("got",)
+
+    def __init__(self):
+        self.got = []
+
+    def deliver(self, topic_filter, msg):
+        self.got.append((msg.payload, topic_filter))
+        return True
+
+
+def _populate(node, ids: int, nums: int, n_sub: int) -> list:
+    """bench.py:1212-1243's population through broker.subscribe, in the
+    order phase 8's connections subscribe it: n_sub sessions, each with
+    its plain filters and shared groups plus the second membership of
+    the previous session's groups."""
+    b = node.broker
+    sinks = [_Sink() for _ in range(n_sub)]
+    sids = [b.register(s, f"esub{c}") for c, s in enumerate(sinks)]
+    for c in range(n_sub):
+        for cc, second in ((c, False), ((c - 1) % n_sub, True)):
+            for i in range(cc, ids, n_sub):
+                for n in range(nums):
+                    f = f"device/d{i}/+/n{n}/#"
+                    if e2e_shared(i, n, nums):
+                        b.subscribe(sids[c], f"$share/bg/{f}", {"qos": 1})
+                    elif not second:
+                        b.subscribe(sids[c], f, {"qos": 0})
+    return sinks
+
+
+def _take(sinks) -> list:
+    """Every session's deliveries since the last call."""
+    out = [s.got for s in sinks]
+    for s in sinks:
+        s.got = []
+    return out
+
+
+def _skew_windows(ids: int, nums: int, seed: int) -> list:
+    """One pass of tools/skew_bench.py:82-105's traffic: L_WINDOWS windows
+    of L_W x L_B messages, 90% of the lanes on 16 hot topics, the rest
+    uniform over the population's topics."""
+    from emqx_tpu_torch.broker.message import make
+    r = np.random.RandomState(seed)
+    hot = [(int(r.randint(0, ids)), int(r.randint(0, nums)))
+           for _ in range(L_HOT)]
+    n = L_WINDOWS * L_W * L_B
+    is_hot = r.rand(n) < L_HOT_SHARE
+    hi = r.randint(0, L_HOT, n)
+    ui, un = r.randint(0, ids, n), r.randint(0, nums, n)
+    msgs = [make("skew", 0, "device/d%d/x/n%d/t" % (hot[hi[k]] if is_hot[k]
+                                                    else (ui[k], un[k])),
+                 b"%d" % k) for k in range(n)]
+    return [[msgs[(w * L_W + k) * L_B:(w * L_W + k + 1) * L_B]
+             for k in range(L_W)] for w in range(L_WINDOWS)]
+
+
+async def _skew_pass(node, sinks, windows, hold: bool = False) -> dict:
+    """One pass of windows through prepare_window → dispatch →
+    materialize → finish_sub, two windows in flight (window k+1 is
+    dispatched before window k is read back). Returns the per-window
+    counts and deliveries, latencies, classes and the counter deltas;
+    with `hold`, the last window is held against the plain path."""
+    import asyncio
+    import collections
+    eng = node.device_engine
+    m = node.metrics
+    keys = ("routing.device.messages", *STAGE_US, *LAYER_COUNTERS)
+    before = {k: m.val(k) for k in keys}
+    out = {"counts": [], "got": [], "lat": [], "bm": collections.Counter(),
+           "graphed": 0, "err": 0}
+    prev = None
+
+    def finish(h, ts):
+        eng.materialize(h)
+        if hold and h is last:
+            out["err"] = hold_against_plain(eng, h, "layers window")
+        out["counts"].append([c for k in range(len(h.subs))
+                              for c in eng.finish_sub(h, k)])
+        out["lat"].append(time.perf_counter() - ts)
+        out["got"].append(_take(sinks))
+        out["bm"][str(h.cls[2])] += 1
+        out["graphed"] += h.graphed
+
+    last = None
+    t0 = time.perf_counter()
+    for lives in windows:
+        ts = time.perf_counter()
+        h = eng.prepare_window(lives)
+        if h is None:
+            raise AssertionError("the layers window found no snapshot")
+        eng.dispatch(h)
+        last = h
+        if prev is not None:
+            finish(*prev)
+        prev = (h, ts)
+        await asyncio.sleep(0)      # the background warm's turn
+    finish(*prev)
+    out["wall_s"] = time.perf_counter() - t0
+    out["delta"] = {k: m.val(k) - v for k, v in before.items()}
+    return out
+
+
+async def _settle_warm(eng) -> None:
+    """Wait for the engine's background class warm, if one runs."""
+    import asyncio
+    while eng._fuse_warm_task is not None:
+        await asyncio.sleep(0.01)
+
+
+async def _warm_skew(nodes: dict, ids: int, nums: int, seed: int) -> int:
+    """Warm-up, the same windows on A, B and the host path (so their
+    shared-group cursors stay in step): the standard classes captured,
+    then windows of the skew traffic until one passes on both engines
+    with no cold class and no eager dispatch (every class it wanted
+    captured). Returns the windows it took."""
+    for k in "AB":
+        nodes[k].device_engine._kick_class_warm()
+        await _settle_warm(nodes[k].device_engine)
+    windows = _skew_windows(ids, nums, seed)
+
+    def cold():
+        return [nodes[k].metrics.val(f"routing.device.{c}") for k in "AB"
+                for c in ("cold_cached_class", "cold_compact_class",
+                          "eager_windows")]
+
+    k = 0
+    while k < L_WARM_WINDOWS:
+        before = cold()
+        one = windows[k % L_WINDOWS:][:1]
+        for name in "AB":
+            await _skew_pass(nodes[name], nodes[name].sinks, one)
+            await _settle_warm(nodes[name].device_engine)
+        _host_counts(nodes["H"], one)
+        k += 1
+        if k >= 3 and cold() == before:
+            break
+    for node in nodes.values():
+        _take(node.sinks)
+    return k
+
+
+def _host_counts(node, windows) -> list:
+    """The host path's delivery count per message (router.match +
+    broker._route), window by window."""
+    b, r = node.broker, node.router
+    return [[b._route(msg, r.match(msg.topic)) for sub in lives
+             for msg in sub] for lives in windows]
+
+
+def _summary(name: str, p: dict, n_msgs: int) -> dict:
+    lat = np.array(p["lat"]) * 1e3
+    d = p["delta"]
+    per = max(1, d["routing.device.messages"])
+    return {"node": name, "topic_matches_per_s": n_msgs / p["wall_s"],
+            "window_p50_ms": float(np.percentile(lat, 50)),
+            "window_p99_ms": float(np.percentile(lat, 99)),
+            "us_per_msg": stage_us(d),
+            "graphed_windows": p["graphed"], "windows": len(p["lat"]),
+            "bm": dict(p["bm"]), "layers": layer_numbers(d)}
+
+
+async def _skew_cell(nodes: dict, ids: int, nums: int) -> dict:
+    """9a: the skew traffic on A (reference defaults) and B (layers off),
+    alternating by pass; the timed pass's deliveries, picks and cursors
+    on A equal B's, and its counts the host path's."""
+    from emqx_tpu_torch import device as D
+    A, B, H = (nodes[k] for k in "ABH")
+    out = {"warm_windows": await _warm_skew(nodes, ids, nums, SEED + 90)}
+    for p in range(L_PASSES):
+        timed = p == L_PASSES - 1
+        windows = _skew_windows(ids, nums, SEED + 91 + p)
+        res = {}
+        for k in ("AB" if p % 2 == 0 else "BA"):
+            node = nodes[k]
+            if timed:
+                D.reset_launches()
+            res[k] = await _skew_pass(node, node.sinks, windows)
+            if timed:
+                res[k]["launches"] = dict(D.LAUNCHES)
+                res[k]["shapes"] = {
+                    n: dict(v) for n, v in D.LAUNCH_SHAPES.items()}
+        if res["A"]["counts"] != res["B"]["counts"]:
+            raise AssertionError(f"9a pass {p}: counts on A != B")
+        if res["A"]["got"] != res["B"]["got"]:
+            raise AssertionError(f"9a pass {p}: a session's deliveries on "
+                                 f"A != B")
+        exact(A.device_engine._cursors, B.device_engine._cursors,
+              f"9a pass {p} device cursors A vs B")
+        host = _host_counts(H, windows)
+        if host != res["A"]["counts"]:
+            raise AssertionError(f"9a pass {p}: counts on A != the host "
+                                 f"path's")
+        host_got = _take(H.sinks)
+        if [sorted(g) for g in host_got] != [
+                sorted(x for w in res["A"]["got"] for x in w[c])
+                for c in range(len(host_got))]:
+            raise AssertionError(f"9a pass {p}: a session's deliveries on "
+                                 f"A != the host path's")
+        if timed:
+            n = L_WINDOWS * L_W * L_B
+            a, bb = res["A"], res["B"]
+            la = a["delta"]
+            cached = la["routing.device.cached_windows"]
+            if cached < 0.9 * L_WINDOWS:
+                raise AssertionError(f"9a: {cached} of {L_WINDOWS} timed "
+                                     f"windows on A were cached windows")
+            if la["match_cache.hits"] <= 0:
+                raise AssertionError("9a: no cache hit on A")
+            if la["routing.device.cold_cached_class"]:
+                raise AssertionError("9a: a cold cached class in the timed "
+                                     "pass")
+            out["A"], out["B"] = _summary("A", a, n), _summary("B", bb, n)
+            for k in "AB":
+                out[k]["launches"] = res[k]["launches"]
+                out[k]["shape_match_shapes"] = {
+                    str(s): c for s, c in
+                    res[k]["shapes"]["shape_match"].items()}
+            out["scan_shapes"] = res["A"]["shapes"]["prefix_sum"]
+            out["windows"] = L_WINDOWS
+    out["graphs"] = graph_classes(nodes)
+    return out
+
+
+def graph_classes(nodes) -> dict:
+    """Each engine's captured graphs by class (W, Bp, Bm, overlay rows,
+    payload)."""
+    return {k: [list(key[1:6]) for key in sorted(
+        nodes[k].device_engine._graphs, key=lambda t: tuple(
+            -1 if x is None else x for x in t))] for k in "AB"}
+
+
+def _churn_batch(rng, ids: int, nums: int, live: list, seq: int) -> list:
+    """tools/churn_bench.py:80-160's batch: C_SHARE of the lanes to the
+    live fresh filters' topics churn/{k}/z, the rest uniform."""
+    from emqx_tpu_torch.broker.message import make
+    out = []
+    for j in range(C_BATCH):
+        if live and rng.rand() < C_SHARE:
+            t = "churn/%d/z" % live[rng.randint(0, len(live))]
+        else:
+            t = "device/d%d/x/n%d/t" % (rng.randint(0, ids),
+                                        rng.randint(0, nums))
+        out.append(make("churn", 0, t, b"%d/%d" % (seq, j)))
+    return out
+
+
+async def _churn_cell(nodes: dict, ids: int, nums: int) -> dict:
+    """9b: between batches a sink session subscribes C_FRESH fresh
+    filters churn/{seq}/+ and unsubscribes the oldest past C_LIVE live;
+    route_batch of C_BATCH messages per batch on A, B and the host path
+    at the same state. Per batch: every session's deliveries equal on A,
+    B and the host path (as multisets: with post-snapshot filters the
+    overlay-off engine consumes every message in order, the overlay one
+    clean messages first), every fresh-filter lane delivered."""
+    import asyncio
+
+    from emqx_tpu_torch import device as D
+    names = "ABH"
+    churn_sid = {}
+    for k in names:
+        node = nodes[k]
+        node.churn_sink = _Sink()
+        churn_sid[k] = node.broker.register(node.churn_sink, "churn-sink")
+    live: list = []
+    seq = 0
+    rng = np.random.RandomState(SEED + 200)
+    out = {}
+    for p in range(L_PASSES):
+        timed = p == L_PASSES - 1
+        counters = ("routing.device.messages", *STAGE_US, *LAYER_COUNTERS)
+        before = {k: {c: nodes[k].metrics.val(c) for c in counters}
+                  for k in "AB"}
+        wall = {"A": 0.0, "B": 0.0}
+        launches = {k: 0 for k in D.LAUNCHES}
+        scans: dict = {}
+        for _ in range(C_BATCHES):
+            fresh = []
+            for _f in range(C_FRESH):
+                fresh.append(seq)
+                seq += 1
+            old = []
+            while len(live) + len(fresh) > C_LIVE:
+                old.append(live.pop(0))
+            live += fresh
+            for k in names:
+                b = nodes[k].broker
+                for q in fresh:
+                    b.subscribe(churn_sid[k], f"churn/{q}/+", {"qos": 0})
+                for q in old:
+                    b.unsubscribe(churn_sid[k], f"churn/{q}/+")
+            msgs = _churn_batch(rng, ids, nums, live, seq)
+            counts = {}
+            for k in "AB":
+                D.reset_launches()
+                t0 = time.perf_counter()
+                counts[k] = nodes[k].device_engine.route_batch(msgs)
+                wall[k] += time.perf_counter() - t0
+                if k == "A":        # A's launches only
+                    for name, c in D.LAUNCHES.items():
+                        launches[name] += c
+                    for shape, c in D.LAUNCH_SHAPES["prefix_sum"].items():
+                        scans[shape] = scans.get(shape, 0) + c
+                if counts[k] is None:
+                    raise AssertionError(f"9b: {k} declined a batch")
+            counts["H"] = _host_counts(nodes["H"], [[msgs]])[0]
+            if not counts["A"] == counts["B"] == counts["H"]:
+                raise AssertionError(f"9b pass {p}: counts differ")
+            got = {k: [sorted(g) for g in _take(nodes[k].sinks)]
+                   + [sorted(_take([nodes[k].churn_sink])[0])]
+                   for k in names}
+            if not got["A"] == got["B"] == got["H"]:
+                raise AssertionError(f"9b pass {p}: a session's deliveries "
+                                     f"differ between A, B and the host")
+            for msg, c in zip(msgs, counts["A"]):
+                if msg.topic.startswith("churn/") and c < 1:
+                    raise AssertionError(f"9b: {msg.topic} not delivered")
+            await asyncio.sleep(0)
+        for k in "AB":
+            await _settle_warm(nodes[k].device_engine)
+        rows = {}
+        for k in "AB":
+            d = {c: nodes[k].metrics.val(c) - before[k][c]
+                 for c in counters}
+            rows[k] = {"topic_matches_per_s":
+                       C_BATCHES * C_BATCH / wall[k], "wall_s": wall[k],
+                       "us_per_msg": stage_us(d),
+                       "layers": layer_numbers(d)}
+        if timed:
+            la = rows["A"]["layers"]
+            if la["host_delta"] or la["delta_applies"] <= 0:
+                raise AssertionError(f"9b: host_delta {la['host_delta']}, "
+                                     f"delta_applies {la['delta_applies']} "
+                                     f"on A in the timed pass")
+            if la["cold_delta_class"]:
+                raise AssertionError("9b: a cold delta class in the timed "
+                                     "pass")
+            out["A"], out["B"] = rows["A"], rows["B"]
+            out["A"]["launches"] = launches
+            out["scan_shapes"] = scans
+            out["batches"] = C_BATCHES
+    A = nodes["A"].device_engine
+    ov = A.stats()["overlay"]
+    out["overlay_class"] = ov["class"] if ov else None
+    out["graphs"] = graph_classes(nodes)
+    # one more skew window and one more batch on A alone (they advance
+    # A's cursors alone: after every comparison), each window held
+    # against the plain path
+    hold = await _skew_pass(nodes["A"], nodes["A"].sinks, _skew_windows(
+        ids, nums, SEED + 99)[:1], hold=True)
+    out["hold_skew_err"] = hold["err"]
+    h = A.prepare(_churn_batch(rng, ids, nums, live, seq), gate_cold=False)
+    if h.delta is None:
+        raise AssertionError("9b: the held window carried no overlay")
+    A.dispatch(h)
+    A.materialize(h)
+    out["hold_err"] = hold_against_plain(A, h, "churn window")
+    A.abandon(h)
+    return out
+
+
+def layers_drive(dev, n_filters: int = E2E_FILTERS,
+                 n_sub: int = E2E_SUB_CONNS) -> dict:
+    """Phase 9: node A at the reference's defaults (dedup, match cache
+    8192, delta overlay), node B with those layers off, and a host-path
+    node H (never routes on a device), each with phase 8's population
+    through broker.subscribe; 9a the skew traffic, 9b the churn traffic.
+    Raises on any failed check."""
+    import asyncio
+
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.broker.node import Node
+
+    async def run():
+        ids, nums = e2e_grid(n_filters)
+        t0 = time.time()
+        nodes = {"A": Node({"broker": {}}, device=dev),
+                 "B": Node({"broker": dict(LAYERS_OFF)}, device=dev),
+                 "H": Node({"broker": dict(LAYERS_OFF)}, device="cpu")}
+        for node in nodes.values():
+            node.sinks = _populate(node, ids, nums, n_sub)
+        t_sub = time.time() - t0
+        t0 = time.time()
+        for k in "AB":
+            eng = nodes[k].device_engine
+            eng.route_batch([make("w", 0, "warmup/none/t", b"")
+                             for _ in range(L_B)])
+            if eng._built is None:
+                raise AssertionError("phase 9: no snapshot")
+        gc.collect()
+        gc.freeze()
+        try:
+            skew = await _skew_cell(nodes, ids, nums)
+            churn = await _churn_cell(nodes, ids, nums)
+        finally:
+            gc.unfreeze()
+        for k in "AB":
+            eng = nodes[k].device_engine
+            if eng.failed is not None:
+                raise AssertionError(f"phase 9: engine {k} failed") \
+                    from eng.failed
+        return {"filters": ids * nums, "subscribe_s": t_sub,
+                "build_s": time.time() - t0, "skew": skew, "churn": churn,
+                "capture": {k: {"captures": nodes[k].device_engine.captures,
+                                "capture_s": nodes[k].device_engine.capture_s}
+                            for k in "AB"},
+                "stats": {k: nodes[k].device_engine.stats() for k in "AB"}}
+
+    return asyncio.run(run())
+
+
+def layers_phase(dev, card: str) -> dict:
+    """Phase 9 at the e2e population on the card; prints its lines."""
+    t0 = time.time()
+    r = layers_drive(dev)
+    sk, ch = r["skew"], r["churn"]
+    log(f"phase 9: {r['filters']} filters on nodes A (dedup, match cache "
+        f"8192, delta overlay) and B (all off) and the host path, "
+        f"subscribed in {r['subscribe_s']:.1f} s")
+    log(f"phase 9a skew: {sk['warm_windows']} warm-up windows; every pass "
+        f"of {sk['windows']} windows of {L_W} x {L_B}: deliveries, shared "
+        f"picks and device cursors A == B, counts and per-session "
+        f"deliveries A == host path; graphs {sk['graphs']}")
+    for k in "AB":
+        log(f"phase 9a {k}: {json.dumps(sk[k])}")
+    log(f"phase 9b churn: timed pass of {ch['batches']} route_batch of "
+        f"{C_BATCH}: per-session deliveries A == B == host path, every "
+        f"fresh-filter lane delivered; overlay class {ch['overlay_class']}, "
+        f"graphs {ch['graphs']}")
+    for k in "AB":
+        log(f"phase 9b {k}: {json.dumps(ch[k])}")
+    log(f"phase 9: a cached window (9a) and an overlay window (9b) == plain "
+        f"path: every plane, both CSR payloads, cursors (exact); captures "
+        f"{json.dumps(r['capture'])}; phase 9 {time.time() - t0:.1f} s")
     log(card)
     return r
 
@@ -1484,6 +2057,18 @@ def main() -> int:
     ring, mesh, mesh_scan_shapes = mesh_phase(dev)
     torch.cuda.empty_cache()
     e2e = e2e_phase(dev, card)
+    torch.cuda.empty_cache()
+    layers = layers_phase(dev, card)
+    timed = {tuple(d["shape"]) for d in scan_shapes + mesh_scan_shapes}
+    layer_scan_shapes = []
+    for cell, n in (("skew", "windows"), ("churn", "batches")):
+        c = layers[cell]
+        new = {shape: cnt / c[n] for shape, cnt in c["scan_shapes"].items()
+               if shape not in timed}
+        timed |= set(new)
+        layer_scan_shapes += time_scan_shapes_apart(new, f"layers {cell}")
+    layers_err = max(layers["churn"]["hold_skew_err"],
+                     layers["churn"]["hold_err"])
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"GB; whole run {time.time() - t_all:.1f} s")
 
@@ -1494,6 +2079,10 @@ def main() -> int:
                "mesh route()": mesh["launches"][name]}
         for depth, f in e2e["floods"].items():
             out[f"e2e flood depth {depth}"] = f["launches"][name]
+        out["layers skew A (timed pass)"] = \
+            layers["skew"]["A"]["launches"][name]
+        out["layers churn A (timed pass)"] = \
+            layers["churn"]["A"]["launches"][name]
         return out
 
     kernels = [
@@ -1502,7 +2091,7 @@ def main() -> int:
          "replaces": "emqx_tpu/ops/pallas_fold.py:121",
          "launches": launches["shape_match"],
          "launches_by_path": by_path("shape_match"),
-         "max_abs_err": max(err_fold, e2e["window_err"]),
+         "max_abs_err": max(err_fold, e2e["window_err"], layers_err),
          **{k: sm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")}},
         {"name": "prefix_sum", "route": "cuda",
@@ -1510,16 +2099,21 @@ def main() -> int:
          "replaces": "emqx_tpu/ops/pallas_scan.py:79",
          "launches": launches["prefix_sum"],
          "launches_by_path": by_path("prefix_sum"),
-         "max_abs_err": max(err_scan, e2e["window_err"]),
+         "max_abs_err": max(err_scan, e2e["window_err"], layers_err),
          **{k: ps[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
-         "shapes": scan_shapes + mesh_scan_shapes},
+         "shapes": scan_shapes + mesh_scan_shapes + layer_scan_shapes},
         dict(ring, launches_by_path=by_path("ring_rotate")),
     ]
     e2e_out = {k: v for k, v in e2e.items() if k != "floods"}
     e2e_out["floods"] = {d: {k: v for k, v in f.items() if k != "got"}
                          for d, f in e2e["floods"].items()}
-    log(json.dumps({"summary": summary, "mesh": mesh, "e2e": e2e_out}))
+    layers_out = {k: v for k, v in layers.items() if k != "stats"}
+    for cell in ("skew", "churn"):
+        layers_out[cell] = {k: v for k, v in layers[cell].items()
+                            if k != "scan_shapes"}
+    log(json.dumps({"summary": summary, "mesh": mesh, "e2e": e2e_out,
+                    "layers": layers_out}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -1528,5 +2122,21 @@ def main() -> int:
     return 0
 
 
+def scan_shapes_main(arg: str) -> int:
+    """``--scan-shapes``: time_scan_shapes at the given shapes on a card,
+    the per-shape lines and then one JSON line of the results."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    a = json.loads(arg)
+    shapes = {tuple(k): v for k, v in a["shapes"]}
+    out = time_scan_shapes(torch.device("cuda"), shapes, a["where"])
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--scan-shapes":
+        sys.exit(scan_shapes_main(sys.argv[2]))
     sys.exit(main())

@@ -1,14 +1,19 @@
 """Device route engine: the route window wired into the serving path.
 
 The port's ``DeviceRouteEngine`` (``emqx_tpu/broker/device_engine.py``
-:561-3889) for the path with the optional layers off — no topic dedup or
-match cache, no delta overlay, no subscription covering, no supervision,
-HBM ledger, tracing, latency observatory or overload hooks, inline
-delivery, CSR readback on. It compiles the live routing state (Router
-filter universe + Broker subscriber/shared-group membership) into device
-tables, runs the route window over publish micro-batches and consumes the
-result into session deliveries, replacing the per-message host publish
-path (emqx_broker.erl:199-308: match_routes → dispatch fold → shared pick).
+:561-3889) with the reference's default routing layers: in-window topic
+dedup and the snapshot-keyed match cache (``_plan_window``,
+``broker/match_cache.py``), and the device delta overlay
+(``ops/delta.py``, ``_overlay_sync``), each switchable as in the
+reference (``broker.topic_dedup``, ``broker.match_cache_size``,
+``broker.delta_overlay``). Not ported: subscription covering,
+supervision, HBM ledger, tracing, latency observatory and overload
+hooks, delivery lanes (delivery is inline); the CSR readback is always
+on. It compiles the live routing state (Router filter universe + Broker
+subscriber/shared-group membership) into device tables, runs the route
+window over publish micro-batches and consumes the result into session
+deliveries, replacing the per-message host publish path
+(emqx_broker.erl:199-308: match_routes → dispatch fold → shared pick).
 
 Serving is staged so the asyncio event loop never waits on the device:
 ``prepare_window()`` (loop: encode), ``dispatch()`` (the route window's
@@ -20,17 +25,22 @@ at every GIL hand-off; on an executor thread when the device is the CPU),
 ``route_batch()`` is the synchronous composition for callers without a
 pipeline.
 
-On the card: the shape-hash window is ``models/router_engine.route_window``
-(kernels 1 and 2), the trie window ``route_step_compact`` (kernel 2); the
-choice of trie over shapes follows the reference (more shapes than
-``shape_cap``, or filters deeper than 20 levels). Dispatches run on a CUDA
-stream of the engine's own and the device cursors stay on the card between
-windows. Each shape-hash window class is captured as a CUDA graph by its
-warm dispatch (``_capture``), and a serving dispatch copies its window
-into the graph's static inputs and replays it: one launch where the eager
-window makes ~300, which on the card's host cost as much as the trie walk
-the window replaces. Every plane materialize will read is copied at
-dispatch return into pinned host buffers (``non_blocking``) with an event
+On the card: the shape-hash window is
+``models/router_engine.route_window`` (kernels 1 and 2), the trie window
+``route_step_compact`` (kernel 2); the choice of trie over shapes
+follows the reference (more shapes than ``shape_cap``, or filters deeper
+than 20 levels). Dispatches run on a CUDA stream of the engine's own and
+the device cursors stay on the card between windows. Each shape-hash
+window class — (W, Bp), with the dedup miss class Bm, the overlay row
+class and the payload class as optional dimensions — is captured as a
+CUDA graph by its warm dispatch (``_capture``), off the serving path and
+only for the classes traffic asks for; a serving dispatch copies its
+window into the graph's static inputs and replays it: one launch where
+the eager window makes ~300. An overlay version is copied into a graph's
+static overlay buffers on the engine stream, in order behind the
+previous replay, so a window in flight keeps the version it was
+dispatched with. Every plane materialize will read is copied at dispatch
+return into pinned host buffers (``non_blocking``) with an event
 recorded behind it — materialize waits on that event only, so at the
 batcher's ``dispatch_depth >= 2`` window W's readback crosses while
 window W+1 dispatches.
@@ -38,24 +48,33 @@ window W+1 dispatches.
 On the card a failed dispatch, readback, warm-up, graph capture or
 snapshot build is an error, never a quiet detour through the host trie:
 the window's publishers get the exception, and a background failure is
-kept (``failed``) and raised to every later batch. On the CPU the
-reference's behaviour stands: the window is routed on the host and a
-failed warm leaves its class cold. Messages the window flags overflow or
-too deep are completed on the host on both, as in the reference.
+kept (``failed``) and raised to every later batch. That covers the
+cached and delta dispatches, overlay uploads and match-cache inserts
+too. On the CPU the reference's behaviour stands: the window is routed
+on the host and a failed warm leaves its class cold. Messages the window
+flags overflow or too deep are completed on the host on both, as in the
+reference.
 
-Snapshot/consistency model (as the reference with the overlay off):
+Snapshot/consistency model (as the reference):
 
 - The compiled tables are an immutable snapshot; mutations keep flowing
   into the authoritative host dicts and are tracked relative to it:
   - a built filter whose subscriber membership changed is DIRTY — its
     deliveries come from the live host dict instead of the device rows;
-  - a filter added since the build is a DELTA filter: it matches through
-    the host delta ``HostTrie`` until the next rebuild;
+  - a filter added since the build is a DELTA filter: with the overlay
+    on it is a row of the device overlay, matched and delivered in the
+    same window; filters the overlay cannot hold (class still cold, past
+    the top row class, deeper than max_levels) and, with the overlay
+    off, every delta filter match through the host delta ``HostTrie``
+    (``routing.device.host_delta``) until the next rebuild;
   - a (filter, group) shared slot that changed is dirty likewise; a group
     added to a built filter is dispatched host-side until the next
     rebuild.
-- Past ``rebuild_threshold`` distinct stale entities the snapshot is
-  recompiled in the background, double-buffered: the state is captured in
+- The snapshot recompiles on a compaction trigger (``_compaction_reason``:
+  with the overlay off, ``rebuild_threshold`` distinct stale entities;
+  with it on, overlay overflow, the delete-tombstone ratio, or
+  membership churn past the threshold) in the background,
+  double-buffered: the state is captured in
   chunks on the loop, compiled, uploaded and warmed off the loop, and
   swapped in once no dispatched window is outstanding; mutations during
   the build are journaled and replayed against the new snapshot.
@@ -83,6 +102,7 @@ import numpy as np
 import torch
 
 from emqx_tpu_torch.broker.deliver import OPT_TABLE
+from emqx_tpu_torch.broker.match_cache import DEFAULT_CAPACITY, MatchCache
 from emqx_tpu_torch.broker.message import Message
 from emqx_tpu_torch.broker.supervise import guard_task
 from emqx_tpu_torch import device as D
@@ -90,6 +110,10 @@ from emqx_tpu_torch.convert import router_tables_from_numpy, tables_from_numpy
 from emqx_tpu_torch.device import resolve_device
 from emqx_tpu_torch.models import router_engine as RE
 from emqx_tpu_torch.ops import intern as I
+from emqx_tpu_torch.ops.compact import csr_slices
+from emqx_tpu_torch.ops.delta import (DeltaTables, build_delta_tables,
+                                      empty_delta_tables, np_filter_match,
+                                      to_device)
 from emqx_tpu_torch.ops.fanout import build_subtable
 from emqx_tpu_torch.ops.match import encode_topics_str
 from emqx_tpu_torch.ops.shapes import ShapeCapacityError, build_shape_tables
@@ -102,6 +126,26 @@ from emqx_tpu_torch.utils import topic as T
 log = logging.getLogger("emqx.device")
 
 _PACKED_KEYS = {"qos", "nl", "rap", "rh"}
+
+
+def resolve_dedup(configured=None) -> bool:
+    """``broker.topic_dedup``, default on: in-window unique-topic dedup
+    and the cached dispatch that rides on it (the cross-batch cache has
+    no vehicle without it)."""
+    return True if configured is None else bool(configured)
+
+
+def resolve_match_cache_size(configured=None) -> int:
+    """``broker.match_cache_size`` in unique topics, default
+    ``DEFAULT_CAPACITY``; 0 disables the cache only (in-window dedup
+    still engages)."""
+    return DEFAULT_CAPACITY if configured is None else int(configured)
+
+
+def resolve_delta_overlay(configured=None) -> bool:
+    """``broker.delta_overlay``, default on; off restores the host-trie
+    route of post-snapshot filters and the rebuild at the threshold."""
+    return True if configured is None else bool(configured)
 
 
 def resolve_rebuild_threshold(configured=None) -> int:
@@ -117,6 +161,142 @@ def resolve_rebuild_threshold(configured=None) -> int:
 
 
 _snapshot_ids = itertools.count(1)
+
+# delta-overlay row classes: pow2 classes keep the program shapes stable
+# while the overlay grows; past the top class the oldest _OVERLAY_MAX
+# delta filters keep their rows and the rest serve host-side until the
+# compaction the overflow triggers. Fan-out is a fixed per-row budget; a
+# delta filter with more subscribers (or rich subopts) keeps its match on
+# the card and delivers through the host dict.
+_DELTA_CLASSES = (16, 128, 512)
+_OVERLAY_MAX = _DELTA_CLASSES[-1]
+_DELTA_FAN_PER_ROW = 8
+_DELTA_MATCH_CAP = 16
+_DELTA_FANOUT_CAP = 64
+
+
+def _topic_keys(enc: np.ndarray, lens: np.ndarray,
+                dollar: np.ndarray) -> np.ndarray:
+    """[N, L] interned rows + [N] lens + [N] is_dollar -> [N] void16 keys
+    (``emqx_tpu/broker/device_engine.py:209``).
+
+    Two independent 64-bit folds over the level ids, finalized with the
+    lens and the '$' flag — 128 bits per topic, the dedup and cache
+    identity. Interned ids only ever append, so equal keys mean equal
+    device inputs; unseen words all encode to UNKNOWN and are identical to
+    the device anyway."""
+    n = enc.shape[0]
+    h1 = np.full(n, 0x9E3779B97F4A7C15, np.uint64)
+    h2 = np.full(n, 0xC2B2AE3D27D4EB4F, np.uint64)
+    m1 = np.uint64(0x100000001B3)
+    m2 = np.uint64(0xFF51AFD7ED558CCD)
+    for level in range(enc.shape[1]):
+        w = enc[:, level].astype(np.uint64)
+        h1 = (h1 ^ (w + np.uint64(level * 0x9E3779B1 + 1))) * m1
+        h2 = (h2 ^ (w * m1 + np.uint64(level + 1))) * m2
+    fin = lens.astype(np.uint64) * np.uint64(2) + dollar.astype(np.uint64)
+    h1 = (h1 ^ fin) * m2
+    h2 = (h2 ^ (fin * m1)) * m1
+    h1 ^= h1 >> np.uint64(29)
+    h2 ^= h2 >> np.uint64(31)
+    return np.ascontiguousarray(
+        np.stack([h1, h2], axis=1)).view("V16").reshape(-1)
+
+
+class _CachePlan:
+    """Inputs of one deduplicated (optionally cache-backed) dispatch: the
+    compacted miss lanes, the host-filled base rows, and the scatter and
+    gather indexing that rebuilds full window width."""
+
+    __slots__ = ("miss_topics", "miss_lens", "miss_dollar", "base_m",
+                 "base_c", "base_o", "miss_pos", "inv", "Bm", "n_miss",
+                 "n_hit", "base_dm", "base_dc", "base_do")
+
+    def __init__(self, miss_topics, miss_lens, miss_dollar, base_m,
+                 base_c, base_o, miss_pos, inv, Bm, n_miss, n_hit):
+        self.miss_topics = miss_topics
+        self.miss_lens = miss_lens
+        self.miss_dollar = miss_dollar
+        self.base_m = base_m
+        self.base_c = base_c
+        self.base_o = base_o
+        self.miss_pos = miss_pos
+        self.inv = inv
+        self.Bm = Bm
+        self.n_miss = n_miss
+        self.n_hit = n_hit
+        # overlay base rows (overlay row indices), when the window fuses
+        # the overlay
+        self.base_dm = None
+        self.base_dc = None
+        self.base_do = None
+
+
+class _CacheInfo:
+    """Post-materialize cache population: (key, flat lane) per unique
+    topic the cache did not have, pinned to the dispatching snapshot and
+    to the cache's delta version at plan time — an overlay change while
+    the window flew makes its rows stale, and put_many drops them."""
+
+    __slots__ = ("sid", "inserts", "version")
+
+    def __init__(self, sid, inserts, version=None):
+        self.sid = sid
+        self.inserts = inserts
+        self.version = version
+
+
+class _Overlay:
+    """One immutable VERSION of the delta overlay: its device tables and
+    the host index consume and plan need. Handles pin the version they
+    dispatched with, as they pin ``_Built``."""
+
+    __slots__ = ("dev", "fid_set", "row_of", "seg_of", "hostfan",
+                 "version", "cap", "n", "keep")
+
+    def __init__(self, dev, fid_set, row_of, seg_of, hostfan, version,
+                 cap, n, keep=None):
+        self.dev = dev            # device DeltaTables (row class `cap`)
+        self.fid_set = fid_set    # frozenset of delta fids in the table
+        self.row_of = row_of      # fid -> overlay row index
+        self.seg_of = seg_of      # fid -> device fan-row segment length
+        self.hostfan = hostfan    # fids delivering host-side (rich/big)
+        self.version = version    # overlay clock stamp at build
+        self.cap = cap            # row class (a program dimension)
+        self.n = n                # live rows
+        self.keep = keep          # pinned staging of the upload
+
+
+class _DeltaRes:
+    """Dense host views of one window's overlay planes."""
+
+    __slots__ = ("fids", "counts", "moverflow", "rows", "opts",
+                 "overflow")
+
+    def __init__(self, fids, counts, moverflow, rows, opts, overflow):
+        self.fids = fids          # [W, B, Dm] delta fids
+        self.counts = counts      # [W, B]
+        self.moverflow = moverflow  # [W, B] match-capacity overflow
+        self.rows = rows          # [W, B, Dc]
+        self.opts = opts          # [W, B, Dc]
+        self.overflow = overflow  # [W, B] combined (match | fan-out)
+
+
+class _DeltaCsr:
+    """CSR host views of one window's overlay planes (the main CSR's
+    layout with an empty shared family), plus the dense count and
+    overflow planes."""
+
+    __slots__ = ("off", "c3", "pay", "counts", "moverflow", "overflow")
+
+    def __init__(self, off, c3, pay, counts, moverflow, overflow):
+        self.off = off
+        self.c3 = c3
+        self.pay = pay
+        self.counts = counts
+        self.moverflow = moverflow
+        self.overflow = overflow
+
 
 # windows whose pinned host buffers (inputs and readback) are alive at
 # once: the batcher dispatches up to its pipeline depth (8) of windows
@@ -185,20 +365,24 @@ def capture_shared(broker, f: str) -> dict:
 
 
 class _Graph:
-    """One shape-hash route window of class (W, Bp[, P]) captured as a
-    CUDA graph on one snapshot: its static inputs (the window's encoded
-    topics, lens, '$' flags, message hashes, and the cursors it starts
-    from), its static outputs, and the kernel launches one replay makes.
-    A dispatch copies its window into the inputs and replays: one launch
-    of the graph instead of the window's ~300 eager launches."""
+    """One shape-hash route window class captured as a CUDA graph on one
+    snapshot: its static inputs (the window's arrays in program order,
+    the cursors it starts from, and for an overlay class the overlay
+    tables at the class's row capacity), its static output planes, and
+    the kernel launches one replay makes. A dispatch copies its window
+    into the inputs and replays: one launch of the graph instead of the
+    window's hundreds of eager launches."""
 
-    __slots__ = ("graph", "inputs", "cursors", "out", "launches")
+    __slots__ = ("graph", "inputs", "cursors", "delta", "dver", "planes",
+                 "launches")
 
-    def __init__(self, graph, inputs, cursors, out, launches):
+    def __init__(self, graph, inputs, cursors, delta, planes, launches):
         self.graph = graph
-        self.inputs = inputs      # (topics, lens, dollar, msg_hash)
+        self.inputs = inputs      # static device inputs, program order
         self.cursors = cursors
-        self.out = out            # CompactRouteResult of static tensors
+        self.delta = delta        # static DeltaTables, or None
+        self.dver = None          # the _Overlay last copied into `delta`
+        self.planes = planes      # (res, compact, delta planes, d_compact)
         self.launches = launches  # [(kernel, shape)] per replay
 
 
@@ -207,7 +391,7 @@ class _Built:
 
     __slots__ = ("fid_of", "fid_filter", "seg_len", "slot_of", "slot_key",
                  "n_slots", "backend", "seg_np", "fid_shared", "fid_rich",
-                 "sid", "match_width")
+                 "sid", "match_width", "sig")
 
     def __init__(self):
         self.fid_of: dict[str, int] = {}
@@ -217,10 +401,13 @@ class _Built:
         self.slot_key: list[tuple] = []           # slot -> (filter, group)
         self.n_slots = 0
         self.backend = "trie"
+        # snapshot identity: the match-cache key space
         self.sid = next(_snapshot_ids)
         # width of one match row: shape capacity for the shapes backend,
-        # match_cap for the trie NFA
+        # match_cap for the trie NFA (the cache's row width)
         self.match_width = 0
+        # the warm-class signature (DeviceRouteEngine._signature)
+        self.sig: tuple = ()
         # vectorized-consume companions (set once at build):
         self.seg_np = np.zeros(0, np.int64)       # seg_len as an array
         self.fid_shared = np.zeros(0, bool)       # fid has shared groups
@@ -230,15 +417,16 @@ class _Built:
 class _Handle:
     """One in-flight dispatched WINDOW of 1..W publish micro-batches
     (prepare → dispatch → materialize → finish_sub per batch). Host-side
-    metadata pins the snapshot the dispatch ran against; the engine defers
-    snapshot swaps until no handle is outstanding. `refs` counts the
-    attached sub-batches: the handle releases when every sub has been
-    finished or abandoned."""
+    metadata pins the snapshot and the overlay version the dispatch ran
+    against; the engine defers snapshot swaps until no handle is
+    outstanding. `refs` counts the attached sub-batches: the handle
+    releases when every sub has been finished or abandoned."""
 
     __slots__ = ("subs", "built", "dev_shared", "enc", "res", "cres",
                  "np_res", "refs", "pcap", "host", "ev_start", "event",
-                 "launch_s", "cost_s", "msg_hash", "cursors0", "graphed",
-                 "n_msgs", "error")
+                 "launch_s", "cost_s", "cursors0", "graphed",
+                 "n_msgs", "error", "plan", "cache_info", "delta", "dres",
+                 "dcres", "np_delta", "arrays", "cls", "tables", "strat")
 
     def __init__(self, subs, built, dev_shared):
         self.subs = subs          # list of (msgs, too_long)
@@ -251,10 +439,19 @@ class _Handle:
         self.refs = len(subs)
         self.n_msgs = sum(len(msgs) for msgs, _t in subs)
         self.pcap = None      # payload class: CSR-compact this dispatch
+        self.plan = None      # _CachePlan: deduplicated dispatch inputs
+        self.cache_info = None  # _CacheInfo: rows to insert at readback
+        self.delta = None     # _Overlay this dispatch fused
+        self.dres = None      # device DeltaPlanes
+        self.dcres = None     # device delta CompactPlanes
+        self.np_delta = None  # host views: _DeltaRes or _DeltaCsr
+        self.arrays = None    # the program's host inputs, in order
+        self.cls = None       # (Wp, Bp, Bm, dC, P)
+        self.tables = None    # the device tables the dispatch used
+        self.strat = None
         self.host = None      # pinned host copies started at dispatch
         self.ev_start = None  # CUDA events around the window's device
         self.event = None     # work (and behind the pinned copies)
-        self.msg_hash = None  # [Wp, Bp] per-message hashes (numpy)
         self.cursors0 = None  # the device cursors the window started from
         self.graphed = False  # dispatched as a CUDA graph replay
         self.launch_s = 0.0   # host time of the dispatch's launches
@@ -282,7 +479,10 @@ class DeviceRouteEngine:
                  rebuild_threshold: Optional[int] = None,
                  max_levels: int = 16, frontier_cap: int = 16,
                  match_cap: int = 64, fanout_cap: int = 128,
-                 slot_cap: int = 16, shape_cap: int = 32):
+                 slot_cap: int = 16, shape_cap: int = 32,
+                 match_cache_size: Optional[int] = None,
+                 dedup: Optional[bool] = None,
+                 delta_overlay: Optional[bool] = None):
         self.node = node
         self.broker = node.broker
         self.router = node.broker.router
@@ -316,16 +516,23 @@ class DeviceRouteEngine:
 
         # class readiness: the BATCHER routes a batch to the device only
         # when its (W, Bp) class is warm for the current snapshot
-        # signature. A class becomes warm after one dispatch at it — the
-        # first one builds the kernels and fills the allocator, so first
-        # use never stalls live traffic; background warm tasks run that
-        # dispatch off the serving path.
-        self._warm_classes: set = set()      # {(snapshot, W, Bp[, cP])}
+        # signature, and each optional program dimension (dedup miss
+        # class, overlay row class, payload class) is gated on its own
+        # class being warm. A class becomes warm after one dispatch at it
+        # — the first one builds the kernels and fills the allocator, so
+        # first use never stalls live traffic; background warm tasks run
+        # that dispatch off the serving path for the classes the serving
+        # path asked for.
+        self._warm_classes: set = set()   # {(sig, W, Bp[, Bm][, dC][, cP])}
         self._extra_classes: set = set()     # non-standard (W, Bp) wanted
-        self._wanted_compact: set = set()    # (W, Bp, P) the path asked
+        self._wanted: set = set()            # (W, Bp, Bm, dC, P) asked for
+        self._cur_sig: tuple = ()
         # on the card, shape-hash windows replay CUDA graphs captured by
-        # the warm dispatches: {(snapshot, W, Bp, P, strategy): _Graph}
+        # the warm dispatches: {(snapshot, W, Bp, Bm, dC, P, strategy):
+        # _Graph}; how many were captured and the seconds they took
         self._graphs: dict = {}
+        self.captures = 0
+        self.capture_s = 0.0
         self._fuse_warm_task = None
         # background rebuild machinery
         self._outstanding = 0          # dispatched-but-unfinished handles
@@ -337,6 +544,26 @@ class DeviceRouteEngine:
         # classes sized by a peak-biased EWMA of recent window totals, with
         # a dense-readback fallback when a window outgrows its class
         self._pay_ewma: dict[int, float] = {}   # Bp -> peak entry total
+
+        # reuse layers: in-window unique-topic dedup and the cross-batch
+        # snapshot-keyed match cache (size 0 / dedup off disable a layer)
+        self.dedup = resolve_dedup(dedup)
+        size = resolve_match_cache_size(match_cache_size)
+        self._match_cache: Optional[MatchCache] = \
+            MatchCache(size, node.metrics) \
+            if (self.dedup and size > 0) else None
+        # delta overlay: post-snapshot filters match on the card through a
+        # small linear overlay fused into the route window
+        self.delta_overlay = resolve_delta_overlay(delta_overlay)
+        self._overlay: Optional[_Overlay] = None  # current serving table
+        self._overlay_stale = False     # churn not yet applied
+        self._overlay_clock = 0         # monotonic overlay mutation clock
+        self._overlay_uncovered = 0     # live delta filters NOT in it
+        # fid -> clock of its last MEMBERSHIP change: an overlay version
+        # older than that has stale fan rows for the fid, so consume
+        # delivers it from the host dict
+        self._fid_member_clock: dict[int, int] = {}
+        self._built_deleted: set[str] = set()  # snapshot tombstones
 
         # one stream for serving dispatches, one for background warms (a
         # stream is never shared by two threads at once: kernel 2's
@@ -365,10 +592,18 @@ class DeviceRouteEngine:
     def staleness(self) -> int:
         """Distinct stale entities vs the snapshot (filters/slots serving
         host-side) — the rebuild trigger. A set-size measure, so repeated
-        churn on one filter counts once."""
-        return (len(self.dirty_filters) + len(self.dirty_slots)
-                + sum(len(v) for v in self.new_slots_by_filter.values())
-                + len(self._delta_filter))
+        churn on one filter counts once. With the overlay on,
+        post-snapshot filters serve on the card and do not count (only
+        those the overlay cannot hold do), and deleted built filters move
+        to the tombstone trigger (``_compaction_reason``)."""
+        base = (len(self.dirty_filters) + len(self.dirty_slots)
+                + sum(len(v) for v in self.new_slots_by_filter.values()))
+        if self.delta_overlay:
+            base -= len(self._built_deleted)    # ⊆ dirty_filters
+            base += self._overlay_uncovered
+        else:
+            base += len(self._delta_filter)
+        return base
 
     def _mark_dirty(self, f: str) -> None:
         """dirty_filters.add with the hostside-memo version bump (only
@@ -404,6 +639,25 @@ class DeviceRouteEngine:
                 T.tokens(f))
         return w
 
+    def _overlay_changed(self, words, deleted_fid=None) -> None:
+        """Bookkeeping shared by overlay insert and delete: bump the
+        overlay clock, mark the table stale, and keep the match cache
+        exact — drop the cached topics the changed filter matches and
+        bump the cache's delta version, so readbacks planned before this
+        change cannot insert stale rows."""
+        self._overlay_clock += 1
+        self._overlay_stale = True
+        if deleted_fid is not None:
+            self._fid_member_clock.pop(deleted_fid, None)
+        cache = self._match_cache
+        if cache is not None:
+            cache.bump_delta_version()
+            if len(cache):
+                cache.drop_where(
+                    self._built.sid if self._built else None,
+                    lambda encs, lens, dols: np_filter_match(
+                        words, encs, lens, dols))
+
     def note_route_change(self, topic_filter: str, added: bool) -> None:
         """Router filter-universe change."""
         if self._journal is not None:
@@ -416,6 +670,7 @@ class DeviceRouteEngine:
         if added:
             if topic_filter in self._built.fid_of:
                 self._mark_dirty(topic_filter)
+                self._built_deleted.discard(topic_filter)
             elif topic_filter not in self._delta_fid_of:
                 words = self._enc_filter(topic_filter)
                 fid = self._next_delta_fid
@@ -423,15 +678,20 @@ class DeviceRouteEngine:
                 self._delta_trie.insert(words, fid)
                 self._delta_filter[fid] = topic_filter
                 self._delta_fid_of[topic_filter] = fid
+                if self.delta_overlay:
+                    self._overlay_changed(words)
         else:
             if topic_filter in self._built.fid_of:
                 self._mark_dirty(topic_filter)
+                self._built_deleted.add(topic_filter)
             fid = self._delta_fid_of.pop(topic_filter, None)
             if fid is not None:
                 words = removed_words if removed_words is not None \
                     else self.intern.encode_filter(T.tokens(topic_filter))
                 self._delta_trie.delete(words)
                 self._delta_filter.pop(fid, None)
+                if self.delta_overlay:
+                    self._overlay_changed(words, deleted_fid=fid)
 
     def note_member_change(self, real: str, group: Optional[str]) -> None:
         """Broker membership change (subscribe/unsubscribe/opts update)."""
@@ -442,6 +702,16 @@ class DeviceRouteEngine:
         if group is None:
             if real in self._built.fid_of:
                 self._mark_dirty(real)
+            elif self.delta_overlay:
+                fid = self._delta_fid_of.get(real)
+                if fid is not None:
+                    # the overlay's fan rows for this fid are stale:
+                    # versions at/below this clock deliver it from the
+                    # host dict until the next overlay apply (match rows
+                    # do not depend on membership: no cache action)
+                    self._overlay_clock += 1
+                    self._fid_member_clock[fid] = self._overlay_clock
+                    self._overlay_stale = True
         else:
             if (real, group) in self._built.slot_of:
                 self.dirty_slots.add((real, group))
@@ -587,8 +857,31 @@ class DeviceRouteEngine:
                 tables = router_tables_from_numpy(trie, subs_tbl, dev)
             b.backend = "trie"
             b.match_width = self.match_cap
+        b.sig = self._signature(b, tables)
         with self._cuda_lock:
             return b, tables, torch.from_numpy(cur).to(dev)
+
+    def _signature(self, b, tables) -> tuple:
+        """The warm-class signature of snapshot `b`: the reference keys
+        warmth on the tables' shapes (a program compiled for one snapshot
+        serves any other of the same shapes) and the trie backend on the
+        empty signature. On the card a shape-hash class is warm only once
+        its CUDA graph is captured, and a graph holds its snapshot's
+        addresses, so there the signature is the snapshot itself."""
+        if b.backend != "shapes":
+            return ()
+        if self.device.type == "cuda":
+            return ("snapshot", b.sid)
+        out = []
+
+        def walk(t):
+            if isinstance(t, torch.Tensor):
+                out.append(tuple(t.shape))
+            elif isinstance(t, tuple):
+                for x in t:
+                    walk(x)
+        walk(tables)
+        return tuple(out)
 
     def _apply_build(self, result, journal) -> None:
         """Swap a finished build in and rebase churn tracking onto it by
@@ -604,19 +897,29 @@ class DeviceRouteEngine:
             self._built = None
             self._tables = None
             self._cursors = None
+            self._cur_sig = ()
         else:
             b, tables, cursors = result
             self._built = b
             self._tables = tables
             self._cursors = cursors
+            self._cur_sig = b.sig
             sid = b.sid
-            # demand for compact classes resets with the snapshot too
-            self._wanted_compact.clear()
-        # warmth and graphs belong to one snapshot (a graph holds its
-        # tables' addresses); a background build warmed the new one
-        self._warm_classes = {e for e in self._warm_classes if e[0] == sid}
+            # warmth of other signatures goes; demand for the optional
+            # classes resets with the snapshot (classes still in use
+            # re-register on their next window)
+            self._warm_classes = {e for e in self._warm_classes
+                                  if e[0] == b.sig}
+            self._wanted.clear()
+        # graphs belong to one snapshot (a graph holds its tables'
+        # addresses); a background build captured the new one's
         self._graphs = {k: g for k, g in self._graphs.items()
                         if k[0] == sid}
+        # the match cache dies wholesale with its snapshot: within one
+        # snapshot the main tables never change, and the overlay's rows
+        # are kept exact by the selective drop + the delta version
+        if self._match_cache is not None:
+            self._match_cache.attach(sid)
         # replay churn that raced the build: journaled note_* calls are
         # idempotent against the fresh snapshot (worst case marks a filter
         # the build already captured as dirty — correct, just host-side
@@ -638,14 +941,34 @@ class DeviceRouteEngine:
         self._delta_filter = {}
         self._delta_fid_of = {}
         self._next_delta_fid = 0
+        self._built_deleted = set()
+        # the fresh snapshot subsumes every overlay row (the clock is not
+        # reset: handles pinned to an old version keep their view)
+        self._overlay = None
+        self._overlay_stale = False
+        self._overlay_uncovered = 0
+        self._fid_member_clock = {}
 
     def _compaction_reason(self) -> Optional[str]:
-        """Why the current snapshot should recompile, or None: distinct
-        stale entities (incl. every delta filter) past the threshold."""
+        """Why the current snapshot should recompile, or None. Overlay
+        off: distinct stale entities (every delta filter included) past
+        the threshold. Overlay on: delta filters serve on the card, so the
+        rebuild is a rare compaction on overlay overflow, on the
+        snapshot's delete-tombstone ratio, or on membership churn of
+        built filters and slots past the threshold."""
         if self._built is None:
             return None
-        return "churn" if self.staleness() >= self.rebuild_threshold \
-            else None
+        if not self.delta_overlay:
+            return "churn" if self.staleness() >= self.rebuild_threshold \
+                else None
+        if len(self._delta_filter) > _OVERLAY_MAX:
+            return "overflow"
+        dead = len(self._built_deleted)
+        if dead >= 64 and 2 * dead >= len(self._built.fid_filter):
+            return "tombstones"
+        if self.staleness() >= self.rebuild_threshold:
+            return "churn"
+        return None
 
     def _count_compaction(self, reason: str) -> None:
         m = self.node.metrics
@@ -726,68 +1049,92 @@ class DeviceRouteEngine:
             # on the CPU serving stays on the old snapshot + host deltas
             self._fail(e)
 
-    def _warm_dispatch(self, b, tables, cursors, Wp: int, Bp: int,
-                       P: Optional[int]) -> None:
-        """One dispatch of class (Wp, Bp[, P]) over an all-pad window with
-        throwaway cursors, run to completion on the warm stream: it builds
-        the kernels at first use and sizes the allocator for the class.
-        Matches nothing, advances nothing. A shape-hash window on the card
-        is then captured as a CUDA graph for the serving dispatches. Its
-        kernel launches are recorded, not counted: they serve no traffic."""
-        with self._cuda_lock, D.recording_launches():
-            self._warm_dispatch_locked(b, tables, cursors, Wp, Bp, P)
+    @staticmethod
+    def _class_key(sig, Wp, Bp, Bm=None, dC=None, P=None) -> tuple:
+        """The one warm-class key layout: (sig, W, Bp[, Bm][, dN][, cP]) —
+        the dedup miss class, the overlay row class and the payload class
+        are each optional program dimensions."""
+        return ((sig, Wp, Bp)
+                + ((Bm,) if Bm is not None else ())
+                + ((f"d{dC}",) if dC is not None else ())
+                + ((f"c{P}",) if P is not None else ()))
 
-    def _warm_dispatch_locked(self, b, tables, cursors, Wp: int, Bp: int,
-                              P: Optional[int]) -> None:
+    @staticmethod
+    def _graph_key(b, cls, strat) -> tuple:
+        """A captured window: (snapshot, W, Bp, Bm, dC, P, strategy)."""
+        return (b.sid, *cls, strat)
+
+    def _strategy(self) -> int:
+        return STRATEGIES.get(self.broker.shared_strategy,
+                              STRATEGY_ROUND_ROBIN)
+
+    def _pad_arrays(self, b, cls) -> tuple:
+        """All-pad host inputs of class `cls` = (Wp, Bp, Bm, dC, P), in the
+        program's order: match nothing, advance nothing."""
+        Wp, Bp, Bm, dC, _P = cls
+        L = self.max_levels
+        mh = np.zeros((Wp, Bp), np.int32)
+        if Bm is None:
+            return (np.zeros((Wp, Bp, L), np.int32),
+                    np.zeros((Wp, Bp), np.int32),
+                    np.zeros((Wp, Bp), bool), mh)
+        out = (np.full((Bm, L), I.PAD, np.int32), np.zeros(Bm, np.int32),
+               np.zeros(Bm, bool), np.full((Bp, b.match_width), -1, np.int32),
+               np.zeros(Bp, np.int32), np.zeros(Bp, bool))
+        if dC is not None:
+            out += (np.full((Bp, _DELTA_MATCH_CAP), -1, np.int32),
+                    np.zeros(Bp, np.int32), np.zeros(Bp, bool))
+        return out + (np.full(Bm, Bp, np.int32),   # pad = Bp: the sink
+                      np.zeros((Wp, Bp), np.int32), mh)
+
+    def _warm_dispatch(self, b, tables, cursors, cls) -> None:
+        """One dispatch of class `cls` = (Wp, Bp, Bm, dC, P) over an
+        all-pad window with throwaway cursors (and an empty overlay of
+        the class's row capacity), run to completion on the warm stream:
+        it builds the kernels at first use and sizes the allocator for
+        the class. A shape-hash window on the card is then captured as a
+        CUDA graph for the serving dispatches. Its kernel launches are
+        recorded, not counted: they serve no traffic."""
+        with self._cuda_lock, D.recording_launches():
+            self._warm_dispatch_locked(b, tables, cursors, cls)
+
+    def _warm_dispatch_locked(self, b, tables, cursors, cls) -> None:
         dev = self.device
-        enc = torch.zeros((Wp, Bp, self.max_levels), dtype=torch.int32,
-                          device=dev)
-        z = torch.zeros((Wp, Bp), dtype=torch.int32, device=dev)
-        zb = torch.zeros((Wp, Bp), dtype=torch.bool, device=dev)
+        dC = cls[3]
+        arrays = self._pad_arrays(b, cls)
+        ins = [torch.from_numpy(a).to(dev) for a in arrays]
+        delta = None if dC is None else to_device(
+            empty_delta_tables(dC, self.max_levels, _DELTA_FAN_PER_ROW), dev)
         cur = torch.zeros_like(cursors)
-        kw = dict(fanout_cap=self.fanout_cap, slot_cap=self.slot_cap)
-        strat = STRATEGIES.get(self.broker.shared_strategy,
-                               STRATEGY_ROUND_ROBIN)
-        if b.backend == "shapes":
-            RE.route_window(tables, cur, enc, z, zb, z, strat,
-                            payload_cap=P, **kw)
-            if self._warm_stream is not None:
-                self._warm_stream.synchronize()
-                gr = self._capture(b, tables, cur, (enc, z, zb, z.clone()),
-                                   Wp, Bp, P, strat)
-                # a graph's first replay (its upload to the card) and the
-                # first pinned host blocks of a size are slow — 15.7 ms of
-                # dispatch for the first window one run served (PERF.md):
-                # paid here, not by a window that serves traffic,
-                # with as many pinned sets of the inputs and readback as
-                # serving keeps in flight (held together, so the host
-                # allocator caches that many)
-                self._replay(gr, [t.cpu().numpy() for t in gr.inputs], cur)
-                held = [self._pinned(t) for t in
-                        (*self._planes(gr.out.res, gr.out.compact),
-                         *gr.inputs)
-                        for _ in range(_PINNED_SETS)]
-                self._warm_stream.synchronize()
-                del held
-        elif P is not None:
-            RE.route_step_compact(tables, cur, enc[0], z[0], zb[0], z[0],
-                                  STRATEGY_ROUND_ROBIN,
-                                  frontier_cap=self.frontier_cap,
-                                  match_cap=self.match_cap, payload_cap=P,
-                                  **kw)
-        else:
-            RE.route_step(tables, cur, enc[0], z[0], zb[0], z[0],
-                          STRATEGY_ROUND_ROBIN,
-                          frontier_cap=self.frontier_cap,
-                          match_cap=self.match_cap, **kw)
+        strat = self._strategy()
+        self._program(b.backend, tables, delta, cur, ins, strat, cls)
+        if b.backend == "shapes" and self._warm_stream is not None:
+            self._warm_stream.synchronize()
+            t0 = time.perf_counter()
+            gr = self._capture(b, tables, cur, ins, delta, cls, strat)
+            # a graph's first replay (its upload to the card) and the
+            # first pinned host blocks of a size are slow — 15.7 ms of
+            # dispatch for the first window one run served (PERF.md):
+            # paid here, not by a window that serves traffic, with as
+            # many pinned sets of the inputs and readback as serving
+            # keeps in flight (held together, so the host allocator
+            # caches that many)
+            self._replay(gr, arrays, cur, None)
+            held = [self._pinned(t) for t in
+                    (*self._plane_list(*gr.planes, counts=True), *gr.inputs)
+                    for _ in range(_PINNED_SETS)]
+            self._warm_stream.synchronize()
+            del held
+            self.captures += 1
+            self.capture_s += time.perf_counter() - t0
         if self._warm_stream is not None:
             self._warm_stream.synchronize()
 
-    def _capture(self, b, tables, cursors, inputs, Wp: int, Bp: int,
-                 P: Optional[int], strat: int) -> _Graph:
-        """Capture the shape-hash window of class (Wp, Bp[, P]) over the
-        static `inputs` and `cursors` as a CUDA graph for the serving
-        dispatches. A failed capture raises."""
+    def _capture(self, b, tables, cursors, inputs, delta, cls,
+                 strat: int) -> _Graph:
+        """Capture the shape-hash window of class `cls` over the static
+        `inputs`, `cursors` and overlay `delta` as a CUDA graph for the
+        serving dispatches. A failed capture raises."""
         graph = torch.cuda.CUDAGraph()
         # a stream of its own (a failed capture leaves its stream
         # unusable), and the capture API rather than torch.cuda.graph,
@@ -798,24 +1145,29 @@ class DeviceRouteEngine:
         with D.recording_launches() as launches, torch.cuda.stream(stream):
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                out = RE.route_window(tables, cursors, *inputs, strat,
-                                      fanout_cap=self.fanout_cap,
-                                      slot_cap=self.slot_cap, payload_cap=P)
+                out = self._program("shapes", tables, delta, cursors,
+                                    inputs, strat, cls)
             finally:
                 graph.capture_end()
-        gr = self._graphs[(b.sid, Wp, Bp, P, strat)] = _Graph(
-            graph, inputs, cursors, out, launches)
+        gr = self._graphs[self._graph_key(b, cls, strat)] = _Graph(
+            graph, inputs, cursors, delta, self._unwrap(out), launches)
         return gr
 
     @staticmethod
-    def _replay(gr, arrays, cursors) -> None:
+    def _replay(gr, arrays, cursors, ov) -> None:
         """One replay of a captured window over `arrays` (the window's
-        encoded topics, lens, '$' flags and message hashes, staged through
-        pinned memory), starting from `cursors`; the launches it makes are
-        counted."""
+        host inputs, staged through pinned memory), starting from
+        `cursors`, with overlay version `ov` copied into the graph's
+        overlay buffers when it is not already there — on the engine
+        stream, behind the previous replay, so a window in flight keeps
+        the version it ran with. The launches it makes are counted."""
         for dst, a in zip(gr.inputs, arrays):
             dst.copy_(torch.from_numpy(a).pin_memory(), non_blocking=True)
         gr.cursors.copy_(cursors)
+        if ov is not None and gr.dver is not ov:
+            for dst, src in zip(gr.delta, ov.dev):
+                dst.copy_(src)
+            gr.dver = ov
         gr.graph.replay()
         for name, shape in gr.launches:
             D.count_launch(name, shape)
@@ -826,32 +1178,37 @@ class DeviceRouteEngine:
         return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
             t, non_blocking=True)
 
-    def _note_warm(self, b, Wp: int, Bp: int, P: Optional[int]) -> None:
-        """Class (Wp, Bp[, P]) of snapshot `b` has dispatched once. On the
-        card a shape-hash class is warm only once its graph is captured:
-        its eager window costs ~300 launches where the replay costs one."""
-        if b.backend == "shapes" and self._warm_stream is not None:
-            strat = STRATEGIES.get(self.broker.shared_strategy,
-                                   STRATEGY_ROUND_ROBIN)
-            if (b.sid, Wp, Bp, P, strat) not in self._graphs:
-                return
-        self._warm_classes.add(self._class_key(b.sid, Wp, Bp, P))
+    def _note_warm(self, b, cls) -> None:
+        """Class `cls` of snapshot `b` has dispatched once. On the card a
+        shape-hash class is warm only once its graph is captured: its
+        eager window costs hundreds of launches where the replay costs
+        one."""
+        if b.backend == "shapes" and self._warm_stream is not None \
+                and self._graph_key(b, cls, self._strategy()) \
+                not in self._graphs:
+            return
+        self._warm_classes.add(self._class_key(b.sig, *cls))
 
     def _on(self, stream):
         return torch.cuda.stream(stream) if stream is not None \
             else contextlib.nullcontext()
 
+    def _payload_variants(self, b, cls) -> list:
+        """Class `cls` with the dense readback and with each payload class
+        the chooser can pick for its Bp."""
+        Wp, Bp, Bm, dC, _P = cls
+        dense = self._dense_msg_entries(b)
+        return [(Wp, Bp, Bm, dC, None)] + [
+            (Wp, Bp, Bm, dC, m * Bp) for m in self._PAYLOAD_MULTS
+            if m < dense]
+
     def _std_classes(self, b) -> list:
         """The shape-hash classes warmed ahead of traffic: every standard
         (W, Bp) — and any oversized Bp the batcher asked for — with the
-        dense readback and with each payload class the chooser can pick
-        for it."""
+        dense readback and with each payload class."""
         out = []
-        dense = self._dense_msg_entries(b)
         for Wp, Bp in self._STD_CLASSES + tuple(sorted(self._extra_classes)):
-            out.append((Wp, Bp, None))
-            out += [(Wp, Bp, m * Bp) for m in self._PAYLOAD_MULTS
-                    if m < dense]
+            out += self._payload_variants(b, (Wp, Bp, None, None, None))
         return out
 
     def _warm_compile(self, result) -> None:
@@ -862,13 +1219,13 @@ class DeviceRouteEngine:
         if b.backend == "shapes":
             classes = self._std_classes(b)
         else:       # the trie backend never fuses, nor warms ahead
-            classes = [(1, Bp, None) for W, Bp in self._STD_CLASSES
-                       if W == 1]
+            classes = [(1, Bp, None, None, None)
+                       for W, Bp in self._STD_CLASSES if W == 1]
         with self._on(self._warm_stream):
-            for Wp, Bp, P in classes:
-                self._warm_dispatch(b, tables, cursors, Wp, Bp, P)
+            for cls in classes:
+                self._warm_dispatch(b, tables, cursors, cls)
                 if b.backend == "shapes":
-                    self._note_warm(b, Wp, Bp, P)
+                    self._note_warm(b, cls)
 
     def _try_swap(self) -> None:
         """Apply a finished background build if no dispatch is in flight
@@ -905,7 +1262,7 @@ class DeviceRouteEngine:
         then the largest class. Trie-backend snapshots never fuse."""
         W, Bp = self._STD_CLASSES[-1]
         if self._built is None or self._built.backend != "shapes" \
-                or (self._built.sid, W, Bp) not in self._warm_classes:
+                or (self._cur_sig, W, Bp) not in self._warm_classes:
             return 1
         return W
 
@@ -929,7 +1286,7 @@ class DeviceRouteEngine:
             # its first use warms in-path, as in the reference
             return True
         Bp = self._batch_class(n_msgs)
-        if (self._built.sid, 1, Bp) in self._warm_classes:
+        if (self._cur_sig, 1, Bp) in self._warm_classes:
             return True
         if Bp > self._STD_CLASSES[-1][1]:
             # oversized batch class (max_publish_batch > 1024): queue it
@@ -973,13 +1330,8 @@ class DeviceRouteEngine:
         self._pay_ewma[Bp] = s if (ew is None or s > ew) \
             else 0.8 * ew + 0.2 * s
 
-    @staticmethod
-    def _class_key(sid, Wp, Bp, P=None) -> tuple:
-        """The one warm-class key layout: (snapshot, W, Bp[, cP])."""
-        return (sid, Wp, Bp) + ((f"c{P}",) if P is not None else ())
-
-    def _gate_compact(self, Wp: int, Bp: int,
-                      gate_cold: bool) -> Optional[int]:
+    def _gate_compact(self, Wp: int, Bp: int, plan, gate_cold: bool,
+                      ov: Optional[_Overlay] = None) -> Optional[int]:
         """Choose + warm-gate the payload class for one dispatch. Returns
         the class, or None to read back dense (unprofitable, or the class
         is cold on the serving path: it dispatches dense while the
@@ -987,27 +1339,35 @@ class DeviceRouteEngine:
         pcap = self._choose_payload_cap(Bp)
         if pcap is None:
             return None
-        if gate_cold and self._class_key(self._built.sid, Wp, Bp, pcap) \
-                not in self._warm_classes:
-            self._wanted_compact.add((Wp, Bp, pcap))
+        Bm = plan.Bm if plan is not None else None
+        dC = ov.cap if ov is not None else None
+        if gate_cold and self._class_key(self._cur_sig, Wp, Bp, Bm, dC,
+                                         pcap) not in self._warm_classes:
+            self._wanted.add((Wp, Bp, Bm, dC, pcap))
             self._kick_class_warm()
             self.node.metrics.inc("routing.device.cold_compact_class")
             return None
         return pcap
 
     def _kick_class_warm(self) -> None:
-        """Warm every standard (W, Bp) class and every demand-registered
-        compact class the CURRENT snapshot is missing, off the serving
-        path (an executor thread on the warm stream)."""
+        """Warm every standard (W, Bp) class and every class the serving
+        path asked for (cached, overlay and compact) that the CURRENT
+        snapshot is missing, off the serving path (an executor thread on
+        the warm stream). On the card a wanted class is captured with
+        each of its payload classes."""
         if self._fuse_warm_task is not None or self._built is None:
             return
         b = self._built
-        wanted = set(self._wanted_compact)
+        wanted = set(self._wanted)
         if b.backend == "shapes":
             wanted.update(self._std_classes(b))
-        missing = [e for e in sorted(wanted, key=lambda e: (e[0], e[1],
-                                                            e[2] or 0))
-                   if self._class_key(b.sid, *e) not in self._warm_classes]
+            if self._warm_stream is not None:
+                for c in list(wanted):
+                    if c[4] is None:
+                        wanted.update(self._payload_variants(b, c))
+        missing = [c for c in sorted(wanted, key=lambda c: tuple(
+                       x or 0 for x in c))
+                   if self._class_key(b.sig, *c) not in self._warm_classes]
         if not missing:
             return
         try:
@@ -1018,11 +1378,11 @@ class DeviceRouteEngine:
 
         def warm():
             with self._on(self._warm_stream):
-                for Wp, Bp, P in missing:
+                for cls in missing:
                     if self._built is not b:
                         return      # a newer snapshot swapped in
-                    self._warm_dispatch(b, tables, cursors, Wp, Bp, P)
-                    self._note_warm(b, Wp, Bp, P)
+                    self._warm_dispatch(b, tables, cursors, cls)
+                    self._note_warm(b, cls)
 
         async def run():
             try:
@@ -1038,11 +1398,259 @@ class DeviceRouteEngine:
                                           "device-class-warm",
                                           self.node.metrics)
 
+    # ---- delta overlay ---------------------------------------------------
+    @staticmethod
+    def _overlay_class(n: int) -> int:
+        for c in _DELTA_CLASSES:
+            if n <= c:
+                return c
+        return _DELTA_CLASSES[-1]
+
+    @staticmethod
+    def _delta_payload_cap(Bp: int) -> int:
+        """The overlay CSR's payload class, a fixed multiple of Bp (no
+        warm-class dimension of its own): most lanes match no
+        post-snapshot filter, and a window that outgrows it reads the
+        dense overlay planes instead."""
+        return max(64, Bp)
+
+    def _overlay_sync(self) -> None:
+        """Rebuild the small overlay table from the live delta dicts and
+        upload it as a fresh immutable version: a few hundred rows of
+        numpy, safe on the loop. In-flight handles keep the version they
+        dispatched with, and per-fid membership staleness is judged
+        against the pinned version's clock stamp at consume. On the card
+        the upload is a pinned copy on the engine stream, ordered before
+        every later dispatch; a failed upload raises."""
+        if not self.delta_overlay or not self._overlay_stale:
+            return
+        live = sorted(self._delta_filter.items())   # fid order = age
+        entries = []
+        fid_set = set()
+        row_of: dict[int, int] = {}
+        seg_of: dict[int, int] = {}
+        hostfan: set[int] = set()
+        for fid, f in live:
+            if len(entries) >= _OVERLAY_MAX:
+                break       # overflow: the rest route on the host until
+                            # the compaction this state has triggered
+            words = self._enc_filter(f)
+            if len(words) > self.max_levels:
+                continue    # too deep for the device planes: host path
+            fan = []
+            subs = self.broker.subs.get(f)
+            host_side = False
+            if subs:
+                if len(subs) > _DELTA_FAN_PER_ROW:
+                    host_side = True    # oversized fan-out: match on the
+                else:                   # card, deliver via the host dict
+                    for sid, opts in subs.items():
+                        if _is_rich(opts):
+                            host_side = True
+                            break
+                        fan.append((sid, _pack_opts(opts)))
+            if host_side:
+                fan = []
+                hostfan.add(fid)
+            row_of[fid] = len(entries)
+            seg_of[fid] = len(fan)
+            fid_set.add(fid)
+            entries.append((words, fid, fan))
+        self._overlay_uncovered = len(live) - len(fid_set)
+        if not entries:
+            self._overlay = None
+            self._overlay_stale = False
+            return
+        cap = self._overlay_class(len(entries))
+        dt = build_delta_tables(entries, row_cap=cap,
+                                level_cap=self.max_levels,
+                                fan_per_row=_DELTA_FAN_PER_ROW)
+        keep = None
+        if self._stream is not None:
+            with self._cuda_lock, self._on(self._stream):
+                keep = [torch.from_numpy(a).pin_memory() for a in dt]
+                dev = DeltaTables(*[t.to(self.device, non_blocking=True)
+                                    for t in keep])
+        else:
+            dev = to_device(dt, self.device)
+        self._overlay = _Overlay(dev, frozenset(fid_set), row_of, seg_of,
+                                 hostfan, self._overlay_clock, cap,
+                                 len(entries), keep)
+        self._overlay_stale = False
+        self.node.metrics.inc("routing.device.delta_applies")
+
+    def _gate_delta(self, Wp: int, Bp: int,
+                    gate_cold: bool) -> Optional[_Overlay]:
+        """Choose + warm-gate the overlay for one dispatch. Returns the
+        pinned _Overlay, or None to dispatch WITHOUT it (overlay off or
+        empty, or its class cold on the serving path — the host delta
+        trie serves meanwhile, counted by routing.device.host_delta)."""
+        if not self.delta_overlay:
+            return None
+        self._overlay_sync()
+        ov = self._overlay
+        if ov is None:
+            return None
+        if gate_cold and self._class_key(self._cur_sig, Wp, Bp, dC=ov.cap) \
+                not in self._warm_classes:
+            self._wanted.add((Wp, Bp, None, ov.cap, None))
+            self._kick_class_warm()
+            self.node.metrics.inc("routing.device.cold_delta_class")
+            return None
+        return ov
+
+    def _delta_pending(self, ov: Optional[_Overlay]) -> bool:
+        """True when some live delta filter is NOT served by `ov` —
+        consume then walks the host delta trie for the remainder and the
+        vectorized fast path stands down."""
+        if not self._delta_filter:
+            return False
+        if ov is None:
+            return True
+        return not self._delta_filter.keys() <= ov.fid_set
+
+    # ---- dedup and the match cache ------------------------------------------
+    def _plan_window(self, b, enc4, len4, dol4, gate_cold: bool,
+                     ov: Optional[_Overlay] = None):
+        """Dedup + match-cache analysis for one encoded window
+        (``emqx_tpu/broker/device_engine.py:1906``).
+
+        Collapses the [Wp, Bp] lanes to unique encoded topics (the padding
+        lanes share one sentinel key), looks each up in the
+        snapshot-keyed cache, and compacts the rest into a miss sub-batch
+        whose size is quantized onto the batch-class ladder.
+
+        Returns (plan, cache_info): `plan` is the cached dispatch's input
+        set (None = dispatch the plain program), `cache_info` the
+        post-readback insert list (kept when the plan is rejected: the
+        plain path's readback still seeds the cache)."""
+        Wp, Bp, L = enc4.shape
+        if b.backend != "shapes" and Wp > 1:
+            # a multi-batch trie window runs sequential steps: no plan
+            return None, None
+        if Wp == 1 and Bp <= self._STD_CLASSES[0][1]:
+            # the smallest class can never engage (Bm floors at it)
+            return None, None
+        n_lanes = Wp * Bp
+        encf = enc4.reshape(n_lanes, L)
+        lenf = len4.reshape(n_lanes)
+        dolf = dol4.reshape(n_lanes)
+        keys_v = _topic_keys(encf, lenf, dolf)
+        uniq, first_idx, inv = np.unique(keys_v, return_index=True,
+                                         return_inverse=True)
+        Bu = len(uniq)
+        pad_u = lenf[first_idx] == 0          # [Bu] the sentinel pad lane
+        uniq_real = Bu - int(pad_u.sum())
+        if Bu > Bp:
+            # more diverse than the Bp-wide unique arrays hold
+            return None, None
+        cache = self._match_cache
+        keys = [None if pad_u[u] else uniq[u].tobytes()
+                for u in range(Bu)]
+        # the lookup runs before the engage decision (the miss count IS
+        # the decision input), and misses seed the cache even from
+        # plain-dispatched windows
+        hit_rows: list = [None] * Bu
+        miss_u: list[int] = []
+        inserts: list[tuple] = []
+        if cache is not None:
+            rows = cache.get_many(b.sid,
+                                  [k for k in keys if k is not None])
+            it = iter(rows)
+            for u, k in enumerate(keys):
+                if k is None:
+                    continue
+                row = next(it)
+                if row is not None and ov is not None:
+                    # an overlay-fused dispatch needs the row's overlay
+                    # triple, with every fid in the pinned table
+                    if len(row) < 6 or row[3] is None or not all(
+                            int(df) in ov.row_of for df in row[3]
+                            if df >= 0):
+                        row = None
+                if row is None:
+                    miss_u.append(u)
+                    inserts.append((k, int(first_idx[u])))
+                else:
+                    hit_rows[u] = row
+        else:
+            miss_u = [u for u in range(Bu) if keys[u] is not None]
+        info = _CacheInfo(
+            b.sid, inserts,
+            cache.delta_version if cache is not None
+            and self.delta_overlay else None) if inserts else None
+        n_miss = len(miss_u)
+        n_hit = uniq_real - n_miss
+        Bm = self._batch_class(max(1, n_miss))
+        # engage only when the dedup removes real match work: the miss
+        # class is smaller than the batch class, or the window is fused
+        if not (Bm < Bp or Wp > 1):
+            return None, info
+        dC = ov.cap if ov is not None else None
+        if gate_cold and self._class_key(self._cur_sig, Wp, Bp, Bm, dC) \
+                not in self._warm_classes:
+            # a cold cached class dispatches the warm plain program while
+            # the background warm brings it online
+            self._wanted.add((Wp, Bp, Bm, dC, None))
+            self._kick_class_warm()
+            self.node.metrics.inc("routing.device.cold_cached_class")
+            return None, info
+        base_m = np.full((Bp, b.match_width), -1, np.int32)
+        base_c = np.zeros(Bp, np.int32)
+        base_o = np.zeros(Bp, bool)
+        base_dm = base_dc = base_do = None
+        if ov is not None:
+            base_dm = np.full((Bp, _DELTA_MATCH_CAP), -1, np.int32)
+            base_dc = np.zeros(Bp, np.int32)
+            base_do = np.zeros(Bp, bool)
+        for u, row in enumerate(hit_rows):
+            if row is not None:
+                base_m[u] = row[0]
+                base_c[u] = row[1]
+                base_o[u] = row[2]
+                if ov is not None:
+                    # cached overlay triples are in fid space (stable
+                    # across overlay row reassignment): mapped onto the
+                    # pinned table's rows for the device-side merge
+                    for j, df in enumerate(row[3]):
+                        if df >= 0:
+                            base_dm[u, j] = ov.row_of[int(df)]
+                    base_dc[u] = row[4]
+                    base_do[u] = row[5]
+        miss_topics = np.full((Bm, L), I.PAD, np.int32)
+        miss_lens = np.zeros(Bm, np.int32)
+        miss_dollar = np.zeros(Bm, bool)
+        # pad = Bp, past the [Bp]-wide base arrays: the merge's sink row.
+        # NOT -1, which the reference wraps onto unique row Bp-1
+        miss_pos = np.full(Bm, Bp, np.int32)
+        if n_miss:
+            src = first_idx[miss_u]
+            miss_topics[:n_miss] = encf[src]
+            miss_lens[:n_miss] = lenf[src]
+            miss_dollar[:n_miss] = dolf[src]
+            miss_pos[:n_miss] = miss_u
+        plan = _CachePlan(miss_topics, miss_lens, miss_dollar, base_m,
+                          base_c, base_o, miss_pos,
+                          inv.reshape(Wp, Bp).astype(np.int32), Bm,
+                          n_miss, n_hit)
+        plan.base_dm, plan.base_dc, plan.base_do = base_dm, base_dc, \
+            base_do
+        # counted only for engaged plans: the exported hit rate and dedup
+        # ratio describe match work removed from dispatches
+        m = self.node.metrics
+        m.inc("routing.device.dedup_lanes", int((lenf > 0).sum()))
+        m.inc("routing.device.dedup_unique", uniq_real)
+        if cache is not None:
+            cache.count_lookups(n_hit, n_miss)
+        return plan, info
+
     def prepare_window(self, lives: list[list[Message]],
                        gate_cold: bool = True):
         """Stage 1 (event loop): encode 1..W micro-batches as one fused
-        dispatch window. `gate_cold=False` (sync callers) lets a cold
-        compact class run in-path instead of reading back dense.
+        dispatch window, and with dedup on compact it to unique topics and
+        match-cache hits (_plan_window), so the dispatch matches only the
+        miss lanes. `gate_cold=False` (sync callers) lets a cold class run
+        in-path instead of the warm plain program.
 
         Returns a _Handle, or None when the engine has no snapshot to
         serve (the caller routes host-side; a background rebuild may be
@@ -1081,11 +1689,18 @@ class DeviceRouteEngine:
             dol4[k, :n] = dollar
         h = _Handle(subs, b, self.device_shared_active())
         h.enc = (enc4, len4, dol4)
-        if b.backend == "shapes" or Wp == 1:
-            # CSR readback class for this dispatch (None = dense). The
-            # excluded case is the rare multi-batch trie window, which
-            # dispatches sequential steps and stacks them.
-            h.pcap = self._gate_compact(Wp, Bp, gate_cold)
+        seq_trie = b.backend != "shapes" and Wp > 1
+        if not seq_trie:
+            # the overlay for this dispatch (None: post-snapshot filters
+            # route on the host). The rare multi-batch trie window runs
+            # sequential steps and has no fused program to carry it.
+            h.delta = self._gate_delta(Wp, Bp, gate_cold)
+        if self.dedup:
+            h.plan, h.cache_info = self._plan_window(b, enc4, len4, dol4,
+                                                     gate_cold, h.delta)
+        if not (seq_trie and h.plan is None):
+            # CSR readback class for this dispatch (None = dense)
+            h.pcap = self._gate_compact(Wp, Bp, h.plan, gate_cold, h.delta)
         self._outstanding += 1
         self.node.metrics.inc("routing.device.windows")
         self.node.metrics.inc("routing.device.window_subs", len(lives))
@@ -1118,12 +1733,87 @@ class DeviceRouteEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _program(self, backend: str, tables, delta, cursors, ins, strat,
+                 cls, *, match=None, scan=None):
+        """Run the route program of class `cls` = (Wp, Bp, Bm, dC, P) on
+        device inputs `ins` (the window's arrays in program order, see
+        ``dispatch``): the plain window, with up to three optional fused
+        dimensions — the dedup plan (Bm), the delta overlay (`delta`, row
+        class dC) and the CSR readback (P). ``match`` and ``scan``
+        override the kernel wrappers (the plain path)."""
+        Wp, Bp, Bm, _dC, P = cls
+        shapes = backend == "shapes"
+        kw = dict(fanout_cap=self.fanout_cap, slot_cap=self.slot_cap)
+        if scan is not None:
+            kw["scan"] = scan
+        if shapes:
+            if match is not None:
+                kw["match"] = match
+        else:
+            kw.update(frontier_cap=self.frontier_cap,
+                      match_cap=self.match_cap)
+            if Bm is None and delta is None and P is None:
+                # plain trie window: sequential steps, stacked
+                outs, cur = [], cursors
+                for k in range(Wp):
+                    r = RE.route_step(tables, cur, *(x[k] for x in ins),
+                                      strat, **kw)
+                    cur = r.new_cursors
+                    outs.append(r)
+                return RE.RouteResult(*[torch.stack(x) for x in zip(*outs)])
+            # the other trie programs take one batch (Wp == 1)
+            ins = (*ins[:-2], ins[-2][0], ins[-1][0]) if Bm is not None \
+                else tuple(x[0] for x in ins)
+        if delta is not None:
+            kw.update(delta_match_cap=_DELTA_MATCH_CAP,
+                      delta_fanout_cap=_DELTA_FANOUT_CAP)
+            if P is not None:
+                kw.update(payload_cap=P,
+                          d_payload_cap=self._delta_payload_cap(Bp))
+                fn = {(True, True): RE.route_window_delta_cached_compact,
+                      (True, False): RE.route_window_delta_compact,
+                      (False, True): RE.route_step_delta_cached_compact,
+                      (False, False): RE.route_step_delta_compact}
+            else:
+                fn = {(True, True): RE.route_window_delta_cached,
+                      (True, False): RE.route_window_delta,
+                      (False, True): RE.route_step_delta_cached,
+                      (False, False): RE.route_step_delta}
+            return fn[shapes, Bm is not None](tables, delta, cursors, *ins,
+                                              strat, **kw)
+        if shapes:
+            fn = RE.route_window_cached if Bm is not None \
+                else RE.route_window
+            return fn(tables, cursors, *ins, strat, payload_cap=P, **kw)
+        if P is not None:
+            fn = RE.route_step_cached_compact if Bm is not None \
+                else RE.route_step_compact
+            return fn(tables, cursors, *ins, strat, payload_cap=P, **kw)
+        return RE.route_step_cached(tables, cursors, *ins, strat, **kw)
+
+    @staticmethod
+    def _unwrap(out) -> tuple:
+        """(res [W, ...], compact, delta planes [W, B, ...], delta
+        compact) of any program's result; absent parts are None."""
+        if isinstance(out, RE.CompactDeltaRouteResult):
+            return out.dres.res, out.compact, out.dres.dp, out.d_compact
+        if isinstance(out, RE.DeltaRouteResult):
+            return out.res, None, out.dp, None
+        if isinstance(out, RE.CompactRouteResult):
+            return out.res, out.compact, None, None
+        if out.matches.dim() == 2:          # a single trie step
+            out = RE.RouteResult(*[x[None] for x in out])
+        return out, None, None, None
+
     def dispatch(self, h) -> None:
         """Stage 2: launch the route window on the card (on the loop; on
         an executor thread when the device is the CPU).
         The table/cursor pair is pinned once for the whole dispatch: a
         snapshot swap racing it can neither mix old and new tables nor
-        have its cursors clobbered by a late write (the identity guard)."""
+        have its cursors clobbered by a late write (the identity guard).
+        A shape-hash window on the card replays its class's graph; a
+        class without one (a sync caller's cold class) runs eagerly and
+        is queued for capture off the serving path."""
         with self._cuda_lock, self._on(self._stream):
             t0 = time.perf_counter()
             if self._stream is not None:
@@ -1132,120 +1822,208 @@ class DeviceRouteEngine:
             tables, cursors = self._tables, self._cursors
             enc4, len4, dol4 = h.enc
             Wp, Bp = enc4.shape[0], enc4.shape[1]
-            strat = STRATEGIES.get(self.broker.shared_strategy,
-                                   STRATEGY_ROUND_ROBIN)
+            strat = self._strategy()
             msg_hash = np.zeros((Wp, Bp), np.int32)
             for k, (msgs, _t) in enumerate(h.subs):
                 msg_hash[k, :len(msgs)] = self._msg_hashes(msgs, strat)
-            h.msg_hash, h.cursors0 = msg_hash, cursors
-            P = h.pcap
-            kw = dict(fanout_cap=self.fanout_cap, slot_cap=self.slot_cap)
-            tkw = dict(frontier_cap=self.frontier_cap,
-                       match_cap=self.match_cap, **kw)
-            gr = self._graphs.get((h.built.sid, Wp, Bp, P, strat))
+            p, P, ov = h.plan, h.pcap, h.delta
+            h.cursors0 = cursors
+            h.tables, h.strat = tables, strat
+            h.cls = (Wp, Bp, p.Bm if p is not None else None,
+                     ov.cap if ov is not None else None, P)
+            if p is not None:
+                h.arrays = (p.miss_topics, p.miss_lens, p.miss_dollar,
+                            p.base_m, p.base_c, p.base_o) + (
+                    (p.base_dm, p.base_dc, p.base_do)
+                    if ov is not None else ()) + (p.miss_pos, p.inv,
+                                                  msg_hash)
+            else:
+                h.arrays = (enc4, len4, dol4, msg_hash)
+            gr = self._graphs.get(self._graph_key(h.built, h.cls, strat))
             if gr is not None:
                 # the captured window: this window's inputs into its
                 # static tensors, and one replay
-                self._replay(gr, (enc4, len4, dol4, msg_hash), cursors)
-                res, cp = gr.out.res, gr.out.compact
+                self._replay(gr, h.arrays, cursors, ov)
+                res, cp, dp, dcp = gr.planes
                 h.graphed = True
-            elif h.built.backend == "shapes":
-                topics, lens, dollar, mh = (self._h2d(a) for a in
-                                            (enc4, len4, dol4, msg_hash))
-                out = RE.route_window(tables, cursors, topics, lens, dollar,
-                                      mh, strat, payload_cap=P, **kw)
-                res, cp = out.res, out.compact
-            elif P is not None:
-                topics, lens, dollar, mh = (self._h2d(a) for a in
-                                            (enc4, len4, dol4, msg_hash))
-                out = RE.route_step_compact(tables, cursors, topics[0],
-                                            lens[0], dollar[0], mh[0],
-                                            strat, payload_cap=P, **tkw)
-                res, cp = out.res, out.compact
             else:
-                # plain trie window: sequential steps, stacked
-                topics, lens, dollar, mh = (self._h2d(a) for a in
-                                            (enc4, len4, dol4, msg_hash))
-                outs, cur = [], cursors
-                for k in range(Wp):
-                    r = RE.route_step(tables, cur, topics[k], lens[k],
-                                      dollar[k], mh[k], strat, **tkw)
-                    cur = r.new_cursors
-                    outs.append(r)
-                res = RE.RouteResult(*[torch.stack(x) for x in zip(*outs)])
-                cp = None
+                if h.built.backend == "shapes" and self._stream is not None:
+                    # a class the traffic asked for without its graph:
+                    # eager now, captured in the background for later
+                    self.node.metrics.inc("routing.device.eager_windows")
+                    self._wanted.add(h.cls)
+                    self._kick_class_warm()
+                ins = [self._h2d(a) for a in h.arrays]
+                res, cp, dp, dcp = self._unwrap(self._program(
+                    h.built.backend, tables, ov.dev if ov is not None
+                    else None, cursors, ins, strat, h.cls))
+            if p is not None:
+                self.node.metrics.inc("routing.device.cached_windows")
             if self._tables is tables:   # no swap raced this dispatch
                 # a copy: a graph's outputs are rewritten by its next replay
                 self._cursors = res.new_cursors[-1].clone()
-            self._note_warm(h.built, Wp, Bp, P)
-            h.res, h.cres = res, cp
+            self._note_warm(h.built, h.cls)
+            h.res, h.cres, h.dres, h.dcres = res, cp, dp, dcp
             if self._stream is not None:
                 # start every plane materialize will read on its way into
                 # pinned host memory; materialize waits on the event
                 # behind them only (a graph's outputs must be copied
                 # before its next replay rewrites them)
-                h.host = [self._pinned(t) for t in self._planes(h.res, h.cres)]
+                h.host = [self._pinned(t) for t in self._plane_list(
+                    res, cp, dp, dcp, self._wants_counts(h))]
                 h.event = torch.cuda.Event(enable_timing=True)
                 h.event.record(self._stream)
             h.launch_s = self._stage("dispatch", t0)
             h.cost_s += h.launch_s
 
-    @staticmethod
-    def _planes(res, cp) -> list:
-        """The planes a window's readback takes: the CSR planes plus the
-        overflow/occur planes, or the dense planes without a payload
-        class."""
-        if cp is not None:
-            return [cp.offsets, cp.counts3, cp.row_overflow, cp.payload,
-                    res.overflow, res.occur]
-        return [res.matches, res.rows, res.opts, res.shared_sids,
-                res.shared_rows, res.shared_opts, res.overflow, res.occur]
+    def _wants_counts(self, h) -> bool:
+        """A dense readback carries match_counts only when the cache has
+        rows of this window to insert (consume never reads it)."""
+        return h.cache_info is not None and self._match_cache is not None
 
-    def _route_again(self, h):
-        """A replayed window's dense planes: the graph's outputs may hold a
-        later replay by now, so the window runs again eagerly from the
-        cursors it started with — the same planes, bit for bit."""
+    @staticmethod
+    def _plane_list(res, cp, dp, dcp, counts: bool) -> list:
+        """The planes a window's readback takes, in the order materialize
+        reads them: the overlay's count and overflow planes and its CSR
+        (or dense) planes; then the main CSR planes plus the
+        overflow/occur planes, or the dense planes (with match_counts
+        when the cache takes rows)."""
+        out = []
+        if dp is not None:
+            out += [dp.counts, dp.moverflow, dp.overflow]
+            out += [dcp.offsets, dcp.counts3, dcp.row_overflow, dcp.payload] \
+                if dcp is not None else [dp.fids, dp.rows, dp.opts]
+        if cp is not None:
+            return out + [cp.offsets, cp.counts3, cp.row_overflow,
+                          cp.payload, res.overflow, res.occur]
+        out += [res.matches, res.rows, res.opts, res.shared_sids,
+                res.shared_rows, res.shared_opts, res.overflow, res.occur]
+        return out + ([res.match_counts] if counts else [])
+
+    def _dense_again(self, h) -> tuple:
+        """The dense (res, delta planes) of a window whose CSR payload
+        overflowed. An eager dispatch still holds them; a replayed
+        window's graph outputs may hold a later replay by now, so it runs
+        again eagerly from the cursors and the overlay version it started
+        with — the same planes, bit for bit."""
+        if not h.graphed:
+            return h.res, h.dres
         with self._cuda_lock, self._on(self._stream):
-            enc4, len4, dol4 = h.enc
-            ins = [self._h2d(a) for a in (enc4, len4, dol4, h.msg_hash)]
-            strat = STRATEGIES.get(self.broker.shared_strategy,
-                                   STRATEGY_ROUND_ROBIN)
-            return RE.route_window(self._tables, h.cursors0, *ins, strat,
-                                   fanout_cap=self.fanout_cap,
-                                   slot_cap=self.slot_cap).res
+            ins = [self._h2d(a) for a in h.arrays]
+            res, _cp, dp, _dcp = self._unwrap(self._program(
+                h.built.backend, h.tables,
+                h.delta.dev if h.delta is not None else None, h.cursors0,
+                ins, h.strat, h.cls[:4] + (None,)))
+            return res, dp
 
     def _read(self, planes) -> list:
         """Synchronous readback, ordered behind the dispatch stream."""
         with self._cuda_lock, self._on(self._stream):
             return [t.cpu().numpy() for t in planes]
 
+    def _delta_cache_fields(self, h, lane: int, Bp: int) -> tuple:
+        """Fields 3.. of a match-cache row under the overlay: (delta
+        fids, delta count, MATCH-level delta overflow, encoded topic,
+        len, is_dollar) — the overlay triple in fid space plus the topic
+        encoding the delta-aware invalidation matches against. Empty with
+        the overlay off (3-tuple rows)."""
+        if not self.delta_overlay:
+            return ()
+        enc4, len4, dol4 = h.enc
+        w, bb = divmod(lane, Bp)
+        topic = (enc4[w, bb].copy(), int(len4[w, bb]), bool(dol4[w, bb]))
+        nd = h.np_delta
+        if nd is None:
+            if self._delta_filter:
+                # the overlay exists but this dispatch ran without it: the
+                # topic's delta part is UNKNOWN — None keeps the main row
+                # usable and the row ineligible as an overlay base
+                return (None, 0, False) + topic
+            dm = np.full(_DELTA_MATCH_CAP, -1, np.int32)
+            return (dm, 0, False) + topic
+        if isinstance(nd, _DeltaCsr):
+            o = int(nd.off[w, bb])
+            cm = int(nd.c3[w, bb, 0])
+            dm = np.full(_DELTA_MATCH_CAP, -1, np.int32)
+            dm[:cm] = nd.pay[w, o:o + cm]
+        else:
+            dm = nd.fids[w, bb].copy()
+        return (dm, int(nd.counts[w, bb]), bool(nd.moverflow[w, bb])) \
+            + topic
+
     def materialize(self, h) -> None:
         """Stage 3 (executor thread): device→host readback. Every field is
         [W, ...] (window-stacked). With a payload class the transfer is
         the CSR planes plus the small overflow/occur planes; a window
-        whose entries outgrew its class reads the dense planes of the SAME
-        dispatch instead (a graph replay's are recomputed, _route_again)."""
+        whose entries outgrew its class reads the dense planes instead
+        (_dense_again), and likewise for the overlay's CSR. Also the
+        match-cache population point: the rows of this window's missed
+        unique topics come out of the readback consume needs anyway."""
         t0 = time.perf_counter()
+        metrics = self.node.metrics
         try:
+            counts = self._wants_counts(h)
             if h.host is not None:
                 h.event.synchronize()
                 planes = [t.numpy() for t in h.host]
             else:
-                planes = self._read(self._planes(h.res, h.cres))
+                planes = self._read(self._plane_list(
+                    h.res, h.cres, h.dres, h.dcres, counts))
+            it = iter(planes)
+            dense = None
+            if h.dres is not None:
+                dcnt, dmov, dovf = next(it), next(it), next(it)
+                if h.dcres is not None:
+                    off, c3, rovf, pay = (next(it) for _ in range(4))
+                    if rovf.any():
+                        metrics.inc("routing.device.delta_compact_overflow")
+                        dense = self._dense_again(h)
+                        dp = dense[1]
+                        fids, rows, opts = self._read(
+                            [dp.fids, dp.rows, dp.opts])
+                        h.np_delta = _DeltaRes(fids, dcnt, dmov, rows, opts,
+                                               dovf)
+                    else:
+                        h.np_delta = _DeltaCsr(off, c3, pay, dcnt, dmov,
+                                               dovf)
+                else:
+                    fids, rows, opts = next(it), next(it), next(it)
+                    h.np_delta = _DeltaRes(fids, dcnt, dmov, rows, opts,
+                                           dovf)
+            info = h.cache_info if self._match_cache is not None else None
             if h.cres is not None:
-                off, c3, rovf, pay, overflow, occur = planes
+                off, c3, rovf, pay, overflow, occur = (next(it)
+                                                       for _ in range(6))
                 # the EWMA learns from the offsets either way — on the
                 # overflow fallback the totals are what resizes the class
                 self._note_payload(off.shape[1] - 1, off[:, -1])
                 if not rovf.any():
                     h.np_res = _CsrRes(off, c3, pay, overflow, occur)
+                    if info is not None:
+                        self._cache_from_csr(h, info, off, c3, pay,
+                                             overflow)
                     return
-                self.node.metrics.inc("routing.device.compact_overflow")
-                res = self._route_again(h) if h.graphed else h.res
-                planes = self._read([res.matches, res.rows, res.opts,
-                                     res.shared_sids, res.shared_rows,
-                                     res.shared_opts]) + [overflow, occur]
-            h.np_res = tuple(planes)
+                metrics.inc("routing.device.compact_overflow")
+                res = (dense or self._dense_again(h))[0]
+                planes = self._read(self._plane_list(res, None, None, None,
+                                                     counts))
+                it = iter(planes)
+            dense8 = tuple(next(it) for _ in range(8))
+            h.np_res = dense8
+            if info is not None:
+                matches, overflow = dense8[0], dense8[6]
+                Bp = matches.shape[1]
+                mflat = matches.reshape(-1, matches.shape[-1])
+                cflat = next(it).reshape(-1)
+                oflat = overflow.reshape(-1)
+                # overflow cached as the COMBINED flag (match|fanout|slot):
+                # all three are functions of (snapshot, topic), and
+                # post_match re-ORs the fan-out/slot parts
+                self._match_cache.put_many(
+                    info.sid,
+                    [(k, (mflat[i].copy(), int(cflat[i]), bool(oflat[i]))
+                      + self._delta_cache_fields(h, i, Bp))
+                     for k, i in info.inserts], version=info.version)
         finally:
             if h.event is not None:
                 h.event.synchronize()
@@ -1253,11 +2031,31 @@ class DeviceRouteEngine:
                 # the kernels run while the host still launches, so only
                 # the part past the launches adds to the window's cost
                 card_s = h.ev_start.elapsed_time(h.event) / 1e3
-                self.node.metrics.inc("routing.device.card_us",
-                                      int(card_s * 1e6))
+                metrics.inc("routing.device.card_us", int(card_s * 1e6))
                 h.cost_s += max(0.0, card_s - h.launch_s)
+                # the host's part: the wait, the plane views and the
+                # match-cache inserts
+                metrics.inc("routing.device.readback_us",
+                            int((time.perf_counter() - t0) * 1e6))
             else:       # on the CPU the readback is the host's work
                 h.cost_s += self._stage("materialize", t0)
+
+    def _cache_from_csr(self, h, info, off, c3, pay, overflow) -> None:
+        """Cache population from the CSR view: a row is the
+        hole-compacted valid prefix + -1 pad, which routes as the dense
+        row does (the count is the true match count for both)."""
+        mw = h.built.match_width
+        Bp = off.shape[1] - 1
+        o_flat = overflow.reshape(-1)
+        items = []
+        for key, lane in info.inserts:
+            w, bb = divmod(lane, Bp)
+            cm = int(c3[w, bb, 0])
+            row = np.full(mw, -1, np.int32)
+            row[:cm] = pay[w, off[w, bb]:off[w, bb] + cm]
+            items.append((key, (row, cm, bool(o_flat[lane]))
+                          + self._delta_cache_fields(h, lane, Bp)))
+        self._match_cache.put_many(info.sid, items, version=info.version)
 
     def finish_sub(self, h, k: int) -> list[int]:
         """Stage 4 (event loop): consume sub-batch k of the window into
@@ -1279,7 +2077,15 @@ class DeviceRouteEngine:
                 (matches, rows, opts, shared_sids, shared_rows,
                  shared_opts, overflow, occur) = nr
                 overflow_k, occur_k = overflow[k], occur[k]
-            pending = bool(self._delta_filter)
+            nd = h.np_delta
+            d_counts_k = None
+            if nd is not None:
+                # an overlay-plane overflow (match cap or fan cap) leaves
+                # the message's post-snapshot matches incomplete: the full
+                # host fallback, as for the main planes
+                overflow_k = overflow_k | nd.overflow[k]
+                d_counts_k = nd.counts[k]
+            pending = self._delta_pending(h.delta)
             if h.dev_shared and b.n_slots:
                 self._writeback_cursors(occur_k, b)
             metrics = self.node.metrics
@@ -1287,11 +2093,12 @@ class DeviceRouteEngine:
             if csr:
                 fast = self._consume_batch_fast_csr(
                     msgs, nr.off[k], nr.c3[k], nr.pay[k], too_long,
-                    overflow_k, h.dev_shared, b, pending)
+                    overflow_k, h.dev_shared, b, d_counts_k, pending)
             else:
                 fast = self._consume_batch_fast(
                     msgs, matches[k], rows[k], opts[k], shared_sids[k],
-                    too_long, overflow_k, h.dev_shared, b, pending)
+                    too_long, overflow_k, h.dev_shared, b, d_counts_k,
+                    pending)
             counts: list[int] = []
             pay = None
             for i, msg in enumerate(msgs):
@@ -1322,8 +2129,17 @@ class DeviceRouteEngine:
                     row6 = tuple(x[k][i].tolist() for x in (
                         matches, rows, opts, shared_sids, shared_rows,
                         shared_opts))
-                counts.append(self._consume_one(msg, *row6, h.dev_shared,
-                                                b))
+                drow = None
+                if nd is not None:
+                    if isinstance(nd, _DeltaCsr):
+                        drow = csr_slices(nd.off[k], nd.c3[k], nd.pay[k],
+                                          i)[:3]
+                    else:
+                        drow = (nd.fids[k][i], nd.rows[k][i],
+                                nd.opts[k][i])
+                counts.append(self._consume_one(
+                    msg, *row6, h.dev_shared, b, drow=drow, ov=h.delta,
+                    pending=pending))
             metrics.inc("routing.device.batches")
             return counts
         finally:
@@ -1332,12 +2148,13 @@ class DeviceRouteEngine:
 
     def _consume_batch_fast(self, msgs, m_k, r_k, o_k, ss_k, too_long,
                             overflow_k, dev_shared: bool, b,
-                            pending: bool = False):
+                            d_counts_k=None, pending: bool = False):
         """Vectorized consume for provably-clean messages. Returns a list
         with per-message delivery counts, or None where the slow path
-        must run. Clean requires, globally: no delta filters (`pending`),
-        no post-snapshot shared groups; per message: no too-long/overflow,
-        no dirty/rich matched filter, no shared involvement."""
+        must run. Clean requires, globally: no delta filters beyond the
+        fused overlay (`pending`), no post-snapshot shared groups; per
+        message: no too-long/overflow, no dirty/rich matched filter, no
+        overlay match, no shared involvement."""
         if pending or self.new_slots_by_filter:
             return [None] * len(msgs)
         B = len(msgs)
@@ -1350,11 +2167,12 @@ class DeviceRouteEngine:
             return r_k[row_msg, col], o_k[row_msg, col]
 
         return self._fast_deliver(msgs, mi, fids, too_long, overflow_k,
-                                  shared_any, fetch, dev_shared, b)
+                                  shared_any, fetch, dev_shared, b,
+                                  d_counts_k)
 
     def _consume_batch_fast_csr(self, msgs, off_k, c3_k, pay_k, too_long,
                                 overflow_k, dev_shared: bool, b,
-                                pending: bool = False):
+                                d_counts_k=None, pending: bool = False):
         """_consume_batch_fast over one window row's CSR planes: same
         clean-message proof and the same vectorized delivery walk, with
         the 2-D plane gathers replaced by flat payload gathers at each
@@ -1383,7 +2201,8 @@ class DeviceRouteEngine:
                     pay_k[obase[row_msg] + col])
 
         return self._fast_deliver(msgs, mi, fids, too_long, overflow_k,
-                                  shared_any, fetch, dev_shared, b)
+                                  shared_any, fetch, dev_shared, b,
+                                  d_counts_k)
 
     @staticmethod
     def _attribute_rows(mi_f, fids_f, seg, total: int):
@@ -1404,7 +2223,8 @@ class DeviceRouteEngine:
         return row_msg, col, row_fid
 
     def _fast_deliver(self, msgs, mi, fids, too_long, overflow_k,
-                      shared_any, fetch, dev_shared: bool, b):
+                      shared_any, fetch, dev_shared: bool, b,
+                      d_counts_k=None):
         """Shared tail of the vectorized fast consume (dense and CSR):
         per-message clean proof, row attribution, and delivery. `mi`/
         `fids` list every valid match (message index, filter id) in
@@ -1415,6 +2235,9 @@ class DeviceRouteEngine:
         hostside = self._hostside_mask(b)
 
         slow = np.asarray(too_long[:B]) | (overflow_k[:B] != 0)
+        if d_counts_k is not None:
+            # overlay-matched messages walk the slow path
+            slow |= d_counts_k[:B] > 0
         if fids.size:
             np.logical_or.at(slow, mi, hostside[fids] | b.fid_shared[fids])
         if dev_shared:
@@ -1531,10 +2354,15 @@ class DeviceRouteEngine:
                 g.cursor = (g.cursor + int(occur[slot])) % len(g.members)
 
     def _consume_one(self, msg, m_row, r_row, o_row, ss_row, sr_row, so_row,
-                     dev_shared: bool, b) -> int:
-        """Turn one message's route rows (lists of Python ints) into
-        deliveries; filters added since the snapshot match through the
-        host delta trie."""
+                     dev_shared: bool, b, drow=None, ov=None,
+                     pending: bool = False) -> int:
+        """Turn one message's route rows into deliveries.
+
+        `drow` = (delta fids, delta fan rows, delta fan opts) when the
+        dispatch fused the overlay `ov`: post-snapshot filters deliver
+        from its planes. `pending` marks live delta filters the overlay
+        does not cover — only those walk the host delta trie (and the
+        overlay's fids are skipped there, so nothing delivers twice)."""
         broker = self.broker
         metrics = self.node.metrics
         n = 0
@@ -1561,13 +2389,47 @@ class DeviceRouteEngine:
                         metrics.inc("messages.routed.device")
             off += seg
 
-        # filters added since the snapshot: the host delta trie
-        if self._delta_filter:
+        # filters added since the snapshot: the overlay's planes, and the
+        # host delta trie for the filters it does not cover
+        if ov is not None and drow is not None:
+            d_fids, d_rows, d_opts = drow
+            doff = 0
+            for raw in d_fids:
+                dfid = int(raw)
+                if dfid < 0:
+                    continue
+                seg = ov.seg_of.get(dfid, 0)
+                f = self._delta_filter.get(dfid)
+                if f is None:       # deleted while this window flew
+                    doff += seg
+                    continue
+                matched.append(f)
+                if dfid in ov.hostfan \
+                        or self._fid_member_clock.get(dfid, -1) \
+                        > ov.version:
+                    # rich/oversized fan-out, or membership changed after
+                    # this version was built: the match stands, delivery
+                    # comes from the live host dict
+                    n += broker.dispatch(f, msg)
+                else:
+                    for j in range(doff, doff + seg):
+                        sid = int(d_rows[j])
+                        if sid < 0:
+                            continue
+                        if broker._deliver(
+                                sid, f, msg,
+                                dict(OPT_TABLE[int(d_opts[j]) & 0x3F])):
+                            n += 1
+                            metrics.inc("messages.routed.device")
+                doff += seg
+        if self._delta_filter and (ov is None or pending):
             words = T.tokens(msg.topic)[:self.max_levels]
             ids = self.intern.encode_topic(words)
             dol = words[0].startswith("$") if words else False
             host_hit = False
             for dfid in self._delta_trie.match(ids, dol):
+                if ov is not None and dfid in ov.fid_set:
+                    continue    # the overlay's planes served it
                 f = self._delta_filter.get(dfid)
                 if f is None:
                     continue
@@ -1635,6 +2497,7 @@ class DeviceRouteEngine:
 
     def stats(self) -> dict:
         b = self._built
+        ov = self._overlay
         return {
             "built": b is not None,
             "backend": b.backend if b else None,
@@ -1645,6 +2508,16 @@ class DeviceRouteEngine:
             "delta_filters": len(self._delta_filter),
             "building": self._building,
             "outstanding": self._outstanding,
+            "dedup": self.dedup,
+            "match_cache": self._match_cache.stats()
+            if self._match_cache is not None else None,
+            "delta_overlay": self.delta_overlay,
+            "overlay": {"rows": ov.n, "class": ov.cap,
+                        "version": ov.version, "hostfan": len(ov.hostfan)}
+            if ov is not None else None,
+            "graphs": len(self._graphs),
+            "captures": self.captures,
+            "capture_s": round(self.capture_s, 3),
             "payload_ewma": {k: round(v, 1)
                              for k, v in self._pay_ewma.items()},
             "device": str(self.device),

@@ -13,7 +13,12 @@ defaults: ``batch_window_us`` (200), ``max_publish_batch`` (1024),
 ``device_min_batch`` (4), ``device_fanout_cap`` (128),
 ``device_slot_cap`` (16), ``shared_subscription_strategy``
 ("round_robin"), ``shared_dispatch_ack_enabled`` (false),
-``dispatch_depth`` (2) and ``rebuild_threshold`` (256).
+``dispatch_depth`` (2), ``rebuild_threshold`` (256), and the routing
+layers ``topic_dedup`` (on), ``match_cache_size`` (8192) and
+``delta_overlay`` (on), passed to the engine as the reference's ``Node``
+passes them (:221-257). A key that asks for a layer the port does not
+have (``_UNSUPPORTED``, or ``compact_readback`` off) raises
+``ValueError`` rather than serving without it.
 """
 
 from __future__ import annotations
@@ -35,6 +40,24 @@ from emqx_tpu_torch.broker.router import Router
 from emqx_tpu_torch.device import resolve_device
 
 
+# reference layers the port does not have: a truthy value asks for one
+_UNSUPPORTED = ("subscription_covering", "supervise", "hbm_ledger", "trace",
+                "latency_observatory", "overload", "deliver_lanes",
+                "columnar_ingress")
+
+
+def check_layers(perf: dict) -> None:
+    """Raise ValueError when the ``broker`` config asks for a layer the
+    port does not implement."""
+    asked = [k for k in _UNSUPPORTED if perf.get(k)]
+    if perf.get("compact_readback") is not None \
+            and not perf.get("compact_readback"):
+        asked.append("compact_readback=false")
+    if asked:
+        raise ValueError(f"emqx_tpu_torch does not implement broker "
+                         f"{', '.join(asked)}; set them off (false/0)")
+
+
 class Node:
     """``device=None`` serves on ``cuda`` and raises without a card;
     ``device="cpu"`` runs the plain PyTorch path on the host."""
@@ -49,6 +72,7 @@ class Node:
         self.metrics = Metrics()
         self.stats = Stats()
         perf = self.config.get("broker") or {}
+        check_layers(perf)
         rebuild_threshold = resolve_rebuild_threshold(
             perf.get("rebuild_threshold"))
         dispatch_depth = resolve_dispatch_depth(perf.get("dispatch_depth"))
@@ -66,7 +90,10 @@ class Node:
             self, device=self.device,
             rebuild_threshold=rebuild_threshold,
             fanout_cap=perf.get("device_fanout_cap", 128),
-            slot_cap=perf.get("device_slot_cap", 16))
+            slot_cap=perf.get("device_slot_cap", 16),
+            match_cache_size=perf.get("match_cache_size"),
+            dedup=perf.get("topic_dedup"),
+            delta_overlay=perf.get("delta_overlay"))
         self.publish_batcher = PublishBatcher(
             self, self.device_engine,
             window_us=perf.get("batch_window_us", 200),

@@ -32,7 +32,8 @@ def resolve_device(device=None) -> torch.device:
 LAUNCHES: dict[str, int] = {"shape_match": 0, "prefix_sum": 0,
                             "ring_rotate": 0}
 # the same launches by input shape, for a wrapper that passes its shape
-LAUNCH_SHAPES: dict[str, dict[tuple, int]] = {"prefix_sum": {}}
+LAUNCH_SHAPES: dict[str, dict[tuple, int]] = {"prefix_sum": {},
+                                             "shape_match": {}}
 
 
 # per thread: the launches being recorded instead of counted

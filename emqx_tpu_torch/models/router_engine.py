@@ -5,14 +5,20 @@ types (``RouterTables`` :37, ``ExchangeAux`` :63, ``ExchangeResult`` :74),
 ``post_match`` (:87), the trie ``route_step`` (:106), ``route_step_shapes``
 (:119), ``route_step_compact`` (:235), ``route_window_full`` (:683)
 together with ``route_window_full_compact`` (:281), and ``route_digest``
-(:631).
+(:631); the deduplicated programs ``route_step_cached`` (:133),
+``route_window_cached`` (:162), ``route_step_cached_compact`` (:254) and
+``route_window_cached_compact`` (:299); and the delta-overlay programs
+(:323-630): ``DeltaRouteResult``, ``CompactDeltaRouteResult`` and the
+eight ``route_{step,window}_delta[_cached][_compact]`` variants.
 
 ``route_window`` routes W sub-batches in one call. The match, the normal
 fan-out and the shared-slot expansion do not depend on the cursors, so
 they run once over the flattened W×B lanes; the member picks then thread
 the cursors through the W sub-batches in order, exactly as the
 reference's ``lax.scan`` does, so row k of ``new_cursors``/``occur`` is
-the state after sub-batch k.
+the state after sub-batch k. A window program takes its payload class
+as ``payload_cap`` (None: dense planes only), where the reference has a
+``_compact`` twin of each.
 """
 
 from __future__ import annotations
@@ -23,7 +29,11 @@ import torch
 
 from emqx_tpu_torch.ops.compact import CompactPlanes, compact_result
 from emqx_tpu_torch.ops.fanout import SubTable, fanout_normal, shared_slots
-from emqx_tpu_torch.ops.match import MatchResult, match_batch
+from emqx_tpu_torch.ops.delta import (DeltaPlanes, DeltaTables,
+                                      delta_expand, delta_match,
+                                      delta_overlay)
+from emqx_tpu_torch.ops.match import (MatchResult, match_batch,
+                                      merge_match_results)
 from emqx_tpu_torch.ops.scan import prefix_sum
 from emqx_tpu_torch.ops.shapes import ShapeTables, shape_match
 from emqx_tpu_torch.ops.shared import pick_members
@@ -83,6 +93,11 @@ class CompactRouteResult(NamedTuple):
     compact: Optional[CompactPlanes]
 
 
+def _stack1(r: RouteResult) -> RouteResult:
+    """Lift a single-batch RouteResult to window form (W = 1)."""
+    return RouteResult(*[x[None] for x in r])
+
+
 def post_match(subs: SubTable, mr: MatchResult, cursors: torch.Tensor,
                msg_hash: torch.Tensor, strategy: int, *, fanout_cap: int,
                slot_cap: int, scan=prefix_sum) -> RouteResult:
@@ -133,12 +148,48 @@ def route_step_compact(tables: RouterTables, cursors, topics, lens,
     r = route_step(tables, cursors, topics, lens, is_dollar, msg_hash,
                    strategy, frontier_cap=frontier_cap, match_cap=match_cap,
                    fanout_cap=fanout_cap, slot_cap=slot_cap, scan=scan)
-    r = RouteResult(*[x[None] for x in r])
-    cp = compact_result(r.matches, r.rows, r.opts, r.fan_counts,
-                        r.shared_sids, r.shared_rows, r.shared_opts,
-                        payload_cap=payload_cap, match_holes=False,
-                        scan=scan)
-    return CompactRouteResult(res=r, compact=cp)
+    r = _stack1(r)
+    return CompactRouteResult(res=r, compact=_compact(r, payload_cap, False,
+                                                      scan))
+
+
+def _post_window(subs: SubTable, mr: MatchResult, cursors: torch.Tensor,
+                 msg_hash: torch.Tensor, W: int, B: int, strategy: int, *,
+                 fanout_cap: int, slot_cap: int, scan) -> RouteResult:
+    """post_match over a window's W×B flattened match rows: fan-out and
+    slot expansion once over every lane, the member picks per step with
+    the cursors threaded; every field stacked [W, ...]."""
+    fr = fanout_normal(subs, mr.matches, fanout_cap=fanout_cap, scan=scan)
+    sids, slot_oflow = shared_slots(subs, mr.matches, slot_cap=slot_cap,
+                                    scan=scan)
+
+    def per_step(x):
+        return x.reshape((W, B) + x.shape[1:])
+
+    sids_w = per_step(sids)
+    picks, cur = [], cursors
+    for k in range(W):
+        sp = pick_members(subs, cur, sids_w[k], strategy, msg_hash[k],
+                          scan=scan)
+        picks.append(sp)
+        cur = sp.new_cursors
+    return RouteResult(
+        matches=per_step(mr.matches), match_counts=per_step(mr.counts),
+        rows=per_step(fr.rows), opts=per_step(fr.opts),
+        fan_counts=per_step(fr.counts), shared_sids=sids_w,
+        shared_rows=torch.stack([p.rows for p in picks]),
+        shared_opts=torch.stack([p.opts for p in picks]),
+        overflow=per_step(mr.overflow | fr.overflow | slot_oflow),
+        new_cursors=torch.stack([p.new_cursors for p in picks]),
+        occur=torch.stack([p.occur for p in picks]))
+
+
+def _compact(r: RouteResult, payload_cap: int, match_holes: bool,
+             scan) -> CompactPlanes:
+    return compact_result(r.matches, r.rows, r.opts, r.fan_counts,
+                          r.shared_sids, r.shared_rows, r.shared_opts,
+                          payload_cap=payload_cap, match_holes=match_holes,
+                          scan=scan)
 
 
 def route_window(tables: ShapeRouterTables, cursors: torch.Tensor,
@@ -157,39 +208,288 @@ def route_window(tables: ShapeRouterTables, cursors: torch.Tensor,
     the same device.
     """
     W, B, L = topics.shape
-    subs = tables.subs
     mr = match(tables.shapes, topics.reshape(W * B, L), lens.reshape(W * B),
                is_dollar.reshape(W * B))
-    fr = fanout_normal(subs, mr.matches, fanout_cap=fanout_cap, scan=scan)
-    sids, slot_oflow = shared_slots(subs, mr.matches, slot_cap=slot_cap,
-                                    scan=scan)
-
-    def per_step(x):
-        return x.reshape((W, B) + x.shape[1:])
-
-    sids_w = per_step(sids)
-    picks, cur = [], cursors
-    for k in range(W):
-        sp = pick_members(subs, cur, sids_w[k], strategy, msg_hash[k],
-                          scan=scan)
-        picks.append(sp)
-        cur = sp.new_cursors
-    res = RouteResult(
-        matches=per_step(mr.matches), match_counts=per_step(mr.counts),
-        rows=per_step(fr.rows), opts=per_step(fr.opts),
-        fan_counts=per_step(fr.counts), shared_sids=sids_w,
-        shared_rows=torch.stack([p.rows for p in picks]),
-        shared_opts=torch.stack([p.opts for p in picks]),
-        overflow=per_step(mr.overflow | fr.overflow | slot_oflow),
-        new_cursors=torch.stack([p.new_cursors for p in picks]),
-        occur=torch.stack([p.occur for p in picks]))
+    res = _post_window(tables.subs, mr, cursors, msg_hash, W, B, strategy,
+                       fanout_cap=fanout_cap, slot_cap=slot_cap, scan=scan)
     cp = None
     if payload_cap is not None:
-        cp = compact_result(res.matches, res.rows, res.opts, res.fan_counts,
-                            res.shared_sids, res.shared_rows,
-                            res.shared_opts, payload_cap=payload_cap,
-                            match_holes=True, scan=scan)
+        cp = _compact(res, payload_cap, True, scan)
     return CompactRouteResult(res=res, compact=cp)
+
+
+# ---- the deduplicated (cache-backed) programs -----------------------------
+#
+# The match stage runs only on the [Bm] compacted miss lanes; cache-hit
+# unique topics ride in as host-filled base rows ([U] per unique topic,
+# U = Bp). ``merge_match_results`` scatters the fresh rows into the base,
+# and ``inv`` gathers the unique rows back to full width before the
+# cursor-dependent post stage, so the result equals the plain program's
+# on the same window bit for bit.
+
+def _gather(um: MatchResult, inv: torch.Tensor) -> MatchResult:
+    ix = inv.reshape(-1).long()
+    return MatchResult(matches=um.matches[ix], counts=um.counts[ix],
+                       overflow=um.overflow[ix])
+
+
+def route_step_cached(tables: RouterTables, cursors, miss_topics, miss_lens,
+                      miss_dollar, base_matches, base_counts, base_overflow,
+                      miss_pos, inv, msg_hash, strategy: int, *,
+                      frontier_cap: int = 16, match_cap: int = 64,
+                      fanout_cap: int = 128, slot_cap: int = 16,
+                      scan=prefix_sum) -> RouteResult:
+    """Trie-NFA route step over a deduplicated batch with cached rows
+    (``route_step_cached``, reference :133); ``inv`` is [B]."""
+    mr = match_batch(tables.trie, miss_topics, miss_lens, miss_dollar,
+                     frontier_cap=frontier_cap, match_cap=match_cap,
+                     scan=scan)
+    um = merge_match_results(base_matches, base_counts, base_overflow, mr,
+                             miss_pos)
+    return post_match(tables.subs, _gather(um, inv), cursors, msg_hash,
+                      strategy, fanout_cap=fanout_cap, slot_cap=slot_cap,
+                      scan=scan)
+
+
+def route_step_cached_compact(tables: RouterTables, cursors, miss_topics,
+                              miss_lens, miss_dollar, base_matches,
+                              base_counts, base_overflow, miss_pos, inv,
+                              msg_hash, strategy: int, *,
+                              frontier_cap: int = 16, match_cap: int = 64,
+                              fanout_cap: int = 128, slot_cap: int = 16,
+                              payload_cap: int = 4096,
+                              scan=prefix_sum) -> CompactRouteResult:
+    """Deduplicated trie step + fused CSR readback, window-shaped
+    (reference :254)."""
+    r = _stack1(route_step_cached(
+        tables, cursors, miss_topics, miss_lens, miss_dollar, base_matches,
+        base_counts, base_overflow, miss_pos, inv, msg_hash, strategy,
+        frontier_cap=frontier_cap, match_cap=match_cap,
+        fanout_cap=fanout_cap, slot_cap=slot_cap, scan=scan))
+    return CompactRouteResult(res=r, compact=_compact(r, payload_cap, False,
+                                                      scan))
+
+
+def route_window_cached(tables: ShapeRouterTables, cursors, miss_topics,
+                        miss_lens, miss_dollar, base_matches, base_counts,
+                        base_overflow, miss_pos, inv, msg_hash,
+                        strategy: int, *, fanout_cap: int = 128,
+                        slot_cap: int = 16,
+                        payload_cap: Optional[int] = None,
+                        match=shape_match,
+                        scan=prefix_sum) -> CompactRouteResult:
+    """Shape-hash window over a deduplicated window with cached rows
+    (``route_window_cached`` :162, with ``payload_cap`` its ``_compact``
+    twin :299): kernel 1 runs once over the [Bm] miss lanes, ``inv``
+    [W, B] gathers the merged unique rows back to window width, and the
+    post stage threads the cursors through the W steps."""
+    W, B = inv.shape
+    mr = match(tables.shapes, miss_topics, miss_lens, miss_dollar)
+    um = merge_match_results(base_matches, base_counts, base_overflow, mr,
+                             miss_pos)
+    res = _post_window(tables.subs, _gather(um, inv), cursors, msg_hash, W,
+                       B, strategy, fanout_cap=fanout_cap,
+                       slot_cap=slot_cap, scan=scan)
+    cp = None
+    if payload_cap is not None:
+        cp = _compact(res, payload_cap, True, scan)
+    return CompactRouteResult(res=res, compact=cp)
+
+
+def route_window_cached_compact(*args, payload_cap: int = 4096,
+                                **kw) -> CompactRouteResult:
+    """``route_window_cached`` with its CSR readback (reference :299)."""
+    return route_window_cached(*args, payload_cap=payload_cap, **kw)
+
+
+# ---- the delta-overlay programs ------------------------------------------
+
+class DeltaRouteResult(NamedTuple):
+    """A route result with its fused delta-overlay planes: ``res`` is the
+    main snapshot's, window-shaped [W, ...] for every variant; ``dp`` the
+    overlay's match and fan-out planes, each [W, B, ...]. The two fid
+    spaces are disjoint: ``res.matches`` are snapshot fids, ``dp.fids``
+    the engine's delta fids."""
+    res: RouteResult
+    dp: DeltaPlanes
+
+
+class CompactDeltaRouteResult(NamedTuple):
+    """DeltaRouteResult + the CSR readbacks of both plane families: the
+    overlay's reuses ``compact_result`` with an empty width-1 shared
+    family, so ``csr_slices`` decodes both."""
+    dres: DeltaRouteResult
+    compact: CompactPlanes
+    d_compact: CompactPlanes
+
+
+def _window_delta(delta: DeltaTables, topics, lens, is_dollar, *,
+                  dmatch_cap: int, dfan_cap: int, scan) -> DeltaPlanes:
+    """Overlay planes for a full [W, B] window: the linear matcher does
+    not depend on the cursors, so it runs once over the flattened lanes."""
+    W, B = topics.shape[:2]
+    mr = delta_match(delta, topics.reshape(W * B, -1), lens.reshape(W * B),
+                     is_dollar.reshape(W * B), match_cap=dmatch_cap,
+                     scan=scan)
+    dp = delta_expand(delta, mr, fanout_cap=dfan_cap, scan=scan)
+    return DeltaPlanes(*[x.reshape((W, B) + x.shape[1:]) for x in dp])
+
+
+def _cached_delta(delta: DeltaTables, miss_topics, miss_lens, miss_dollar,
+                  base_dm, base_dc, base_do, miss_pos, inv, *,
+                  dmatch_cap: int, dfan_cap: int, scan) -> DeltaPlanes:
+    """Overlay planes for a deduplicated dispatch: the matcher runs on the
+    [Bm] miss lanes, the cache-hit base rows (overlay ROW indices, counts,
+    match-level overflow) merge with the same scatter as the main match,
+    the fan-out expands the merged unique rows against the CURRENT overlay
+    CSR (cached rows carry no membership), and ``inv`` gathers back to
+    full width ([B] for a step, [W, B] for a window)."""
+    mr = delta_match(delta, miss_topics, miss_lens, miss_dollar,
+                     match_cap=dmatch_cap, scan=scan)
+    um = merge_match_results(base_dm, base_dc, base_do, mr, miss_pos)
+    dp_u = delta_expand(delta, um, fanout_cap=dfan_cap, scan=scan)
+    ix = inv.long()
+    return DeltaPlanes(*[x[ix] for x in dp_u])
+
+
+def _stack1_dp(dp: DeltaPlanes) -> DeltaPlanes:
+    return DeltaPlanes(*[x[None] for x in dp])
+
+
+def _dkw(delta_match_cap, delta_fanout_cap, scan):
+    return dict(dmatch_cap=delta_match_cap, dfan_cap=delta_fanout_cap,
+                scan=scan)
+
+
+def route_step_delta(tables: RouterTables, delta: DeltaTables, cursors,
+                     topics, lens, is_dollar, msg_hash, strategy: int, *,
+                     frontier_cap: int = 16, match_cap: int = 64,
+                     fanout_cap: int = 128, slot_cap: int = 16,
+                     delta_match_cap: int = 16, delta_fanout_cap: int = 64,
+                     scan=prefix_sum) -> DeltaRouteResult:
+    """Trie-NFA route step + the delta overlay (W = 1), reference :392."""
+    r = route_step(tables, cursors, topics, lens, is_dollar, msg_hash,
+                   strategy, frontier_cap=frontier_cap, match_cap=match_cap,
+                   fanout_cap=fanout_cap, slot_cap=slot_cap, scan=scan)
+    dp = delta_overlay(delta, topics, lens, is_dollar,
+                       match_cap=delta_match_cap,
+                       fanout_cap=delta_fanout_cap, scan=scan)
+    return DeltaRouteResult(res=_stack1(r), dp=_stack1_dp(dp))
+
+
+def route_window_delta(tables: ShapeRouterTables, delta: DeltaTables,
+                       cursors, topics, lens, is_dollar, msg_hash,
+                       strategy: int, *, fanout_cap: int = 128,
+                       slot_cap: int = 16, delta_match_cap: int = 16,
+                       delta_fanout_cap: int = 64, match=shape_match,
+                       scan=prefix_sum) -> DeltaRouteResult:
+    """The shape-hash window + the delta overlay, reference :415."""
+    r = route_window(tables, cursors, topics, lens, is_dollar, msg_hash,
+                     strategy, fanout_cap=fanout_cap, slot_cap=slot_cap,
+                     match=match, scan=scan).res
+    dp = _window_delta(delta, topics, lens, is_dollar,
+                       **_dkw(delta_match_cap, delta_fanout_cap, scan))
+    return DeltaRouteResult(res=r, dp=dp)
+
+
+def route_step_delta_cached(tables: RouterTables, delta: DeltaTables,
+                            cursors, miss_topics, miss_lens, miss_dollar,
+                            base_matches, base_counts, base_overflow,
+                            base_dm, base_dc, base_do, miss_pos, inv,
+                            msg_hash, strategy: int, *,
+                            frontier_cap: int = 16, match_cap: int = 64,
+                            fanout_cap: int = 128, slot_cap: int = 16,
+                            delta_match_cap: int = 16,
+                            delta_fanout_cap: int = 64,
+                            scan=prefix_sum) -> DeltaRouteResult:
+    """Deduplicated trie step + the overlay, reference :436."""
+    r = route_step_cached(tables, cursors, miss_topics, miss_lens,
+                          miss_dollar, base_matches, base_counts,
+                          base_overflow, miss_pos, inv, msg_hash, strategy,
+                          frontier_cap=frontier_cap, match_cap=match_cap,
+                          fanout_cap=fanout_cap, slot_cap=slot_cap,
+                          scan=scan)
+    dp = _cached_delta(delta, miss_topics, miss_lens, miss_dollar, base_dm,
+                       base_dc, base_do, miss_pos, inv,
+                       **_dkw(delta_match_cap, delta_fanout_cap, scan))
+    return DeltaRouteResult(res=_stack1(r), dp=_stack1_dp(dp))
+
+
+def route_window_delta_cached(tables: ShapeRouterTables,
+                              delta: DeltaTables, cursors, miss_topics,
+                              miss_lens, miss_dollar, base_matches,
+                              base_counts, base_overflow, base_dm, base_dc,
+                              base_do, miss_pos, inv, msg_hash,
+                              strategy: int, *, fanout_cap: int = 128,
+                              slot_cap: int = 16, delta_match_cap: int = 16,
+                              delta_fanout_cap: int = 64, match=shape_match,
+                              scan=prefix_sum) -> DeltaRouteResult:
+    """Deduplicated window + the overlay, reference :470."""
+    r = route_window_cached(tables, cursors, miss_topics, miss_lens,
+                            miss_dollar, base_matches, base_counts,
+                            base_overflow, miss_pos, inv, msg_hash,
+                            strategy, fanout_cap=fanout_cap,
+                            slot_cap=slot_cap, match=match, scan=scan).res
+    dp = _cached_delta(delta, miss_topics, miss_lens, miss_dollar, base_dm,
+                       base_dc, base_do, miss_pos, inv,
+                       **_dkw(delta_match_cap, delta_fanout_cap, scan))
+    return DeltaRouteResult(res=r, dp=dp)
+
+
+def _with_delta_compact(dres: DeltaRouteResult, payload_cap: int,
+                        d_payload_cap: int, match_holes: bool,
+                        scan=prefix_sum) -> CompactDeltaRouteResult:
+    """Both CSR compactions on a delta route result (reference :499): the
+    overlay family with a width-1 all-empty shared family (cs == 0) and
+    no hole closing (overlay matches are prefix-compacted)."""
+    r, dp = dres.res, dres.dp
+    W, B = dp.fids.shape[:2]
+    dev = dp.fids.device
+    no_slot = torch.full((W, B, 1), -1, dtype=torch.int32, device=dev)
+    zero32 = torch.zeros((W, B, 1), dtype=torch.int32, device=dev)
+    zero8 = torch.zeros((W, B, 1), dtype=torch.int8, device=dev)
+    dcp = compact_result(dp.fids, dp.rows, dp.opts, dp.fan_counts, no_slot,
+                         zero32, zero8, payload_cap=d_payload_cap,
+                         match_holes=False, scan=scan)
+    return CompactDeltaRouteResult(
+        dres=dres, compact=_compact(r, payload_cap, match_holes, scan),
+        d_compact=dcp)
+
+
+def route_step_delta_compact(*args, payload_cap: int = 4096,
+                             d_payload_cap: int = 1024, scan=prefix_sum,
+                             **kw) -> CompactDeltaRouteResult:
+    """route_step_delta + both CSR readbacks, reference :527."""
+    return _with_delta_compact(route_step_delta(*args, scan=scan, **kw),
+                               payload_cap, d_payload_cap, False, scan)
+
+
+def route_window_delta_compact(*args, payload_cap: int = 4096,
+                               d_payload_cap: int = 1024, scan=prefix_sum,
+                               **kw) -> CompactDeltaRouteResult:
+    """route_window_delta + both CSR readbacks, reference :552."""
+    return _with_delta_compact(route_window_delta(*args, scan=scan, **kw),
+                               payload_cap, d_payload_cap, True, scan)
+
+
+def route_step_delta_cached_compact(*args, payload_cap: int = 4096,
+                                    d_payload_cap: int = 1024,
+                                    scan=prefix_sum,
+                                    **kw) -> CompactDeltaRouteResult:
+    """Deduplicated trie step + overlay + both CSR readbacks, :575."""
+    return _with_delta_compact(
+        route_step_delta_cached(*args, scan=scan, **kw), payload_cap,
+        d_payload_cap, False, scan)
+
+
+def route_window_delta_cached_compact(*args, payload_cap: int = 4096,
+                                      d_payload_cap: int = 1024,
+                                      scan=prefix_sum,
+                                      **kw) -> CompactDeltaRouteResult:
+    """Deduplicated window + overlay + both CSR readbacks, :606."""
+    return _with_delta_compact(
+        route_window_delta_cached(*args, scan=scan, **kw), payload_cap,
+        d_payload_cap, True, scan)
 
 
 def route_digest(r: RouteResult) -> torch.Tensor:

@@ -96,5 +96,5 @@ def launch_shape_match(st, topics: torch.Tensor, lens: torch.Tensor,
              *ptrs, B, L, NSc, NB,
              torch.cuda.current_stream(dev).cuda_stream)
     check(err, "shape_match")
-    count_launch("shape_match")
+    count_launch("shape_match", (B, L))
     return (matches, counts, *planes)

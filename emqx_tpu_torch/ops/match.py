@@ -2,8 +2,9 @@
 plus host-side topic encoding.
 
 Counterpart of ``emqx_tpu/ops/match.py``: ``MatchResult``,
-``edge_lookup`` (:40), ``_gather_node`` (:54), ``match_batch`` (:61) and
-the Python path of ``encode_topics`` / ``encode_topics_str``.
+``edge_lookup`` (:40), ``_gather_node`` (:54), ``match_batch`` (:61),
+``merge_match_results`` (:137) and the Python path of ``encode_topics`` /
+``encode_topics_str``.
 
 ``match_batch`` matches a whole batch at once: the batch is the parallel
 axis, topic levels the time axis (the reference's ``lax.scan`` becomes a
@@ -186,6 +187,36 @@ def match_batch(tables, topics: torch.Tensor, lens: torch.Tensor,
     oflow = oflow | (count > M)
     return MatchResult(matches=out[:, :M].contiguous(),
                        counts=torch.clamp(count, max=M), overflow=oflow)
+
+
+def merge_match_results(base_matches: torch.Tensor, base_counts: torch.Tensor,
+                        base_overflow: torch.Tensor, mr: MatchResult,
+                        miss_pos: torch.Tensor) -> MatchResult:
+    """Scatter a miss sub-batch's fresh MatchResult into cached base rows
+    (``emqx_tpu/ops/match.py:137``).
+
+    base_*: [U, ...] per-unique-topic rows (cache hits filled by the
+    host, the rest the empty row). mr: the match of the [Bm] compacted
+    miss lanes. miss_pos: [Bm] destination row of each miss lane; pad
+    lanes carry U, which lands in a sink row past the U rows and is
+    sliced away. Indices are read as the reference's ``mode="drop"``
+    scatter reads them: a negative index counts from the end (JAX wraps
+    it before the bounds check), one out of range after that is dropped.
+    Real miss positions are distinct, so the scatter has one writer per
+    kept row."""
+    U = base_matches.shape[0]
+    pos = miss_pos.long()
+    pos = torch.where(pos < 0, pos + U, pos)
+    pos = torch.where((pos >= 0) & (pos < U), pos, U)
+
+    def put(base, vals):
+        out = torch.cat([base, base[:1]])      # row U: the sink
+        out.index_copy_(0, pos, vals.to(base.dtype))
+        return out[:U]
+
+    return MatchResult(matches=put(base_matches, mr.matches),
+                       counts=put(base_counts, mr.counts),
+                       overflow=put(base_overflow, mr.overflow))
 
 
 def encode_topics_str(intern, topics: list, max_levels: int):

@@ -244,3 +244,122 @@ def test_mesh_step_and_exchange_kernel_vs_plain(cuda):
     for a, b in zip(ek, ep):
         assert torch.equal(a, b)
     assert int(ek.ok.min()) == 3
+
+
+# ---- the routing layers' graph classes ------------------------------------
+
+def _layers_node(cuda):
+    """A port Node on the card at the reference's defaults with a small
+    shape-hash population (plain and shared filters), built."""
+    from emqx_tpu_torch.broker.node import Node
+
+    class Sink:
+        def deliver(self, f, m):
+            return True
+
+    node = Node({"broker": {}}, device=cuda)
+    b = node.broker
+    sids = [b.register(Sink(), f"c{i}") for i in range(8)]
+    for i in range(40):
+        for n in range(8):
+            b.subscribe(sids[(i + n) % 8], f"dev/d{i}/+/n{n}/#", {"qos": 0})
+            if (i + n) % 3 == 0:
+                for k in range(2):
+                    b.subscribe(sids[(i + k) % 8],
+                                f"$share/g/dev/d{i}/+/n{n}/#", {"qos": 1})
+    node.device_engine.rebuild()
+    return node, sids
+
+
+def _window(node, rng, n_hot, batches=8, batch=1024):
+    """A fused window drawn from n_hot topics (more unique topics than the
+    window's Bp of 1,024: the dedup plan does not engage)."""
+    from emqx_tpu_torch.broker.message import make
+    hot = ["dev/d%d/x/n%d" % (rng.randint(40), rng.randint(8))
+           + "/t" * rng.randint(1, 13) for _ in range(n_hot)]
+    lives = [[make("p", 0, hot[rng.randint(n_hot)], b"")
+              for _ in range(batch)] for _ in range(batches)]
+    h = node.device_engine.prepare_window(lives, gate_cold=False)
+    return h
+
+
+def _warm_class(eng, h):
+    """Capture the graph of h's class (what the background warm does for a
+    class the serving path asked for)."""
+    Wp, Bp = h.enc[0].shape[:2]
+    cls = (Wp, Bp, h.plan.Bm if h.plan is not None else None,
+           h.delta.cap if h.delta is not None else None, h.pcap)
+    if eng._graph_key(h.built, cls, eng._strategy()) not in eng._graphs:
+        with torch.cuda.stream(eng._warm_stream):
+            eng._warm_dispatch(h.built, eng._tables, eng._cursors, cls)
+    return cls
+
+
+def _eager_planes(eng, h, counts):
+    """h's window run again eagerly with the kernels, from the cursors and
+    the overlay version it started with: the host planes its readback
+    took."""
+    torch.cuda.synchronize()        # the engine stream's uploads
+    ins = [torch.from_numpy(a).to(eng.device) for a in h.arrays]
+    res, cp, dp, dcp = eng._unwrap(eng._program(
+        h.built.backend, h.tables,
+        h.delta.dev if h.delta is not None else None, h.cursors0, ins,
+        h.strat, h.cls))
+    return [t.cpu().numpy() for t in
+            eng._plane_list(res, cp, dp, dcp, counts)]
+
+
+def test_cached_and_delta_graphs_replay_exactly(cuda):
+    """The cached class, the overlay class and both together replay as
+    CUDA graphs bit-identical to the same windows run eagerly."""
+    node, sids = _layers_node(cuda)
+    eng = node.device_engine
+    rng = np.random.RandomState(1)
+    kinds = []
+    for step in range(3):
+        if step == 1:
+            node.broker.subscribe(sids[0], "dev/d3/+/n2/t", {"qos": 0})
+            node.broker.subscribe(sids[1], "dev/+/x/n5/#", {"qos": 1})
+        h = _window(node, rng, n_hot=300 if step != 2 else 5000)
+        _warm_class(eng, h)
+        eng.dispatch(h)
+        assert h.graphed
+        counts = eng._wants_counts(h)
+        want = _eager_planes(eng, h, counts)
+        eng.materialize(h)
+        got = [t.numpy() for t in h.host]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+        kinds.append((h.plan is not None, h.delta is not None))
+        eng.abandon(h)
+    assert kinds == [(True, False), (True, True), (False, True)]
+
+
+def test_overlay_copied_in_flight_keeps_the_window_s_version(cuda):
+    """Window 1 replays the overlay class's graph; a subscription changes
+    the overlay and window 2 replays the same graph with the new version
+    copied into its buffers before window 1 is read back: window 1's
+    planes are those of its own version."""
+    node, sids = _layers_node(cuda)
+    eng = node.device_engine
+    rng = np.random.RandomState(2)
+    node.broker.subscribe(sids[0], "dev/d3/+/n2/t", {"qos": 0})
+    h1 = _window(node, rng, n_hot=5000)
+    cls = _warm_class(eng, h1)
+    eng.dispatch(h1)
+    node.broker.subscribe(sids[2], "dev/+/x/+/t", {"qos": 0})
+    h2 = _window(node, rng, n_hot=5000)
+    assert h2.delta is not h1.delta
+    assert _warm_class(eng, h2) == cls       # the same graph, not captured
+    eng.dispatch(h2)
+    assert h1.graphed and h2.graphed
+    for h in (h1, h2):
+        want = _eager_planes(eng, h, eng._wants_counts(h))
+        eng.materialize(h)
+        for g, w in zip([t.numpy() for t in h.host], want):
+            assert np.array_equal(g, w)
+    # the new filter shows in window 2's overlay matches only
+    assert int(h2.np_delta.counts.sum()) > int(h1.np_delta.counts.sum())
+    eng.abandon(h1)
+    eng.abandon(h2)

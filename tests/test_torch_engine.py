@@ -1,15 +1,17 @@
 """Port vs JAX reference: DeviceRouteEngine's window protocol.
 
-Twin engines — a JAX ``Node(config, use_device=True)`` with the reuse and
-robustness layers switched off (no dedup or match cache, no delta overlay,
-no covering, no supervision, ledger, tracing, latency observatory or
-overload governor, inline delivery, per-packet ingress, CSR readback on)
-and the port's ``Node(device="cpu")`` — get the same sessions and the same
-~500 subscriptions (plain and ``$share``) through ``broker.subscribe``,
-then the same message windows through ``prepare_window`` / ``dispatch``
-/ ``materialize`` / ``finish_sub``. Required exactly equal, under each of
-the five shared strategies and on both backends (shape-hash, and the trie
-forced by more distinct shapes than ``shape_cap``):
+Twin engines — a JAX ``Node(config, use_device=True)`` with the layers the
+port does not have switched off (no covering, supervision, ledger, tracing,
+latency observatory or overload governor, inline delivery, per-packet
+ingress, CSR readback on) and each of three routing-layer configurations
+(``LAYERS``: all off; dedup + match cache; dedup + cache + delta overlay,
+the reference's defaults), and the port's ``Node(device="cpu")`` with the
+same layers — get the same sessions and the same ~500 subscriptions (plain
+and ``$share``) through ``broker.subscribe``, then the same message windows
+through ``prepare_window`` / ``dispatch`` / ``materialize`` /
+``finish_sub``. Required exactly equal, under each of the five shared
+strategies and on both backends (shape-hash, and the trie forced by more
+distinct shapes than ``shape_cap``):
 
 - every session's delivery list (filter, topic, message, subopts), shared
   picks included;
@@ -17,8 +19,11 @@ forced by more distinct shapes than ``shape_cap``):
 - the per-message delivery counts;
 
 through subscribe/unsubscribe churn that dirties filters and slots, a
-group added to a built filter, a filter added past the snapshot (the host
-delta ``HostTrie`` route) and an explicit ``rebuild()``. At dispatch
+group added to a built filter, filters added past the snapshot (the host
+delta ``HostTrie`` route, or the overlay), churn while windows are in
+flight, and an explicit ``rebuild()``; with the layers on, the overlay's
+rows, the cached windows, the cold gates and the cache's accounting are
+equal too. At dispatch
 depth 2 the port splits each window of several batches into two windows
 and dispatches both before it reads either back (two in flight, as the
 batcher's settle ring runs them); windows alternate between the dense and
@@ -42,7 +47,19 @@ STRATEGIES = ("round_robin", "random", "hash_topic", "hash_clientid",
               "sticky")
 N_SESSIONS = 40
 
-# the reference path this slice ports: every optional layer off
+# the reference's routing layers, each configuration given to both nodes:
+# all off (the path of the first broker slice), dedup + match cache, and
+# dedup + cache + delta overlay (the reference's defaults)
+LAYERS = {
+    "off": {"topic_dedup": False, "match_cache_size": 0,
+            "delta_overlay": False},
+    "cache": {"topic_dedup": True, "match_cache_size": 8192,
+              "delta_overlay": False},
+    "overlay": {"topic_dedup": True, "match_cache_size": 8192,
+                "delta_overlay": True},
+}
+
+# the reference path: every layer the port lacks off
 JAX_BROKER = {
     "topic_dedup": False, "match_cache_size": 0, "delta_overlay": False,
     "subscription_covering": False, "supervise": False,
@@ -105,16 +122,16 @@ def shapes_topics(rng, n):
 
 
 class Twin:
-    def __init__(self, strategy, depth, population, topics):
+    def __init__(self, strategy, depth, population, topics, layers="off"):
         self.rng = random.Random(11)
         self.topics = topics
         self.depth = depth
         self.j = JNode({"broker": dict(
-            JAX_BROKER, shared_subscription_strategy=strategy)},
-            use_device=True)
-        self.t = TNode({"broker": {"shared_subscription_strategy": strategy,
-                                   "dispatch_depth": depth}},
-                       device="cpu")
+            JAX_BROKER, **LAYERS[layers],
+            shared_subscription_strategy=strategy)}, use_device=True)
+        self.t = TNode({"broker": dict(
+            LAYERS[layers], shared_subscription_strategy=strategy,
+            dispatch_depth=depth)}, device="cpu")
         self.sinks = ([Sink() for _ in range(N_SESSIONS)],
                       [Sink() for _ in range(N_SESSIONS)])
         for node, sinks in zip((self.j, self.t), self.sinks):
@@ -134,11 +151,13 @@ class Twin:
         for node in (self.j, self.t):
             node.broker.unsubscribe(sid, f)
 
-    def window(self, n_batches, gate_cold=True):
+    def window(self, n_batches, gate_cold=True, mid=None, n=30):
         """One window of n_batches through both engines; the same Message
-        objects go to both (the random strategy hashes their ids)."""
+        objects go to both (the random strategy hashes their ids).
+        ``mid(node)`` runs on each node between its dispatches and their
+        readback: churn while the windows are in flight."""
         lives = [[jmake(f"p{self.rng.randrange(5)}", 0, t, b"%d" % k)
-                  for k, t in enumerate(self.topics(self.rng, 30))]
+                  for k, t in enumerate(self.topics(self.rng, n))]
                  for _ in range(n_batches)]
         seed = self.rng.randrange(1 << 30)
         counts = []
@@ -154,6 +173,8 @@ class Twin:
                 assert h is not None
                 eng.dispatch(h)
                 hs.append(h)
+            if mid is not None:
+                mid(node)
             got = []
             for h, part in zip(hs, parts):
                 eng.materialize(h)
@@ -196,12 +217,44 @@ class Twin:
         assert te.new_slots_by_filter == je.new_slots_by_filter
         assert set(te._delta_filter.values()) == set(je._delta_filter.values())
 
+    def check_layers(self):
+        """The layers ran alike on both engines: the same overlay rows and
+        class and, where both ran the same windows (depth 1), the same
+        cached windows, cold gates and cache accounting."""
+        je, te = self.j.device_engine, self.t.device_engine
+        jo, to = je._overlay, te._overlay
+        assert (jo is None) == (to is None)
+        if jo is not None:
+            assert (jo.row_of, jo.seg_of, jo.hostfan, jo.cap, jo.n) == \
+                (to.row_of, to.seg_of, to.hostfan, to.cap, to.n)
+        if self.depth > 1:
+            return      # the port split its windows: other counts
+        for name in ("cached_windows", "cold_cached_class",
+                     "cold_delta_class", "host_delta", "delta_applies",
+                     "host_fallback"):
+            key = f"routing.device.{name}"
+            assert self.t.metrics.val(key) == self.j.metrics.val(key), key
+        jc, tc = je._match_cache, te._match_cache
+        assert (jc is None) == (tc is None)
+        if jc is not None:
+            js, ts = jc.stats(), tc.stats()
+            for k in ("size", "hits", "misses", "delta_version",
+                      "delta_invalidated"):
+                assert js[k] == ts[k], k
 
-@pytest.mark.parametrize("strategy", STRATEGIES)
-@pytest.mark.parametrize("depth", [1, 2])
-def test_engine_twin_shapes(strategy, depth):
+
+def _mid_churn(node):
+    """A subscribe to a new filter and an unsubscribe while a window is in
+    flight (the same on both nodes)."""
+    b = node.broker
+    b.subscribe(11, "s/7/+/late", {"qos": 1})
+    b.subscribe(12, "dev/d3/x/n4/#", {"qos": 0})
+    b.unsubscribe(12, "dev/d3/x/n4/#")
+
+
+def _twin_shapes(layers, strategy, depth):
     twin = Twin(strategy, depth, shapes_population(random.Random(3)),
-                shapes_topics)
+                shapes_topics, layers)
     for k in range(3):
         twin.window(1 + 3 * k, gate_cold=bool(k % 2))
     assert twin.t.device_engine._built.backend == "shapes"
@@ -211,18 +264,24 @@ def test_engine_twin_shapes(strategy, depth):
         "zz/a/late", f"s/{rng.randrange(60)}/t"]
     for k in range(2):
         twin.window(2, gate_cold=bool(k))
+    if layers != "off":
+        twin.window(3, gate_cold=False, mid=_mid_churn)
+        twin.window(4, gate_cold=False)
+        twin.window(4)
+    twin.check_layers()
     for node in (twin.j, twin.t):
         node.device_engine.rebuild()
     for k in range(2):
         twin.window(1 + k, gate_cold=bool(k))
     assert twin.t.device_engine.stats()["delta_filters"] == 0
     assert twin.t.metrics.val("messages.routed.device") > 0
+    twin.check_layers()
+    return twin
 
 
-@pytest.mark.parametrize("strategy", STRATEGIES)
-def test_engine_twin_trie(strategy):
+def _twin_trie(layers, strategy):
     twin = Twin(strategy, 1, trie_population(random.Random(5)),
-                lambda rng, n: [rand_topic(rng) for _ in range(n)])
+                lambda rng, n: [rand_topic(rng) for _ in range(n)], layers)
     twin.window(1, gate_cold=False)
     assert twin.t.device_engine._built.backend == "trie"
     assert twin.j.device_engine._built.backend == "trie"
@@ -232,9 +291,60 @@ def test_engine_twin_trie(strategy):
     twin.window(4)           # two such windows in flight on the port
     twin.churn()
     twin.window(1, gate_cold=False)
+    if layers != "off":
+        twin.depth = 1
+        topics = twin.topics
+        # duplicate-heavy batches of 150: the miss class (64) falls below
+        # the batch class (256), so the dedup plan engages on the trie
+        hot = [rand_topic(twin.rng) for _ in range(12)] + ["zz/q/late"]
+        twin.topics = lambda rng, n: [rng.choice(hot) for _ in range(n)]
+        twin.window(1, gate_cold=False, mid=_mid_churn, n=150)
+        twin.window(1, gate_cold=False, n=150)
+        twin.window(1, n=150)
+        twin.topics = topics
+        twin.window(1, gate_cold=False)
+        assert twin.t.metrics.val("routing.device.cached_windows") > 0
+    twin.check_layers()
     for node in (twin.j, twin.t):
         node.device_engine.rebuild()
     twin.window(1)
+    twin.check_layers()
+    return twin
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("depth", [1, 2])
+def test_engine_twin_shapes(strategy, depth):
+    """Every routing layer off."""
+    _twin_shapes("off", strategy, depth)
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_engine_twin_trie(strategy):
+    """Every routing layer off."""
+    _twin_trie("off", strategy)
+
+
+@pytest.mark.parametrize("layers", ["cache", "overlay"])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("depth", [1, 2])
+def test_engine_twin_shapes_layers(layers, strategy, depth):
+    """Dedup + match cache, and with the delta overlay too (the
+    reference's defaults): the same deliveries, picks, cursors, counts
+    and layer accounting, with churn between and during windows."""
+    twin = _twin_shapes(layers, strategy, depth)
+    m = twin.t.metrics
+    assert m.val("routing.device.cached_windows") > 0
+    if layers == "overlay":
+        assert m.val("routing.device.delta_applies") > 0
+
+
+@pytest.mark.parametrize("layers", ["cache", "overlay"])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_engine_twin_trie_layers(layers, strategy):
+    twin = _twin_trie(layers, strategy)
+    if layers == "overlay":
+        assert twin.t.metrics.val("routing.device.delta_applies") > 0
 
 
 def test_route_batch_counts_match_host_path():

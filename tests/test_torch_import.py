@@ -39,7 +39,8 @@ MODULES = [
     "emqx_tpu_torch.broker.connection", "emqx_tpu_torch.broker.deliver",
     "emqx_tpu_torch.broker.supervise", "emqx_tpu_torch.broker.batcher",
     "emqx_tpu_torch.broker.device_engine", "emqx_tpu_torch.broker.node",
-    "emqx_tpu_torch.client", "chip_smoke",
+    "emqx_tpu_torch.client", "emqx_tpu_torch.ops.delta",
+    "emqx_tpu_torch.broker.match_cache", "chip_smoke",
 ]
 
 

@@ -272,3 +272,60 @@ def test_chooser_decisions_equal_the_reference():
     assert t.node.metrics.val("routing.device.bypassed") > 0
     t.close()
     j.close()
+
+
+def test_layer_defaults_are_the_references():
+    """The port's Node serves with the reference's routing layers by
+    default (dedup on, match cache 8192, delta overlay on), as the JAX
+    Node does, and turns each off by the same key."""
+    t = TNode(device="cpu").device_engine
+    j = JNode(use_device=True).device_engine
+    assert (t.dedup, t._match_cache.capacity, t.delta_overlay) == \
+        (j.dedup, j._match_cache.capacity, j.delta_overlay) == \
+        (True, 8192, True)
+    off = TNode({"broker": {"topic_dedup": False, "match_cache_size": 0,
+                            "delta_overlay": False}},
+                device="cpu").device_engine
+    assert (off.dedup, off._match_cache, off.delta_overlay) == \
+        (False, None, False)
+    only_dedup = TNode({"broker": {"match_cache_size": 0}},
+                       device="cpu").device_engine
+    assert only_dedup.dedup and only_dedup._match_cache is None
+
+
+@pytest.mark.parametrize("key,value", [
+    ("subscription_covering", True), ("supervise", True),
+    ("hbm_ledger", True), ("trace", True), ("latency_observatory", True),
+    ("overload", True), ("deliver_lanes", 4), ("columnar_ingress", True),
+    ("compact_readback", False)])
+def test_unsupported_layer_raises(key, value):
+    """A config that asks for a layer the port lacks is refused, not
+    served without it; the same key set off is accepted."""
+    with pytest.raises(ValueError, match=key):
+        TNode({"broker": {key: value}}, device="cpu")
+    TNode({"broker": {key: not value if isinstance(value, bool) else 0}},
+          device="cpu")
+    TNode({"broker": JAX_BROKER}, device="cpu")
+
+
+def test_chip_smoke_layers_on_cpu(monkeypatch):
+    """chip_smoke.py's phase 9 rehearsed on the CPU at a reduced size
+    (1,000 filters, 4 sessions, 4 windows of 8 sub-batches of 128 and 6
+    churn batches per pass): node A at the reference's defaults, B with
+    the layers off, and the host path agree on every count, every
+    session's deliveries and the device cursors; A serves the skew as
+    cached windows and the churn through the overlay (no host delta),
+    and a cached and an overlay window equal the plain path."""
+    monkeypatch.setattr(cs, "L_WINDOWS", 4)
+    monkeypatch.setattr(cs, "L_B", 128)
+    monkeypatch.setattr(cs, "C_BATCHES", 6)
+    monkeypatch.setattr(cs, "L_WARM_WINDOWS", 6)
+    r = cs.layers_drive(torch.device("cpu"), n_filters=1000, n_sub=4)
+    sk, ch = r["skew"], r["churn"]
+    assert sk["A"]["layers"]["cached_windows"] == 4
+    assert sk["B"]["layers"]["cached_windows"] == 0
+    assert sk["A"]["layers"]["hit_rate"] > 0
+    assert ch["A"]["layers"]["host_delta"] == 0
+    assert ch["B"]["layers"]["host_delta"] > 0
+    assert ch["overlay_class"] == 128
+    assert ch["hold_err"] == ch["hold_skew_err"] == 0
