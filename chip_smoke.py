@@ -34,7 +34,7 @@ Phases:
    kernel at the same grid (the launch floor), torch.cumsum and the
    wrapper call;
 5. the kernels JSON line, the card line, and the result line last
-   (after phases 6 to 9);
+   (after phases 6 to 10);
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
    every hop count at the mesh phase's [E, 3] block and at a ragged
    [1001, 3] block (aligned and unaligned), and across two cards with
@@ -52,7 +52,12 @@ Phases:
    exchange) give the window latency and matches/s; torch.profiler
    splits one window; ring_rotate is timed at its main-path shape
    beside its bound, its plain version and torch.roll, and prefix_sum at
-   every shape of the mesh's route() window, as in phase 4;
+   every shape of the mesh's route() window, as in phase 4. Covering is
+   on (the reference's default): every shard carries cover tables (an
+   identity CSR here, nothing is covered) and the step expands each
+   shard's rows; the cover totals and the detection seconds are printed,
+   and 100 windows with covering off and 100 with it on again give both
+   p50/p99 in the same call;
 8. the broker's serving path over live TCP at bench.py's e2e size
    (run_e2e(100_000, 16, 8, 32_000 // 8), bench.py:1981-2002): the port's
    Node with its Listener on 127.0.0.1, 99,856 filters
@@ -70,7 +75,9 @@ Phases:
    (dedup, match cache 8192, delta overlay on). Two engine windows of
    flood topics are held against the plain path, every plane and the
    cursors: a uniform one (the plain window) and one drawn from 512
-   topics (the dedup-cached window);
+   topics (the dedup-cached window). Covering is on (no filter of this
+   population covers another: no cover state; the detection seconds are
+   printed);
 9. the reference's default routing layers at phase 8's population, built
    in-process through broker.subscribe: node A at the defaults, node B
    with dedup, cache and overlay off, and a host-path node. 9a, the skew
@@ -90,7 +97,23 @@ Phases:
    delivered; in the timed pass A routes no delta filter on the host and
    applies the overlay. Then a cached and an overlay window on A are held
    against the plain path, and kernel 2 is timed at every shape phase 9
-   adds (in a fresh process: ``--scan-shapes``).
+   adds (in a fresh process: ``--scan-shapes``). Node A has covering on,
+   B off;
+10. subscription covering, as tools/cover_bench.py:53-175 drives it: nodes
+   A (covering on) and B (off), dedup off, fan-out cap 4, slot cap 2, one
+   session subscribed to every filter of cover_heavy_filters(n, 0.6) for
+   n = 10,000 (the bench's default) and 100,000 (phase 8's scale); 32
+   batches of 1,024 topics drawn uniformly from concretize(filter) go
+   through prepare → dispatch → materialize (a warm pass, then the best
+   of two timed passes, A's launch counters set to 0 around them):
+   topic-matches/s and window p50/p99 of A and B, the backend each
+   built, the cover state, detection and build seconds, graph classes,
+   capture seconds and the capture's peak device memory. Every covered
+   window is then held against the plain path bit for bit; A, B and the
+   host path must deliver identically on a route_batch of 1,024; one
+   covered SUBSCRIBE must land on A as an append (no overlay row), and
+   the next window (a graph replay where A is on the shape tables) must
+   deliver it as B does.
 """
 
 from __future__ import annotations
@@ -702,20 +725,26 @@ def check_ring_rotate(dev, E: int, dp: int, R: int) -> int:
     return err
 
 
+def mesh_build(pop: dict, dev, batch: int, covering: bool = True):
+    """A ShardedRouteEngine over the mesh population (covering on, the
+    reference's default, or off)."""
+    from emqx_tpu_torch.parallel.serving import ShardedRouteEngine
+    return ShardedRouteEngine.from_columnar(
+        pop["filters"], pop["words"], pop["lens"], pop["sub_start"],
+        pop["sub_row"], pop["sub_opts"], pop["intern"],
+        n_devices=MESH_DEVICES, dp=MESH_DP, device=dev, batch=batch,
+        subscription_covering=covering, **MESH_CAPS)
+
+
 def mesh_engine(dev, subs: int, batch: int, seed: int) -> dict:
     """The mesh population behind a ShardedRouteEngine, one staged window
     and each message's expected session."""
     import torch
 
-    from emqx_tpu_torch.parallel.serving import ShardedRouteEngine
     from emqx_tpu_torch.workloads import mesh_population, mesh_topic_batch
     t0 = time.time()
     pop = mesh_population(subs, LEVEL_CAP)
-    eng = ShardedRouteEngine.from_columnar(
-        pop["filters"], pop["words"], pop["lens"], pop["sub_start"],
-        pop["sub_row"], pop["sub_opts"], pop["intern"],
-        n_devices=MESH_DEVICES, dp=MESH_DP, device=dev, batch=batch,
-        **MESH_CAPS)
+    eng = mesh_build(pop, dev, batch)
     t_build = time.time() - t0
     tp, tl, want = mesh_topic_batch(pop, np.random.RandomState(seed), batch,
                                     LEVEL_CAP)
@@ -743,6 +772,29 @@ def check_mesh_records(rb, want, pop_fid) -> None:
     if not ((rec[:, 1] == want).all() and (pop_fid[gfid] == want).all()
             and ((rec[:, 2] >> 24) == 1).all()):
         raise AssertionError("exchange records differ from the known answer")
+
+
+def time_mesh(eng, staged, want, pop_fid, timed_windows: int) -> dict:
+    """Timed route_encoded windows of one staged window, each checked
+    against the known answer."""
+    import torch
+    sync = torch.cuda.synchronize if eng.device.type == "cuda" \
+        else (lambda: None)
+    lat = []
+    served = fell_back = 0
+    for _ in range(timed_windows):
+        sync()
+        t0 = time.perf_counter()
+        rb = eng.route_encoded(*staged)
+        lat.append(time.perf_counter() - t0)
+        served += rb.served
+        fell_back += not rb.served
+        check_mesh_records(rb, want, pop_fid)
+    lat_ms = np.array(lat) * 1e3
+    return {"lat_ms": lat_ms, "served": served, "fell_back": fell_back,
+            "mps": len(lat) * want.shape[0] / float(np.sum(lat)),
+            "p50": float(np.percentile(lat_ms, 50)),
+            "p99": float(np.percentile(lat_ms, 99))}
 
 
 def drive_mesh(m: dict, timed_windows: int) -> dict:
@@ -816,24 +868,9 @@ def drive_mesh(m: dict, timed_windows: int) -> dict:
     n_sessions = int(np.unique(rb.records[:, 1]).size)
     del res_k, gathered
 
-    lat = []
-    served = fell_back = 0
-    for _ in range(timed_windows):
-        sync()
-        t0 = time.perf_counter()
-        rb = eng.route_encoded(*staged)
-        lat.append(time.perf_counter() - t0)
-        served += rb.served
-        fell_back += not rb.served
-        check_mesh_records(rb, want, m["pop_fid"])
-    lat_ms = np.array(lat) * 1e3
     return {"launches": launches, "shapes": shapes, "t_route": t_route,
-            "E": E,
-            "err_ring": err_ring, "lat_ms": lat_ms, "served": served,
-            "fell_back": fell_back, "n_sessions": n_sessions,
-            "mps": len(lat) * B / float(np.sum(lat)),
-            "p50": float(np.percentile(lat_ms, 50)),
-            "p99": float(np.percentile(lat_ms, 99))}
+            "E": E, "err_ring": err_ring, "n_sessions": n_sessions,
+            **time_mesh(eng, staged, want, m["pop_fid"], timed_windows)}
 
 
 def check_records_or_gather(eng, rb, want, pop_fid) -> None:
@@ -898,7 +935,27 @@ def mesh_phase(dev) -> tuple:
         f"{r['lat_ms'].max():.3f} ms; {r['mps']:.0f} topic-matches/s")
     if r["fell_back"]:
         raise AssertionError("a timed mesh window fell back")
+    log(f"phase 7: subscription_covering on: cover "
+        f"{json.dumps(eng.stats['cover'])}; detection over every shard "
+        f"{eng.detect_s:.2f} s")
+    # the same windows with covering off, in the same call: what the
+    # identity cover tables cost (nothing in this population is covered)
+    t0 = time.time()
+    off = mesh_build(m["pop"], dev, MESH_BATCH, covering=False)
+    t_off = time.time() - t0
     staged = m["staged"]
+    rb = off.route_encoded(*staged)          # warm-up: sizes the segments
+    check_records_or_gather(off, rb, m["want"], m["pop_fid"])
+    r_off = time_mesh(off, staged, m["want"], m["pop_fid"], MESH_TIMED)
+    r_on = time_mesh(eng, staged, m["want"], m["pop_fid"], MESH_TIMED)
+    if r_off["fell_back"] or r_on["fell_back"]:
+        raise AssertionError("a timed mesh window fell back")
+    log(f"phase 7: covering off (built in {t_off:.1f} s) vs on, "
+        f"{MESH_TIMED} windows each, off then on: off p50 "
+        f"{r_off['p50']:.3f} ms, p99 {r_off['p99']:.3f} ms, "
+        f"{r_off['mps']:.0f} topic-matches/s; on p50 {r_on['p50']:.3f} ms, "
+        f"p99 {r_on['p99']:.3f} ms, {r_on['mps']:.0f} topic-matches/s")
+    del off
     profile_window("profile mesh", lambda: eng.route_encoded(*staged),
                    r["p50"])
     rr = time_ring_rotate(eng, r["E"])
@@ -907,7 +964,10 @@ def mesh_phase(dev) -> tuple:
         f"{rr['bound_by']}: {rr['bytes'] / 1e6:.2f} MB), plain "
         f"{rr['plain_ms']:.4f} ms, torch.roll {rr['library_ms']:.4f} ms; "
         f"{rr['call_ms']:.4f} ms per wrapper call back to back")
-    scan_shapes = time_scan_shapes(eng.device, r["shapes"], "mesh")
+    # in a process of its own, as phase 9's: late in this long run the
+    # profiler lost records at a mesh shape (196 of 200 at [2, 4, 4], three
+    # tries in a row, PERF.md)
+    scan_shapes = time_scan_shapes_apart(r["shapes"], "mesh")
     kernel = {"name": "ring_rotate", "route": "cuda",
               "source": "emqx_tpu_torch/csrc/ring_rotate.cu",
               "replaces": "emqx_tpu/ops/pallas_exchange.py:67",
@@ -922,7 +982,11 @@ def mesh_phase(dev) -> tuple:
                "topic_matches_per_s": r["mps"], "window_p50_ms": r["p50"],
                "window_p99_ms": r["p99"],
                "window_max_ms": float(r["lat_ms"].max()),
-               "route_call_s": r["t_route"], "launches": launches}
+               "route_call_s": r["t_route"], "launches": launches,
+               "cover": eng.stats["cover"], "detect_s": eng.detect_s,
+               "covering_off": {k: r_off[k] for k in ("p50", "p99", "mps")},
+               "covering_on_again": {k: r_on[k] for k in ("p50", "p99",
+                                                           "mps")}}
     return kernel, summary, scan_shapes
 
 
@@ -1509,6 +1573,10 @@ def e2e_phase(dev, card: str) -> dict:
         "== plain path: every plane, CSR payload and cursors (exact)")
     log(f"phase 8: {r['cached_windows']} cached windows in all; engine "
         f"stats {json.dumps(r['stats'])}")
+    log(f"phase 8: subscription_covering "
+        f"{r['stats']['subscription_covering']}, cover "
+        f"{json.dumps(r['stats']['cover'])}, detection "
+        f"{r['stats']['cover_detect_s']} s")
     p = r["profiled"]
     log(f"phase 8 profiled flood (depth {E2E_DEPTHS[0]}): device busy "
         f"{p['device_busy_s'] * 1e3:.1f} ms of {p['wall_s']:.2f} s, idle "
@@ -1540,7 +1608,7 @@ C_FRESH = 4                  # fresh subscriptions per batch
 C_LIVE = 64                  # live fresh filters at most
 C_SHARE = 0.25               # lanes to the fresh filters' topics
 LAYERS_OFF = {"topic_dedup": False, "match_cache_size": 0,
-              "delta_overlay": False}
+              "delta_overlay": False, "subscription_covering": False}
 
 
 class _Sink:
@@ -1977,9 +2045,320 @@ def layers_phase(dev, card: str) -> dict:
         f"graphs {ch['graphs']}")
     for k in "AB":
         log(f"phase 9b {k}: {json.dumps(ch[k])}")
+    for k in "AB":
+        st = r["stats"][k]
+        log(f"phase 9 {k}: subscription_covering "
+            f"{st['subscription_covering']}, cover {json.dumps(st['cover'])}"
+            f", detection {st['cover_detect_s']} s")
     log(f"phase 9: a cached window (9a) and an overlay window (9b) == plain "
         f"path: every plane, both CSR payloads, cursors (exact); captures "
         f"{json.dumps(r['capture'])}; phase 9 {time.time() - t0:.1f} s")
+    log(card)
+    return r
+
+
+# ---- phase 10: subscription covering on the card --------------------------
+
+# tools/cover_bench.py:53-175: its default population (10,000 filters,
+# cover ratio 0.6) and phase 8's scale; 32 batches of 1,024 topics drawn
+# uniformly from concretize(filter) over the whole population
+COVER_CELLS = (10_000, 100_000)
+COVER_RATIO = 0.6
+COVER_B = 1024
+COVER_BATCHES = 32
+COVER_PASSES = 2           # timed passes after the warm pass; the best
+COVER_CONF = {"topic_dedup": False, "device_fanout_cap": 4,
+              "device_slot_cap": 2}
+
+
+def _cover_node(dev, filters: list, covering: bool):
+    """One of cover_bench's twin nodes: dedup off, fan-out cap 4, slot
+    cap 2, one session subscribed to every filter at QoS 0."""
+    from emqx_tpu_torch.broker.node import Node
+    node = Node({"broker": dict(COVER_CONF,
+                                subscription_covering=covering)},
+                device=dev)
+    node.sink = _Sink()
+    node.sid = node.broker.register(node.sink, "cover")
+    for f in filters:
+        node.broker.subscribe(node.sid, f, {"qos": 0})
+    return node
+
+
+# the run's peak device memory before each reset of the peak counter
+_RUN_PEAK = [0]
+
+
+def _cover_graph(eng, h, mem: dict) -> None:
+    """On the card, capture the graph of a shape-hash window's class if
+    it has none yet (what the background warm does for a class traffic
+    asks for), with its seconds and the device memory it took: the
+    capture's peak allocation past what was allocated before it, and the
+    memory the caching allocator reserved for it."""
+    import torch
+    if eng.device.type != "cuda" or h.built.backend != "shapes":
+        return
+    Wp, Bp = h.enc[0].shape[:2]
+    cls = (Wp, Bp, h.plan.Bm if h.plan is not None else None,
+           h.delta.cap if h.delta is not None else None, h.pcap)
+    if eng._graph_key(h.built, cls, eng._strategy()) in eng._graphs:
+        return
+    torch.cuda.synchronize()
+    a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    _RUN_PEAK[0] = max(_RUN_PEAK[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    with torch.cuda.stream(eng._warm_stream):
+        eng._warm_dispatch(h.built, eng._tables, eng._cursors, cls)
+    torch.cuda.synchronize()
+    mem["peak_mb"] = max(mem.get("peak_mb", 0.0),
+                         (torch.cuda.max_memory_allocated() - a0) / 1e6)
+    mem["reserved_mb"] = mem.get("reserved_mb", 0.0) \
+        + (torch.cuda.memory_reserved() - r0) / 1e6
+
+
+def _cover_pass(node, batches: list, mem: dict, hold: bool = False):
+    """One pass of single-batch windows through prepare → dispatch →
+    materialize (consume excluded, as in cover_bench: it is the same on
+    both nodes), a class's graph captured untimed when it has none; with
+    `hold` every window is held against the plain path. Returns the
+    window latencies, the graph replays, and max |diff|."""
+    eng = node.device_engine
+    lat, graphed, err = [], 0, 0
+    for msgs in batches:
+        t0 = time.perf_counter()
+        h = eng.prepare(msgs, gate_cold=False)
+        if h is None:
+            raise AssertionError("phase 10: no snapshot")
+        t1 = time.perf_counter()
+        _cover_graph(eng, h, mem)
+        t2 = time.perf_counter()
+        eng.dispatch(h)
+        eng.materialize(h)
+        lat.append(time.perf_counter() - t0 - (t2 - t1))
+        graphed += h.graphed
+        if hold:
+            err = max(err, hold_against_plain(eng, h, "covered window"))
+        eng.abandon(h)
+    return lat, graphed, err
+
+
+def _per_msg(got: list) -> list:
+    """One session's deliveries (payload, filter) as each message's
+    filters, by message. Where one path completes a message on the host
+    and the other on the device, the orders part, both as the reference
+    has them: within a message the host path walks its trie where the
+    device keeps the matcher's order, and a window delivers its clean
+    messages before those it completes on the host or through the
+    overlay (a lane flagged overflow — every lane under a root past the
+    candidate capacity — completes on the host)."""
+    out: dict = {}
+    for payload, f in got:
+        out.setdefault(payload, []).append(f)
+    return sorted((k, sorted(v)) for k, v in out.items())
+
+
+def _cover_cell(dev, n: int, seed: int) -> dict:
+    """One population of phase 10 on nodes A (covering on) and B (off)."""
+    from emqx_tpu_torch import device as D
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.workloads import concretize, cover_heavy_filters
+    sync = _sync(dev)
+    filters = cover_heavy_filters(n, cover_ratio=COVER_RATIO)
+    rng = np.random.RandomState(seed)
+    pool = [concretize(f) for f in filters]
+    batches = [[make("p", 0, pool[i], b"x") for i in
+                rng.randint(0, len(pool), COVER_B)]
+               for _ in range(COVER_BATCHES)]
+    out = {"filters": n, "unique": len(set(filters))}
+    nodes = {}
+    for name, on in (("A", True), ("B", False)):
+        t0 = time.time()
+        node = nodes[name] = _cover_node(dev, filters, on)
+        t_sub = time.time() - t0
+        eng = node.device_engine
+        t0 = time.time()
+        eng.rebuild()
+        sync()
+        st = eng.stats()
+        out[name] = {"subscribe_s": t_sub, "build_s": time.time() - t0,
+                     "detect_s": eng.detect_s, "backend": st["backend"],
+                     "cover": st["cover"], "mem": {}}
+    if out["A"]["cover"] is None or out["B"]["cover"] is not None:
+        raise AssertionError(f"phase 10: cover state A {out['A']['cover']}"
+                             f" B {out['B']['cover']}")
+    for name in "AB":
+        _cover_pass(nodes[name], batches, out[name]["mem"])   # warm pass
+    for name in "AB":
+        eng = nodes[name].device_engine
+        r = out[name]
+        c0, t0 = eng.captures, eng.capture_s
+        if name == "A":
+            sync()
+            D.reset_launches()
+        best = None
+        for _ in range(COVER_PASSES):
+            lat, graphed, _e = _cover_pass(nodes[name], batches, r["mem"])
+            if best is None or sum(lat) < sum(best[0]):
+                best = (lat, graphed)
+        if name == "A":
+            sync()
+            r["launches"] = dict(D.LAUNCHES)
+            r["scan_shapes"] = {k: v / (COVER_PASSES * COVER_BATCHES)
+                                for k, v in
+                                D.LAUNCH_SHAPES["prefix_sum"].items()}
+        lat_ms = np.array(best[0]) * 1e3
+        r.update({"topic_matches_per_s": COVER_BATCHES * COVER_B
+                  / float(np.sum(best[0])),
+                  "window_p50_ms": float(np.percentile(lat_ms, 50)),
+                  "window_p99_ms": float(np.percentile(lat_ms, 99)),
+                  "graphed": best[1], "windows": COVER_BATCHES,
+                  "graphs": len(eng._graphs), "captures": eng.captures,
+                  "capture_s": eng.capture_s,
+                  "timed_captures": eng.captures - c0,
+                  "timed_capture_s": eng.capture_s - t0})
+    a = nodes["A"].device_engine
+    if dev.type == "cuda" and out["A"]["backend"] == "shapes" \
+            and out["A"]["graphed"] != COVER_BATCHES:
+        raise AssertionError(f"phase 10: {out['A']['graphed']} of "
+                             f"{COVER_BATCHES} covered windows replayed")
+    # every covered window against the plain path, bit for bit
+    _l, _g, out["hold_err"] = _cover_pass(nodes["A"], batches,
+                                          out["A"]["mem"], hold=True)
+    if out["A"]["backend"] == "shapes":
+        # one fused window of 8 batches (the (8, 1024) class, 8,192
+        # lanes expanded and verified at once): its capture's memory,
+        # and the window against the plain path
+        h = a.prepare_window(batches[:8], gate_cold=False)
+        out["A"]["fused_mem"] = {}
+        _cover_graph(a, h, out["A"]["fused_mem"])
+        a.dispatch(h)
+        a.materialize(h)
+        out["A"]["fused_graphed"] = h.graphed
+        out["hold_err"] = max(out["hold_err"], hold_against_plain(
+            a, h, "covered fused window"))
+        a.abandon(h)
+
+    # A, B and the host path deliver identically on a full route_batch
+    check = [make("c", 0, pool[i], b"%d" % k) for k, i in
+             enumerate(rng.randint(0, len(pool), COVER_B))]
+    got = {}
+    for name in "AB":
+        node = nodes[name]
+        counts = node.device_engine.route_batch(check)
+        if counts is None:
+            raise AssertionError(f"phase 10: node {name} routed nothing")
+        got[name] = (counts, node.sink.got)
+        node.sink.got = []
+    b = nodes["B"]
+    got["H"] = ([b.broker._route(m, b.router.match(m.topic))
+                 for m in check], b.sink.got)
+    b.sink.got = []
+    # the same deliveries of every message on every path (_per_msg)
+    want = (got["A"][0], _per_msg(got["A"][1]))
+    for name in "BH":
+        if (got[name][0], _per_msg(got[name][1])) != want:
+            raise AssertionError(f"phase 10: node A and {name} deliver "
+                                 f"differently")
+    out["same_order"] = got["A"][1] == got["B"][1]
+    out["host_fallback"] = {name: nodes[name].metrics.val(
+        "routing.device.host_fallback") for name in "AB"}
+    out["delivered"] = sum(got["A"][0])
+
+    # one covered SUBSCRIBE after the warm-up: an append on A (no overlay
+    # row), an overlay row on B; the next window delivers it alike
+    roots = a._built.cover.roots.tolist()
+    umb = next(a._built.fid_filter[f] for f in roots
+               if a._built.fid_filter[f].endswith("/#"))
+    new = umb[:-1] + "coverednew/leaf"
+    for name in "AB":
+        node = nodes[name]
+        node.late = _Sink()
+        node.broker.subscribe(node.broker.register(node.late, "late"),
+                              new, {"qos": 0})
+    sa = a.stats()
+    if nodes["A"].metrics.val("routing.cover.appends") != 1 \
+            or sa["delta_filters"] != 0 \
+            or nodes["B"].device_engine.stats()["delta_filters"] != 1:
+        raise AssertionError(f"phase 10: the covered SUBSCRIBE did not "
+                             f"land as an append: {sa['cover']}, delta "
+                             f"filters {sa['delta_filters']}")
+    win = [make("n", 0, t, b"%d" % k) for k, t in enumerate(
+        [concretize(new)] * 8 + [pool[i] for i in
+                                 rng.randint(0, len(pool), 120)])]
+    seen = {}
+    for name in "AB":
+        node = nodes[name]
+        eng = node.device_engine
+        h = eng.prepare(win, gate_cold=False)
+        if name == "A":
+            _cover_graph(eng, h, out["A"]["mem"])
+        eng.dispatch(h)
+        eng.materialize(h)
+        if name == "A":
+            out["append_graphed"] = h.graphed
+            if dev.type == "cuda" and out["A"]["backend"] == "shapes" \
+                    and not h.graphed:
+                raise AssertionError("phase 10: the window after the "
+                                     "append was not a graph replay")
+            out["hold_err"] = max(out["hold_err"], hold_against_plain(
+                eng, h, "covered window after the append"))
+        seen[name] = (eng.finish(h), _per_msg(node.sink.got),
+                      node.late.got)
+    if seen["A"] != seen["B"] or len(seen["A"][2]) != 8:
+        diff = [k for k in range(3) if seen["A"][k] != seen["B"][k]]
+        raise AssertionError(
+            f"phase 10: the appended filter delivered differently from "
+            f"the off twin (parts {diff}: counts, session, new session; "
+            f"{len(seen['A'][2])} / {len(seen['B'][2])} to the new one)")
+    out["stats_A"] = a.stats()
+    return out
+
+
+def _sync(dev):
+    import torch
+    return torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+
+def cover_drive(dev, cells=None, seed: int = SEED) -> dict:
+    """Phase 10 over every population of COVER_CELLS. Raises on any
+    failed check."""
+    return {n: _cover_cell(dev, n, seed + k)
+            for k, n in enumerate(cells or COVER_CELLS)}
+
+
+def cover_phase(dev, card: str) -> dict:
+    """Phase 10 on the card; prints its lines."""
+    t0 = time.time()
+    r = cover_drive(dev)
+    for n, c in r.items():
+        for name in "AB":
+            x = c[name]
+            log(f"phase 10 {n} {name} (covering {'on' if name == 'A' else 'off'}): "
+                f"backend {x['backend']}, cover {json.dumps(x['cover'])}, "
+                f"{x['topic_matches_per_s']:.0f} topic-matches/s, window "
+                f"p50 {x['window_p50_ms']:.3f} ms, p99 "
+                f"{x['window_p99_ms']:.3f} ms ({x['graphed']} of "
+                f"{x['windows']} graph replays); detection "
+                f"{x['detect_s']:.2f} s, build {x['build_s']:.2f} s, "
+                f"subscribe {x['subscribe_s']:.1f} s; {x['graphs']} graph "
+                f"classes, {x['captures']} captures in "
+                f"{x['capture_s']:.2f} s; capture memory "
+                f"{json.dumps({k: round(v, 1) for k, v in x['mem'].items()})}"
+                f" MB" + (f"; the fused (8, {COVER_B}) window's capture "
+                          f"{json.dumps({k: round(v, 1) for k, v in x['fused_mem'].items()})}"
+                          f" MB (graph replay: {x['fused_graphed']})"
+                          if "fused_mem" in x else ""))
+        log(f"phase 10 {n}: {c['unique']} unique filters; A on / B off "
+            f"{c['A']['topic_matches_per_s'] / c['B']['topic_matches_per_s']:.3f}"
+            f"; every covered window == plain path (exact); A == B == "
+            f"host path on a route_batch of {COVER_B} ({c['delivered']} "
+            f"deliveries, each message's; in the same order on A and B: "
+            f"{c['same_order']}; host fallbacks {c['host_fallback']}); a "
+            f"covered SUBSCRIBE landed as an append and "
+            f"the next window (graph replay: {c['append_graphed']}) "
+            f"delivered it as the off twin; launches on A's timed passes "
+            f"{c['A']['launches']}")
+    log(f"phase 10 {time.time() - t0:.1f} s")
     log(card)
     return r
 
@@ -2059,6 +2438,8 @@ def main() -> int:
     e2e = e2e_phase(dev, card)
     torch.cuda.empty_cache()
     layers = layers_phase(dev, card)
+    torch.cuda.empty_cache()
+    cover = cover_phase(dev, card)
     timed = {tuple(d["shape"]) for d in scan_shapes + mesh_scan_shapes}
     layer_scan_shapes = []
     for cell, n in (("skew", "windows"), ("churn", "batches")):
@@ -2067,9 +2448,20 @@ def main() -> int:
                if shape not in timed}
         timed |= set(new)
         layer_scan_shapes += time_scan_shapes_apart(new, f"layers {cell}")
+    for n, c in cover.items():
+        new = {shape: cnt for shape, cnt in c["A"]["scan_shapes"].items()
+               if shape not in timed}
+        timed |= set(new)
+        layer_scan_shapes += time_scan_shapes_apart(new, f"cover {n} A")
     layers_err = max(layers["churn"]["hold_skew_err"],
-                     layers["churn"]["hold_err"])
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+                     layers["churn"]["hold_err"],
+                     *(c["hold_err"] for c in cover.values()))
+    for name in ("shape_match", "prefix_sum"):
+        if sum(c["A"]["launches"][name] for c in cover.values()) == 0:
+            raise AssertionError(f"phase 10: {name} was not launched on "
+                                 f"the covered path")
+    peak = max(_RUN_PEAK[0], torch.cuda.max_memory_allocated())
+    log(f"peak device memory {peak / 1e9:.2f} "
         f"GB; whole run {time.time() - t_all:.1f} s")
 
     def by_path(name):
@@ -2083,6 +2475,8 @@ def main() -> int:
             layers["skew"]["A"]["launches"][name]
         out["layers churn A (timed pass)"] = \
             layers["churn"]["A"]["launches"][name]
+        # phase 10: node A's (covering on) timed passes, both populations
+        out["cover"] = sum(c["A"]["launches"][name] for c in cover.values())
         return out
 
     kernels = [
@@ -2112,8 +2506,12 @@ def main() -> int:
     for cell in ("skew", "churn"):
         layers_out[cell] = {k: v for k, v in layers[cell].items()
                             if k != "scan_shapes"}
+    cover_out = {n: {k: v for k, v in c.items() if k != "stats_A"}
+                 for n, c in cover.items()}
+    for c in cover_out.values():
+        c["A"] = {k: v for k, v in c["A"].items() if k != "scan_shapes"}
     log(json.dumps({"summary": summary, "mesh": mesh, "e2e": e2e_out,
-                    "layers": layers_out}))
+                    "layers": layers_out, "cover": cover_out}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,15 @@ The port's ``DeviceRouteEngine`` (``emqx_tpu/broker/device_engine.py``
 :561-3889) with the reference's default routing layers: in-window topic
 dedup and the snapshot-keyed match cache (``_plan_window``,
 ``broker/match_cache.py``), and the device delta overlay
-(``ops/delta.py``, ``_overlay_sync``), each switchable as in the
-reference (``broker.topic_dedup``, ``broker.match_cache_size``,
-``broker.delta_overlay``). Not ported: subscription covering,
-supervision, HBM ledger, tracing, latency observatory and overload
-hooks, delivery lanes (delivery is inline); the CSR readback is always
-on. It compiles the live routing state (Router filter universe + Broker
+(``ops/delta.py``, ``_overlay_sync``), and subscription covering (the
+snapshot's match tables hold the covering set only and the match stage
+re-expands it, ``ops/cover.py``; a new filter a built root covers
+becomes an append to the expansion CSR, ``_try_cover_append``), each
+switchable as in the reference (``broker.topic_dedup``,
+``broker.match_cache_size``, ``broker.delta_overlay``,
+``broker.subscription_covering``). Not ported: supervision, HBM ledger,
+tracing, latency observatory and overload hooks, delivery lanes
+(delivery is inline); the CSR readback is always on. It compiles the live routing state (Router filter universe + Broker
 subscriber/shared-group membership) into device tables, runs the route
 window over publish micro-batches and consumes the result into session
 deliveries, replacing the per-message host publish path
@@ -39,7 +42,10 @@ window into the graph's static inputs and replays it: one launch where
 the eager window makes ~300. An overlay version is copied into a graph's
 static overlay buffers on the engine stream, in order behind the
 previous replay, so a window in flight keeps the version it was
-dispatched with. Every plane materialize will read is copied at dispatch
+dispatched with. A cover-set append writes its append region into the
+snapshot's static cover buffers the same way, and keeps an immutable
+copy per append version for the eager windows and for a recompute of a
+window in flight. Every plane materialize will read is copied at dispatch
 return into pinned host buffers (``non_blocking``) with an event
 recorded behind it — materialize waits on that event only, so at the
 batcher's ``dispatch_depth >= 2`` window W's readback crosses while
@@ -109,6 +115,7 @@ from emqx_tpu_torch import device as D
 from emqx_tpu_torch.convert import router_tables_from_numpy, tables_from_numpy
 from emqx_tpu_torch.device import resolve_device
 from emqx_tpu_torch.models import router_engine as RE
+from emqx_tpu_torch.ops import cover as CV
 from emqx_tpu_torch.ops import intern as I
 from emqx_tpu_torch.ops.compact import csr_slices
 from emqx_tpu_torch.ops.delta import (DeltaTables, build_delta_tables,
@@ -148,6 +155,12 @@ def resolve_delta_overlay(configured=None) -> bool:
     return True if configured is None else bool(configured)
 
 
+def resolve_subscription_covering(configured=None) -> bool:
+    """``broker.subscription_covering``, default on: the snapshot matches
+    the covering set and expands it; off builds the full set."""
+    return True if configured is None else bool(configured)
+
+
 def resolve_rebuild_threshold(configured=None) -> int:
     """``broker.rebuild_threshold``, default 256. It must be a positive
     integer — anything else is a deployment error worth failing loudly
@@ -161,6 +174,15 @@ def resolve_rebuild_threshold(configured=None) -> int:
 
 
 _snapshot_ids = itertools.count(1)
+
+_DEVICE_LOCKS: dict = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+
+
+def _device_lock(dev: torch.device) -> threading.RLock:
+    """The one lock around the device work of every engine on `dev`."""
+    with _DEVICE_LOCKS_GUARD:
+        return _DEVICE_LOCKS.setdefault(str(dev), threading.RLock())
 
 # delta-overlay row classes: pow2 classes keep the program shapes stable
 # while the overlay grows; past the top class the oldest _OVERLAY_MAX
@@ -386,12 +408,39 @@ class _Graph:
         self.launches = launches  # [(kernel, shape)] per replay
 
 
+class _CoverState:
+    """Host side of one snapshot's subscription covering
+    (``emqx_tpu/broker/device_engine.py:463``): the roots' HostTrie and
+    encodings (built on the first append try) answer "is this new filter
+    covered?", and the numpy CoverTables mirror backs the append region.
+    ``dev_app`` is the device copy of the append region's current
+    version (immutable: a window in flight keeps the one it dispatched
+    with), ``keep`` the pinned staging of its upload."""
+
+    __slots__ = ("trie", "root_words", "roots", "ct", "app_used",
+                 "level_cap", "n_roots", "n_covered", "incomplete",
+                 "dev_app", "keep")
+
+    def __init__(self, roots, ct, level_cap, n_covered, incomplete):
+        self.roots = roots            # root fid array (covering set)
+        self.trie = None              # HostTrie over the roots, and
+        self.root_words = None        # their encodings (lazy)
+        self.ct = ct                  # numpy CoverTables (host mirror)
+        self.app_used = 0             # append-region rows consumed
+        self.level_cap = level_cap    # vwords width (append depth gate)
+        self.n_roots = len(roots)
+        self.n_covered = n_covered
+        self.incomplete = incomplete  # detection-overflow filter count
+        self.dev_app = None
+        self.keep = None
+
+
 class _Built:
     """One compiled snapshot (host-side indexes of the device tables)."""
 
     __slots__ = ("fid_of", "fid_filter", "seg_len", "slot_of", "slot_key",
                  "n_slots", "backend", "seg_np", "fid_shared", "fid_rich",
-                 "sid", "match_width", "sig")
+                 "sid", "match_width", "sig", "cover")
 
     def __init__(self):
         self.fid_of: dict[str, int] = {}
@@ -412,6 +461,10 @@ class _Built:
         self.seg_np = np.zeros(0, np.int64)       # seg_len as an array
         self.fid_shared = np.zeros(0, bool)       # fid has shared groups
         self.fid_rich = np.zeros(0, bool)         # fid has rich subopts
+        # subscription covering: _CoverState when the match tables hold
+        # the covering set only; then seg_np/fid_shared/fid_rich are
+        # padded to the filter capacity so appended fids index safely
+        self.cover: Optional[_CoverState] = None
 
 
 class _Handle:
@@ -447,7 +500,8 @@ class _Handle:
         self.np_delta = None  # host views: _DeltaRes or _DeltaCsr
         self.arrays = None    # the program's host inputs, in order
         self.cls = None       # (Wp, Bp, Bm, dC, P)
-        self.tables = None    # the device tables the dispatch used
+        self.tables = None    # the device tables the dispatch used (with
+        #                       its cover append version, when covered)
         self.strat = None
         self.host = None      # pinned host copies started at dispatch
         self.ev_start = None  # CUDA events around the window's device
@@ -482,7 +536,8 @@ class DeviceRouteEngine:
                  slot_cap: int = 16, shape_cap: int = 32,
                  match_cache_size: Optional[int] = None,
                  dedup: Optional[bool] = None,
-                 delta_overlay: Optional[bool] = None):
+                 delta_overlay: Optional[bool] = None,
+                 subscription_covering: Optional[bool] = None):
         self.node = node
         self.broker = node.broker
         self.router = node.broker.router
@@ -564,17 +619,28 @@ class DeviceRouteEngine:
         # delivers it from the host dict
         self._fid_member_clock: dict[int, int] = {}
         self._built_deleted: set[str] = set()  # snapshot tombstones
+        # subscription covering: the snapshot matches the covering set
+        # and expands it after the match stage (ops/cover). New filters
+        # no built root covers erode the reduction; past a budget they
+        # trigger the "covering" compaction
+        self.subscription_covering = resolve_subscription_covering(
+            subscription_covering)
+        self._cover_churn = 0
+        self.detect_s = 0.0      # the last build's cover detection seconds
 
         # one stream for serving dispatches, one for background warms (a
         # stream is never shared by two threads at once: kernel 2's
         # look-back words are per stream), and one lock around all of the
         # engine's device work, so windows never interleave and a graph
         # capture never runs beside another thread's device calls (those
-        # can invalidate it)
+        # can invalidate it). The lock is the device's, shared by every
+        # engine on it: two engines' background warms, one capturing while
+        # the other synchronized its warm stream, invalidated a capture
+        # (phase 9's nodes A and B, PERF.md)
         cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if cuda else None
         self._warm_stream = torch.cuda.Stream(self.device) if cuda else None
-        self._cuda_lock = threading.RLock()
+        self._cuda_lock = _device_lock(self.device)
         # on the card a dispatch only enqueues kernels and copies (no host
         # sync), so the batcher runs it on the loop; on the CPU the window
         # is the computation itself and keeps its executor thread
@@ -673,6 +739,8 @@ class DeviceRouteEngine:
                 self._built_deleted.discard(topic_filter)
             elif topic_filter not in self._delta_fid_of:
                 words = self._enc_filter(topic_filter)
+                if self._try_cover_append(topic_filter, words):
+                    return
                 fid = self._next_delta_fid
                 self._next_delta_fid += 1
                 self._delta_trie.insert(words, fid)
@@ -719,6 +787,126 @@ class DeviceRouteEngine:
                 self.new_slots_by_filter.setdefault(real, set()).add(group)
             # delta filters' shared groups dispatch host-side via the
             # consume sweep over live broker.shared — nothing to track
+
+    # ---- subscription covering: cover-set churn ----------------------------
+    def _cover_index(self, b) -> _CoverState:
+        """The snapshot's host covering index (HostTrie over the roots and
+        their encodings), built on the first append try."""
+        cs = b.cover
+        if cs.trie is None:
+            t = HostTrie()
+            rw: dict[int, list] = {}
+            for fid in cs.roots.tolist():
+                w = self._enc_filter(b.fid_filter[fid])
+                t.insert(w, fid)
+                rw[fid] = w
+            cs.trie, cs.root_words = t, rw
+        return cs
+
+    def _try_cover_append(self, f: str, words: list) -> bool:
+        """Cover-set churn (``emqx_tpu/broker/device_engine.py:932``): a
+        NEW filter a built root covers becomes an expansion-CSR append —
+        a spare padded fid and an upload of the append region — instead
+        of an overlay row. It matches on the card from the next dispatch,
+        sorted after every built filter (where the covering-off twin's
+        overlay rows deliver), and delivers through the host dict (its
+        padded fan-out segment is empty). False sends the filter down the
+        overlay path and, on a covering snapshot, counts toward the
+        "covering" compaction."""
+        b = self._built
+        if b is None or b.cover is None or self._tables is None \
+                or not self.subscription_covering:
+            return False
+        m = self.node.metrics
+        cs = b.cover
+        ct = cs.ct
+        if (len(words) > cs.level_cap
+                or cs.app_used >= ct.app_root.shape[0]
+                or len(b.fid_filter) >= len(b.seg_np)):
+            self._cover_churn += 1
+            m.inc("routing.cover.append_rejects")
+            return False
+        cs = self._cover_index(b)
+        roots = CV.host_covering_roots(cs.trie, cs.root_words, words,
+                                       f.startswith("$"))
+        if not roots:
+            self._cover_churn += 1
+            m.inc("routing.cover.append_rejects")
+            return False
+
+        fid = len(b.fid_filter)
+        k = cs.app_used
+        ct.app_root[k] = min(roots)
+        ct.app_fid[k] = fid
+        # a rank past every built filter's: appends deliver in arrival
+        # order after the snapshot set, as the off twin's overlay rows
+        ct.app_key[k] = np.int32(CV.rank_base(ct) + k)
+        ct.app_words[k, :len(words)] = words
+        ct.app_lens[k] = len(words)
+        cs.app_used += 1
+        b.fid_of[f] = fid
+        b.fid_filter.append(f)
+        b.seg_len.append(0)
+        b.fid_rich[fid] = True       # deliver via the live broker dict
+        self._dirty_ver += 1         # the hostside-mask memo must refresh
+        self._cover_upload(b)
+
+        # match-cache invalidation over the EXPANDED set: cached topics
+        # the new filter matches drop, and the delta version bump keeps
+        # readbacks in flight from re-inserting pre-append rows
+        cache = self._match_cache
+        if cache is not None:
+            cache.bump_delta_version()
+            if len(cache):
+                cache.drop_where(
+                    b.sid, lambda encs, lens, dols: np_filter_match(
+                        words, encs, lens, dols))
+        m.inc("routing.cover.appends")
+        return True
+
+    def _cover_of(self, tables):
+        return tables.shapes.cover if isinstance(
+            tables, RE.ShapeRouterTables) else tables.trie.cover
+
+    def _with_cover(self, tables, cover):
+        if isinstance(tables, RE.ShapeRouterTables):
+            return tables._replace(shapes=tables.shapes._replace(
+                cover=cover))
+        return tables._replace(trie=tables.trie._replace(cover=cover))
+
+    def _cover_upload(self, b) -> None:
+        """The append region's new version: an immutable device copy
+        (``dev_app``), also written into the snapshot's static cover
+        buffers that its CUDA graphs read — on the engine stream, under
+        the lock, in order behind the previous replay, so a window in
+        flight keeps the version it was dispatched with. A failed upload
+        raises."""
+        cs = b.cover
+        planes = [getattr(cs.ct, k).copy() for k in CV.APPEND_FIELDS]
+        static = [getattr(self._cover_of(self._tables), k)
+                  for k in CV.APPEND_FIELDS]
+        if self._stream is not None:
+            with self._cuda_lock, self._on(self._stream):
+                keep = [torch.from_numpy(a).pin_memory() for a in planes]
+                new = tuple(t.to(self.device, non_blocking=True)
+                            for t in keep)
+                for dst, src in zip(static, new):
+                    dst.copy_(src)
+            cs.keep = keep
+        else:
+            new = tuple(torch.from_numpy(a) for a in planes)
+            for dst, src in zip(static, new):
+                dst.copy_(src)
+        cs.dev_app = new
+
+    def _versioned(self, b, tables):
+        """`tables` with snapshot `b`'s current cover append version in
+        place of the static append buffers (a dispatch pins it)."""
+        if b.cover is None or b.cover.dev_app is None:
+            return tables
+        cov = self._cover_of(tables)._replace(
+            **dict(zip(CV.APPEND_FIELDS, b.cover.dev_app)))
+        return self._with_cover(tables, cov)
 
     # ---- snapshot compile ----------------------------------------------
     def rebuild(self) -> None:
@@ -825,6 +1013,8 @@ class DeviceRouteEngine:
 
         # pow2 capacity classes: a new signature only when a class grows
         filter_cap = _next_pow2(n)
+        cover_np, cover_shapes = self._cover_build(b, filters, rows, lens,
+                                                   filter_cap)
         total_subs = sum(seg_len)
         total_members = sum(len(m) for m in shared_members.values())
         subs_tbl = build_subtable(
@@ -834,8 +1024,26 @@ class DeviceRouteEngine:
             fs_rows_cap=_next_pow2(max(1, b.n_slots)),
             member_rows_cap=_next_pow2(max(1, total_members)))
 
-        st = None
-        if L <= 20:
+        st = trie = None
+        if cover_np is not None:
+            # the covering path: match tables over the ROOTS, keeping
+            # their fids (the SubTable and consume indexing are the full
+            # set's); the expansion CSR rides on the tables
+            roots = b.cover.roots
+            if cover_shapes:
+                st = build_shape_tables(rows[roots], lens[roots],
+                                        filter_ids=roots,
+                                        shape_cap=self.shape_cap)
+                st = st._replace(cover=cover_np)
+            else:
+                node_cap = _next_pow2(
+                    max(256, 2 * (int(lens[roots].sum()) + 1)))
+                trie = build_tables(rows[roots], lens[roots],
+                                    filter_ids=roots,
+                                    node_capacity=node_cap,
+                                    slot_capacity=4 * node_cap)
+                trie = trie._replace(cover=cover_np)
+        elif L <= 20:
             try:
                 st = build_shape_tables(rows, lens, shape_cap=self.shape_cap)
             except ShapeCapacityError:
@@ -848,18 +1056,79 @@ class DeviceRouteEngine:
             with self._cuda_lock:
                 tables = tables_from_numpy(st, subs_tbl, dev)
             b.backend = "shapes"
-            b.match_width = int(st.shape_plus_mask.shape[0])
+            # a covered row is as wide as the full set's shape row
+            b.match_width = int(cover_np.out_pad.shape[0]) \
+                if cover_np is not None else int(st.shape_plus_mask.shape[0])
         else:
-            node_cap = _next_pow2(max(256, 2 * (int(lens.sum()) + 1)))
-            trie = build_tables(rows, lens, node_capacity=node_cap,
-                                slot_capacity=4 * node_cap)
+            if trie is None:
+                node_cap = _next_pow2(max(256, 2 * (int(lens.sum()) + 1)))
+                trie = build_tables(rows, lens, node_capacity=node_cap,
+                                    slot_capacity=4 * node_cap)
             with self._cuda_lock:
                 tables = router_tables_from_numpy(trie, subs_tbl, dev)
             b.backend = "trie"
             b.match_width = self.match_cap
+        if b.cover is not None:
+            with self._cuda_lock:
+                b.cover.dev_app = tuple(
+                    getattr(self._cover_of(tables), k).clone()
+                    for k in CV.APPEND_FIELDS)
         b.sig = self._signature(b, tables)
         with self._cuda_lock:
             return b, tables, torch.from_numpy(cur).to(dev)
+
+    def _cover_build(self, b, filters, rows, lens, filter_cap):
+        """The covering branch of the build
+        (``emqx_tpu/broker/device_engine.py:1252-1314``): detect cover
+        relations on the engine's device, pick one root per covered
+        filter, and compile the expansion CSR into ``b.cover``. Returns
+        (CoverTables or None, match the roots on the shape tables?).
+        Nothing covered, one filter, or a filter deeper than the order
+        key holds: no cover state (the full set builds as before).
+
+        The backend follows the reference: the roots match on the shape
+        tables whenever they fit the shape cap; the order keys and the
+        row width are those of what the covering-off twin would run
+        (shape keys and the full set's shape width iff the full set fits,
+        else trie keys and match_cap)."""
+        n, L = rows.shape
+        if not (self.subscription_covering and n >= 2
+                and L <= CV.MAX_KEY_LEVELS):
+            return None, False
+        dollar = np.fromiter((f.startswith("$") for f in filters), bool, n)
+        t0 = time.perf_counter()
+        covs, inc = CV.detect_covers(rows, lens, dollar, device=self.device,
+                                     lock=self._cuda_lock)
+        self.detect_s = time.perf_counter() - t0
+        log.info("cover detection over %d filters: %.3f s", n,
+                 self.detect_s)
+        owner = CV.assign_owners(covs, inc)
+        covered = np.flatnonzero(owner >= 0)
+        if not len(covered):
+            return None, False
+        roots = np.flatnonzero(owner < 0)
+        ns_full = CV.full_shape_count(rows, lens)
+        ns_root = CV.full_shape_count(rows[roots], lens[roots])
+        cover_shapes = L <= 20 and ns_root <= self.shape_cap
+        if cover_shapes and ns_full <= self.shape_cap:
+            keys = CV.shape_order_keys(rows, lens)
+            out_w = 1 << max(0, (ns_full - 1).bit_length())
+        else:
+            keys = CV.trie_order_keys(rows, lens)
+            out_w = self.match_cap
+        cand_cap = min(4096, _next_pow2(max(256, 4 * out_w)))
+        ct = CV.build_cover_tables(rows, lens, owner, keys,
+                                   fid_cap=filter_cap, out_width=out_w,
+                                   cand_cap=cand_cap)
+        b.cover = _CoverState(roots, ct, L, len(covered), int(inc.sum()))
+        # pad the consume companions to filter_cap: appends take fids
+        # past n, and the consume walk indexes these arrays by fid
+        pad = filter_cap - n
+        b.seg_np = np.concatenate([b.seg_np, np.zeros(pad, np.int64)])
+        b.fid_shared = np.concatenate([b.fid_shared[:n],
+                                       np.zeros(pad, bool)])
+        b.fid_rich = np.concatenate([b.fid_rich[:n], np.zeros(pad, bool)])
+        return ct, cover_shapes
 
     def _signature(self, b, tables) -> tuple:
         """The warm-class signature of snapshot `b`: the reference keys
@@ -948,14 +1217,17 @@ class DeviceRouteEngine:
         self._overlay_stale = False
         self._overlay_uncovered = 0
         self._fid_member_clock = {}
+        self._cover_churn = 0   # the fresh snapshot re-detected covers
 
     def _compaction_reason(self) -> Optional[str]:
         """Why the current snapshot should recompile, or None. Overlay
         off: distinct stale entities (every delta filter included) past
         the threshold. Overlay on: delta filters serve on the card, so the
         rebuild is a rare compaction on overlay overflow, on the
-        snapshot's delete-tombstone ratio, or on membership churn of
-        built filters and slots past the threshold."""
+        snapshot's delete-tombstone ratio, on new filters no built root
+        covers past a budget (each erodes the covering reduction), or on
+        membership churn of built filters and slots past the
+        threshold."""
         if self._built is None:
             return None
         if not self.delta_overlay:
@@ -966,6 +1238,8 @@ class DeviceRouteEngine:
         dead = len(self._built_deleted)
         if dead >= 64 and 2 * dead >= len(self._built.fid_filter):
             return "tombstones"
+        if self._cover_churn >= 64:
+            return "covering"
         if self.staleness() >= self.rebuild_threshold:
             return "churn"
         return None
@@ -1704,6 +1978,12 @@ class DeviceRouteEngine:
         self._outstanding += 1
         self.node.metrics.inc("routing.device.windows")
         self.node.metrics.inc("routing.device.window_subs", len(lives))
+        if b.cover is not None:
+            # windows matched against the covering set, and the match
+            # work saved: covered filters the root match never visited
+            self.node.metrics.inc("pipeline.cover.windows")
+            self.node.metrics.inc("pipeline.cover.filters_skipped",
+                                  b.cover.n_covered)
         h.cost_s = self._stage("prepare", t0)
         self.node.metrics.inc("routing.device.messages",
                               sum(map(len, lives)))
@@ -1828,7 +2108,7 @@ class DeviceRouteEngine:
                 msg_hash[k, :len(msgs)] = self._msg_hashes(msgs, strat)
             p, P, ov = h.plan, h.pcap, h.delta
             h.cursors0 = cursors
-            h.tables, h.strat = tables, strat
+            h.tables, h.strat = self._versioned(h.built, tables), strat
             h.cls = (Wp, Bp, p.Bm if p is not None else None,
                      ov.cap if ov is not None else None, P)
             if p is not None:
@@ -1855,7 +2135,7 @@ class DeviceRouteEngine:
                     self._kick_class_warm()
                 ins = [self._h2d(a) for a in h.arrays]
                 res, cp, dp, dcp = self._unwrap(self._program(
-                    h.built.backend, tables, ov.dev if ov is not None
+                    h.built.backend, h.tables, ov.dev if ov is not None
                     else None, cursors, ins, strat, h.cls))
             if p is not None:
                 self.node.metrics.inc("routing.device.cached_windows")
@@ -1904,8 +2184,8 @@ class DeviceRouteEngine:
         """The dense (res, delta planes) of a window whose CSR payload
         overflowed. An eager dispatch still holds them; a replayed
         window's graph outputs may hold a later replay by now, so it runs
-        again eagerly from the cursors and the overlay version it started
-        with — the same planes, bit for bit."""
+        again eagerly from the cursors, the overlay version and the cover
+        append version it started with — the same planes, bit for bit."""
         if not h.graphed:
             return h.res, h.dres
         with self._cuda_lock, self._on(self._stream):
@@ -2515,6 +2795,16 @@ class DeviceRouteEngine:
             "overlay": {"rows": ov.n, "class": ov.cap,
                         "version": ov.version, "hostfan": len(ov.hostfan)}
             if ov is not None else None,
+            "subscription_covering": self.subscription_covering,
+            "cover": {"roots": b.cover.n_roots,
+                      "covered": b.cover.n_covered,
+                      "appends": b.cover.app_used,
+                      "incomplete": b.cover.incomplete,
+                      "reduction": round(
+                          (b.cover.n_roots + b.cover.n_covered)
+                          / max(1, b.cover.n_roots), 2)}
+            if b is not None and b.cover is not None else None,
+            "cover_detect_s": round(self.detect_s, 3),
             "graphs": len(self._graphs),
             "captures": self.captures,
             "capture_s": round(self.capture_s, 3),

@@ -14,9 +14,9 @@ defaults: ``batch_window_us`` (200), ``max_publish_batch`` (1024),
 ``device_slot_cap`` (16), ``shared_subscription_strategy``
 ("round_robin"), ``shared_dispatch_ack_enabled`` (false),
 ``dispatch_depth`` (2), ``rebuild_threshold`` (256), and the routing
-layers ``topic_dedup`` (on), ``match_cache_size`` (8192) and
-``delta_overlay`` (on), passed to the engine as the reference's ``Node``
-passes them (:221-257). A key that asks for a layer the port does not
+layers ``topic_dedup`` (on), ``match_cache_size`` (8192),
+``delta_overlay`` (on) and ``subscription_covering`` (on), passed to the
+engine as the reference's ``Node`` passes them (:221-257). A key that asks for a layer the port does not
 have (``_UNSUPPORTED``, or ``compact_readback`` off) raises
 ``ValueError`` rather than serving without it.
 """
@@ -41,9 +41,8 @@ from emqx_tpu_torch.device import resolve_device
 
 
 # reference layers the port does not have: a truthy value asks for one
-_UNSUPPORTED = ("subscription_covering", "supervise", "hbm_ledger", "trace",
-                "latency_observatory", "overload", "deliver_lanes",
-                "columnar_ingress")
+_UNSUPPORTED = ("supervise", "hbm_ledger", "trace", "latency_observatory",
+                "overload", "deliver_lanes", "columnar_ingress")
 
 
 def check_layers(perf: dict) -> None:
@@ -93,7 +92,8 @@ class Node:
             slot_cap=perf.get("device_slot_cap", 16),
             match_cache_size=perf.get("match_cache_size"),
             dedup=perf.get("topic_dedup"),
-            delta_overlay=perf.get("delta_overlay"))
+            delta_overlay=perf.get("delta_overlay"),
+            subscription_covering=perf.get("subscription_covering"))
         self.publish_batcher = PublishBatcher(
             self, self.device_engine,
             window_us=perf.get("batch_window_us", 200),

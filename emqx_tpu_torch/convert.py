@@ -7,7 +7,9 @@ table build returns (named tuples of numpy arrays — the JAX package's
 uploads them, dtypes unchanged, to ``device``. ``router_tables_from_numpy``
 does the same for the trie backend's ``TrieTables`` + ``SubTable``, and
 ``stacked_from_numpy`` for a per-shard pytree stacked on a leading route
-axis (``parallel.sharded.stack_tables``).
+axis (``parallel.sharded.stack_tables``). Subscription-covering state
+(``ops.cover.CoverTables`` on a table's ``cover`` field) rides along
+through ``cover_from_numpy``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from emqx_tpu_torch.device import resolve_device
 from emqx_tpu_torch.models.router_engine import (RouterTables,
                                                  ShapeRouterTables)
+from emqx_tpu_torch.ops.cover import CoverTables, host_facts, note_host
 from emqx_tpu_torch.ops.fanout import SubTable
 from emqx_tpu_torch.ops.shapes import ShapeTables
 from emqx_tpu_torch.ops.trie import TrieTables
@@ -42,15 +45,29 @@ def _upload(dev):
     return up
 
 
+def cover_from_numpy(ct, device=None):
+    """Upload host-built subscription-covering tables (either package's
+    ``CoverTables`` of numpy arrays) to ``device``, dtypes unchanged;
+    None stays None."""
+    if ct is None:
+        return None
+    up = _upload(resolve_device(device))
+    out = CoverTables(*[up(getattr(ct, k)) for k in CoverTables._fields])
+    facts = host_facts(ct)
+    note_host(out.vlens, "depth", facts["depth"])
+    note_host(out.exp_start, "seg", facts["seg"])
+    return out
+
+
 def trie_from_numpy(trie, device=None) -> TrieTables:
     """Upload host-built trie tables to ``device`` (``cuda`` by default).
     The node/edge counts become 0-d tensors."""
     dev = resolve_device(device)
-    if getattr(trie, "cover", None) is not None:
-        raise ValueError("subscription covering is not supported by the port")
     up = _upload(dev)
     return TrieTables(*[up(getattr(trie, k))
-                        for k in TrieTables._fields[:-1]])
+                        for k in TrieTables._fields[:-1]],
+                      cover=cover_from_numpy(getattr(trie, "cover", None),
+                                             dev))
 
 
 def router_tables_from_numpy(trie, subs, device=None) -> RouterTables:
@@ -65,23 +82,18 @@ def stacked_from_numpy(stacked, device=None):
     """Upload a stacked per-shard pytree (``RouterTables`` or
     ``ShapeRouterTables`` of [R, ...] numpy planes) to ``device``, every
     leaf a tensor with its leading route axis."""
-    dev = resolve_device(device)
-    inner = stacked[0]
-    if getattr(inner, "cover", None) is not None:
-        raise ValueError("subscription covering is not supported by the port")
-    return tree_map(_upload(dev), stacked)
+    return tree_map(_upload(resolve_device(device)), stacked)
 
 
 def tables_from_numpy(shapes, subs, device=None) -> ShapeRouterTables:
     """Upload host-built shape and subscriber tables to ``device``
     (``cuda`` by default; raises without CUDA unless ``device='cpu'``)."""
     dev = resolve_device(device)
-    if getattr(shapes, "cover", None) is not None:
-        raise ValueError("subscription covering is not supported by the port")
-
     up = _upload(dev)
     st = ShapeTables(**{k: up(getattr(shapes, k)) for k in _SHAPE_PLANES},
                      n_shapes=int(shapes.n_shapes),
-                     n_filters=int(shapes.n_filters))
+                     n_filters=int(shapes.n_filters),
+                     cover=cover_from_numpy(getattr(shapes, "cover", None),
+                                            dev))
     sub = SubTable(*[up(getattr(subs, k)) for k in SubTable._fields])
     return ShapeRouterTables(shapes=st, subs=sub)

@@ -52,8 +52,10 @@ class FanoutResult(NamedTuple):
 
 def take(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """values[idx] with idx clamped into range (JAX gather semantics for
-    the non-negative indices used here)."""
-    return values[idx.clamp(0, values.shape[0] - 1).long()]
+    the non-negative indices used here); `values` 1-D. The index keeps
+    its dtype (no int64 copy of an int32 index plane)."""
+    flat = idx.clamp(0, values.shape[0] - 1).reshape(-1)
+    return values.index_select(0, flat).view(idx.shape)
 
 
 def _segment_expand(starts: torch.Tensor, values: torch.Tensor,

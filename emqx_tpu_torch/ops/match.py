@@ -85,7 +85,9 @@ def flatten_tries(trie):
     """Stacked per-shard TrieTables ([n, ...] tensors) → one table laid
     end to end: node ids of shard r (children, edge parents) offset by
     r * N, filter ids and words unchanged. ``match_batch(..., shards=n)``
-    matches n shards' batches in one pass over it."""
+    matches n shards' batches in one pass over it. Cover state is not
+    carried: each shard's expansion runs on its own block of the result
+    (``parallel/sharded``)."""
     n, N = trie.plus_child.shape
     off = (torch.arange(n, device=trie.plus_child.device) * N)[:, None]
 
@@ -127,6 +129,11 @@ def match_batch(tables, topics: torch.Tensor, lens: torch.Tensor,
     ``shards`` > 1 matches several shards in one pass: ``tables`` comes
     from ``flatten_tries`` and the batch is ``shards`` equal blocks, block
     r matched against shard r (filter ids stay shard-local).
+
+    With cover state (``tables.cover``, subscription covering) the trie
+    held the covering set only, and the row is expanded into the exact
+    full-set row (``ops/cover.cover_expand``, through ``scan``), as the
+    reference does (:125-131).
     """
     B, L = topics.shape
     F, M = frontier_cap, match_cap
@@ -185,8 +192,13 @@ def match_batch(tables, topics: torch.Tensor, lens: torch.Tensor,
         frontier = nxt[:, :width]
 
     oflow = oflow | (count > M)
-    return MatchResult(matches=out[:, :M].contiguous(),
-                       counts=torch.clamp(count, max=M), overflow=oflow)
+    mr = MatchResult(matches=out[:, :M].contiguous(),
+                     counts=torch.clamp(count, max=M), overflow=oflow)
+    if getattr(tables, "cover", None) is not None:
+        from emqx_tpu_torch.ops.cover import cover_expand
+        mr = cover_expand(tables.cover, mr, topics, lens, is_dollar,
+                          scan=scan)
+    return mr
 
 
 def merge_match_results(base_matches: torch.Tensor, base_counts: torch.Tensor,

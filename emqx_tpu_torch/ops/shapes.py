@@ -13,6 +13,9 @@ plus at most two bucket-row reads.
   (counterparts of ``_fold_xla`` and ``_probe_buckets``).
 - ``shape_match``: launches the fused fold+probe CUDA kernel
   (``ops/fold.py``) for a CUDA tensor, runs the plain path for a CPU one.
+  Both it and ``shape_match_ref`` re-expand the covering set into the
+  full-set row when the tables carry cover state (``ops/cover.py``), as
+  the reference's ``_cover_expand_maybe`` (:538) does.
 
 uint32 arithmetic: torch implements only ``mul``, ``xor`` and ``and`` for
 ``torch.uint32`` on the CPU (``add`` and ``>>`` raise), so the plain path
@@ -32,6 +35,7 @@ import torch
 from emqx_tpu_torch.ops.fold import launch_shape_match
 from emqx_tpu_torch.ops.intern import HASH, PLUS
 from emqx_tpu_torch.ops.match import MatchResult, _mul
+from emqx_tpu_torch.ops.scan import prefix_sum, prefix_sum_ref
 
 BK = 8                  # filter entries per bucket (one row read wide)
 DEFAULT_SHAPE_CAP = 32  # max distinct shapes per table
@@ -71,7 +75,8 @@ class ShapeTables(NamedTuple):
     buckets: [NB, 3*BK] rows of h1[BK] | h2[BK] | fid[BK], fid -1 = empty.
       Every filter lives in one of its two home buckets, so a lookup reads
       at most two rows.
-    cover: subscription-covering state; always None in this port.
+    cover: ``ops.cover.CoverTables`` when the buckets hold the covering
+      set only (subscription covering), else None.
     """
 
     shape_plus_mask: object
@@ -416,9 +421,22 @@ def probe_ref(st: ShapeTables, h1, h2, b1, b2, compat) -> MatchResult:
                                             device=h1.device))
 
 
+def _cover_expand_maybe(st: ShapeTables, mr: MatchResult, topics, lens,
+                        is_dollar, scan) -> MatchResult:
+    """With cover state the buckets held the covering set only: expand
+    the matched roots into the exact full-set row (``ops/cover``)."""
+    if st.cover is None:
+        return mr
+    from emqx_tpu_torch.ops.cover import cover_expand
+    return cover_expand(st.cover, mr, topics, lens, is_dollar, scan=scan)
+
+
 def shape_match_ref(st: ShapeTables, topics, lens, is_dollar) -> MatchResult:
-    """The plain version of the ``shape_match`` kernel."""
-    return probe_ref(st, *fold_ref(st, topics, lens, is_dollar))
+    """The plain version of ``shape_match``: the plain fold and probe, and
+    with cover state the expansion with the plain scan."""
+    mr = probe_ref(st, *fold_ref(st, topics, lens, is_dollar))
+    return _cover_expand_maybe(st, mr, topics, lens, is_dollar,
+                               prefix_sum_ref)
 
 
 def shape_match(st: ShapeTables, topics: torch.Tensor, lens: torch.Tensor,
@@ -428,12 +446,15 @@ def shape_match(st: ShapeTables, topics: torch.Tensor, lens: torch.Tensor,
 
     topics [B, L] int32, lens [B] int32, is_dollar [B] bool. Returns
     matches [B, NSc] (each shape contributes at most one filter id, -1
-    otherwise), counts [B], overflow all False. A CUDA batch launches the
-    fused fold+probe kernel; a CPU batch runs the plain path.
+    otherwise), counts [B], overflow all False — or, with cover state,
+    the expanded full-set row. A CUDA batch launches the fused fold+probe
+    kernel (and kernel 2 in the expansion); a CPU batch runs the plain
+    path.
     """
     if topics.device.type == "cpu":
         return shape_match_ref(st, topics, lens, is_dollar)
     matches, counts = launch_shape_match(st, topics, lens, is_dollar)
-    return MatchResult(matches=matches, counts=counts,
-                       overflow=torch.zeros(topics.shape[0], dtype=torch.bool,
-                                            device=topics.device))
+    mr = MatchResult(matches=matches, counts=counts,
+                     overflow=torch.zeros(topics.shape[0], dtype=torch.bool,
+                                          device=topics.device))
+    return _cover_expand_maybe(st, mr, topics, lens, is_dollar, prefix_sum)

@@ -12,8 +12,9 @@ flat arrays in one vectorized pass per level, producing
 which ``ops/match.match_batch`` walks batched over topics. Numpy only; the
 build output equals the original's array for array. ``HostTrie`` (:206 of
 the original) is the dynamic dict trie the host router and the engine's
-post-snapshot delta filters match through. Subscription covering
-is not ported: ``cover`` stays ``None`` and ``convert`` refuses cover state.
+post-snapshot delta filters match through. With subscription covering
+the trie is built over the covering set (``filter_ids`` keeps the full
+set's fids) and carries ``ops.cover.CoverTables`` in ``cover``.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ class TrieTables(NamedTuple):
     plus_child/hash_child: wildcard branch per node, -1 = none.
     node_filter: terminal filter id per node, -1 = none.
     num_nodes/num_edges: scalars (informational; capacities come from shapes).
-    cover: always None in the port (no subscription covering).
+    cover: ``ops.cover.CoverTables`` when the trie holds the covering set
+      only (subscription covering), else None.
     """
 
     slot_parent: object  # [S]

@@ -2,14 +2,19 @@
 
 A slim counterpart of ``emqx_tpu/parallel/serving.py``
 ``ShardedRouteServer`` (:143) — without Node, batcher, supervisor,
-ledger, covering or the delta overlay (the full engine protocol is later
-work). It keeps what the device path needs:
+ledger or the delta overlay (the full engine protocol is later work). It
+keeps what the device path needs:
 
 - filters partitioned by ``crc32(filter) % route`` (``shard_of``, :311);
 - the per-shard capture and trie build with capacity classes shared by
   every shard (``_shard_dims`` / ``_caps_of`` / ``_build_shard``,
   :352-501, trie branch), from a dict of subscriptions or columnar
   arrays (a million filters never pass through a per-filter Python loop);
+- subscription covering (reference :448-490, on by default): with it on
+  every shard's trie holds that shard's covering set and carries its
+  expansion CSR (an identity CSR where nothing is covered, so the
+  stacked tables stay uniform), and the step expands each shard's rows
+  before the exchange ships them;
 - the exchange companions (``_aux_host_rows`` / ``_fid_offsets`` /
   ``_build_aux``, :552-595) and the segment-capacity ladder with its
   peak-biased EWMA (``_choose_ecap`` / ``_note_exch``, :1140-1170);
@@ -28,6 +33,7 @@ either path — the order the reference's consume delivers in.
 
 from __future__ import annotations
 
+import time
 import zlib
 from typing import NamedTuple, Optional
 
@@ -36,6 +42,7 @@ import torch
 
 from emqx_tpu_torch.engine import Plan, pack_opts
 from emqx_tpu_torch.models.router_engine import ExchangeAux, RouterTables
+from emqx_tpu_torch.ops import cover as CV
 from emqx_tpu_torch.ops.fanout import SubTable, _csr
 from emqx_tpu_torch.ops.intern import PAD, InternTable
 from emqx_tpu_torch.ops.match import encode_topics_str
@@ -100,7 +107,8 @@ class ShardedRouteEngine:
                  frontier_cap: int = 16, match_cap: int = 64,
                  fanout_cap: int = 128, slot_cap: int = 16,
                  level_cap: int = 16, batch: int = 256,
-                 strategy: str = "round_robin"):
+                 strategy: str = "round_robin",
+                 subscription_covering: Optional[bool] = None):
         self.mesh = mesh
         self.n_dp, self.n_route = mesh.dp, mesh.route
         self.device = mesh.grid[0][0]
@@ -111,6 +119,9 @@ class ShardedRouteEngine:
         self.frontier_cap, self.match_cap = frontier_cap, match_cap
         self.fanout_cap, self.slot_cap = fanout_cap, slot_cap
         self.level_cap = level_cap
+        self.subscription_covering = True if subscription_covering is None \
+            else bool(subscription_covering)
+        self.detect_s = 0.0       # cover detection seconds, every shard
         if batch % self.n_dp:
             raise ValueError(f"batch {batch} does not split over "
                              f"dp={self.n_dp}")
@@ -121,7 +132,9 @@ class ShardedRouteEngine:
         self._exch_steps: dict = {}
         self._exch_ewma: Optional[float] = None
         self.stats = {"windows": 0, "exchange_windows": 0,
-                      "host_messages": 0, "fallback": {}}
+                      "host_messages": 0, "fallback": {},
+                      "subscription_covering": self.subscription_covering,
+                      "cover": None}
         self._build(captures)
 
     # --- build -----------------------------------------------------------
@@ -136,13 +149,51 @@ class ShardedRouteEngine:
     def _caps_of(dims: dict) -> dict:
         return {k: _next_pow2(max(2, v)) for k, v in dims.items()}
 
+    def _cover_shard(self, c: ShardCapture, caps: dict):
+        """One shard's cover tables (reference :448-490): detection over
+        the shard's filters, and uniform constants — out width
+        match_cap, 256 candidates, caps["filters"] verify rows, a 1-row
+        append region — so every shard's tables stack. Returns
+        (CoverTables, root fids), or (None, None) with covering off or a
+        filter too deep for the order key."""
+        L = c.words.shape[1]
+        if not self.subscription_covering or L > CV.MAX_KEY_LEVELS:
+            return None, None
+        n = len(c.filters)
+        if n >= 2:
+            dollar = np.fromiter((f.startswith("$") for f in c.filters),
+                                 bool, n)
+            t0 = time.perf_counter()
+            covers, inc = CV.detect_covers(c.words, c.lens, dollar,
+                                           device=self.device)
+            self.detect_s += time.perf_counter() - t0
+            owner = CV.assign_owners(covers, inc)
+        else:
+            owner = np.full(n, -1, np.int64)
+        keys = CV.trie_order_keys(c.words, c.lens)
+        ct = CV.build_cover_tables(
+            c.words, c.lens, owner, keys, fid_cap=caps["filters"],
+            out_width=self.match_cap, cand_cap=256,
+            verify_cap=caps["filters"], append_cap=1)
+        return ct, np.flatnonzero(owner < 0).astype(np.int64)
+
     def _build_shard(self, c: ShardCapture, caps: dict):
         """One shard's capture → (RouterTables of numpy planes, seg_len,
-        fid_slow), padded to the capacity classes — the planes equal the
-        reference's build_tables / build_subtable output."""
+        fid_slow, root count), padded to the capacity classes — the
+        planes equal the reference's build_tables / build_subtable (and,
+        covering on, build_cover_tables) output."""
         n, Fc = len(c.filters), caps["filters"]
-        trie = build_tables(c.words, c.lens, node_capacity=caps["nodes"],
-                            slot_capacity=4 * caps["nodes"])
+        ct, roots = self._cover_shard(c, caps)
+        if ct is not None:
+            trie = build_tables(c.words[roots], c.lens[roots],
+                                filter_ids=roots,
+                                node_capacity=caps["nodes"],
+                                slot_capacity=4 * caps["nodes"])
+            trie = trie._replace(cover=ct)
+        else:
+            trie = build_tables(c.words, c.lens,
+                                node_capacity=caps["nodes"],
+                                slot_capacity=4 * caps["nodes"])
         cnt = np.diff(c.sub_start).astype(np.int32)
         sub_start = np.zeros(Fc + 1, np.int32)
         sub_start[1:n + 1] = cnt
@@ -169,7 +220,8 @@ class ShardedRouteEngine:
         seg[:n] = cnt
         slow = np.zeros(Fc, bool)
         slow[[fid for fid, _g, _m in c.slots]] = True
-        return RouterTables(trie=trie, subs=subs), seg, slow
+        return RouterTables(trie=trie, subs=subs), seg, slow, \
+            n if roots is None else len(roots)
 
     def _build(self, captures: list) -> None:
         dims = [self._shard_dims(c) for c in captures]
@@ -192,6 +244,13 @@ class ShardedRouteEngine:
                 np.stack([b[1] for b in built]),
                 np.stack([b[2] for b in built]), self.fid_off)))
         self.filters = [f for c in captures for f in c.filters]
+        if self.subscription_covering:
+            # per-shard detection, summed; reduction = full set / roots
+            nr = sum(b[3] for b in built)
+            nc = sum(counts) - nr
+            self.stats["cover"] = {"roots": nr, "covered": nc,
+                                   "reduction": round((nr + nc)
+                                                      / max(1, nr), 2)}
 
     @staticmethod
     def _mesh_of(n_devices, dp, device):

@@ -30,7 +30,8 @@ from emqx_tpu_torch.models.router_engine import (ExchangeResult,
 from emqx_tpu_torch.ops.compact import _rows_searchsorted
 from emqx_tpu_torch.ops.exchange import ring_rotate
 from emqx_tpu_torch.ops.fanout import fanout_normal, shared_slots
-from emqx_tpu_torch.ops.match import flatten_tries, match_batch
+from emqx_tpu_torch.ops.cover import cover_expand, identity_rows
+from emqx_tpu_torch.ops.match import MatchResult, flatten_tries, match_batch
 from emqx_tpu_torch.ops.scan import prefix_sum
 from emqx_tpu_torch.ops.shapes import shape_match
 from emqx_tpu_torch.ops.shared import STRATEGY_ROUND_ROBIN, pick_members
@@ -140,7 +141,10 @@ def make_sharded_route_step(mesh, *, backend: str = "trie",
     The route shards that share a device match, fan out and expand
     their shared slots in one pass over their tables laid end to end
     (``flatten_tries``, ``_flatten_subs``), each against the whole batch;
-    each (dp, route) cell then picks its shared members on its own.
+    each (dp, route) cell then picks its shared members on its own. With
+    cover state (subscription covering) each shard's block of the match
+    rows is expanded against that shard's own ``CoverTables`` before
+    the fan-out, as the reference's per-shard ``match_batch`` does.
     """
     if backend not in ("trie", "shapes"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -162,16 +166,21 @@ def make_sharded_route_step(mesh, *, backend: str = "trie",
             return hit[1]
         sel = torch.tensor(rs, device=tables.subs.sub_start.device)
         part = tree_map(lambda x: x.index_select(0, sel).to(dev), tables)
+        covers = None
         if backend == "trie":
+            if part.trie.cover is not None:
+                covers = [tree_map(lambda x, j=j: x[j], part.trie.cover)
+                          for j in range(len(rs))]
             part = part._replace(trie=flatten_tries(part.trie))
         per_shard = [tree_map(lambda x, j=j: x[j], tables)
                      for j in rs] if dev == tables.subs.sub_start.device \
             else [tree_map(lambda x, j=j: x[j].to(dev), tables) for j in rs]
-        out = (part._replace(subs=_flatten_subs(part.subs)), per_shard)
+        out = (part._replace(subs=_flatten_subs(part.subs)), per_shard,
+               covers)
         flat_cache[(dev, tuple(rs))] = (key, out)
         return out
 
-    def match_post(part, n, topics, lens, is_dollar):
+    def match_post(part, covers, n, topics, lens, is_dollar):
         """n shards' match + fan-out + shared slots over n copies of the
         batch; filter ids come back shard-local."""
         B = topics.shape[0]
@@ -186,6 +195,16 @@ def make_sharded_route_step(mesh, *, backend: str = "trie",
             mr = match_batch(part.trie, rep(topics), rep(lens),
                              rep(is_dollar), frontier_cap=frontier_cap,
                              match_cap=match_cap, scan=scan, shards=n)
+            # a shard that covers nothing (an identity CSR) keeps its
+            # block: the NFA emits in order-key order, so the expansion
+            # would return the block unchanged
+            if covers is not None and not all(map(identity_rows, covers)):
+                blocks = [MatchResult(*(x[j * B:(j + 1) * B] for x in mr))
+                          for j in range(n)]
+                mr = MatchResult(*(torch.cat(x) for x in zip(*(
+                    blk if identity_rows(ct) else cover_expand(
+                        ct, blk, topics, lens, is_dollar, scan=scan)
+                    for blk, ct in zip(blocks, covers)))))
         shard = torch.arange(n * B, device=topics.device,
                              dtype=torch.int32)[:, None] // B
         seg = torch.where(mr.matches >= 0, mr.matches
@@ -205,10 +224,10 @@ def make_sharded_route_step(mesh, *, backend: str = "trie",
         is_rr = strategy == STRATEGY_ROUND_ROBIN
         planes: dict = {}            # r -> ([B, ...] planes, its tables)
         for dev, rs in groups:
-            part, per_shard = flat(tables, dev, rs)
+            part, per_shard, covers = flat(tables, dev, rs)
             mr, fr, sids, so = match_post(
-                part, len(rs), *(x.to(dev) for x in (topics, lens,
-                                                     is_dollar)))
+                part, covers, len(rs), *(x.to(dev) for x in (topics, lens,
+                                                             is_dollar)))
             for j, r in enumerate(rs):
                 rows = slice(j * B, (j + 1) * B)
                 planes[r] = ([x[rows] for x in (

@@ -9,6 +9,10 @@ batches in which every topic matches exactly one filter
 ``shared_pct`` percent of filters also in 16-filter, 8-member ``$share``
 groups. ``pattern_population`` is the six-pattern multi-shape population
 of ``tests/test_pallas.py`` (:40-76) with scalable word ranges.
+``cover_heavy_filters`` and ``concretize`` are copies of the reference
+bench populations' (``tools/workloads.py:51-108``): umbrella filters
+(``fleet/#``) that cover a fraction of narrower subscriptions, and one
+concrete topic per filter.
 """
 
 from __future__ import annotations
@@ -158,3 +162,49 @@ def mesh_topic_batch(pop: dict, rng, B: int, level_cap: int = 16):
     wide = np.full((B, level_cap), I.PAD, np.int32)
     wide[:, :tp.shape[1]] = tp
     return wide, tl, expected_fids(pop, tp)
+
+
+def cover_heavy_filters(n: int, *, cover_ratio: float = 0.5,
+                        zipf_a: float = 1.4, max_depth: int = 8,
+                        vocab: int = 97, seed: int = 7) -> list:
+    """Cover-heavy population: ~`cover_ratio` of the `n` filters are
+    covered by a broader umbrella filter in the set. Roots are
+    trailing-'#' umbrellas (every third, at a Zipf-drawn depth) and
+    standalone literal filters; covered filters extend an umbrella's
+    prefix by 1-3 levels, with '+' levels by a bitmask of their index.
+    Deterministic per (n, knobs, seed)."""
+    if not 0 <= cover_ratio < 1:
+        raise ValueError(f"cover_ratio {cover_ratio} outside [0, 1)")
+    rng = np.random.RandomState(seed)
+    n_cov = int(round(n * cover_ratio))
+    n_roots = max(1, n - n_cov)
+    filters = []
+    umbrellas = []
+    depths = 1 + (rng.zipf(zipf_a, size=n_roots) - 1) % max_depth
+    for i in range(n_roots):
+        depth = int(depths[i])
+        levels = [f"d{i % vocab}"] + [f"u{i}l{li}"
+                                      for li in range(1, depth)]
+        if i % 3 == 0:
+            umbrellas.append(levels)
+            filters.append("/".join(levels) + "/#")
+        else:
+            filters.append("/".join(levels) + f"/t{i}")
+    if not umbrellas:                  # tiny n: keep the ratio honest
+        umbrellas.append(["d0"])
+        filters[0] = "d0/#"
+    for j in range(n_cov):
+        base = umbrellas[j % len(umbrellas)]
+        tail = []
+        for e in range(j % 3):
+            tail.append("+" if (j >> e) & 1 else f"m{j}e{e}")
+        tail.append(f"c{j}")
+        filters.append("/".join(base + tail))
+    return filters
+
+
+def concretize(f: str, salt: str = "x") -> str:
+    """One concrete topic matching `f`: '+' levels become a positional
+    literal, and a trailing '#' one extra concrete level."""
+    return "/".join(p if p not in ("+", "#") else f"{salt}{i}"
+                    for i, p in enumerate(f.split("/")))

@@ -363,3 +363,187 @@ def test_overlay_copied_in_flight_keeps_the_window_s_version(cuda):
     assert int(h2.np_delta.counts.sum()) > int(h1.np_delta.counts.sum())
     eng.abandon(h1)
     eng.abandon(h2)
+
+
+# ---- subscription covering on the card ------------------------------------
+
+def _cover_node(cuda, n=3000):
+    """A port Node on the card with covering on and a cover-heavy
+    population (umbrellas d{k}/# own most filters): the roots match on
+    the shape tables. One session holds every filter."""
+    from emqx_tpu_torch.broker.node import Node
+    from emqx_tpu_torch.workloads import cover_heavy_filters
+
+    class Sink:
+        def __init__(self):
+            self.got = []
+
+        def deliver(self, f, m):
+            self.got.append((f, m.topic))
+            return True
+
+    node = Node({"broker": {"topic_dedup": False}}, device=cuda)
+    filters = cover_heavy_filters(n, cover_ratio=0.6)
+    node.sink = Sink()
+    sid = node.broker.register(node.sink, "c")
+    for f in filters:
+        node.broker.subscribe(sid, f, {"qos": 0})
+    eng = node.device_engine
+    eng.rebuild()
+    assert eng._built.cover is not None and eng._built.backend == "shapes"
+    return node, filters
+
+
+def _cover_window(node, rng, filters, extra=(), batch=1024):
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.workloads import concretize
+    topics = list(extra) + [concretize(filters[i]) for i in
+                            rng.randint(0, len(filters), batch - len(extra))]
+    return node.device_engine.prepare(
+        [make("p", 0, t, b"") for t in topics], gate_cold=False)
+
+
+def _append(node, filters):
+    """One covered SUBSCRIBE: a new filter under a built umbrella root.
+    Returns the new filter and a topic only it (and its root) matches."""
+    eng = node.device_engine
+    b = eng._built
+    umb = next(b.fid_filter[f] for f in b.cover.roots.tolist()
+               if b.fid_filter[f].endswith("/#"))
+    new = umb[:-1] + "appended/leaf"
+    node.broker.subscribe(node.broker.register(type(node.sink)(), "n"),
+                          new, {"qos": 0})
+    assert node.metrics.val("routing.cover.appends") >= 1
+    assert eng.stats()["delta_filters"] == 0
+    return new, new
+
+
+def test_covered_graph_replays_exactly(cuda):
+    """The covered shape-hash class replays as a CUDA graph bit-identical
+    to the same window run eagerly, and equal to the plain path."""
+    node, filters = _cover_node(cuda)
+    eng = node.device_engine
+    rng = np.random.RandomState(1)
+    for _ in range(2):
+        h = _cover_window(node, rng, filters)
+        _warm_class(eng, h)
+        eng.dispatch(h)
+        assert h.graphed
+        want = _eager_planes(eng, h, eng._wants_counts(h))
+        eng.materialize(h)
+        for g, w in zip([t.numpy() for t in h.host], want):
+            assert np.array_equal(g, w)
+        eng.abandon(h)
+
+
+def test_append_between_replays_and_in_flight(cuda):
+    """Window 1 replays; a covered SUBSCRIBE appends (the static append
+    buffers rewritten on the engine stream) before window 1 is read
+    back; window 2 replays the same graph. Each window's planes are
+    those of its own append version: the appended fid shows in window 2
+    only."""
+    node, filters = _cover_node(cuda)
+    eng = node.device_engine
+    rng = np.random.RandomState(2)
+    F = len(eng._built.fid_filter)
+    b = eng._built
+    umb = next(b.fid_filter[f] for f in b.cover.roots.tolist()
+               if b.fid_filter[f].endswith("/#"))
+    topic = umb[:-1] + "appended/leaf"
+    h1 = _cover_window(node, rng, filters, extra=[topic] * 4)
+    cls = _warm_class(eng, h1)
+    eng.dispatch(h1)
+    _append(node, filters)
+    h2 = _cover_window(node, rng, filters, extra=[topic] * 4)
+    assert _warm_class(eng, h2) == cls       # the same graph
+    eng.dispatch(h2)
+    assert h1.graphed and h2.graphed
+    for h in (h1, h2):
+        want = _eager_planes(eng, h, eng._wants_counts(h))
+        eng.materialize(h)
+        for g, w in zip([t.numpy() for t in h.host], want):
+            assert np.array_equal(g, w)
+    m1 = eng._dense_again(h1)[0].matches.cpu().numpy()
+    m2 = eng._dense_again(h2)[0].matches.cpu().numpy()
+    assert not (m1[0, :4] == F).any() and (m2[0, :4] == F).any(axis=1).all()
+    eng.abandon(h1)
+    eng.abandon(h2)
+
+
+def test_csr_overflow_recompute_after_append(cuda):
+    """A window dispatched before an append, recomputed eagerly (the CSR
+    overflow path, _dense_again) after it: it reads the append version
+    it was dispatched with, not the current one."""
+    node, filters = _cover_node(cuda)
+    eng = node.device_engine
+    rng = np.random.RandomState(3)
+    b = eng._built
+    umb = next(b.fid_filter[f] for f in b.cover.roots.tolist()
+               if b.fid_filter[f].endswith("/#"))
+    topic = umb[:-1] + "appended/leaf"
+    h = _cover_window(node, rng, filters, extra=[topic] * 4)
+    _warm_class(eng, h)
+    eng.dispatch(h)
+    torch.cuda.synchronize()
+    before = [x.clone() for x in h.res]
+    _append(node, filters)
+    res, _dp = eng._dense_again(h)
+    for a, c in zip(before, res):
+        assert torch.equal(a, c)
+    eng.materialize(h)
+    eng.abandon(h)
+
+
+def test_cover_expand_kernel_scan_vs_plain(cuda):
+    """The expansion behind the kernels (kernel 1's fold+probe on the
+    roots, kernel 2 in the CSR gather) equals the plain path (the plain
+    fold, prefix_sum_ref), on the shape tables and behind the trie."""
+    from emqx_tpu_torch.convert import trie_from_numpy
+    from emqx_tpu_torch.ops import cover as CV
+    from emqx_tpu_torch.ops.intern import InternTable
+    from emqx_tpu_torch.ops.match import encode_topics, match_batch
+    from emqx_tpu_torch.ops.shapes import shape_match
+    from emqx_tpu_torch.ops.trie import build_tables
+    from emqx_tpu_torch.utils.topic import tokens
+    from emqx_tpu_torch.workloads import concretize, cover_heavy_filters
+    filters = sorted(set(cover_heavy_filters(2000, cover_ratio=0.6)))
+    intern = InternTable()
+    L = max(len(tokens(f)) for f in filters)
+    rows = np.zeros((len(filters), L), np.int32)
+    lens = np.zeros(len(filters), np.int64)
+    for i, f in enumerate(filters):
+        ids = intern.encode_filter(tokens(f))
+        rows[i, :len(ids)] = ids
+        lens[i] = len(ids)
+    dollar = np.zeros(len(filters), bool)
+    covers, inc = CV.detect_covers(rows, lens, dollar, device=cuda)
+    owner = CV.assign_owners(covers, inc)
+    roots = np.flatnonzero(owner < 0)
+    fc = 1 << (len(filters) - 1).bit_length()
+    topics = [concretize(f) for f in filters]
+    enc, tl, dol, _ = encode_topics(intern, [tokens(t) for t in topics], L)
+    ins = [torch.from_numpy(x).to(cuda) for x in (enc, tl, dol)]
+    for keys in ("shape", "trie"):
+        ct = CV.build_cover_tables(rows, lens, owner,
+                                   getattr(CV, f"{keys}_order_keys")(
+                                       rows, lens),
+                                   fid_cap=fc, out_width=64, cand_cap=256)
+        if keys == "shape":
+            st = build_shape_tables(rows[roots], lens[roots],
+                                    filter_ids=roots)._replace(cover=ct)
+            t = tables_from_numpy(st, build_subtable(fc, {}, {}, {}),
+                                  cuda).shapes
+            before = LAUNCHES["prefix_sum"]
+            got, want = shape_match(t, *ins), shape_match_ref(t, *ins)
+        else:
+            tr = trie_from_numpy(build_tables(
+                rows[roots], lens[roots], filter_ids=roots)._replace(
+                    cover=ct), cuda)
+            before = LAUNCHES["prefix_sum"]
+            got = match_batch(tr, *ins, frontier_cap=16, match_cap=64)
+            want = match_batch(tr, *ins, frontier_cap=16, match_cap=64,
+                               scan=prefix_sum_ref)
+        assert LAUNCHES["prefix_sum"] > before
+        for a, c in zip(got, want):
+            assert torch.equal(a, c)
+        assert (got.matches >= 0).sum() > len(filters)

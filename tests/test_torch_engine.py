@@ -1,15 +1,20 @@
 """Port vs JAX reference: DeviceRouteEngine's window protocol.
 
 Twin engines — a JAX ``Node(config, use_device=True)`` with the layers the
-port does not have switched off (no covering, supervision, ledger, tracing,
-latency observatory or overload governor, inline delivery, per-packet
-ingress, CSR readback on) and each of three routing-layer configurations
-(``LAYERS``: all off; dedup + match cache; dedup + cache + delta overlay,
-the reference's defaults), and the port's ``Node(device="cpu")`` with the
+port does not have switched off (no supervision, ledger, tracing, latency
+observatory or overload governor, inline delivery, per-packet ingress, CSR
+readback on) and each routing-layer configuration (``LAYERS``: all off;
+dedup + match cache; dedup + cache + delta overlay; and the reference's
+full default, dedup + cache + overlay + subscription covering — each given
+to both nodes explicitly), and the port's ``Node(device="cpu")`` with the
 same layers — get the same sessions and the same ~500 subscriptions (plain
 and ``$share``) through ``broker.subscribe``, then the same message windows
 through ``prepare_window`` / ``dispatch`` / ``materialize`` /
-``finish_sub``. Required exactly equal, under each of the five shared
+``finish_sub``. The ``rich`` cases run the full default with sinks that
+nack every fifth delivery, subopts carrying ``nl``/``rap``/``rh`` and
+subscription ids, and ``device_fanout_cap`` 8 / ``device_slot_cap`` 2 with
+up to 11 subscribers a filter, so that the fan-out and slot overflows send
+messages to the host path. Required exactly equal, under each of the five shared
 strategies and on both backends (shape-hash, and the trie forced by more
 distinct shapes than ``shape_cap``):
 
@@ -23,7 +28,8 @@ group added to a built filter, filters added past the snapshot (the host
 delta ``HostTrie`` route, or the overlay), churn while windows are in
 flight, and an explicit ``rebuild()``; with the layers on, the overlay's
 rows, the cached windows, the cold gates and the cache's accounting are
-equal too. At dispatch
+equal too, and with covering the cover state and its counters (the
+append path included: post-snapshot filters a built root covers). At dispatch
 depth 2 the port splits each window of several batches into two windows
 and dispatches both before it reads either back (two in flight, as the
 batcher's settle ring runs them); windows alternate between the dense and
@@ -48,16 +54,23 @@ STRATEGIES = ("round_robin", "random", "hash_topic", "hash_clientid",
 N_SESSIONS = 40
 
 # the reference's routing layers, each configuration given to both nodes:
-# all off (the path of the first broker slice), dedup + match cache, and
-# dedup + cache + delta overlay (the reference's defaults)
+# all off (the path of the first broker slice), dedup + match cache,
+# dedup + cache + delta overlay, and the reference's full default (with
+# subscription covering); "rich" is the full default with nacking sinks,
+# rich subopts and small fan-out/slot caps (RICH)
 LAYERS = {
     "off": {"topic_dedup": False, "match_cache_size": 0,
-            "delta_overlay": False},
+            "delta_overlay": False, "subscription_covering": False},
     "cache": {"topic_dedup": True, "match_cache_size": 8192,
-              "delta_overlay": False},
+              "delta_overlay": False, "subscription_covering": False},
     "overlay": {"topic_dedup": True, "match_cache_size": 8192,
-                "delta_overlay": True},
+                "delta_overlay": True, "subscription_covering": False},
+    "full": {"topic_dedup": True, "match_cache_size": 8192,
+             "delta_overlay": True, "subscription_covering": True},
 }
+LAYERS["rich"] = dict(LAYERS["full"], device_fanout_cap=8,
+                      device_slot_cap=2)
+RICH = ("rich",)
 
 # the reference path: every layer the port lacks off
 JAX_BROKER = {
@@ -80,6 +93,16 @@ class Sink:
         self.got.append((topic_filter, msg.topic, msg.payload,
                          tuple(sorted(so.items()))))
         return True
+
+
+class NackSink(Sink):
+    """A session stand-in that refuses every fifth delivery offered."""
+
+    def deliver(self, topic_filter, msg):
+        super().deliver(topic_filter, msg)
+        ok = len(self.got) % 5 != 0
+        self.got[-1] += (ok,)
+        return ok
 
 
 def shapes_population(rng):
@@ -126,22 +149,35 @@ class Twin:
         self.rng = random.Random(11)
         self.topics = topics
         self.depth = depth
+        self.rich = layers in RICH
+        self.split = False      # the port has split a window in two
         self.j = JNode({"broker": dict(
             JAX_BROKER, **LAYERS[layers],
             shared_subscription_strategy=strategy)}, use_device=True)
         self.t = TNode({"broker": dict(
             LAYERS[layers], shared_subscription_strategy=strategy,
             dispatch_depth=depth)}, device="cpu")
-        self.sinks = ([Sink() for _ in range(N_SESSIONS)],
-                      [Sink() for _ in range(N_SESSIONS)])
+        sink = NackSink if self.rich else Sink
+        self.sinks = ([sink() for _ in range(N_SESSIONS)],
+                      [sink() for _ in range(N_SESSIONS)])
         for node, sinks in zip((self.j, self.t), self.sinks):
             for i, s in enumerate(sinks):
                 assert node.broker.register(s, f"c{i}") == i
         for k, f in enumerate(population):
-            # each filter to 1-3 sessions; shared groups get 2-3 members
-            for sid in self.rng.sample(range(N_SESSIONS),
-                                       self.rng.randrange(1, 4)):
-                self.subscribe(sid, f, {"qos": (k + sid) % 3})
+            # each filter to 1-3 sessions (1-11 rich: past the fan-out
+            # and slot caps); shared groups get 2-3 members (up to 11)
+            n = self.rng.randrange(1, 12 if self.rich else 4)
+            for sid in self.rng.sample(range(N_SESSIONS), n):
+                self.subscribe(sid, f, self.opts(k, sid))
+
+    def opts(self, k, sid):
+        opts = {"qos": (k + sid) % 3}
+        if self.rich:
+            if (k + sid) % 4 == 0:
+                opts.update(nl=1, rap=1, rh=(k % 3))
+            if (k + sid) % 7 == 0:
+                opts["subid"] = 1 + k % 5
+        return opts
 
     def subscribe(self, sid, f, opts):
         for node in (self.j, self.t):
@@ -167,6 +203,7 @@ class Twin:
             parts = [lives]
             if node is self.t and self.depth > 1 and len(lives) > 1:
                 parts = [lives[:len(lives) // 2], lives[len(lives) // 2:]]
+                self.split = True
             hs = []
             for part in parts:
                 h = eng.prepare_window(part, gate_cold=gate_cold)
@@ -204,13 +241,13 @@ class Twin:
         plain = sorted(f for f in self.t.broker.subs)
         shared = sorted((f, g) for f, gs in self.t.broker.shared.items()
                         for g in gs)
-        self.subscribe(3, plain[5], {"qos": 1})             # dirty filter
+        self.subscribe(3, plain[5], self.opts(5, 3))        # dirty filter
         sid = next(iter(self.t.broker.subs[plain[9]]))
         self.unsubscribe(sid, plain[9])                     # dirty filter
         f, g = shared[1]
         self.subscribe(7, f"$share/{g}/{f}", {"qos": 0})    # dirty slot
         self.subscribe(8, f"$share/new/{plain[12]}", {"qos": 1})  # new group
-        self.subscribe(9, "zz/+/late", {"qos": 2})      # delta filter
+        self.subscribe(9, "zz/+/late", self.opts(2, 9))  # delta filter
         self.subscribe(10, f"$share/dz/{plain[20]}", {"qos": 0})
         assert te.dirty_filters == je.dirty_filters
         assert te.dirty_slots == je.dirty_slots
@@ -219,14 +256,21 @@ class Twin:
 
     def check_layers(self):
         """The layers ran alike on both engines: the same overlay rows and
-        class and, where both ran the same windows (depth 1), the same
-        cached windows, cold gates and cache accounting."""
+        class, cover state and append counters and, where both ran the
+        same windows (depth 1), the same cached windows, cold gates,
+        covered windows and cache accounting."""
         je, te = self.j.device_engine, self.t.device_engine
         jo, to = je._overlay, te._overlay
         assert (jo is None) == (to is None)
         if jo is not None:
             assert (jo.row_of, jo.seg_of, jo.hostfan, jo.cap, jo.n) == \
                 (to.row_of, to.seg_of, to.hostfan, to.cap, to.n)
+        js, ts = je.stats(), te.stats()
+        assert (js["backend"], js["subscription_covering"], js["cover"]) \
+            == (ts["backend"], ts["subscription_covering"], ts["cover"])
+        assert te._cover_churn == je._cover_churn
+        for key in ("routing.cover.appends", "routing.cover.append_rejects"):
+            assert self.t.metrics.val(key) == self.j.metrics.val(key), key
         if self.depth > 1:
             return      # the port split its windows: other counts
         for name in ("cached_windows", "cold_cached_class",
@@ -234,6 +278,11 @@ class Twin:
                      "host_fallback"):
             key = f"routing.device.{name}"
             assert self.t.metrics.val(key) == self.j.metrics.val(key), key
+        for key in ("pipeline.cover.windows",
+                    "pipeline.cover.filters_skipped"):
+            if not self.split:      # a split window counts twice
+                assert self.t.metrics.val(key) == self.j.metrics.val(key), \
+                    key
         jc, tc = je._match_cache, te._match_cache
         assert (jc is None) == (tc is None)
         if jc is not None:
@@ -283,8 +332,13 @@ def _twin_trie(layers, strategy):
     twin = Twin(strategy, 1, trie_population(random.Random(5)),
                 lambda rng, n: [rand_topic(rng) for _ in range(n)], layers)
     twin.window(1, gate_cold=False)
-    assert twin.t.device_engine._built.backend == "trie"
-    assert twin.j.device_engine._built.backend == "trie"
+    # covering may match the roots on the shape tables (they fit the
+    # shape cap where the full set does not), as the reference does
+    want = "trie" if layers not in ("full",) + RICH else \
+        twin.j.device_engine._built.backend
+    assert twin.t.device_engine._built.backend == want
+    assert twin.j.device_engine._built.backend == "trie" \
+        or layers in ("full",) + RICH
     twin.window(1)
     twin.window(2)           # a multi-batch trie window: sequential steps
     twin.depth = 2
@@ -325,26 +379,36 @@ def test_engine_twin_trie(strategy):
     _twin_trie("off", strategy)
 
 
-@pytest.mark.parametrize("layers", ["cache", "overlay"])
+@pytest.mark.parametrize("layers", ["cache", "overlay", "full", "rich"])
 @pytest.mark.parametrize("strategy", STRATEGIES)
 @pytest.mark.parametrize("depth", [1, 2])
 def test_engine_twin_shapes_layers(layers, strategy, depth):
-    """Dedup + match cache, and with the delta overlay too (the
-    reference's defaults): the same deliveries, picks, cursors, counts
-    and layer accounting, with churn between and during windows."""
+    """Dedup + match cache, with the delta overlay too, and the
+    reference's full default with covering (also with nacking sinks,
+    rich subopts and overflowing caps): the same deliveries, picks,
+    cursors, counts and layer accounting, with churn between and during
+    windows."""
     twin = _twin_shapes(layers, strategy, depth)
     m = twin.t.metrics
     assert m.val("routing.device.cached_windows") > 0
     if layers == "overlay":
         assert m.val("routing.device.delta_applies") > 0
+    if layers in ("full",) + RICH:
+        assert twin.t.device_engine.stats()["cover"]["covered"] > 0
+        assert m.val("routing.cover.appends") > 0
+        assert m.val("pipeline.cover.windows") > 0
+    if layers in RICH and depth == 1:
+        assert m.val("routing.device.host_fallback") > 0
 
 
-@pytest.mark.parametrize("layers", ["cache", "overlay"])
+@pytest.mark.parametrize("layers", ["cache", "overlay", "full", "rich"])
 @pytest.mark.parametrize("strategy", STRATEGIES)
 def test_engine_twin_trie_layers(layers, strategy):
     twin = _twin_trie(layers, strategy)
     if layers == "overlay":
         assert twin.t.metrics.val("routing.device.delta_applies") > 0
+    if layers in ("full",) + RICH:
+        assert twin.t.device_engine.stats()["cover"] is not None
 
 
 def test_route_batch_counts_match_host_path():

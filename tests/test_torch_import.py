@@ -40,7 +40,8 @@ MODULES = [
     "emqx_tpu_torch.broker.supervise", "emqx_tpu_torch.broker.batcher",
     "emqx_tpu_torch.broker.device_engine", "emqx_tpu_torch.broker.node",
     "emqx_tpu_torch.client", "emqx_tpu_torch.ops.delta",
-    "emqx_tpu_torch.broker.match_cache", "chip_smoke",
+    "emqx_tpu_torch.broker.match_cache", "emqx_tpu_torch.ops.cover",
+    "chip_smoke",
 ]
 
 

@@ -276,13 +276,15 @@ def test_chooser_decisions_equal_the_reference():
 
 def test_layer_defaults_are_the_references():
     """The port's Node serves with the reference's routing layers by
-    default (dedup on, match cache 8192, delta overlay on), as the JAX
-    Node does, and turns each off by the same key."""
+    default (dedup on, match cache 8192, delta overlay on, subscription
+    covering on), as the JAX Node does, and turns each off by the same
+    key."""
     t = TNode(device="cpu").device_engine
     j = JNode(use_device=True).device_engine
-    assert (t.dedup, t._match_cache.capacity, t.delta_overlay) == \
-        (j.dedup, j._match_cache.capacity, j.delta_overlay) == \
-        (True, 8192, True)
+    assert (t.dedup, t._match_cache.capacity, t.delta_overlay,
+            t.subscription_covering) == \
+        (j.dedup, j._match_cache.capacity, j.delta_overlay,
+         j.subscription_covering) == (True, 8192, True, True)
     off = TNode({"broker": {"topic_dedup": False, "match_cache_size": 0,
                             "delta_overlay": False}},
                 device="cpu").device_engine
@@ -300,7 +302,14 @@ def test_layer_defaults_are_the_references():
     ("compact_readback", False)])
 def test_unsupported_layer_raises(key, value):
     """A config that asks for a layer the port lacks is refused, not
-    served without it; the same key set off is accepted."""
+    served without it; the same key set off is accepted. Subscription
+    covering, ported since, is accepted either way and reaches the
+    engine."""
+    if key == "subscription_covering":
+        for v in (value, not value):
+            eng = TNode({"broker": {key: v}}, device="cpu").device_engine
+            assert eng.subscription_covering is v
+        return
     with pytest.raises(ValueError, match=key):
         TNode({"broker": {key: value}}, device="cpu")
     TNode({"broker": {key: not value if isinstance(value, bool) else 0}},
@@ -329,3 +338,24 @@ def test_chip_smoke_layers_on_cpu(monkeypatch):
     assert ch["B"]["layers"]["host_delta"] > 0
     assert ch["overlay_class"] == 128
     assert ch["hold_err"] == ch["hold_skew_err"] == 0
+
+
+def test_chip_smoke_cover_on_cpu(monkeypatch):
+    """chip_smoke.py's phase 10 rehearsed on the CPU with shrunk constants
+    (cover-heavy populations of 600 and 1,500 filters, 3 batches of 128
+    topics, one timed pass): node A (covering on) against B (off) — A
+    builds cover state and B none, every covered window equals the plain
+    path, A, B and the host path deliver identically on a route_batch,
+    and a covered SUBSCRIBE lands as an append that the next window
+    delivers as the off twin does."""
+    monkeypatch.setattr(cs, "COVER_B", 128)
+    monkeypatch.setattr(cs, "COVER_BATCHES", 3)
+    monkeypatch.setattr(cs, "COVER_PASSES", 1)
+    r = cs.cover_drive(torch.device("cpu"), cells=(600, 1500))
+    for n, c in r.items():
+        assert c["A"]["cover"]["covered"] > 0 and c["B"]["cover"] is None
+        assert c["hold_err"] == 0 and c["delivered"] > 0
+        assert c["stats_A"]["cover"]["appends"] == 1
+        assert c["A"]["launches"] == {"shape_match": 0, "prefix_sum": 0,
+                                      "ring_rotate": 0}
+        assert c["A"]["topic_matches_per_s"] > 0
