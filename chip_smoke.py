@@ -66,13 +66,26 @@ Phases:
    connections, round robin; the rest plain at QoS 0), the bench's
    warm-up, then 32,000 PUBLISHes from 8 connections (every 4th at QoS 1
    with pipelined PUBACKs) at dispatch_depth 2 and again at 1 on the same
-   node, the launch counters set to 0 around each flood. Each flood must
-   deliver every message exactly once to a connection holding its
-   filter, in publish order per publisher at every subscriber (per
-   delivery class, see _flood), grow routing.device.batches, launch
-   shape_match and prefix_sum, and route at least 90% of its messages
-   through the device engine. The node runs at the reference's defaults
-   (dedup, match cache 8192, delta overlay on). Two engine windows of
+   node with the delivery lanes on (the default, min(4, cpus) lanes), and
+   once more at depth 2 with the node's lane pool detached (inline
+   delivery, what deliver_lanes 0 builds), the launch counters set to 0
+   around each flood. Each flood must deliver every message exactly once
+   to a connection holding its filter, in publish order per publisher at
+   every subscriber (per delivery class, see _flood), grow
+   routing.device.batches, launch shape_match and prefix_sum, and route
+   at least 90% of its messages through the device engine; a lanes flood
+   must hand rows and plans to the lanes (pipeline.deliver.rows/plans),
+   the inline one none. Each flood prints its msgs/s, latency, host us
+   per message by stage (consume is the plan construction with the
+   lanes), the lanes' own delivery time and the pinned host blocks
+   allocated during it; the first prints the telemetry snapshot's
+   stages, decisions and graph captures over it. After the floods the
+   HBM ledger's line: live bytes by category, the peak, the static
+   buffers of each graph class, and the accounted share of
+   torch.cuda.memory_allocated, which must not exceed 1 (aliases
+   counted twice). The node runs at the reference's defaults (dedup,
+   match cache 8192, delta overlay, telemetry, ledger, lanes). Two
+   engine windows of
    flood topics are held against the plain path, every plane and the
    cursors: a uniform one (the plain window) and one drawn from 512
    topics (the dedup-cached window). Covering is on (no filter of this
@@ -970,7 +983,7 @@ def mesh_phase(dev) -> tuple:
     scan_shapes = time_scan_shapes_apart(r["shapes"], "mesh")
     kernel = {"name": "ring_rotate", "route": "cuda",
               "source": "emqx_tpu_torch/csrc/ring_rotate.cu",
-              "replaces": "emqx_tpu/ops/pallas_exchange.py:67",
+              "replaces": "emqx_tpu/ops/pallas_exchange.py:98",
               "launches": launches["ring_rotate"],
               "max_abs_err": r["err_ring"],
               **{k: rr[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -998,7 +1011,8 @@ E2E_PUB_CONNS = 8
 E2E_MSGS = 32_000
 E2E_SUB_CHUNK = 512        # filters per SUBSCRIBE packet
 E2E_MIN_DEVICE_SHARE = 0.9
-E2E_DEPTHS = (2, 1)
+# (label, dispatch depth, delivery lanes on) of each flood, in order
+E2E_RUNS = (("d2", 2, True), ("d1", 1, True), ("d2-inline", 2, False))
 
 
 def e2e_grid(n_filters: int) -> tuple:
@@ -1103,10 +1117,14 @@ async def _warm_up(node, pub, subs, nums: int) -> None:
     eng.route_batch([make("w", 0, "warmup/none/t", b"")
                      for _ in range(1024)])
     # a large first snapshot builds in the background (route_batch then
-    # declines): wait for it, and for its fused window class
+    # declines): wait for it, its fused window class, and the background
+    # warm of the other standard classes (a serving dispatch waits for
+    # the engine lock a capture holds, and the chooser's first device
+    # sample would carry that wait)
     for _ in range(1200):
         b = eng._built
-        if b is not None and (b.backend != "shapes" or eng.max_fuse() > 1):
+        if b is not None and (b.backend != "shapes" or eng.max_fuse() > 1) \
+                and getattr(eng, "_fuse_warm_task", None) is None:
             break
         await asyncio.sleep(0.05)
     if eng._built is None:
@@ -1169,7 +1187,8 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
         "routing.device.windows", "routing.device.bypassed",
         "routing.device.compact_overflow",
         "routing.device.messages", "routing.host.route_us",
-        "routing.host.messages", *faults, *LAYER_COUNTERS,
+        "routing.host.messages", "pipeline.deliver.rows",
+        "pipeline.deliver.plans", *faults, *LAYER_COUNTERS,
         *(f"routing.device.{s}_us" for s in stages))}
     pb = node.publish_batcher
     pb.route_lat.clear()
@@ -1245,6 +1264,8 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
             "device_bypassed": delta["routing.device.bypassed"],
             "windows": delta["routing.device.windows"],
             "compact_overflow": delta["routing.device.compact_overflow"],
+            "lane_rows": delta["pipeline.deliver.rows"],
+            "lane_plans": delta["pipeline.deliver.plans"],
             "layers": layer_numbers(delta),
             # host time per message of each stage of the device path (the
             # card's time per message under "card"), and of the host path
@@ -1313,6 +1334,77 @@ def _spread(samples) -> dict:
     return {"n": int(a.size), **{k: float(np.percentile(a, p)) for k, p in
                                  (("min", 0), ("p10", 10), ("p50", 50),
                                   ("p90", 90), ("max", 100))}}
+
+
+def tele_state(node) -> tuple:
+    """The node's telemetry state (histogram buckets, counters, graph
+    captures by class), for tele_delta."""
+    t = node.pipeline_telemetry
+    hs = {k: (list(h.counts), h.sum, h.count)
+          for k, h in node.metrics.histograms().items()}
+    return hs, dict(node.metrics.all()), \
+        {k: dict(v) for k, v in t.compiles_by_shape.items()}
+
+
+def tele_delta(node, before: tuple) -> dict:
+    """The telemetry snapshot's stages, decisions and graph captures over
+    what ran since `before` (tele_state): the same snapshot code on a
+    registry holding the differences."""
+    from emqx_tpu_torch.broker.metrics import Metrics
+    from emqx_tpu_torch.broker.telemetry import PipelineTelemetry
+    hs0, c0, comp0 = before
+    d = Metrics()
+    for k, h in node.metrics.histograms().items():
+        counts, s0, n0 = hs0.get(k, ([0] * len(h.counts), 0.0, 0))
+        dh = d.hist(k, lo=h.lo, n_buckets=len(h.bounds), unit=h.unit,
+                    substeps=h.substeps)
+        dh.counts = [a - b for a, b in zip(h.counts, counts)]
+        dh.sum, dh.count = h.sum - s0, h.count - n0
+    for k, v in node.metrics.all().items():
+        d.inc(k, v - c0.get(k, 0))
+    t = PipelineTelemetry(d)
+    for label, row in node.pipeline_telemetry.compiles_by_shape.items():
+        r0 = comp0.get(label, {"count": 0, "total_s": 0.0})
+        if row["count"] > r0["count"]:
+            t.compiles_by_shape[label] = {
+                "count": row["count"] - r0["count"],
+                "total_s": row["total_s"] - r0["total_s"]}
+            t.compiles += row["count"] - r0["count"]
+            t.compile_s += row["total_s"] - r0["total_s"]
+    snap = t.snapshot()
+    return {k: snap[k] for k in ("stages", "decisions", "compiles")}
+
+
+def ledger_line(node, allocated_before) -> dict:
+    """The HBM ledger's numbers after the floods: live bytes by category,
+    the true peak, the static buffers of each graph class, and the
+    accounted share of the card's allocated bytes (None on the CPU) —
+    of all of them, and of what was allocated since `allocated_before`
+    (the bytes earlier phases left on the card when this one began)."""
+    sec = node.hbm_ledger.section()
+    cats = sec["categories"]
+    alloc = (sec.get("device") or {}).get("allocated_bytes.all.current")
+    since = alloc - allocated_before if alloc is not None else None
+    return {"live_bytes": sec["live_bytes"], "peak_bytes": sec["peak_bytes"],
+            "by_category": {k: c["live_bytes"] for k, c in cats.items()},
+            "pipeline_buffers_by_class": cats.get(
+                "pipeline_buffers", {}).get("owners", {}),
+            "accounted_fraction": sec.get("accounted_fraction"),
+            "memory_allocated": alloc, "allocated_before": allocated_before,
+            "accounted_of_phase": round(
+                node.hbm_ledger.device_live_bytes() / since, 4)
+            if since else None,
+            "pins": sec["pins"]}
+
+
+def _host_allocs(dev) -> "int | None":
+    """Pinned host blocks the caching host allocator has created so far
+    (None on the CPU or where this torch does not count them)."""
+    import torch
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if dev.type != "cuda" or stats is None:
+        return None
+    return int(stats().get("num_host_alloc", 0))
 
 
 async def _profiled_flood(node, subs, pubs, ids: int, nums: int,
@@ -1427,27 +1519,33 @@ def e2e_window_check(node, ids: int, nums: int, seed: int, batches: int,
 
 def e2e_drive(dev, n_filters: int = E2E_FILTERS,
               n_sub: int = E2E_SUB_CONNS, n_pub: int = E2E_PUB_CONNS,
-              total: int = E2E_MSGS, depths=E2E_DEPTHS,
+              total: int = E2E_MSGS, runs=E2E_RUNS,
               min_device_share: float = E2E_MIN_DEVICE_SHARE,
               window=(8, 1024), seed: int = SEED, report=None,
               pin_device: bool = False, profile: bool = False) -> dict:
-    """Phase 8: the port's Node with its Listener on 127.0.0.1, the
-    bench.py e2e population subscribed over TCP, the bench warm-up, then
-    one flood per dispatch depth in `depths` on the same node, and one
+    """Phase 8: the port's Node (the reference's defaults, delivery lanes
+    and HBM ledger included) with its Listener on 127.0.0.1, the bench.py
+    e2e population subscribed over TCP, the bench warm-up, then one flood
+    per (label, dispatch depth, lanes on) of `runs` on the same node (a
+    lanes-off flood detaches the node's lane pool for its run), and one
     engine window held against the plain path after the first flood.
-    ``report(depth, flood)`` sees each flood's numbers before its checks;
+    ``report(label, flood)`` sees each flood's numbers before its checks;
     ``pin_device`` pins the batcher's device/host chooser to the device
     (for a rehearsal on the CPU, where the host path wins; never in the
-    measured run). With ``profile`` one more flood at the first depth runs
-    under torch.profiler for the card's busy time (not one of the
-    measured floods). Raises on any failed check."""
+    measured run). With ``profile`` one more flood at the first run's
+    depth, lanes on, runs under torch.profiler for the card's busy time
+    (not one of the measured floods). Raises on any failed check."""
     import asyncio
 
     async def run():
         from emqx_tpu_torch.broker.connection import Listener
         from emqx_tpu_torch.broker.node import Node
         from emqx_tpu_torch.client import Client
-        node = Node({"broker": {"dispatch_depth": depths[0]}}, device=dev)
+        import torch
+        alloc0 = torch.cuda.memory_allocated(dev) \
+            if dev.type == "cuda" else None
+        node = Node({"broker": {"dispatch_depth": runs[0][1]}}, device=dev)
+        lanes = node.deliver_lanes
         _time_dispatches(node.device_engine)
         if pin_device:
             node.publish_batcher._device_worth_it = lambda: True
@@ -1479,39 +1577,69 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
             # collection rescans it in the middle of a flood
             gc.collect()
             gc.freeze()
-            for k, depth in enumerate(depths):
+            for k, (label, depth, lanes_on) in enumerate(runs):
                 # the batcher's consumer reads the depth when it starts,
-                # and it parks between floods
+                # and it parks between floods (the lanes are drained by
+                # then: every future resolved)
                 node.publish_batcher.dispatch_depth = depth
+                node.deliver_lanes = lanes if lanes_on else None
+                tele0 = tele_state(node)
+                pinned0 = _host_allocs(dev)
                 f = await _flood(node, subs, pubs, ids, nums, total,
                                  seed + 100 * k)
+                f["lanes_on"] = lanes_on
+                f["telemetry"] = tele_delta(node, tele0)
+                st = f["telemetry"]["stages"]
+                f["lane_us_per_msg"] = sum(
+                    v["sum_ms"] for n, v in st.items()
+                    if n.startswith("deliver_lane")) * 1e3 / f["sent"]
+                f["lane_items"] = sum(v["count"] for n, v in st.items()
+                                      if n.startswith("deliver_lane"))
+                if pinned0 is not None:
+                    f["pinned_host_allocs"] = _host_allocs(dev) - pinned0
                 if report is not None:
-                    report(depth, f)
+                    report(label, f)
                 if f["batches"] <= 0:
-                    raise AssertionError(f"depth {depth}: no device batch "
+                    raise AssertionError(f"{label}: no device batch "
                                          f"during the flood")
                 share = f["device_routed"] / f["sent"]
                 if share < min_device_share:
                     raise AssertionError(
-                        f"depth {depth}: {share:.3f} of the flood was "
+                        f"{label}: {share:.3f} of the flood was "
                         f"routed by the device engine (< "
                         f"{min_device_share})")
+                if lanes_on and (f["lane_rows"] <= 0
+                                 or f["lane_plans"] <= 0):
+                    raise AssertionError(
+                        f"{label}: the delivery lanes did not engage "
+                        f"({f['lane_rows']} rows, {f['lane_plans']} plans)")
+                if not lanes_on and f["lane_rows"]:
+                    raise AssertionError(f"{label}: {f['lane_rows']} rows "
+                                         f"went to detached lanes")
                 if dev.type == "cuda" and (f["launches"]["shape_match"] == 0
                                            or f["launches"]["prefix_sum"]
                                            == 0):
-                    raise AssertionError(f"depth {depth}: a kernel was not "
+                    raise AssertionError(f"{label}: a kernel was not "
                                          f"launched: {f['launches']}")
                 if dev.type == "cuda" and out["backend"] == "shapes" \
                         and f["launches"]["shape_match"] != f["windows"]:
                     # one fold+probe per shape-hash window; warm-ups are
                     # recorded, not counted
                     raise AssertionError(
-                        f"depth {depth}: {f['launches']['shape_match']} "
+                        f"{label}: {f['launches']['shape_match']} "
                         f"shape_match launches for {f['windows']} windows")
-                out["floods"][depth] = f
+                out["floods"][label] = f
                 if k == 0:
                     out["window_err"] = e2e_window_check(
                         node, ids, nums, seed + 1, *window)
+            node.deliver_lanes = lanes
+            out["ledger"] = ledger_line(node, alloc0) \
+                if node.hbm_ledger is not None else None
+            frac = (out["ledger"] or {}).get("accounted_fraction")
+            if frac is not None and frac > 1.0:
+                raise AssertionError(
+                    f"the HBM ledger accounts {frac} of the card's "
+                    f"allocated bytes (> 1: aliases counted twice)")
             # the floods' uniform traffic leaves the dedup plan idle (a
             # fused window holds more unique topics than Bp, a single
             # batch's miss class is its batch class); the checked window
@@ -1521,7 +1649,7 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
             if out["cached_windows"] <= 0:
                 raise AssertionError("phase 8 ran no cached window")
             if profile:
-                node.publish_batcher.dispatch_depth = depths[0]
+                node.publish_batcher.dispatch_depth = runs[0][1]
                 out["profiled"] = await _profiled_flood(
                     node, subs, pubs, ids, nums, total, seed + 1000)
             out["stats"] = node.device_engine.stats()
@@ -1539,7 +1667,7 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
 
 def e2e_phase(dev, card: str) -> dict:
     """Phase 8 at bench.py's e2e size on the card; prints its lines."""
-    def report(depth, f):
+    def report(label, f):
         row = {k: f[k] for k in ("sent", "delivered", "per_sec",
                                  "device_routed", "batches",
                                  "device_bypassed")}
@@ -1547,10 +1675,25 @@ def e2e_phase(dev, card: str) -> dict:
                    for k, d in f["samples_us"].items()}
         stage_us = {k: round(v, 2) for k, v in f["device_us_per_msg"].items()}
         disp = dict(f["dispatch_ms"], sum=round(f["dispatch_ms"]["sum"], 3))
-        log(f"phase 8 dispatch_depth={depth}: {json.dumps(row)}")
-        log(f"phase 8 dispatch_depth={depth}: client PUBLISH->deliver p50 "
-            f"{f['lat_p50_ms']:.3f} ms, p99 {f['lat_p99_ms']:.3f} ms; "
-            f"batcher route latency {json.dumps(f['route_lat'])}; "
+        depth = f"{label} (lanes {'on' if f['lanes_on'] else 'off'})"
+        log(f"phase 8 {depth}: {json.dumps(row)}")
+        log(f"phase 8 {depth}: {f['per_sec']} msgs/s, client "
+            f"PUBLISH->deliver p50 {f['lat_p50_ms']:.3f} ms p99 "
+            f"{f['lat_p99_ms']:.3f} ms, "
+            f"{f['device_routed'] / f['sent']:.3f} on the device; consume "
+            f"(plan construction with the lanes) "
+            f"{f['device_us_per_msg']['consume']:.2f} us/msg, dispatch "
+            f"{f['device_us_per_msg']['dispatch']:.2f} us/msg, the lanes' "
+            f"own delivery {f['lane_us_per_msg']:.2f} us/msg over "
+            f"{f['lane_items']} lane items; pipeline.deliver.rows "
+            f"{f['lane_rows']}, plans {f['lane_plans']}; pinned host blocks "
+            f"allocated during the flood "
+            f"{f.get('pinned_host_allocs', 'not counted')}")
+        if label == E2E_RUNS[0][0]:
+            log(f"phase 8 {depth} telemetry over the flood: "
+                f"{json.dumps(f['telemetry'])}")
+        log(f"phase 8 {depth}: batcher route latency "
+            f"{json.dumps(f['route_lat'])}; "
             f"{f['windows']} device windows ({f['compact_overflow']} read "
             f"dense: CSR payload overflow); launches {f['launches']}; "
             f"chooser: device {f['dev_msg_us']:.2f} us per message, host "
@@ -1559,8 +1702,7 @@ def e2e_phase(dev, card: str) -> dict:
             f"path {json.dumps(stage_us)}, host path "
             f"{f['host_us_per_msg']:.2f}; dispatches {json.dumps(disp)} (ms: "
             f"the slowest as total, staging + replay, readback staging)")
-        log(f"phase 8 dispatch_depth={depth}: routing layers "
-            f"{json.dumps(f['layers'])}")
+        log(f"phase 8 {depth}: routing layers {json.dumps(f['layers'])}")
 
     r = e2e_drive(dev, report=report, profile=True)
     log(f"phase 8: {r['filters']} filters ({r['shared_filters']} in "
@@ -1577,14 +1719,33 @@ def e2e_phase(dev, card: str) -> dict:
         f"{r['stats']['subscription_covering']}, cover "
         f"{json.dumps(r['stats']['cover'])}, detection "
         f"{r['stats']['cover_detect_s']} s")
+    fl = r["floods"]
+    on, off = fl["d2"], fl["d2-inline"]
+    log(f"phase 8 lanes on vs off at depth 2: {on['per_sec']} vs "
+        f"{off['per_sec']} msgs/s ({on['per_sec'] / off['per_sec']:.3f}x), "
+        f"p99 {on['lat_p99_ms']:.3f} vs {off['lat_p99_ms']:.3f} ms, "
+        f"consume {on['device_us_per_msg']['consume']:.2f} vs "
+        f"{off['device_us_per_msg']['consume']:.2f} us/msg, dispatch "
+        f"{on['device_us_per_msg']['dispatch']:.2f} vs "
+        f"{off['device_us_per_msg']['dispatch']:.2f} us/msg")
+    led = r["ledger"]
+    log(f"phase 8 HBM ledger: live {led['live_bytes']} bytes by category "
+        f"{json.dumps(led['by_category'])}, peak {led['peak_bytes']}, "
+        f"pipeline_buffers by graph class "
+        f"{json.dumps(led['pipeline_buffers_by_class'])}, accounted "
+        f"{led['accounted_fraction']} of torch.cuda.memory_allocated() "
+        f"{led['memory_allocated']} ({led['accounted_of_phase']} of the "
+        f"{led['memory_allocated'] - led['allocated_before']} bytes "
+        f"allocated since this phase began); pins "
+        f"{json.dumps(led['pins'])}")
     p = r["profiled"]
-    log(f"phase 8 profiled flood (depth {E2E_DEPTHS[0]}): device busy "
+    log(f"phase 8 profiled flood ({E2E_RUNS[0][0]}, lanes on): device busy "
         f"{p['device_busy_s'] * 1e3:.1f} ms of {p['wall_s']:.2f} s, idle "
         f"share {p['idle_share']:.4f}, {p['windows']} windows, "
         f"{p['per_sec']} msgs/s under the profiler; largest device "
         f"entries (name, ms, count): {p['top']}")
     for depth, f in r["floods"].items():
-        log(f"phase 8 dispatch_depth={depth}: every message delivered once "
+        log(f"phase 8 {depth}: every message delivered once "
             f"to a connection holding its filter; per-publisher order held "
             f"at every subscriber for plain and for shared deliveries"
             f"{' (per QoS: a session queued)' if f['order_per_qos'] else ''}"
@@ -1691,8 +1852,10 @@ async def _skew_pass(node, sinks, windows, hold: bool = False) -> dict:
         eng.materialize(h)
         if hold and h is last:
             out["err"] = hold_against_plain(eng, h, "layers window")
+        # inline consume (the lanes would deliver after this returns;
+        # phase 8 drives them): the pass reads the deliveries right away
         out["counts"].append([c for k in range(len(h.subs))
-                              for c in eng.finish_sub(h, k)])
+                              for c in eng.finish_sub(h, k, defer=False)])
         out["lat"].append(time.perf_counter() - ts)
         out["got"].append(_take(sinks))
         out["bm"][str(h.cls[2])] += 1
@@ -2469,8 +2632,8 @@ def main() -> int:
         counted from 0 just before the path ran."""
         out = {"shape-hash route()": launches[name],
                "mesh route()": mesh["launches"][name]}
-        for depth, f in e2e["floods"].items():
-            out[f"e2e flood depth {depth}"] = f["launches"][name]
+        for label, f in e2e["floods"].items():
+            out[f"e2e flood {label}"] = f["launches"][name]
         out["layers skew A (timed pass)"] = \
             layers["skew"]["A"]["launches"][name]
         out["layers churn A (timed pass)"] = \

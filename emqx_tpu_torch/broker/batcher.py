@@ -12,14 +12,17 @@ the batch.
 The port's copy of ``emqx_tpu/broker/batcher.py``, whole on the path it
 serves: the adaptive device/host chooser, window fusion with slow start,
 the depth-1 synchronous consumer and the depth-N settle ring, FIFO settle
-order. Not part of the port: the telemetry, flight-recorder, latency
-observatory, overload and supervision hooks, and the delivery lanes
-(delivery is inline).
+order, the pipeline telemetry (stage spans, occupancy, decisions) and the
+delivery lanes' hand-off (a host batch drains the lanes first; a device
+batch's futures resolve when its delivery plan completes; ``admit``
+carries the lanes' backpressure up to the publishers). Not part of the
+port: the flight-recorder, latency observatory, overload and supervision
+hooks.
 
 - **Non-blocking**: device dispatch and device→host readback run on
   executor threads (DeviceRouteEngine.dispatch/materialize); the event
-  loop only does the cheap encode (prepare) and the delivery walk
-  (finish).
+  loop only does the cheap encode (prepare) and the consume (finish),
+  which with the delivery lanes builds a plan the lanes deliver.
 - **Pipelined**: up to `pipeline_depth` dispatched batches are in flight;
   a consumer task completes them strictly in FIFO order, so per-publisher
   ordering holds even when device- and host-routed batches interleave
@@ -40,6 +43,9 @@ observatory, overload and supervision hooks, and the delivery lanes
   host across its yields, which in a busy event loop also count every
   other task the loop ran in between — ingest, socket writes, in-process
   clients — and the first slow sample sent a whole flood to the host.
+  With the delivery lanes, a device window's sample is taken when its
+  plans complete and includes the lanes' delivery seconds: both paths'
+  samples count the delivery.
 - **Double-buffered window pipeline**: at ``dispatch_depth >= 2`` the
   consumer becomes a bounded in-flight settle ring. Each dispatched
   window's remaining stages (await dispatch → launch + await materialize)
@@ -153,6 +159,8 @@ class PublishBatcher:
         self._since_probe = 0         # host batches since last device try
         self._since_host_probe = 0    # device batches since last host probe
         self._consuming = False       # consumer mid-entry (fast-path gate)
+        # pipeline telemetry (stage spans / occupancy / decisions)
+        self.tele = getattr(node, "pipeline_telemetry", None)
 
     # ---- producer side --------------------------------------------------
     def submit_future(self, msg: Message) -> asyncio.Future:
@@ -243,6 +251,10 @@ class PublishBatcher:
                     while self._queue and len(batch) < limit:
                         batch.append(self._queue.popleft())
                         self._q_times.popleft()
+                    if self.tele is not None:
+                        # oldest-message queue wait before its batch formed
+                        self.tele.observe_stage(
+                            "enqueue", time.perf_counter() - t_enq)
                     return {"batch": batch, "handle": None, "sub": 0,
                             "dispatch_fut": None, "live": None,
                             "live_idx": None, "t_enq": t_enq}
@@ -318,6 +330,8 @@ class PublishBatcher:
                                 self._dispatch(loop, handle)
                     if not dispatched:
                         self._since_probe += 1
+                    if self.tele is not None:
+                        self._record_decision(group, lives, dispatched)
                 except asyncio.CancelledError:
                     for e in group:
                         self._fail_entry(
@@ -382,6 +396,24 @@ class PublishBatcher:
             fut.set_result(None)
         return fut
 
+    def _record_decision(self, group: list, lives: list,
+                         dispatched: bool) -> None:
+        """The routing decision of a formed group: which device program
+        took its window (overlay first, then the dedup plan, then the CSR
+        readback), or host for every batch of a group that fell back."""
+        if dispatched:
+            h = next(e["handle"] for e in group
+                     if e["handle"] is not None)
+            path = "device_delta" if h.delta is not None else \
+                "device_cached" if h.plan is not None else \
+                "device_compact" if h.pcap is not None else "device"
+            self.tele.record_decision(path, len(lives))
+            return
+        self.tele.record_decision("host", len(group))
+        for e in group:
+            self.tele.record_occupancy("host",
+                                       len(e["batch"]) / self.max_batch)
+
     def _fail_entry(self, entry: dict, err: Exception) -> None:
         for _m, fut in entry["batch"]:
             if fut is not None and not fut.done():
@@ -392,6 +424,7 @@ class PublishBatcher:
 
     async def _fold_hooks(self, entry: dict) -> None:
         """message.publish hook fold, concurrently across the batch."""
+        t0 = time.perf_counter()
         broker = self.node.broker
         batch = entry["batch"]
         if not broker.hooks.lookup("message.publish"):
@@ -415,6 +448,8 @@ class PublishBatcher:
             live.append(m)
         entry["live"] = live
         entry["live_idx"] = live_idx
+        if self.tele is not None:
+            self.tele.observe_stage("batch_form", time.perf_counter() - t0)
 
     # ---- consumer: complete batches strictly in order --------------------
     async def _complete_host(self, entry: dict, routed=None) -> None:
@@ -424,26 +459,43 @@ class PublishBatcher:
         whole event loop for tens of ms. Safe against reordering: the
         trickle caller runs in the producer task (nothing can enqueue
         behind it while it awaits) and the consumer is strictly
-        sequential."""
+        sequential; a host batch first drains the delivery lanes, so it
+        never overtakes a session's lane-queued device deliveries. A
+        device result whose deliveries the lanes own (a LaneCounts)
+        resolves its futures when its plan completes."""
         batch = entry["batch"]
         counts = [0] * len(batch)
+        tele = self.tele
+        path = "host" if routed is None else "device"
         try:
             if "error" in entry:
                 raise entry["error"]
             live, live_idx = entry["live"], entry["live_idx"]
             if routed is None and live:
+                pool = getattr(self.node, "deliver_lanes", None)
+                if pool is not None and pool.busy():
+                    await pool.drain()
                 span = 0.0
                 t0 = time.perf_counter()
                 routed = []
                 broker = self.node.broker
                 for j, m in enumerate(live):
-                    routed.append(broker._route(m, broker.router.match(
-                        m.topic)))
+                    if tele is not None and j % 32 == 0:
+                        # sampled host match split (1-in-32)
+                        tm = time.perf_counter()
+                        mt = broker.router.match(m.topic)
+                        tele.observe_stage("host_match",
+                                           time.perf_counter() - tm)
+                    else:
+                        mt = broker.router.match(m.topic)
+                    routed.append(broker._route(m, mt))
                     if j % 64 == 63:
                         span += time.perf_counter() - t0
                         await asyncio.sleep(0)
                         t0 = time.perf_counter()
                 span += time.perf_counter() - t0
+                if tele is not None:
+                    tele.observe_stage("host_route", span)
                 self.node.metrics.inc("routing.host.route_us",
                                       int(span * 1e6))
                 self.node.metrics.inc("routing.host.messages", len(live))
@@ -451,18 +503,30 @@ class PublishBatcher:
                 self.cost_samples["host"].append(sample)
                 self._host_msg_s, self._host_spike = _ewma(
                     self._host_msg_s, sample, self._host_spike)
-            if live:
-                for j, i in enumerate(live_idx):
-                    counts[i] = routed[j]
-            for i, (_m, fut) in enumerate(batch):
-                if fut is not None and not fut.done():
-                    fut.set_result(counts[i])
-            # PUBLISH→route latency sample: oldest enqueue → completion
-            # (covers both host- and device-routed entries — the device
-            # path funnels through here with `routed` precomputed)
-            t_enq = entry.get("t_enq")
-            if t_enq is not None:
-                self.route_lat.append(time.perf_counter() - t_enq)
+
+            def settle() -> None:
+                if live:
+                    for j, i in enumerate(live_idx):
+                        counts[i] = routed[j]
+                for i, (_m, fut) in enumerate(batch):
+                    if fut is not None and not fut.done():
+                        fut.set_result(counts[i])
+                # PUBLISH→route latency sample: oldest enqueue →
+                # completion (the device path funnels through here with
+                # `routed` precomputed)
+                t_enq = entry.get("t_enq")
+                if t_enq is not None:
+                    total = time.perf_counter() - t_enq
+                    self.route_lat.append(total)
+                    if tele is not None:
+                        tele.record_total(total, batch=len(batch),
+                                          path=path)
+
+            plan = getattr(routed, "plan", None)
+            if plan is not None and not plan.done:
+                plan.add_done_callback(settle)
+            else:
+                settle()
         except Exception as e:  # route failure must not hang publishers
             for _m, fut in batch:
                 if fut is not None and not fut.done():
@@ -641,16 +705,31 @@ class PublishBatcher:
                 raise handle.error
             return None
         counts = self.engine.finish_sub(handle, sub)
+        pool = getattr(self.node, "deliver_lanes", None)
+        if pool is not None and pool.active():
+            # backpressure: too many plans queued in the delivery lanes
+            # stalls THIS consumer, which fills _inflight, which blocks
+            # the producer's put, which bounces submit()/enqueue() — a
+            # blocked lane stalls publishers instead of buffering (or
+            # dropping) deliveries
+            await pool.admit()
         if sub == n_subs - 1:
             # ONE cost sample per WINDOW, over all of its messages —
             # sampling per entry would count the near-instant later subs
             # of a window as whole batches and drag the EWMA to ~zero (the
             # chooser then never bypasses a slow device). The sample is
-            # the window's own cost (see the module docstring).
-            sample = handle.cost_s / max(1, handle.n_msgs)
-            self.cost_samples["device"].append(sample)
-            self._dev_msg_s, self._dev_spike = _ewma(
-                self._dev_msg_s, sample, self._dev_spike)
+            # the window's own cost (see the module docstring): taken when
+            # the handle releases, after the lanes delivered its plans.
+            def sample() -> None:
+                s = handle.cost_s / max(1, handle.n_msgs)
+                self.cost_samples["device"].append(s)
+                self._dev_msg_s, self._dev_spike = _ewma(
+                    self._dev_msg_s, s, self._dev_spike)
+
+            if handle.built is not None:    # the lanes hold the handle
+                handle.on_release = sample
+            else:
+                sample()
             # slow-start growth: this window completed, widen the next
             self._fuse_cwnd = min(8, max(2, 2 * n_subs))
         return counts

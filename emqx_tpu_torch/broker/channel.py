@@ -52,6 +52,20 @@ class ParkedSubscriber:
         self.session.enqueue([(msg, msg.headers.get("subopts", {}))])
         return True
 
+    def deliver_batch(self, items: list) -> int:
+        """Coalesced same-session run (the delivery lanes): one mqueue
+        append pass for the whole run. All-or-none accept."""
+        pairs = []
+        for _f, msg in items:
+            if msg.is_expired():
+                self.node.metrics.inc("delivery.dropped")
+                self.node.metrics.inc("delivery.dropped.expired")
+                continue
+            pairs.append((msg, msg.headers.get("subopts", {})))
+        if pairs:
+            self.session.enqueue(pairs)
+        return len(items)
+
 
 CONN_IDLE = "idle"
 CONN_CONNECTING = "connecting"
@@ -708,6 +722,38 @@ class Channel:
         out = self.session.deliver([(msg, subopts)])
         self._send_deliveries(out)
         return True
+
+    def deliver_batch(self, items: list) -> int:
+        """Coalesced delivery (the delivery lanes): a same-session run of
+        routed messages accepted by ONE session.deliver pass and flushed
+        in ONE socket write, instead of a per-message accept + drain. All
+        or none (the lane attributes per-message counts uniformly):
+        returns len(items) when the session accepted the run, 0 when
+        there is no session."""
+        if self.conn_state == CONN_TAKING_OVER:
+            self._pendings.extend(m for _f, m in items)
+            return len(items)
+        if self.session is None:
+            return 0
+        metrics = self.node.metrics
+        ignore_loop = self.mqtt.get("ignore_loop_deliver")
+        pairs = []
+        for _f, msg in items:
+            if ignore_loop and msg.from_ == self.clientid:
+                metrics.inc("delivery.dropped")
+                metrics.inc("delivery.dropped.no_local")
+                continue
+            if msg.is_expired():
+                metrics.inc("delivery.dropped")
+                metrics.inc("delivery.dropped.expired")
+                continue
+            pairs.append((msg, msg.headers.get("subopts", {})))
+        if pairs:
+            if self.conn_state != CONN_CONNECTED:
+                self.session.enqueue(pairs)
+            else:
+                self._send_deliveries(self.session.deliver(pairs))
+        return len(items)
 
     def _send_deliveries(self, out: list) -> None:
         pkts = []

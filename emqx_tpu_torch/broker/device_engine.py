@@ -10,9 +10,15 @@ re-expands it, ``ops/cover.py``; a new filter a built root covers
 becomes an append to the expansion CSR, ``_try_cover_append``), each
 switchable as in the reference (``broker.topic_dedup``,
 ``broker.match_cache_size``, ``broker.delta_overlay``,
-``broker.subscription_covering``). Not ported: supervision, HBM ledger,
-tracing, latency observatory and overload hooks, delivery lanes
-(delivery is inline); the CSR readback is always on. It compiles the live routing state (Router filter universe + Broker
+``broker.subscription_covering``); the node's pipeline telemetry
+(``broker/telemetry.py``: stage spans, occupancy, dedup, readback bytes,
+graph captures as its compile accounting), its HBM ledger
+(``broker/hbm_ledger.py``: every persistent device allocation goes
+through ``_hold``, every dispatch handle is pinned) and its delivery
+lanes (``broker/deliver.py``: ``finish_sub`` builds a delivery plan that
+the lanes run). Not ported: supervision, tracing, the latency
+observatory and overload hooks; the CSR readback is always on. It
+compiles the live routing state (Router filter universe + Broker
 subscriber/shared-group membership) into device tables, runs the route
 window over publish micro-batches and consumes the result into session
 deliveries, replacing the per-message host publish path
@@ -24,7 +30,9 @@ launches on the card — on the loop, since they only enqueue work and hold
 the GIL throughout, where an executor thread would wait for the busy loop
 at every GIL hand-off; on an executor thread when the device is the CPU),
 ``materialize()`` (executor thread: device→host readback),
-``finish_sub()`` (loop: consume one sub-batch into deliveries).
+``finish_sub()`` (loop: consume one sub-batch into deliveries, or into a
+delivery plan for the lanes; the handle, and with it the snapshot, stays
+pinned until the plan completes).
 ``route_batch()`` is the synchronous composition for callers without a
 pipeline.
 
@@ -97,6 +105,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import functools
 import itertools
 import logging
 import threading
@@ -107,7 +116,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from emqx_tpu_torch.broker.deliver import OPT_TABLE
+from emqx_tpu_torch.broker.deliver import DEFERRED, OPT_TABLE, LaneCounts
 from emqx_tpu_torch.broker.match_cache import DEFAULT_CAPACITY, MatchCache
 from emqx_tpu_torch.broker.message import Message
 from emqx_tpu_torch.broker.supervise import guard_task
@@ -341,6 +350,68 @@ class _CsrRes:
         self.occur = occur        # [W, G] cursor writeback input
 
 
+class _SlowRows:
+    """One sub-batch's rows as its slow messages read them (the ones the
+    vectorized consume cannot prove clean): the message's valid entries
+    of every plane, as Python lists, built when the message is consumed.
+    With the delivery lanes the planes are copies, taken once for the
+    sub-batch: the slow messages are consumed behind the plan's barrier,
+    after the readback's pinned buffers went back to the allocator."""
+
+    __slots__ = ("csr", "planes", "dcsr", "delta", "too_long", "overflow",
+                 "pay", "b", "dev_shared", "ov", "pending")
+
+    def __init__(self, h, k: int, overflow_k, pending: bool, copy: bool):
+        nr, nd = h.np_res, h.np_delta
+        self.csr = isinstance(nr, _CsrRes)
+
+        def own(a):
+            return a.copy() if copy else a
+
+        if self.csr:
+            off = nr.off[k]
+            self.planes = (own(off), own(nr.c3[k]),
+                           own(nr.pay[k][:int(off[-1])]))
+        else:
+            self.planes = tuple(own(x[k]) for x in nr[:6])
+        self.delta = None
+        self.dcsr = isinstance(nd, _DeltaCsr)
+        if nd is not None:
+            self.delta = (own(nd.off[k]), own(nd.c3[k]), own(nd.pay[k])) \
+                if self.dcsr else \
+                (own(nd.fids[k]), own(nd.rows[k]), own(nd.opts[k]))
+        self.too_long = h.subs[k][1]
+        self.overflow = own(overflow_k)
+        self.pay = None
+        self.b, self.dev_shared, self.ov = h.built, h.dev_shared, h.delta
+        self.pending = pending
+
+    def rows(self, i: int) -> tuple:
+        """(row6, drow) of message i: the six route planes' entries and
+        the overlay's (delta fids, fan rows, fan opts), or None."""
+        if self.csr:
+            if self.pay is None:
+                off, c3, pay = self.planes
+                self.pay = (off.tolist(), c3.tolist(), pay.tolist())
+            off_l, c3_l, pay = self.pay
+            o = off_l[i]
+            cm, cf, cs = c3_l[i]
+            a, bb = o + cm, o + cm + cf
+            c, d = bb + cf, bb + cf + cs
+            row6 = (pay[o:a], pay[a:bb], pay[bb:c], pay[c:d],
+                    pay[d:d + cs], pay[d + cs:d + 2 * cs])
+        else:
+            row6 = tuple(x[i].tolist() for x in self.planes)
+        drow = None
+        if self.delta is not None:
+            if self.dcsr:
+                drow = csr_slices(*self.delta, i)[:3]
+            else:
+                drow = tuple(x[i] for x in self.delta)
+            drow = tuple(x.tolist() for x in drow)
+        return row6, drow
+
+
 def _pack_opts(opts: dict) -> int:
     return ((int(opts.get("qos", 0)) & 0x3)
             | ((1 if opts.get("nl") else 0) << 2)
@@ -396,9 +467,10 @@ class _Graph:
     window's hundreds of eager launches."""
 
     __slots__ = ("graph", "inputs", "cursors", "delta", "dver", "planes",
-                 "launches")
+                 "launches", "label")
 
-    def __init__(self, graph, inputs, cursors, delta, planes, launches):
+    def __init__(self, graph, inputs, cursors, delta, planes, launches,
+                 label):
         self.graph = graph
         self.inputs = inputs      # static device inputs, program order
         self.cursors = cursors
@@ -406,6 +478,7 @@ class _Graph:
         self.dver = None          # the _Overlay last copied into `delta`
         self.planes = planes      # (res, compact, delta planes, d_compact)
         self.launches = launches  # [(kernel, shape)] per replay
+        self.label = label        # the class label (_class_label)
 
 
 class _CoverState:
@@ -479,7 +552,8 @@ class _Handle:
                  "np_res", "refs", "pcap", "host", "ev_start", "event",
                  "launch_s", "cost_s", "cursors0", "graphed",
                  "n_msgs", "error", "plan", "cache_info", "delta", "dres",
-                 "dcres", "np_delta", "arrays", "cls", "tables", "strat")
+                 "dcres", "np_delta", "arrays", "cls", "tables", "strat",
+                 "consumed", "on_release")
 
     def __init__(self, subs, built, dev_shared):
         self.subs = subs          # list of (msgs, too_long)
@@ -514,6 +588,8 @@ class _Handle:
         # (the events) — the batcher's device/host chooser reads it
         self.cost_s = 0.0
         self.error = None     # why the window was abandoned, when fatal
+        self.consumed = 0     # sub-batches finish_sub has consumed
+        self.on_release = None  # called once when the handle releases
 
 
 class DeviceRouteEngine:
@@ -588,6 +664,9 @@ class DeviceRouteEngine:
         self._graphs: dict = {}
         self.captures = 0
         self.capture_s = 0.0
+        # the graph-class registry: class label -> captures, capture
+        # seconds, replays (the telemetry's program_costs)
+        self._graph_rows: dict[str, dict] = {}
         self._fuse_warm_task = None
         # background rebuild machinery
         self._outstanding = 0          # dispatched-but-unfinished handles
@@ -649,6 +728,13 @@ class DeviceRouteEngine:
         # a failure off the serving path is kept here and re-raised
         self.fail_on_device_error = cuda
         self.failed: Optional[BaseException] = None
+
+        # the node's HBM ledger (None: no accounting) and telemetry
+        self.ledger = getattr(node, "hbm_ledger", None)
+        self.tele = getattr(node, "pipeline_telemetry", None)
+        if self.tele is not None:
+            self.tele.rebuild_state_fn = self.rebuild_state
+            self.tele.graphs_fn = self.graph_registry
 
         # wire change notifications
         self.router.on_route_change = self.note_route_change
@@ -897,7 +983,8 @@ class DeviceRouteEngine:
             new = tuple(torch.from_numpy(a) for a in planes)
             for dst, src in zip(static, new):
                 dst.copy_(src)
-        cs.dev_app = new
+        cs.dev_app = self._hold("cover_csr", new,
+                                f"s{b.sid}a{cs.app_used}")
 
     def _versioned(self, b, tables):
         """`tables` with snapshot `b`'s current cover append version in
@@ -909,12 +996,23 @@ class DeviceRouteEngine:
         return self._with_cover(tables, cov)
 
     # ---- snapshot compile ----------------------------------------------
+    def _observe_rebuild(self, stage: str, t0: float) -> None:
+        if self.tele is not None:
+            self.tele.observe_rebuild(stage, time.perf_counter() - t0)
+
     def rebuild(self) -> None:
         """Compile router+broker state into fresh device tables and swap,
         synchronously (first build / callers without a loop). The
         background path is `maybe_background_rebuild`."""
-        self._apply_build(self._build_from_capture(
-            self._capture_state_sync()), journal=())
+        t0 = time.perf_counter()
+        capture = self._capture_state_sync()
+        self._observe_rebuild("capture", t0)
+        t0 = time.perf_counter()
+        result = self._build_from_capture(capture)
+        self._observe_rebuild("build", t0)
+        t0 = time.perf_counter()
+        self._apply_build(result, journal=())
+        self._observe_rebuild("swap", t0)
 
     def _capture_state_sync(self):
         """Point-in-time copy of the routing state (sync, may stall)."""
@@ -1068,14 +1166,27 @@ class DeviceRouteEngine:
                 tables = router_tables_from_numpy(trie, subs_tbl, dev)
             b.backend = "trie"
             b.match_width = self.match_cap
+        own = f"s{b.sid}"
         if b.cover is not None:
+            # the expansion CSR rides in the tables; its own category,
+            # held first (the tables' hold then skips its storages)
+            self._hold("cover_csr", self._cover_of(tables), own)
             with self._cuda_lock:
-                b.cover.dev_app = tuple(
+                b.cover.dev_app = self._hold("cover_csr", tuple(
                     getattr(self._cover_of(tables), k).clone()
-                    for k in CV.APPEND_FIELDS)
+                    for k in CV.APPEND_FIELDS), f"{own}a0")
+        self._hold("snapshot_tables", tables, own)
         b.sig = self._signature(b, tables)
         with self._cuda_lock:
-            return b, tables, torch.from_numpy(cur).to(dev)
+            cursors = torch.from_numpy(cur).to(dev)
+        return b, tables, self._hold("snapshot_cursors", cursors, own)
+
+    def _hold(self, category: str, tree, owner: Optional[str] = None):
+        """Register a persistent device allocation with the node's HBM
+        ledger; identity passthrough when the ledger is off."""
+        if self.ledger is not None:
+            return self.ledger.hold(category, tree, owner=owner)
+        return tree
 
     def _cover_build(self, b, filters, rows, lens, filter_cap):
         """The covering branch of the build
@@ -1306,12 +1417,18 @@ class DeviceRouteEngine:
     async def _background_rebuild(self, executor=None) -> None:
         loop = asyncio.get_running_loop()
         try:
+            t0 = time.perf_counter()
             capture = await self._capture_state_async()
+            self._observe_rebuild("capture", t0)
+            t0 = time.perf_counter()
             result = await loop.run_in_executor(
                 executor, self._build_from_capture, capture)
+            self._observe_rebuild("build", t0)
             if result is not None:
+                t0 = time.perf_counter()
                 await loop.run_in_executor(executor, self._warm_compile,
                                            result)
+                self._observe_rebuild("warm", t0)
             self._pending_swap = (result,)   # 1-tuple: result may be None
             self._try_swap()
         except Exception as e:
@@ -1399,8 +1516,7 @@ class DeviceRouteEngine:
                     for _ in range(_PINNED_SETS)]
             self._warm_stream.synchronize()
             del held
-            self.captures += 1
-            self.capture_s += time.perf_counter() - t0
+            self._note_capture(gr, time.perf_counter() - t0)
         if self._warm_stream is not None:
             self._warm_stream.synchronize()
 
@@ -1424,8 +1540,52 @@ class DeviceRouteEngine:
             finally:
                 graph.capture_end()
         gr = self._graphs[self._graph_key(b, cls, strat)] = _Graph(
-            graph, inputs, cursors, delta, self._unwrap(out), launches)
+            graph, inputs, cursors, delta, self._unwrap(out), launches,
+            self._class_label(cls))
         return gr
+
+    @staticmethod
+    def _class_label(cls) -> str:
+        """A window class (Wp, Bp, Bm, dC, P) as the telemetry labels it:
+        W8xB1024, with mB{Bm}, d{dC} and c{P} where they apply."""
+        Wp, Bp, Bm, dC, P = cls
+        return (f"W{Wp}xB{Bp}" + (f"mB{Bm}" if Bm is not None else "")
+                + (f"d{dC}" if dC is not None else "")
+                + (f"c{P}" if P is not None else ""))
+
+    def _note_capture(self, gr: _Graph, seconds: float) -> None:
+        """Account one capture: the engine's counts, the graph-class
+        registry, the graph's static buffers in the ledger
+        (``pipeline_buffers``, owner = the class label) and the
+        telemetry's capture accounting."""
+        self.captures += 1
+        self.capture_s += seconds
+        row = self._graph_rows.setdefault(
+            gr.label, {"captures": 0, "capture_s": 0.0, "replays": 0})
+        row["captures"] += 1
+        row["capture_s"] += seconds
+        self._hold("pipeline_buffers",
+                   (gr.inputs, gr.cursors, gr.delta, gr.planes), gr.label)
+        if self.tele is not None:
+            self.tele.note_capture(gr.label, seconds)
+
+    def graph_registry(self) -> dict:
+        """The graph-class registry the telemetry snapshot embeds: the
+        graph classes held now and one row per class label ever captured
+        (captures, capture seconds, replays, static-buffer bytes held
+        now). flops and bytes_accessed are null: a graph replay has no
+        compiler cost analysis (see broker/telemetry.py)."""
+        led = self.ledger
+        rows = {}
+        for label, r in sorted(self._graph_rows.items()):
+            rows[label] = {
+                "captures": r["captures"],
+                "capture_s": round(r["capture_s"], 4),
+                "replays": r["replays"],
+                "static_bytes": led.owner_bytes("pipeline_buffers", label)
+                if led is not None else None,
+                "flops": None, "bytes_accessed": None}
+        return {"graph_classes": len(self._graphs), "rows": rows}
 
     @staticmethod
     def _replay(gr, arrays, cursors, ov) -> None:
@@ -1512,7 +1672,9 @@ class DeviceRouteEngine:
         self._pending_swap = None
         self._journal = None
         self._building = False
+        t0 = time.perf_counter()
         self._apply_build(result, journal)
+        self._observe_rebuild("swap", t0)
 
     # ---- the serving path ----------------------------------------------
     def device_shared_active(self) -> bool:
@@ -1698,6 +1860,7 @@ class DeviceRouteEngine:
         every later dispatch; a failed upload raises."""
         if not self.delta_overlay or not self._overlay_stale:
             return
+        t0 = time.perf_counter()
         live = sorted(self._delta_filter.items())   # fid order = age
         entries = []
         fid_set = set()
@@ -1747,11 +1910,14 @@ class DeviceRouteEngine:
                                     for t in keep])
         else:
             dev = to_device(dt, self.device)
+        # each version is an allocation of its own: handles pin theirs
+        self._hold("delta_overlay", dev, f"v{self._overlay_clock}")
         self._overlay = _Overlay(dev, frozenset(fid_set), row_of, seg_of,
                                  hostfan, self._overlay_clock, cap,
                                  len(entries), keep)
         self._overlay_stale = False
         self.node.metrics.inc("routing.device.delta_applies")
+        self._observe_rebuild("delta_apply", t0)
 
     def _gate_delta(self, Wp: int, Bp: int,
                     gate_cold: bool) -> Optional[_Overlay]:
@@ -1912,8 +2078,11 @@ class DeviceRouteEngine:
         # counted only for engaged plans: the exported hit rate and dedup
         # ratio describe match work removed from dispatches
         m = self.node.metrics
-        m.inc("routing.device.dedup_lanes", int((lenf > 0).sum()))
+        real = int((lenf > 0).sum())
+        m.inc("routing.device.dedup_lanes", real)
         m.inc("routing.device.dedup_unique", uniq_real)
+        if self.tele is not None and real:
+            self.tele.record_dedup(real, uniq_real)
         if cache is not None:
             cache.count_lookups(n_hit, n_miss)
         return plan, info
@@ -1976,6 +2145,11 @@ class DeviceRouteEngine:
             # CSR readback class for this dispatch (None = dense)
             h.pcap = self._gate_compact(Wp, Bp, h.plan, gate_cold, h.delta)
         self._outstanding += 1
+        if self.ledger is not None:
+            # the pin sentinel: this handle pins the snapshot until it
+            # releases (with the lanes, when its plans complete)
+            self.ledger.note_window()
+            self.ledger.pin(id(h))
         self.node.metrics.inc("routing.device.windows")
         self.node.metrics.inc("routing.device.window_subs", len(lives))
         if b.cover is not None:
@@ -1987,6 +2161,12 @@ class DeviceRouteEngine:
         h.cost_s = self._stage("prepare", t0)
         self.node.metrics.inc("routing.device.messages",
                               sum(map(len, lives)))
+        if self.tele is not None:
+            # how much of the padded (Wp, Bp) class each dispatch fills
+            for msgs in lives:
+                self.tele.record_occupancy(f"b{Bp}", len(msgs) / Bp)
+            if Wp > 1:
+                self.tele.record_occupancy(f"w{Wp}", len(lives) / Wp)
         return h
 
     def _stage(self, name: str, t0: float) -> float:
@@ -2126,6 +2306,7 @@ class DeviceRouteEngine:
                 self._replay(gr, h.arrays, cursors, ov)
                 res, cp, dp, dcp = gr.planes
                 h.graphed = True
+                self._graph_rows[gr.label]["replays"] += 1
             else:
                 if h.built.backend == "shapes" and self._stream is not None:
                     # a class the traffic asked for without its graph:
@@ -2137,11 +2318,15 @@ class DeviceRouteEngine:
                 res, cp, dp, dcp = self._unwrap(self._program(
                     h.built.backend, h.tables, ov.dev if ov is not None
                     else None, cursors, ins, strat, h.cls))
+                # the window's own output buffers, alive while in flight
+                self._hold("pipeline_buffers", (res, cp, dp, dcp), "eager")
             if p is not None:
                 self.node.metrics.inc("routing.device.cached_windows")
             if self._tables is tables:   # no swap raced this dispatch
                 # a copy: a graph's outputs are rewritten by its next replay
-                self._cursors = res.new_cursors[-1].clone()
+                self._cursors = self._hold(
+                    "snapshot_cursors", res.new_cursors[-1].clone(),
+                    f"s{h.built.sid}")
             self._note_warm(h.built, h.cls)
             h.res, h.cres, h.dres, h.dcres = res, cp, dp, dcp
             if self._stream is not None:
@@ -2155,6 +2340,10 @@ class DeviceRouteEngine:
                 h.event.record(self._stream)
             h.launch_s = self._stage("dispatch", t0)
             h.cost_s += h.launch_s
+            if self.tele is not None:
+                self.tele.observe_stage(
+                    "dispatch" if p is None else "dispatch_cached",
+                    h.launch_s)
 
     def _wants_counts(self, h) -> bool:
         """A dense readback carries match_counts only when the cache has
@@ -2249,6 +2438,8 @@ class DeviceRouteEngine:
             else:
                 planes = self._read(self._plane_list(
                     h.res, h.cres, h.dres, h.dcres, counts))
+            # bytes this window read back (the readback section)
+            nb = sum(a.nbytes for a in planes)
             it = iter(planes)
             dense = None
             if h.dres is not None:
@@ -2261,6 +2452,7 @@ class DeviceRouteEngine:
                         dp = dense[1]
                         fids, rows, opts = self._read(
                             [dp.fids, dp.rows, dp.opts])
+                        nb += fids.nbytes + rows.nbytes + opts.nbytes
                         h.np_delta = _DeltaRes(fids, dcnt, dmov, rows, opts,
                                                dovf)
                     else:
@@ -2282,11 +2474,13 @@ class DeviceRouteEngine:
                     if info is not None:
                         self._cache_from_csr(h, info, off, c3, pay,
                                              overflow)
+                    self._note_readback("compact", nb, t0)
                     return
                 metrics.inc("routing.device.compact_overflow")
                 res = (dense or self._dense_again(h))[0]
                 planes = self._read(self._plane_list(res, None, None, None,
                                                      counts))
+                nb += sum(a.nbytes for a in planes)
                 it = iter(planes)
             dense8 = tuple(next(it) for _ in range(8))
             h.np_res = dense8
@@ -2304,6 +2498,7 @@ class DeviceRouteEngine:
                     [(k, (mflat[i].copy(), int(cflat[i]), bool(oflat[i]))
                       + self._delta_cache_fields(h, i, Bp))
                      for k, i in info.inserts], version=info.version)
+            self._note_readback("dense", nb, t0)
         finally:
             if h.event is not None:
                 h.event.synchronize()
@@ -2319,6 +2514,15 @@ class DeviceRouteEngine:
                             int((time.perf_counter() - t0) * 1e6))
             else:       # on the CPU the readback is the host's work
                 h.cost_s += self._stage("materialize", t0)
+
+    def _note_readback(self, path: str, nbytes: int, t0: float) -> None:
+        """One window read back on `path` (compact or dense): the bytes
+        and windows counters and the materialize stage span."""
+        m = self.node.metrics
+        m.inc(f"pipeline.readback.bytes.{path}", nbytes)
+        m.inc(f"pipeline.readback.windows.{path}")
+        if self.tele is not None:
+            self.tele.observe_stage("materialize", time.perf_counter() - t0)
 
     def _cache_from_csr(self, h, info, off, c3, pay, overflow) -> None:
         """Cache population from the CSR view: a row is the
@@ -2337,15 +2541,29 @@ class DeviceRouteEngine:
                           + self._delta_cache_fields(h, lane, Bp)))
         self._match_cache.put_many(info.sid, items, version=info.version)
 
-    def finish_sub(self, h, k: int) -> list[int]:
+    def finish_sub(self, h, k: int, defer: bool = True) -> list[int]:
         """Stage 4 (event loop): consume sub-batch k of the window into
         deliveries and release one handle reference.
 
         The clean common case — no delta/dirty filters, no shared
         involvement for the message — is consumed by ONE vectorized
         pre-pass over the whole sub-batch (_consume_batch_fast); the rest
-        walk _consume_one."""
+        walk _consume_one.
+
+        With the node's delivery lanes active (``defer=True``, a running
+        loop), this stage only BUILDS the delivery plan: the clean
+        messages' rows go to session-affine lane slices, the other
+        messages are consumed in batch order behind the plan's barrier
+        (one step for the sub-batch over its ``_SlowRows``), and the
+        returned LaneCounts is back-filled when the plan completes. The
+        handle reference is released then, so the snapshot swap waits
+        for the lane work. The plan owns copies of every row it reads:
+        the readback's pinned host buffers are let go once the window's
+        last sub-batch is consumed, as without the lanes. ``defer=False``
+        (the sync callers) keeps the inline consume: counts are final on
+        return."""
         t0 = time.perf_counter()
+        deferred = False
         try:
             nr = h.np_res
             msgs, too_long = h.subs[k]
@@ -2366,69 +2584,103 @@ class DeviceRouteEngine:
                 overflow_k = overflow_k | nd.overflow[k]
                 d_counts_k = nd.counts[k]
             pending = self._delta_pending(h.delta)
+            plan = pool = None
+            if defer:
+                pool = getattr(self.node, "deliver_lanes", None)
+                if pool is not None and pool.active():
+                    plan = pool.new_plan(msgs)   # None without a loop
+                    if plan is not None:
+                        plan.routed_device = True
             if h.dev_shared and b.n_slots:
-                self._writeback_cursors(occur_k, b)
-            metrics = self.node.metrics
-            broker = self.broker
+                if plan is None:
+                    self._writeback_cursors(occur_k, b)
+                else:
+                    # the host groups' cursors advance in plan order, as
+                    # the first step behind the barrier: this sub-batch's
+                    # host picks (fallbacks, dirty slots) must read them
+                    # as the inline loop does, after the earlier
+                    # sub-batches' picks and before the later ones'
+                    plan.add_slow(None, functools.partial(
+                        self._writeback_cursors, occur_k.copy(), b))
             if csr:
                 fast = self._consume_batch_fast_csr(
                     msgs, nr.off[k], nr.c3[k], nr.pay[k], too_long,
-                    overflow_k, h.dev_shared, b, d_counts_k, pending)
+                    overflow_k, h.dev_shared, b, d_counts_k, pending,
+                    plan=plan)
             else:
                 fast = self._consume_batch_fast(
                     msgs, matches[k], rows[k], opts[k], shared_sids[k],
                     too_long, overflow_k, h.dev_shared, b, d_counts_k,
-                    pending)
+                    pending, plan=plan)
             counts: list[int] = []
-            pay = None
-            for i, msg in enumerate(msgs):
-                if fast[i] is not None:
-                    counts.append(fast[i])
-                    continue
-                if too_long[i] or overflow_k[i]:
-                    metrics.inc("routing.device.host_fallback")
-                    counts.append(broker._route(
-                        msg, self.router.match(msg.topic)))
-                    continue
-                if csr:
-                    # the message's valid entries of every plane, in order
-                    # (the layout ops/compact.csr_slices decodes), sliced
-                    # from one Python list of the row: the walk below then
-                    # reads Python ints, not numpy scalars
-                    if pay is None:
-                        off_l = nr.off[k].tolist()
-                        c3_l = nr.c3[k].tolist()
-                        pay = nr.pay[k][:off_l[-1]].tolist()
-                    o = off_l[i]
-                    cm, cf, cs = c3_l[i]
-                    a, bb = o + cm, o + cm + cf
-                    c, d = bb + cf, bb + cf + cs
-                    row6 = (pay[o:a], pay[a:bb], pay[bb:c], pay[c:d],
-                            pay[d:d + cs], pay[d + cs:d + 2 * cs])
+            slow_idx: list[int] = []
+            ctx = None
+            for i, f_i in enumerate(fast):
+                if f_i is DEFERRED:
+                    counts.append(0)      # back-filled at plan finalize
+                elif f_i is not None:
+                    counts.append(f_i)
+                elif plan is not None:
+                    # behind the plan's barrier: it runs with every prior
+                    # fast delivery done and nothing overtaking, the
+                    # interleaving of the inline loop
+                    counts.append(0)
+                    slow_idx.append(i)
                 else:
-                    row6 = tuple(x[k][i].tolist() for x in (
-                        matches, rows, opts, shared_sids, shared_rows,
-                        shared_opts))
-                drow = None
-                if nd is not None:
-                    if isinstance(nd, _DeltaCsr):
-                        drow = csr_slices(nd.off[k], nd.c3[k], nd.pay[k],
-                                          i)[:3]
-                    else:
-                        drow = (nd.fids[k][i], nd.rows[k][i],
-                                nd.opts[k][i])
-                counts.append(self._consume_one(
-                    msg, *row6, h.dev_shared, b, drow=drow, ov=h.delta,
-                    pending=pending))
-            metrics.inc("routing.device.batches")
+                    if ctx is None:
+                        ctx = _SlowRows(h, k, overflow_k, pending, False)
+                    counts.append(self._consume_slow(ctx, msgs, i))
+            if slow_idx:
+                plan.add_slow_many(slow_idx, functools.partial(
+                    self._consume_slow,
+                    _SlowRows(h, k, overflow_k, pending, True), msgs))
+            self.node.metrics.inc("routing.device.batches")
+            if plan is not None:
+                out = LaneCounts(counts)
+                out.plan = plan
+                plan.target = out
+                plan.add_done_callback(lambda: self._plan_done(h, plan))
+                pool.submit(plan)
+                deferred = True
+                return out
             return counts
         finally:
-            h.cost_s += self._stage("consume", t0)
-            self._release_one(h)
+            dt = self._stage("consume", t0)
+            h.cost_s += dt
+            if self.tele is not None:
+                self.tele.observe_stage("deliver", dt)
+            h.consumed += 1
+            if h.consumed >= len(h.subs):
+                # every row consume reads is copied out by now: the
+                # pinned readback blocks go back to the host allocator's
+                # cache for the next windows
+                h.host = h.np_res = h.np_delta = None
+                h.res = h.cres = h.dres = h.dcres = None
+            if not deferred:
+                self._release_one(h)
+
+    def _consume_slow(self, ctx: _SlowRows, msgs: list, i: int) -> int:
+        """Consume message i of a sub-batch on the slow path: the full host
+        route where the window flagged it too deep or overflowing, as in
+        the reference; else its rows through _consume_one."""
+        msg = msgs[i]
+        if ctx.too_long[i] or ctx.overflow[i]:
+            self.node.metrics.inc("routing.device.host_fallback")
+            return self.broker._route(msg, self.router.match(msg.topic))
+        row6, drow = ctx.rows(i)
+        return self._consume_one(msg, *row6, ctx.dev_shared, ctx.b,
+                                 drow=drow, ov=ctx.ov, pending=ctx.pending)
+
+    def _plan_done(self, h, plan) -> None:
+        """A delivery plan completed: its lane seconds join the window's
+        cost (the chooser's sample), and its handle reference goes."""
+        h.cost_s += plan.lane_s
+        self._release_one(h)
 
     def _consume_batch_fast(self, msgs, m_k, r_k, o_k, ss_k, too_long,
                             overflow_k, dev_shared: bool, b,
-                            d_counts_k=None, pending: bool = False):
+                            d_counts_k=None, pending: bool = False,
+                            plan=None):
         """Vectorized consume for provably-clean messages. Returns a list
         with per-message delivery counts, or None where the slow path
         must run. Clean requires, globally: no delta filters beyond the
@@ -2448,11 +2700,12 @@ class DeviceRouteEngine:
 
         return self._fast_deliver(msgs, mi, fids, too_long, overflow_k,
                                   shared_any, fetch, dev_shared, b,
-                                  d_counts_k)
+                                  d_counts_k, plan=plan)
 
     def _consume_batch_fast_csr(self, msgs, off_k, c3_k, pay_k, too_long,
                                 overflow_k, dev_shared: bool, b,
-                                d_counts_k=None, pending: bool = False):
+                                d_counts_k=None, pending: bool = False,
+                                plan=None):
         """_consume_batch_fast over one window row's CSR planes: same
         clean-message proof and the same vectorized delivery walk, with
         the 2-D plane gathers replaced by flat payload gathers at each
@@ -2482,7 +2735,7 @@ class DeviceRouteEngine:
 
         return self._fast_deliver(msgs, mi, fids, too_long, overflow_k,
                                   shared_any, fetch, dev_shared, b,
-                                  d_counts_k)
+                                  d_counts_k, plan=plan)
 
     @staticmethod
     def _attribute_rows(mi_f, fids_f, seg, total: int):
@@ -2504,12 +2757,17 @@ class DeviceRouteEngine:
 
     def _fast_deliver(self, msgs, mi, fids, too_long, overflow_k,
                       shared_any, fetch, dev_shared: bool, b,
-                      d_counts_k=None):
+                      d_counts_k=None, plan=None):
         """Shared tail of the vectorized fast consume (dense and CSR):
         per-message clean proof, row attribution, and delivery. `mi`/
         `fids` list every valid match (message index, filter id) in
         match order; `fetch(row_msg, col)` gathers the (sid, packed
-        opts) of fan-out entry `col` within message `row_msg`."""
+        opts) of fan-out entry `col` within message `row_msg`.
+
+        With `plan` (the delivery lanes) this stops at the gather: the
+        (row_msg, sid, opt, fid) arrays — copies, not views of the
+        readback — go to the plan, the lanes deliver them, and these
+        messages come back DEFERRED. `plan=None` is the inline loop."""
         broker = self.broker
         B = len(msgs)
         hostside = self._hostside_mask(b)
@@ -2531,6 +2789,19 @@ class DeviceRouteEngine:
         mi_f, fids_f = mi[keep], fids[keep]
         seg = b.seg_np[fids_f]
         total = int(seg.sum())
+        if plan is not None:
+            fast_idx = np.flatnonzero(fast_ok)
+            plan.register_fast(fast_idx)
+            if total:
+                row_msg, col, row_fid = self._attribute_rows(
+                    mi_f, fids_f, seg, total)
+                sid, opt = fetch(row_msg, col)
+                valid = sid >= 0
+                plan.add_rows(row_msg[valid], sid[valid], opt[valid],
+                              row_fid[valid], b.fid_filter)
+            for i in fast_idx.tolist():
+                out[i] = DEFERRED
+            return out
         counts = np.zeros(B, np.int64)
         delivered = 0
         if total:
@@ -2564,8 +2835,10 @@ class DeviceRouteEngine:
         return out
 
     def finish(self, h) -> list[int]:
-        """Stage 4 for single-batch callers (route_batch): window of 1."""
-        return self.finish_sub(h, 0)
+        """Stage 4 for single-batch callers (route_batch): window of 1.
+        Sync callers need final counts on return, so the consume stays
+        inline (the lanes serve the pipelined path via finish_sub)."""
+        return self.finish_sub(h, 0, defer=False)
 
     def _release_one(self, h) -> None:
         """Drop one sub-batch reference; the handle releases at zero."""
@@ -2573,10 +2846,20 @@ class DeviceRouteEngine:
             return
         h.refs -= 1
         if h.refs <= 0:
-            h.built = None
-            self._outstanding -= 1
-            if self._building:
-                self._try_swap()
+            self._release(h)
+
+    def _release(self, h) -> None:
+        """The handle is done: unpin its snapshot and run its release
+        callback (the batcher's cost sample, when the lanes held it)."""
+        h.built = None
+        self._outstanding -= 1
+        if self.ledger is not None:
+            self.ledger.unpin(id(h))
+        cb, h.on_release = h.on_release, None
+        if cb is not None:
+            cb()
+        if self._building:
+            self._try_swap()
 
     def abandon(self, h, error: Optional[BaseException] = None) -> None:
         """Release a handle ENTIRELY (error path: on the CPU the caller
@@ -2586,10 +2869,7 @@ class DeviceRouteEngine:
             h.error = error
         if h is not None and h.built is not None:
             h.refs = 0
-            h.built = None
-            self._outstanding -= 1
-            if self._building:
-                self._try_swap()
+            self._release(h)
 
     def route_batch(self, msgs: list[Message]) -> Optional[list[int]]:
         """Route+deliver a micro-batch through the device window,
@@ -2774,6 +3054,24 @@ class DeviceRouteEngine:
             metrics.inc("messages.dropped.no_subscribers")
             broker.hooks.run("message.dropped", (msg, "no_subscribers"))
         return n
+
+    def rebuild_state(self) -> dict:
+        """Live rebuild/overlay gauges for the telemetry snapshot's
+        `rebuild` section: the point-in-time values a counter can't
+        carry."""
+        ov = self._overlay
+        return {
+            "journal_depth": len(self._journal or ()),
+            "building": self._building,
+            "staleness": self.staleness(),
+            "tombstones": len(self._built_deleted),
+            "delta_overlay": self.delta_overlay,
+            "overlay_rows": ov.n if ov is not None else 0,
+            "overlay_class": ov.cap if ov is not None else 0,
+            "overlay_version": ov.version if ov is not None else None,
+            "overlay_uncovered": self._overlay_uncovered,
+            "delta_filters": len(self._delta_filter),
+        }
 
     def stats(self) -> dict:
         b = self._built

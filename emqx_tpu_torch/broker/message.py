@@ -2,8 +2,9 @@
 
 Parity: reference `#message` record (apps/emqx/include/emqx.hrl:55-73),
 `emqx_message.erl` constructors/flag ops, and `emqx_guid.erl` (timestamp +
-node + sequence GUIDs). The port's copy of ``emqx_tpu/broker/message.py``
-without the cluster wire form, the REST map and the ingress clock stamp.
+node + sequence GUIDs, base62-renderable). The port's copy of
+``emqx_tpu/broker/message.py`` without the cluster wire form, the REST
+map and the ingress clock stamp.
 """
 
 from __future__ import annotations
@@ -16,6 +17,19 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 from emqx_tpu_torch.mqtt import constants as C
+
+_BASE62 = "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+
+
+def base62_encode(n: int) -> str:
+    """Parity: emqx_base62:encode/1."""
+    if n == 0:
+        return "0"
+    out = []
+    while n:
+        n, r = divmod(n, 62)
+        out.append(_BASE62[r])
+    return "".join(reversed(out))
 
 
 class GuidGen:

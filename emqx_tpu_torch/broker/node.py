@@ -1,12 +1,14 @@
 """Broker node: the composition root of the port's serving path.
 
-A slim counterpart of ``emqx_tpu/broker/node.py`` (:77-88, :237-276,
-:449-460): hooks, metrics, stats, router, broker, connection manager, the
-device route engine and the publish batcher, wired as the reference
+A slim counterpart of ``emqx_tpu/broker/node.py`` (:43-48, :77-88,
+:124-145, :186-205, :237-276, :449-460): hooks, metrics, stats, the
+pipeline telemetry (always), the HBM ledger and the session-affine
+delivery lanes (both on by default), router, broker, connection manager,
+the device route engine and the publish batcher, wired as the reference
 wires them for a single-chip node. The layers the reference also builds
-here (telemetry, flight recorder, supervision, HBM ledger, latency
-observatory, overload governor, delivery lanes, the mesh server, apps,
-gateways and the management API) are not part of the port.
+here (flight recorder, supervision, latency observatory, overload
+governor, the mesh server, apps, gateways and the management API) are
+not part of the port.
 
 Config keys read under ``broker.``, with the reference's names and
 defaults: ``batch_window_us`` (200), ``max_publish_batch`` (1024),
@@ -16,8 +18,12 @@ defaults: ``batch_window_us`` (200), ``max_publish_batch`` (1024),
 ``dispatch_depth`` (2), ``rebuild_threshold`` (256), and the routing
 layers ``topic_dedup`` (on), ``match_cache_size`` (8192),
 ``delta_overlay`` (on) and ``subscription_covering`` (on), passed to the
-engine as the reference's ``Node`` passes them (:221-257). A key that asks for a layer the port does not
-have (``_UNSUPPORTED``, or ``compact_readback`` off) raises
+engine as the reference's ``Node`` passes them (:221-257);
+``slow_batch_threshold_ms`` (250; 0 or null: no slow-batch watch),
+``hbm_ledger`` (on) with ``pin_warn_windows`` (64), and
+``deliver_lanes`` (``min(4, cpus)``; 0: inline delivery) with
+``deliver_lane_depth`` (8). A key that asks for a layer the port does
+not have (``_UNSUPPORTED``, or ``compact_readback`` off) raises
 ``ValueError`` rather than serving without it.
 """
 
@@ -30,19 +36,23 @@ from emqx_tpu_torch.broker.batcher import (PublishBatcher,
                                            resolve_dispatch_depth)
 from emqx_tpu_torch.broker.cm import ConnectionManager
 from emqx_tpu_torch.broker.config import Config
+from emqx_tpu_torch.broker.deliver import (DeliveryLanePool,
+                                           resolve_deliver_lanes)
 from emqx_tpu_torch.broker.device_engine import (DeviceRouteEngine,
                                                  resolve_rebuild_threshold)
+from emqx_tpu_torch.broker.hbm_ledger import HbmLedger, resolve_hbm_ledger
 from emqx_tpu_torch.broker.hooks import Hooks
 from emqx_tpu_torch.broker.message import Message
 from emqx_tpu_torch.broker.metrics import Metrics, Stats
 from emqx_tpu_torch.broker.pubsub import Broker
 from emqx_tpu_torch.broker.router import Router
+from emqx_tpu_torch.broker.telemetry import PipelineTelemetry
 from emqx_tpu_torch.device import resolve_device
 
 
 # reference layers the port does not have: a truthy value asks for one
-_UNSUPPORTED = ("supervise", "hbm_ledger", "trace", "latency_observatory",
-                "overload", "deliver_lanes", "columnar_ingress")
+_UNSUPPORTED = ("supervise", "trace", "latency_observatory", "overload",
+                "columnar_ingress")
 
 
 def check_layers(perf: dict) -> None:
@@ -72,6 +82,20 @@ class Node:
         self.stats = Stats()
         perf = self.config.get("broker") or {}
         check_layers(perf)
+        slow_ms = perf.get("slow_batch_threshold_ms", 250)
+        self.pipeline_telemetry = PipelineTelemetry(
+            self.metrics, hooks=self.hooks,
+            slow_batch_s=(slow_ms / 1000.0) if slow_ms else None)
+        # per-category accounting of the engine's persistent device
+        # allocations and the stale-pin sentinel
+        self.hbm_ledger = None
+        if resolve_hbm_ledger(perf.get("hbm_ledger")):
+            self.hbm_ledger = HbmLedger(
+                self.metrics, device=self.device,
+                pin_warn_windows=perf.get("pin_warn_windows"),
+                hooks=self.hooks)
+            self.pipeline_telemetry.ledger = self.hbm_ledger
+            self.stats.register_stats_fun(self.hbm_ledger.stats_fun)
         rebuild_threshold = resolve_rebuild_threshold(
             perf.get("rebuild_threshold"))
         dispatch_depth = resolve_dispatch_depth(perf.get("dispatch_depth"))
@@ -85,6 +109,18 @@ class Node:
                                      "round_robin"),
             shared_dispatch_ack=perf.get("shared_dispatch_ack_enabled",
                                          False))
+        # the session-affine egress stage the engine's consume hands
+        # delivery plans to; 0 lanes is the inline delivery loop
+        self.deliver_lanes = None
+        n_lanes = resolve_deliver_lanes(perf.get("deliver_lanes"))
+        if n_lanes > 0:
+            self.deliver_lanes = DeliveryLanePool(
+                self.broker, self.metrics, hooks=self.hooks,
+                telemetry=self.pipeline_telemetry, n_lanes=n_lanes,
+                depth=perf.get("deliver_lane_depth", 8))
+            self.pipeline_telemetry.deliver_state_fn = \
+                self.deliver_lanes.state
+            self.stats.register_stats_fun(self.deliver_lanes.stats_fun)
         self.device_engine = DeviceRouteEngine(
             self, device=self.device,
             rebuild_threshold=rebuild_threshold,

@@ -32,9 +32,23 @@ SHARED_STRATEGIES = ("random", "round_robin", "sticky", "hash_clientid",
 
 class Subscriber(Protocol):
     def deliver(self, topic_filter: str, msg: Message) -> bool:
-        """Deliver one routed message (a per-subscriber Message copy with
-        `subopts` planted in its headers); False = nack (shared
-        redispatch)."""
+        """Deliver one routed message; False = nack (shared redispatch).
+
+        `msg` is either a full Message copy (the host/inline paths —
+        `_deliver` below) or a `broker.deliver.DeliveryView` (the
+        delivery lanes' fast path): a copy-on-write view sharing the
+        routed message's payload/headers with `subopts` overlaid. Both
+        quack the same; treat the delivered message's `subopts` as
+        frozen (views share one 64-entry unpacked-subopts table).
+
+        Subscribers MAY also implement
+        `deliver_batch(items: list[tuple[str, Message]]) -> int`
+        (all-or-none accept; returns len(items) or 0): the delivery
+        lanes coalesce a same-session run of messages into one call so
+        the session accept + socket drain amortize across the run, and
+        count `messages.delivered` and run the `message.delivered` hook
+        per lane slice. Without it, the lanes call deliver() per
+        message."""
 
 
 @dataclass

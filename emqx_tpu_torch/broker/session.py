@@ -117,7 +117,9 @@ class Session:
                 ) -> list[tuple[Optional[int], Message]]:
         """Accept routed messages; returns [(packet_id|None, msg)] to send
         now. QoS0 → (None, msg); QoS1/2 → allocated id + inflight; window
-        full → mqueue."""
+        full → mqueue. A routed message may be a Message copy or a
+        ``broker.deliver.DeliveryView`` (the delivery lanes): _enrich
+        only reads it and keeps a real ``copy()``."""
         out = []
         for msg, subopts in msgs:
             m = self._enrich(msg, subopts)
@@ -139,7 +141,9 @@ class Session:
     def _enrich(self, msg: Message, subopts: dict) -> Optional[Message]:
         """Apply subopts to the delivered copy (emqx_session:enrich_*):
         QoS cap or upgrade, nl (no-local), rap (retain-as-published),
-        subscription identifier."""
+        subscription identifier. `msg` (a Message or a DeliveryView) is
+        only read; what is stored and sent is its ``copy()``, a real
+        Message."""
         if subopts.get("nl") and msg.from_ == self.clientid:
             return None
         m = msg.copy()

@@ -41,6 +41,7 @@ MODULES = [
     "emqx_tpu_torch.broker.device_engine", "emqx_tpu_torch.broker.node",
     "emqx_tpu_torch.client", "emqx_tpu_torch.ops.delta",
     "emqx_tpu_torch.broker.match_cache", "emqx_tpu_torch.ops.cover",
+    "emqx_tpu_torch.broker.telemetry", "emqx_tpu_torch.broker.hbm_ledger",
     "chip_smoke",
 ]
 

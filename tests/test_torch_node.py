@@ -88,19 +88,27 @@ def test_live_tcp_twin(jax_flood, depth):
 
 def test_chip_smoke_e2e_on_cpu():
     """chip_smoke.py's phase 8 rehearsed on the CPU at a reduced size:
-    the TCP population, the bench warm-up, a flood at dispatch depth 2
-    and 1 on the same node, and the engine window held against the plain
-    path. On the CPU the host path wins the adaptive chooser, so the
-    rehearsal pins it to the device to drive the device path; the kernel
-    launch counts stay 0 here."""
+    the TCP population, the bench warm-up, floods at dispatch depth 2 and
+    1 with the delivery lanes on and at depth 2 with them off, on the
+    same node, and the engine window held against the plain path. On the
+    CPU the host path wins the adaptive chooser, so the rehearsal pins it
+    to the device to drive the device path; the kernel launch counts stay
+    0 here. The lanes floods hand their deliveries to the lanes, the
+    inline one does not, and the ledger accounts the engine's tables."""
     r = cs.e2e_drive(torch.device("cpu"), n_filters=1000, n_sub=4,
                      n_pub=2, total=400, window=(2, 64), pin_device=True)
     assert r["backend"] == "shapes" and r["window_err"] == 0
-    assert set(r["floods"]) == {1, 2}
+    assert set(r["floods"]) == {"d2", "d1", "d2-inline"}
     for f in r["floods"].values():
         assert f["delivered"] == f["sent"] == 400
         assert f["batches"] >= 1
         assert f["launches"]["shape_match"] == 0
+        assert (f["lane_rows"] > 0) == f["lanes_on"]
+        assert (f["lane_items"] > 0) == f["lanes_on"]
+        stages = f["telemetry"]["stages"]
+        assert stages["deliver"]["count"] >= f["batches"]
+    assert r["ledger"]["by_category"]["snapshot_tables"] > 0
+    assert r["ledger"]["accounted_fraction"] is None     # no card here
 
 
 def _flaky_drive(depth: int, fatal: bool):
@@ -303,12 +311,25 @@ def test_layer_defaults_are_the_references():
 def test_unsupported_layer_raises(key, value):
     """A config that asks for a layer the port lacks is refused, not
     served without it; the same key set off is accepted. Subscription
-    covering, ported since, is accepted either way and reaches the
-    engine."""
+    covering, the HBM ledger and the delivery lanes, ported since, are
+    accepted either way and reach the node."""
     if key == "subscription_covering":
         for v in (value, not value):
             eng = TNode({"broker": {key: v}}, device="cpu").device_engine
             assert eng.subscription_covering is v
+        return
+    if key == "hbm_ledger":
+        on = TNode({"broker": {key: value}}, device="cpu")
+        assert on.hbm_ledger is not None \
+            and on.device_engine.ledger is on.hbm_ledger
+        assert TNode({"broker": {key: not value}},
+                     device="cpu").hbm_ledger is None
+        return
+    if key == "deliver_lanes":
+        assert TNode({"broker": {key: value}},
+                     device="cpu").deliver_lanes.n_lanes == value
+        assert TNode({"broker": {key: 0}}, device="cpu").deliver_lanes \
+            is None
         return
     with pytest.raises(ValueError, match=key):
         TNode({"broker": {key: value}}, device="cpu")
