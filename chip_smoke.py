@@ -34,7 +34,7 @@ Phases:
    kernel at the same grid (the launch floor), torch.cumsum and the
    wrapper call;
 5. the kernels JSON line, the card line, and the result line last
-   (after phases 6 to 10);
+   (after phases 6 to 11);
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
    every hop count at the mesh phase's [E, 3] block and at a ragged
    [1001, 3] block (aligned and unaligned), and across two cards with
@@ -126,7 +126,24 @@ Phases:
    host path must deliver identically on a route_batch of 1,024; one
    covered SUBSCRIBE must land on A as an append (no overlay row), and
    the next window (a graph replay where A is on the shape tables) must
-   deliver it as B does.
+   deliver it as B does;
+11. columnar PUBLISH ingress, as tools/ingress_bench.py:52-215 drives it:
+   64 and 256 connections, each writing 400 pre-serialized QoS 0
+   PUBLISHes of 64 bytes over 16 topics at once, one subscriber holding 1
+   of them, each (connections, columnar on / off) in a process of its own
+   (``--ingress``) after a warm pass, the chooser held on the device:
+   msgs/s, the stage decomposition, the ``ingress`` section, the device
+   share and kernel 2's launches by shape. Each run must deliver the
+   known count (25 a publisher) in publisher order with at least 0.9 on
+   the device, and hold one window of its flood's topics against the
+   plain path; the columnar run must take the burst path (bursts > 0) on
+   the host native library (not its Python mirrors), and the per-packet
+   run must have no ``ingress`` section.
+
+Phase 8's node runs with columnar ingress on (the default); each flood
+prints its ingress counters (bursts, rows, per-packet frames), the share
+of its PUBLISHes that came in bursts, the rows per burst and the prepare
+stage's us per message.
 """
 
 from __future__ import annotations
@@ -1188,14 +1205,16 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
         "routing.device.compact_overflow",
         "routing.device.messages", "routing.host.route_us",
         "routing.host.messages", "pipeline.deliver.rows",
-        "pipeline.deliver.plans", *faults, *LAYER_COUNTERS,
+        "pipeline.deliver.plans", *INGRESS_COUNTERS, *faults,
+        *LAYER_COUNTERS,
         *(f"routing.device.{s}_us" for s in stages))}
     pb = node.publish_batcher
     pb.route_lat.clear()
     # (the JAX reference's batcher, driven by the CPU tests, keeps no
     # samples and its engine no `failed`)
     samples = getattr(pb, "cost_samples", {})
-    for q in samples.values():
+    wins = getattr(pb, "window_costs", [])
+    for q in (*samples.values(), wins):
         q.clear()
     drainers = [asyncio.get_running_loop().create_task(drain(c, cl))
                 for c, cl in enumerate(subs)]
@@ -1266,6 +1285,7 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
             "compact_overflow": delta["routing.device.compact_overflow"],
             "lane_rows": delta["pipeline.deliver.rows"],
             "lane_plans": delta["pipeline.deliver.plans"],
+            "ingress": ingress_numbers(delta),
             "layers": layer_numbers(delta),
             # host time per message of each stage of the device path (the
             # card's time per message under "card"), and of the host path
@@ -1281,12 +1301,40 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
             "dev_msg_us": (getattr(pb, "_dev_msg_s", 0) or 0) * 1e6,
             "host_msg_us": (pb._host_msg_s or 0) * 1e6,
             "samples_us": {k: _spread(q) for k, q in samples.items()},
+            # the device windows' own cost a message, by window size (the
+            # chooser pools the small ones: batcher._device_sample)
+            "small_window": pb.max_batch // 4,
+            "window_us": {
+                size: _spread([c / n for n, c in wins
+                               if (n < pb.max_batch // 4) == (size == "small")])
+                for size in ("small", "full")},
             "dispatch_ms": {
                 "n": len(_DISPATCHES),
                 "sum": sum(d[0] for d in _DISPATCHES) * 1e3,
                 "slowest": [[round(x * 1e3, 3) for x in d]
                             for d in sorted(_DISPATCHES, reverse=True)[:3]]},
             "got": got}
+
+
+# the columnar ingress counters a flood reads around its run
+INGRESS_COUNTERS = (
+    "pipeline.ingress.bursts", "pipeline.ingress.rows",
+    "pipeline.ingress.fallback_frames", "pipeline.ingress.bytes",
+    "packets.publish.received")
+
+
+def ingress_numbers(delta: dict) -> dict:
+    """The columnar ingress over one run: bursts, their PUBLISH rows, the
+    frames that took the per-packet path, the share of the PUBLISHes that
+    came in bursts and the rows per burst."""
+    out = {k.rsplit(".", 1)[1]: delta[k] for k in INGRESS_COUNTERS}
+    pubs = delta["packets.publish.received"]
+    out["burst_share"] = delta["pipeline.ingress.rows"] / pubs \
+        if pubs else None
+    out["rows_per_burst"] = (delta["pipeline.ingress.rows"]
+                             / delta["pipeline.ingress.bursts"]) \
+        if delta["pipeline.ingress.bursts"] else None
+    return out
 
 
 # the routing layers' counters each drive reads around its run
@@ -1467,21 +1515,49 @@ def hold_against_plain(eng, h, what: str) -> int:
                           f"{what} cursors"))
 
 
+def hold_window(eng, lives: list, what: str, want_plan: bool) -> int:
+    """One engine window of `lives` (prepare_window → dispatch →
+    materialize) held against the plain path (``hold_against_plain``).
+    The window must take the shape-hash route window with a CSR readback
+    (and the dedup plan when `want_plan`); on the card it must be a CUDA
+    graph replay, its class captured first if the traffic has not warmed
+    it. The window is abandoned afterwards (nothing is delivered).
+    Returns max |diff| (0)."""
+    import torch
+    dev = eng.device
+    h = eng.prepare_window(lives, gate_cold=False)
+    if h is None or h.built.backend != "shapes" or h.pcap is None \
+            or (want_plan and h.plan is None):
+        raise AssertionError(f"{what}: the compared window did not take "
+                             f"the shape-hash route window with a CSR "
+                             f"readback" + (" and the dedup plan"
+                                            if want_plan else ""))
+    if dev.type == "cuda":
+        Wp, Bp = h.enc[0].shape[:2]
+        cls = (Wp, Bp, h.plan.Bm if h.plan is not None else None, None,
+               h.pcap)
+        if eng._graph_key(h.built, cls, eng._strategy()) not in eng._graphs:
+            with torch.cuda.stream(eng._warm_stream):
+                eng._warm_dispatch(h.built, eng._tables, eng._cursors, cls)
+    eng.dispatch(h)
+    eng.materialize(h)
+    if dev.type == "cuda" and not h.graphed:
+        raise AssertionError(f"{what}: the compared window was not a graph "
+                             f"replay")
+    err = hold_against_plain(eng, h, what)
+    eng.abandon(h)
+    return err
+
+
 def e2e_window_check(node, ids: int, nums: int, seed: int, batches: int,
                      batch: int) -> int:
-    """Engine windows (prepare_window → dispatch → materialize) of flood
-    topics held against the plain path (``hold_against_plain``): first a
-    window of uniform topics (at phase 8's size the plain route window:
-    too diverse to deduplicate), then one drawn from 512 of them (the
-    dedup plan engages and the cached window runs). On the card both are
-    CUDA graph replays, one after the other, so the second replays over
-    the first's state. The windows are abandoned afterwards (nothing is
-    delivered). Returns max |diff| (0)."""
-    import torch
-
+    """Engine windows of flood topics held against the plain path
+    (``hold_window``): first a window of uniform topics (at phase 8's size
+    the plain route window: too diverse to deduplicate), then one drawn
+    from 512 of them (the dedup plan engages and the cached window runs).
+    On the card both are CUDA graph replays, one after the other, so the
+    second replays over the first's state. Returns max |diff| (0)."""
     from emqx_tpu_torch.broker.message import make
-    eng = node.device_engine
-    dev = eng.device
     r = np.random.RandomState(seed)
     hot = [(r.randint(0, ids), r.randint(0, nums)) for _ in range(512)]
     err = 0
@@ -1490,30 +1566,8 @@ def e2e_window_check(node, ids: int, nums: int, seed: int, batches: int,
             if rep == 0 else (lambda: hot[r.randint(0, len(hot))])
         lives = [[make("cmp", 0, "device/d%d/x/n%d/t" % pick(), b"")
                   for _ in range(batch)] for _ in range(batches)]
-        h = eng.prepare_window(lives, gate_cold=False)
-        if h is None or h.built.backend != "shapes" or h.pcap is None \
-                or (rep == 1 and h.plan is None):
-            raise AssertionError("the compared window did not take the "
-                                 "shape-hash route window with a CSR "
-                                 "readback" + (" and the dedup plan"
-                                               if rep else ""))
-        if dev.type == "cuda":
-            # the class captured now if the flood has not warmed it
-            Wp, Bp = h.enc[0].shape[:2]
-            cls = (Wp, Bp, h.plan.Bm if h.plan is not None else None,
-                   None, h.pcap)
-            if eng._graph_key(h.built, cls, eng._strategy()) \
-                    not in eng._graphs:
-                with torch.cuda.stream(eng._warm_stream):
-                    eng._warm_dispatch(h.built, eng._tables, eng._cursors,
-                                       cls)
-        eng.dispatch(h)
-        eng.materialize(h)
-        if dev.type == "cuda" and not h.graphed:
-            raise AssertionError("the compared window was not a graph "
-                                 "replay")
-        err = max(err, hold_against_plain(eng, h, "e2e window"))
-        eng.abandon(h)
+        err = max(err, hold_window(node.device_engine, lives, "e2e window",
+                                   rep == 1))
     return err
 
 
@@ -1568,6 +1622,7 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
             await _warm_up(node, pubs[0], subs, nums)
             t_warm = time.time() - t0
             out = {"filters": ids * nums, "shared_filters": n_shared,
+                   "columnar_ingress": node.columnar_ingress,
                    "subscriptions": n_entries, "subscribe_s": t_sub,
                    "warm_up_s": t_warm,
                    "backend": node.device_engine._built.backend,
@@ -1653,6 +1708,11 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
                 out["profiled"] = await _profiled_flood(
                     node, subs, pubs, ids, nums, total, seed + 1000)
             out["stats"] = node.device_engine.stats()
+            out["ingress_lanes"] = {
+                "lanes": node.ingress_lanes,
+                "servers": len(lst._lane_servers),
+                "accepted": {k: v for k, v in node.metrics.all().items()
+                             if k.startswith("pipeline.ingress.lane")}}
             return out
         finally:
             gc.unfreeze()
@@ -1673,6 +1733,8 @@ def e2e_phase(dev, card: str) -> dict:
                                  "device_bypassed")}
         samples = {k: {q: round(v, 2) for q, v in d.items()}
                    for k, d in f["samples_us"].items()}
+        wins = {k: {q: round(v, 2) for q, v in d.items()}
+                for k, d in f["window_us"].items()}
         stage_us = {k: round(v, 2) for k, v in f["device_us_per_msg"].items()}
         disp = dict(f["dispatch_ms"], sum=round(f["dispatch_ms"]["sum"], 3))
         depth = f"{label} (lanes {'on' if f['lanes_on'] else 'off'})"
@@ -1698,11 +1760,18 @@ def e2e_phase(dev, card: str) -> dict:
             f"dense: CSR payload overflow); launches {f['launches']}; "
             f"chooser: device {f['dev_msg_us']:.2f} us per message, host "
             f"{f['host_msg_us']:.2f} us per message, its samples (us per "
-            f"message) {json.dumps(samples)}; us per message: device "
+            f"message) {json.dumps(samples)}, the device windows' own "
+            f"(small: under {f['small_window']} messages) "
+            f"{json.dumps(wins)}; us per message: device "
             f"path {json.dumps(stage_us)}, host path "
             f"{f['host_us_per_msg']:.2f}; dispatches {json.dumps(disp)} (ms: "
             f"the slowest as total, staging + replay, readback staging)")
         log(f"phase 8 {depth}: routing layers {json.dumps(f['layers'])}")
+        ing = f["ingress"]
+        log(f"phase 8 {depth}: columnar ingress {json.dumps(ing)}: "
+            f"{ing['burst_share']} of the PUBLISHes came in bursts, "
+            f"{ing['rows_per_burst']} rows per burst; prepare "
+            f"{f['device_us_per_msg']['prepare']:.2f} us/msg")
 
     r = e2e_drive(dev, report=report, profile=True)
     log(f"phase 8: {r['filters']} filters ({r['shared_filters']} in "
@@ -1713,6 +1782,8 @@ def e2e_phase(dev, card: str) -> dict:
     log("phase 8: two engine windows (prepare_window/dispatch/materialize, "
         "CUDA graph replays: the plain window and the dedup-cached window) "
         "== plain path: every plane, CSR payload and cursors (exact)")
+    log(f"phase 8: columnar_ingress {r['columnar_ingress']}, acceptor "
+        f"lanes {json.dumps(r['ingress_lanes'])}")
     log(f"phase 8: {r['cached_windows']} cached windows in all; engine "
         f"stats {json.dumps(r['stats'])}")
     log(f"phase 8: subscription_covering "
@@ -2526,6 +2597,315 @@ def cover_phase(dev, card: str) -> dict:
     return r
 
 
+# ---- phase 11: columnar PUBLISH ingress ------------------------------------
+
+# tools/ingress_bench.py:52-215: connections x 400 pre-serialized QoS 0
+# PUBLISHes of 64 bytes over 16 topics; the subscriber holds 1 of them
+I_CONNS = (64, 256)
+I_MSGS = 400
+I_TOPICS = 16
+I_PAYLOAD = 64
+I_SUB_TOPICS = 1
+I_TIMEOUT_S = 240         # a timed flood must settle within this
+I_ONE_TIMEOUT_S = 300     # one configuration's subprocess
+
+
+def _ingress_blob(conn_id: int, n_msgs: int, n_topics: int,
+                  payload: int) -> bytes:
+    """One publisher's whole flood, pre-serialized QoS 0 PUBLISH frames
+    (the payload starts with the connection and the sequence number)."""
+    from emqx_tpu_torch.mqtt import packet as P
+    from emqx_tpu_torch.mqtt.frame import serialize
+    pad = b"x" * max(0, payload - 16)
+    return b"".join(serialize(P.Publish(
+        topic=f"bench/t{i % n_topics}",
+        payload=b"%08d%08d" % (conn_id, i) + pad), 4)
+        for i in range(n_msgs))
+
+
+async def _connect_raw(port: int, clientid: str):
+    """CONNECT over a raw socket; returns (reader, writer) past the
+    CONNACK."""
+    import asyncio
+
+    from emqx_tpu_torch.mqtt import packet as P
+    from emqx_tpu_torch.mqtt.frame import FrameParser, serialize
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(serialize(P.Connect(proto_name="MQTT", proto_ver=4,
+                                     clientid=clientid), 4))
+    await writer.drain()
+    parser = FrameParser(version=4)
+    while True:
+        data = await reader.read(64)
+        if not data:
+            raise AssertionError("connection closed before CONNACK")
+        if parser.feed(data):
+            return reader, writer
+
+
+async def _ingress_run(dev, conns: int, columnar: bool, n_msgs: int,
+                       n_topics: int, payload: int, sub_topics: int,
+                       timeout_s: float) -> dict:
+    import asyncio
+
+    from emqx_tpu_torch import device as D
+    from emqx_tpu_torch import native
+    from emqx_tpu_torch.broker.connection import Listener
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.broker.node import Node
+    from emqx_tpu_torch.client import Client
+
+    node = Node({"broker": {"columnar_ingress": columnar}}, device=dev)
+    # phase 11 measures the ingress layer in front of the device path, so
+    # both runs route every window on the device: on this traffic (1 of
+    # 16 topics subscribed) the host route costs about what a device
+    # window does a message, within the chooser's margin, and a free
+    # chooser flipped between runs (PERF.md, Findings: 0.44 against 1.00
+    # on the device), so on / off compared routing paths, not ingress.
+    # Phase 8 drives the chooser.
+    node.publish_batcher._device_worth_it = lambda: True
+    m = node.metrics
+    lst = Listener(node, bind="127.0.0.1", port=0)
+    await lst.start()
+    sub = Client(port=lst.port, clientid="ingress-sub")
+    await sub.connect()
+    for k in range(sub_topics):
+        await sub.subscribe(f"bench/t{k}", qos=0)
+    delivered = [0]
+    order_violations = [0]
+    last_seq: dict = {}
+
+    async def drain_sub():
+        # per-publisher order: the payload is b"%08d%08d" (conn, seq)
+        while True:
+            msg = await sub.messages.get()
+            delivered[0] += 1
+            head = bytes(msg.payload[:16])
+            c, k = int(head[:8]), int(head[8:])
+            if last_seq.get(c, -1) >= k:
+                order_violations[0] += 1
+            last_seq[c] = k
+
+    async def flood(pairs, blobs):
+        async def one(writer, blob):
+            for w in range(0, len(blob), 65536):
+                writer.write(blob[w:w + 65536])
+                await writer.drain()
+        await asyncio.gather(*[one(w, b) for (_r, w), b in zip(pairs,
+                                                                blobs)])
+
+    async def settle(expect: int, deadline: float) -> bool:
+        while time.perf_counter() < deadline:
+            if m.val("messages.publish") >= expect:
+                return True
+            await asyncio.sleep(0.02)
+        return False
+
+    drainer = asyncio.get_running_loop().create_task(drain_sub())
+    pairs = []
+    try:
+        # the warm pass (not timed): the flood's batch classes, the
+        # allocator and the lanes; then wait for the snapshot and the
+        # background warm of its classes, or the timed windows would run
+        # on the host while they are cold
+        n_warm = min(conns, 8)
+        warm = [await _connect_raw(lst.port, f"warm{i}")
+                for i in range(n_warm)]
+        await flood(warm, [_ingress_blob(900 + i, n_msgs, n_topics,
+                                         payload) for i in range(n_warm)])
+        await settle(n_warm * n_msgs, time.perf_counter() + 120)
+        for _r, w in warm:
+            w.close()
+        eng = node.device_engine
+        bmax = node.publish_batcher.max_batch
+        deadline = time.perf_counter() + 90
+        while time.perf_counter() < deadline:
+            if eng._built is not None and eng.batch_class_warm(bmax) \
+                    and getattr(eng, "_fuse_warm_task", None) is None:
+                break
+            await asyncio.sleep(0.05)
+        pairs = [await _connect_raw(lst.port, f"pub{i}")
+                 for i in range(conns)]
+        blobs = [_ingress_blob(i, n_msgs, n_topics, payload)
+                 for i in range(conns)]
+        keys = ("messages.publish", "routing.device.batches",
+                "routing.device.windows",
+                "routing.device.messages", "routing.host.messages",
+                *STAGE_US)
+        before = {k: m.val(k) for k in keys}
+        tele0 = tele_state(node)
+        total = conns * n_msgs
+        gc.collect()
+        base = delivered[0]
+        D.reset_launches()
+        t0 = time.perf_counter()
+        await flood(pairs, blobs)
+        ok = await settle(before["messages.publish"] + total,
+                          t0 + timeout_s)
+        wall = time.perf_counter() - t0
+        launches = dict(D.LAUNCHES)
+        scan_shapes = dict(D.LAUNCH_SHAPES["prefix_sum"])
+        # let the deliveries in flight land: until the count stops moving
+        stable, quiet = delivered[0], 0
+        deadline = time.perf_counter() + 30
+        while quiet < 10 and time.perf_counter() < deadline:
+            await asyncio.sleep(0.05)
+            if delivered[0] == stable:
+                quiet += 1
+            else:
+                stable, quiet = delivered[0], 0
+        delta = {k: m.val(k) - v for k, v in before.items()}
+        tele = tele_delta(node, tele0)
+        snap = node.pipeline_telemetry.snapshot()
+        # one window of the flood's own topic sequence, fused as the
+        # flood's are, held against the plain path (16 unique topics: the
+        # dedup plan's window)
+        seq = [f"bench/t{i % n_topics}" for i in range(bmax)]
+        hold_err = hold_window(eng, [[make("cmp", 0, t, b"") for t in seq]
+                                     for _ in range(2)],
+                               "ingress window", True)
+    finally:
+        drainer.cancel()
+        for _r, w in pairs:
+            w.close()
+        await sub.close()
+        await lst.stop()
+        await node.publish_batcher.stop()
+        node.publish_batcher.close()
+    return {"conns": conns, "columnar": bool(columnar), "msgs": total,
+            "completed": ok, "wall_s": wall,
+            "msgs_per_s": round(total / wall) if ok and wall > 0 else 0,
+            "delivered": delivered[0] - base,
+            # each publisher's messages on the subscribed topics
+            "expected": conns * sum(len(range(k, n_msgs, n_topics))
+                                    for k in range(sub_topics)),
+            "order_violations": order_violations[0],
+            # the messages the device engine routed (matched or not: the
+            # subscriber holds 1 of the 16 topics)
+            "device_share": delta["routing.device.messages"] / total,
+            "device_batches": delta["routing.device.batches"],
+            "device_windows": delta["routing.device.windows"],
+            "device_us_per_msg": stage_us(delta),
+            "ingress": snap.get("ingress"), "stages": tele["stages"],
+            "decisions": tele["decisions"], "lanes": node.ingress_lanes,
+            "launches": launches, "hold_err": hold_err,
+            "scan_shapes": [[list(k), v] for k, v in scan_shapes.items()],
+            "native": native.available(),
+            "device": str(dev)}
+
+
+def ingress_one(dev, conns: int, columnar: bool, n_msgs: int = I_MSGS,
+                n_topics: int = I_TOPICS, payload: int = I_PAYLOAD,
+                sub_topics: int = I_SUB_TOPICS,
+                timeout_s: float = I_TIMEOUT_S) -> dict:
+    """One phase-11 configuration: a node with columnar ingress on or off,
+    a warm pass, then `conns` publishers each writing its pre-serialized
+    flood at once; msgs/s over the flood, the deliveries and their order,
+    the stage decomposition and the `ingress` section."""
+    import asyncio
+
+    import torch
+    return asyncio.run(_ingress_run(torch.device(dev), conns, columnar,
+                                    n_msgs, n_topics, payload, sub_topics,
+                                    timeout_s))
+
+
+def check_ingress_pair(on: dict, off: dict) -> None:
+    """Columnar on and off deliver the same, known number of messages, in
+    order, both complete, at least E2E_MIN_DEVICE_SHARE of them routed on the
+    device; on takes the burst path on the native library, off has no
+    ingress section. (Each run's window held against the plain path
+    raised in its child if it disagreed.)"""
+    for r in (on, off):
+        if not r["completed"]:
+            raise AssertionError(f"phase 11 {r['conns']} columnar "
+                                 f"{r['columnar']}: the flood did not "
+                                 f"settle")
+        if r["delivered"] != r["expected"]:
+            raise AssertionError(f"phase 11 {r['conns']} columnar "
+                                 f"{r['columnar']}: delivered "
+                                 f"{r['delivered']}, expected "
+                                 f"{r['expected']}")
+        if r["device_share"] < E2E_MIN_DEVICE_SHARE:
+            raise AssertionError(f"phase 11 {r['conns']} columnar "
+                                 f"{r['columnar']}: {r['device_share']:.3f} "
+                                 f"of the messages on the device")
+        if r["order_violations"]:
+            raise AssertionError(f"phase 11 {r['conns']}: "
+                                 f"{r['order_violations']} deliveries out "
+                                 f"of publisher order")
+    if on["delivered"] != off["delivered"]:
+        raise AssertionError(f"phase 11 {on['conns']}: columnar on "
+                             f"delivered {on['delivered']}, off "
+                             f"{off['delivered']}")
+    if not (on["ingress"] or {}).get("bursts"):
+        raise AssertionError(f"phase 11 {on['conns']}: no PublishBurst "
+                             f"with columnar ingress on")
+    if off["ingress"] is not None:
+        raise AssertionError(f"phase 11 {off['conns']}: an ingress section "
+                             f"with columnar ingress off")
+    if not on["native"]:
+        raise AssertionError("phase 11: the columnar run used the "
+                             "pure-Python mirrors, not the host library")
+
+
+def ingress_phase(card: str) -> dict:
+    """Phase 11 on the card, each configuration in a process of its own
+    (no configuration inherits another's collector state or graphs)."""
+    t0 = time.time()
+    rows = {}
+    for conns in I_CONNS:
+        for columnar in (False, True):
+            arg = json.dumps({"conns": conns, "columnar": columnar})
+            sp = subprocess.run([sys.executable, __file__, "--ingress", arg],
+                                capture_output=True, text=True,
+                                timeout=I_ONE_TIMEOUT_S)
+            lines = [ln for ln in sp.stdout.splitlines()
+                     if ln.startswith("{")]
+            if sp.returncode != 0 or not lines:
+                raise AssertionError(
+                    f"phase 11 {conns} columnar {columnar}: the child "
+                    f"failed, rc {sp.returncode}: {sp.stderr[-2000:]}")
+            r = rows[(conns, columnar)] = json.loads(lines[-1])
+            stage_ms = {k: v["sum_ms"] for k, v in r["stages"].items()}
+            log(f"phase 11 {conns} connections, columnar "
+                f"{'on' if columnar else 'off'}: {r['msgs_per_s']} msgs/s "
+                f"({r['msgs']} in {r['wall_s']:.3f} s), delivered "
+                f"{r['delivered']}, {r['device_share']:.3f} on the device "
+                f"({r['device_windows']} windows), lanes {r['lanes']}, "
+                f"native {r['native']}, window == plain path (max |diff| "
+                f"{r['hold_err']}); us per device message "
+                f"{json.dumps({k: round(v, 2) for k, v in r['device_us_per_msg'].items()})}"
+                f"; kernel 2 launches by shape "
+                f"{json.dumps({str(tuple(k)): v for k, v in r['scan_shapes']})}"
+                f"; stage ms {json.dumps(stage_ms)}; ingress "
+                f"{json.dumps(r['ingress'])}; launches {r['launches']}")
+    for conns in I_CONNS:
+        on, off = rows[(conns, True)], rows[(conns, False)]
+        check_ingress_pair(on, off)
+        log(f"phase 11 {conns} connections: columnar on / off "
+            f"{on['msgs_per_s']} / {off['msgs_per_s']} msgs/s "
+            f"({on['msgs_per_s'] / max(1, off['msgs_per_s']):.3f}x); both "
+            f"delivered the {on['delivered']} expected in publisher order")
+    log(f"phase 11 {time.time() - t0:.1f} s")
+    log(card)
+    return {f"{c} {'on' if col else 'off'}": r
+            for (c, col), r in rows.items()}
+
+
+def ingress_main(arg: str) -> int:
+    """``--ingress``: one phase-11 configuration on the card; its JSON
+    line last."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    a = json.loads(arg)
+    print(json.dumps(ingress_one("cuda", a["conns"], a["columnar"])),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2545,6 +2925,15 @@ def main() -> int:
     log(out.strip())
     log(f"phase 2: built shape_match.cu, prefix_sum.cu and ring_rotate.cu "
         f"in {time.time() - t0:.1f} s")
+    from emqx_tpu_torch import native
+    t0 = time.time()
+    if not native.available():
+        raise AssertionError("the host native library did not build: the "
+                             "columnar ingress would run on its Python "
+                             "mirrors")
+    log(f"phase 2: host library {native.library_path().name} "
+        f"({native.SOURCE.name}, {' '.join(native.CXX_FLAGS)}) ready in "
+        f"{time.time() - t0:.1f} s")
 
     err_scan = check_prefix_sum(dev)
     err_fold = pattern_check(dev)
@@ -2603,6 +2992,7 @@ def main() -> int:
     layers = layers_phase(dev, card)
     torch.cuda.empty_cache()
     cover = cover_phase(dev, card)
+    ingress = ingress_phase(card)
     timed = {tuple(d["shape"]) for d in scan_shapes + mesh_scan_shapes}
     layer_scan_shapes = []
     for cell, n in (("skew", "windows"), ("churn", "batches")):
@@ -2616,9 +3006,17 @@ def main() -> int:
                if shape not in timed}
         timed |= set(new)
         layer_scan_shapes += time_scan_shapes_apart(new, f"cover {n} A")
+    new = {}
+    for r in ingress.values():       # launches a window, the most of a run
+        for shape, cnt in r["scan_shapes"]:
+            if tuple(shape) not in timed:
+                new[tuple(shape)] = max(new.get(tuple(shape), 0),
+                                        cnt / max(1, r["device_windows"]))
+    layer_scan_shapes += time_scan_shapes_apart(new, "ingress")
     layers_err = max(layers["churn"]["hold_skew_err"],
                      layers["churn"]["hold_err"],
-                     *(c["hold_err"] for c in cover.values()))
+                     *(c["hold_err"] for c in cover.values()),
+                     *(r["hold_err"] for r in ingress.values()))
     for name in ("shape_match", "prefix_sum"):
         if sum(c["A"]["launches"][name] for c in cover.values()) == 0:
             raise AssertionError(f"phase 10: {name} was not launched on "
@@ -2640,6 +3038,8 @@ def main() -> int:
             layers["churn"]["A"]["launches"][name]
         # phase 10: node A's (covering on) timed passes, both populations
         out["cover"] = sum(c["A"]["launches"][name] for c in cover.values())
+        for label, r in ingress.items():
+            out[f"ingress {label}"] = r["launches"][name]
         return out
 
     kernels = [
@@ -2673,8 +3073,11 @@ def main() -> int:
                  for n, c in cover.items()}
     for c in cover_out.values():
         c["A"] = {k: v for k, v in c["A"].items() if k != "scan_shapes"}
+    ingress_out = {k: {f: v for f, v in r.items() if f != "stages"}
+                   for k, r in ingress.items()}
     log(json.dumps({"summary": summary, "mesh": mesh, "e2e": e2e_out,
-                    "layers": layers_out, "cover": cover_out}))
+                    "layers": layers_out, "cover": cover_out,
+                    "ingress": ingress_out}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -2700,4 +3103,6 @@ def scan_shapes_main(arg: str) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--scan-shapes":
         sys.exit(scan_shapes_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ingress":
+        sys.exit(ingress_main(sys.argv[2]))
     sys.exit(main())

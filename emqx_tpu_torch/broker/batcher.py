@@ -15,9 +15,9 @@ the depth-1 synchronous consumer and the depth-N settle ring, FIFO settle
 order, the pipeline telemetry (stage spans, occupancy, decisions) and the
 delivery lanes' hand-off (a host batch drains the lanes first; a device
 batch's futures resolve when its delivery plan completes; ``admit``
-carries the lanes' backpressure up to the publishers). Not part of the
-port: the flight-recorder, latency observatory, overload and supervision
-hooks.
+carries the lanes' backpressure up to the publishers) and the columnar
+ingress's burst hand-off (``submit_burst``). Not part of the port: the
+flight-recorder, latency observatory, overload and supervision hooks.
 
 - **Non-blocking**: device dispatch and device→host readback run on
   executor threads (DeviceRouteEngine.dispatch/materialize); the event
@@ -45,7 +45,12 @@ hooks.
   clients — and the first slow sample sent a whole flood to the host.
   With the delivery lanes, a device window's sample is taken when its
   plans complete and includes the lanes' delivery seconds: both paths'
-  samples count the delivery.
+  samples count the delivery. The device's estimate is seeded by the
+  median of its first three windows (not by the first alone), and after
+  that a device sample spans at least ``max_batch`` messages: small
+  windows are pooled with the next ones (``_device_sample``), so a run of
+  small windows, whose fixed cost weighs 2-3x per message, moves the
+  estimate by the messages it routed, not by its count of windows.
 - **Double-buffered window pipeline**: at ``dispatch_depth >= 2`` the
   consumer becomes a bounded in-flight settle ring. Each dispatched
   window's remaining stages (await dispatch → launch + await materialize)
@@ -85,6 +90,9 @@ _PROBE_EVERY = 64
 # two of its samples, one flood apart (PERF.md, Findings). A device
 # at more than 1.5x the host's cost is still bypassed.
 _BYPASS_MARGIN = 1.5
+
+# device windows whose median seeds the device estimate (_device_sample)
+_DEV_SEED = 3
 
 
 def resolve_dispatch_depth(configured=None) -> int:
@@ -148,9 +156,16 @@ class PublishBatcher:
         self._host_msg_s: Optional[float] = None     # per host message
         self._dev_spike = 0       # consecutive-outlier streaks (_ewma)
         self._host_spike = 0
+        # device windows not sampled yet: (seconds, messages). A device
+        # sample spans at least max_batch messages (_device_sample); the
+        # first _DEV_SEED windows' samples seed the estimate (their median)
+        self._dev_pending = (0.0, 0)
+        self._dev_seed: list = []
         # the chooser's last samples (seconds per message), per path
         self.cost_samples = {"device": deque(maxlen=4096),
                              "host": deque(maxlen=4096)}
+        # each device window's own (messages, seconds), before pooling
+        self.window_costs: deque = deque(maxlen=4096)
         # PUBLISH→route latency reservoir: oldest-enqueue → batch
         # completion, which upper-bounds every message in the batch.
         # _q_times parallels _queue.
@@ -186,6 +201,43 @@ class PublishBatcher:
         self._q_times.append(time.perf_counter())
         self._kick()
         return True
+
+    def submit_burst(self, rows: list) -> dict:
+        """Columnar-ingress hand-off: append a whole read burst's messages
+        to the batch queue in one pass. `rows` is [(Message, needs_count)]
+        in publisher frame order; the queue is FIFO, so per-publisher
+        order holds by construction.
+
+        QoS 0 rows (needs_count False) ride without futures, as
+        enqueue(); QoS 1/2 rows get futures that resolve through the
+        normal settle. One timestamp covers the burst, one _kick wakes
+        the producer, and the burst's topics are encoded in one native
+        pass (engine.preencode_burst) that the window's encode reuses.
+
+        Returns {row_index: future} for every row the caller must await:
+        all QoS 1/2 rows, plus the burst's LAST row when the queue crossed
+        max_pending — awaiting it stalls the read loop, the backpressure
+        a refused enqueue() exerts. (The reference also drops QoS 0 rows
+        here while its overload governor sheds them; the port has no
+        governor.)"""
+        loop = asyncio.get_running_loop()
+        futs: dict = {}
+        q = self._queue
+        qt = self._q_times
+        now = time.perf_counter()
+        over = len(q) + len(rows) > self.max_pending
+        last = len(rows) - 1
+        for i, (msg, need) in enumerate(rows):
+            fut = None
+            if need or (over and i == last):
+                fut = loop.create_future()
+                futs[i] = fut
+            q.append((msg, fut))
+            qt.append(now)
+        if rows and self.engine is not None:
+            self.engine.preencode_burst([m.topic for m, _n in rows])
+        self._kick()
+        return futs
 
     def _kick(self) -> None:
         if self._inflight is None:
@@ -714,17 +766,14 @@ class PublishBatcher:
             # dropping) deliveries
             await pool.admit()
         if sub == n_subs - 1:
-            # ONE cost sample per WINDOW, over all of its messages —
+            # the cost is counted per WINDOW, over all of its messages —
             # sampling per entry would count the near-instant later subs
             # of a window as whole batches and drag the EWMA to ~zero (the
-            # chooser then never bypasses a slow device). The sample is
-            # the window's own cost (see the module docstring): taken when
+            # chooser then never bypasses a slow device). It is the
+            # window's own cost (see the module docstring): taken when
             # the handle releases, after the lanes delivered its plans.
             def sample() -> None:
-                s = handle.cost_s / max(1, handle.n_msgs)
-                self.cost_samples["device"].append(s)
-                self._dev_msg_s, self._dev_spike = _ewma(
-                    self._dev_msg_s, s, self._dev_spike)
+                self._device_sample(handle.cost_s, handle.n_msgs)
 
             if handle.built is not None:    # the lanes hold the handle
                 handle.on_release = sample
@@ -733,6 +782,48 @@ class PublishBatcher:
             # slow-start growth: this window completed, widen the next
             self._fuse_cwnd = min(8, max(2, 2 * n_subs))
         return counts
+
+    def _device_sample(self, cost_s: float, n_msgs: int) -> None:
+        """Feed one device window's cost to the chooser.
+
+        The estimate is seeded by the median of the first _DEV_SEED
+        windows' costs per message (until then the chooser keeps the
+        device, as with no estimate): the first serving dispatch after a
+        warm-up can stall for tens of milliseconds (PERF.md, Findings;
+        its cause is not known), and alone it would set the estimate
+        before the outlier guard of _ewma has a baseline.
+
+        After that, windows are pooled until they span max_batch
+        messages, and the pool's cost per message is one sample. A
+        window's fixed cost weighs on each of its messages in inverse
+        proportion to its size: with the columnar ingress's bursts, full
+        windows alternate with windows of a few dozen messages that cost
+        two to three times as much per message, and sampled one each
+        they pushed the estimate past the bypass margin for a whole flood
+        (the device is re-tried only after _PROBE_EVERY host batches,
+        and a flood of bursts has fewer). Pooled, each sample is the
+        cost of the messages routed."""
+        n_msgs = max(1, n_msgs)
+        self.window_costs.append((n_msgs, cost_s))
+        if self._dev_msg_s is None:
+            s = cost_s / n_msgs
+            self.cost_samples["device"].append(s)
+            self._dev_seed.append(s)
+            if len(self._dev_seed) >= _DEV_SEED:
+                self._dev_msg_s = sorted(self._dev_seed)[len(
+                    self._dev_seed) // 2]
+                self._dev_seed = []
+            return
+        cost, n = self._dev_pending
+        cost, n = cost + cost_s, n + n_msgs
+        if n < self.max_batch:
+            self._dev_pending = (cost, n)
+            return
+        self._dev_pending = (0.0, 0)
+        s = cost / n
+        self.cost_samples["device"].append(s)
+        self._dev_msg_s, self._dev_spike = _ewma(
+            self._dev_msg_s, s, self._dev_spike)
 
     def lat_percentiles(self) -> Optional[dict]:
         """PUBLISH→route latency percentiles (ms) over the reservoir."""

@@ -10,24 +10,27 @@ The channel is owned by one connection task; `handle_in(pkt)` returns and
 the channel pushes outbound packets through the `send` callback. Broker
 deliveries arrive via `deliver()` from the same event loop.
 
-The port's copy of ``emqx_tpu/broker/channel.py`` on the per-packet
-ingress path. One change: a QoS 1/2 PUBLISH does not hold the read loop
-until it is routed — every PUBLISH of one socket read enters the batcher,
-and the acknowledgements follow in receive order (``flush_acks``), as the
-reference's burst hand-off acks them; awaiting each QoS 1 PUBLISH in turn
-kept a publisher to one message in the batcher per QoS 1 PUBLISH and the
-batches too small for the device. Not part of the port: the columnar PUBLISH bursts, TLS
-peer-cert enrichment, the MQTT5 enhanced-authentication (SCRAM) exchange
-— no method is registered, so a CONNECT naming one is refused — the
-overload admission gate and the delivery lanes' batched hand-off.
+The port's copy of ``emqx_tpu/broker/channel.py``, on the per-packet
+ingress path and on the columnar one (``handle_publish_burst``, the
+reference's burst hand-off). One change on the per-packet path: a QoS 1/2
+PUBLISH does not hold the read loop until it is routed — every PUBLISH of
+one socket read enters the batcher, and the acknowledgements follow in
+receive order (``flush_acks``), as the burst hand-off acks them; awaiting
+each QoS 1 PUBLISH in turn kept a publisher to one message in the batcher
+per QoS 1 PUBLISH and the batches too small for the device. Not part of
+the port: TLS peer-cert enrichment, the MQTT5 enhanced-authentication
+(SCRAM) exchange — no method is registered, so a CONNECT naming one is
+refused — and the overload admission gate.
 """
 
 from __future__ import annotations
 
+import asyncio
 from collections import deque
 from typing import Callable, Optional
 
-from emqx_tpu_torch.broker.message import Message, make, now_ms
+from emqx_tpu_torch.broker.message import (Message, guid_batch, make,
+                                           now_ms)
 from emqx_tpu_torch.broker.mqueue import MQueueOpts
 from emqx_tpu_torch.broker.session import Session, SessionConf, SessionError
 from emqx_tpu_torch.mqtt import constants as C
@@ -131,7 +134,8 @@ class Channel:
         self._pendings: list[Message] = []   # deliveries during takeover
         self.mountpoint: Optional[str] = None
         # QoS 1/2 acks owed, in receive order: (count future, packet
-        # class, packet id), or (None, packet, None) for a ready one
+        # class, packet id), (None, packet, None) for a ready one, or
+        # (None, None, (rc, detail)) for a DISCONNECT queued behind them
         self._acks: deque = deque()
 
     # ================= inbound dispatch =================
@@ -454,6 +458,10 @@ class Channel:
                             "peername": self.conninfo.get("peername"),
                             "properties": props,
                             "proto_ver": self.proto_ver})
+        if pkt.ingress_ns:
+            # the frame-decode clock rides the message (read by no layer
+            # of the port yet)
+            msg.ingress_ns = pkt.ingress_ns
         self.node.metrics.inc_msg_recv(pkt.qos)
 
         if pkt.qos == C.QOS_0:
@@ -476,6 +484,188 @@ class Channel:
             self._acks.append((self.node.publish_future(msg), P.Pubrec,
                                pkt.packet_id))
 
+    async def handle_publish_burst(self, burst) -> None:
+        """Columnar-ingress PUBLISH hand-off: one call per
+        PublishBurst replaces burst-many handle_in(Publish) calls.
+
+        Every row runs the same check pipeline as _handle_publish —
+        alias resolution, topic validation, response-topic/max-qos/
+        retain caps, quota, authz, QoS dispatch — but the per-row work
+        is amortized: topic-validation and authz verdicts are memoized
+        per unique topic WITHIN the burst (the reference's
+        emqx_authz_cache caches authz per connection the same way), the
+        packet/message counters are incremented once per burst, and all
+        surviving rows enter the batcher through ONE submit_burst call
+        (QoS0 rows without per-message futures). Acks — and any
+        deferred per-row error ack or DISCONNECT — go out strictly in
+        row order after submission, once each QoS>=1 row's delivery
+        count resolves through the batcher's normal journal/settle
+        machinery. Per-publisher delivery order is the batcher FIFO =
+        row order, so order and counts are bit-identical to the
+        per-packet path (the A/B twin test pins this)."""
+        if self.conn_state != CONN_CONNECTED:
+            raise ProtocolError(C.RC_PROTOCOL_ERROR,
+                                "publish before CONNECT")
+        if self._acks:
+            # acks owed to earlier per-packet PUBLISHes of this read go
+            # out before the burst's own
+            await self.flush_acks()
+        node = self.node
+        m = node.metrics
+        n = len(burst.topics)
+        m.inc("packets.received", n)
+        m.inc("packets.publish.received", n)
+        v5 = self.proto_ver == C.MQTT_V5
+        max_alias = self.mqtt.get("max_topic_alias", 65535)
+        max_qos = self.mqtt.get("max_qos_allowed", 2)
+        retain_ok = self.mqtt.get("retain_available", True)
+        mount = self.mountpoint
+        base_headers = {"username": self.clientinfo.get("username"),
+                        "peername": self.conninfo.get("peername"),
+                        "proto_ver": self.proto_ver}
+        valid_memo: dict = {}
+        auth_memo: dict = {}
+        rows: list = []        # (Message, needs_count) for submit_burst
+        seq: list = []         # ordered ack/disconnect plan
+        qos_counts = [0, 0, 0]
+        # one locked GUID pass + one clock read for the whole burst
+        # (rows that fail a check burn an id — ids only need to be
+        # unique and monotone, which a batch reservation preserves)
+        ids = guid_batch(n)
+        ts_ms = now_ms()
+        clientid = self.clientid
+        for j in range(n):
+            if j and not j % 64:
+                # the handle_in loop's pacing: a read can carry hundreds
+                # of frames; yield so other tasks are not stalled
+                await asyncio.sleep(0)
+            topic = burst.topics[j]
+            qos = burst.qos[j]
+            props = burst.props[j]
+            pid = burst.pids[j]
+            retain = burst.retain[j]
+            alias = props.pop("topic_alias", None) if props else None
+            if v5 and alias is not None:
+                if not (0 < alias <= max_alias):
+                    seq.append(("disc", C.RC_TOPIC_ALIAS_INVALID, ""))
+                    continue
+                if topic:
+                    self.alias_in[alias] = topic
+                else:
+                    topic = self.alias_in.get(alias)
+                    if topic is None:
+                        seq.append(("disc", C.RC_PROTOCOL_ERROR,
+                                    "unknown topic alias"))
+                        continue
+            valid = valid_memo.get(topic)
+            if valid is None:
+                try:
+                    valid = bool(topic) and T.validate(topic, "name")
+                except T.TopicError:
+                    valid = False
+                valid_memo[topic] = valid
+            if not valid:
+                self._burst_puberr(seq, qos, pid, C.RC_TOPIC_NAME_INVALID)
+                continue
+            if v5 and props.get("response_topic") \
+                    and T.wildcard(props["response_topic"]):
+                seq.append(("disc", C.RC_PROTOCOL_ERROR,
+                            "wildcard response topic"))
+                continue
+            if qos > max_qos:
+                seq.append(("disc", C.RC_QOS_NOT_SUPPORTED, ""))
+                continue
+            if retain and not retain_ok:
+                self._burst_puberr(seq, qos, pid,
+                                   C.RC_RETAIN_NOT_SUPPORTED)
+                continue
+            if not self.quota.check_publish():
+                m.inc("packets.publish.quota_exceeded")
+                self._burst_puberr(seq, qos, pid, C.RC_QUOTA_EXCEEDED)
+                continue
+            ok = auth_memo.get(topic)
+            if ok is None:
+                ok = await self._authorize("publish", topic)
+                auth_memo[topic] = ok
+            if not ok:
+                m.inc("packets.publish.auth_error")
+                if not self._aborted:
+                    self._burst_puberr(seq, qos, pid,
+                                       C.RC_NOT_AUTHORIZED)
+                continue
+            if qos == C.QOS_2:
+                try:
+                    self.session.publish_qos2(pid)
+                except SessionError as e:
+                    m.inc("packets.publish.dropped")
+                    seq.append(("err", P.Pubrec(packet_id=pid,
+                                                reason_code=e.rc)))
+                    continue
+            # direct construction: the dataclass __init__/__post_init__
+            # machinery is ~half the per-row cost at this point, and
+            # every field is explicit here (ids/ts pre-reserved above)
+            msg = Message.__new__(Message)
+            msg.__dict__ = {
+                "topic": T.prepend(mount, topic) if mount else topic,
+                "payload": burst.payloads[j], "qos": qos,
+                "from_": clientid,
+                "flags": {"retain": retain, "dup": burst.dup[j]},
+                "headers": dict(base_headers, properties=props),
+                "id": ids[j], "ts": ts_ms, "extra": {},
+                # the burst's one frame-decode clock read, attributed
+                # per row (as the per-packet path carries
+                # pkt.ingress_ns)
+                "ingress_ns": burst.ingress_ns,
+            }
+            qos_counts[qos] += 1
+            rows.append((msg, qos > 0))
+            if qos:
+                seq.append(("ack", qos, pid, len(rows) - 1))
+        for q in (0, 1, 2):
+            if qos_counts[q]:
+                m.inc("messages.received", qos_counts[q])
+                m.inc(f"messages.qos{q}.received", qos_counts[q])
+        futs = node.publish_batcher.submit_burst(rows) if rows else {}
+        # flush: acks/errors/disconnects strictly in row order (wire
+        # order is the order of _send calls — awaits between them do
+        # not reorder the transport buffer)
+        for item in seq:
+            tag = item[0]
+            if tag == "disc":
+                self._disconnect_now(item[1], item[2])
+            elif tag == "err":
+                self._send([item[1]])
+            else:
+                _tag, qos, pid, ridx = item
+                cnt = await futs[ridx]
+                rc = C.RC_SUCCESS if (cnt or not v5) \
+                    else C.RC_NO_MATCHING_SUBSCRIBERS
+                cls = P.Puback if qos == C.QOS_1 else P.Pubrec
+                self._send([cls(packet_id=pid, reason_code=rc)])
+        # backpressure stragglers (QoS0 rows the batcher bounded): a
+        # full queue stalls this read loop, like a refused enqueue()
+        # falling back to an awaited submit() does on the packet path
+        for fut in futs.values():
+            await fut
+
+    def _burst_puberr(self, seq: list, qos: int, pid, rc: int) -> None:
+        """_puberr over a columnar row: same metrics and packets, but
+        the outbound ack (when one exists) is DEFERRED into the burst's
+        ordered ack plan so error acks cannot overtake the success acks
+        of earlier rows awaiting their delivery counts."""
+        self.node.metrics.inc("packets.publish.error")
+        if qos == C.QOS_0:
+            if self.proto_ver == C.MQTT_V5 and rc in (
+                    C.RC_TOPIC_NAME_INVALID,):
+                seq.append(("disc", rc, ""))
+            return
+        if self.proto_ver < C.MQTT_V5 and rc == C.RC_NOT_AUTHORIZED:
+            # v3: no way to signal; drop silently (emqx behavior)
+            return
+        cls = P.Puback if qos == C.QOS_1 else P.Pubrec
+        code = rc if self.proto_ver == C.MQTT_V5 else C.RC_SUCCESS
+        seq.append(("err", cls(packet_id=pid, reason_code=code)))
+
     def _ack_now(self, pkt: P.Packet) -> None:
         """An acknowledgement that needs no delivery count: sent now, or
         behind the queued ones, so acks keep receive order."""
@@ -493,7 +683,10 @@ class Channel:
         while self._acks:
             fut, cls, pid = self._acks.popleft()
             if fut is None:
-                self._send([cls])
+                if cls is None:
+                    self._disconnect(*pid)
+                else:
+                    self._send([cls])
                 continue
             n = await fut
             rc = C.RC_SUCCESS if n or self.proto_ver < C.MQTT_V5 \
@@ -682,6 +875,15 @@ class Channel:
         self.close("disconnect")
 
     def _disconnect_now(self, rc: int, detail: str = "") -> None:
+        if self._acks:
+            # acks owed to earlier PUBLISHes of this read go out first, as
+            # the reference's per-packet path sent each before reading the
+            # next packet; the DISCONNECT follows them (flush_acks)
+            self._acks.append((None, None, (rc, detail)))
+            return
+        self._disconnect(rc, detail)
+
+    def _disconnect(self, rc: int, detail: str = "") -> None:
         if self._aborted:
             return
         if self.proto_ver == C.MQTT_V5:

@@ -49,6 +49,14 @@ DEFAULTS: dict = {
         # None = the built-in 256 (device_engine.resolve_rebuild_threshold)
         "rebuild_threshold": None,
         "device_min_batch": 4,
+        # None = on (broker/connection.resolve_columnar_ingress); false
+        # restores the per-packet PUBLISH ingress path exactly —
+        # parser.feed, per-packet handle_in, one accept loop, no
+        # `ingress` telemetry section
+        "columnar_ingress": None,
+        # SO_REUSEPORT acceptor lanes per TCP listener (None = min(4,
+        # cpus); must be >= 1; columnar_ingress false forces 1)
+        "ingress_lanes": None,
     },
     "zones": {},                 # zone name -> {mqtt: {...}} overrides
     "listeners": {},             # name -> {type,bind,zone,...}

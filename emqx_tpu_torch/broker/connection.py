@@ -8,16 +8,22 @@ read loop drains whatever bytes are available and feeds the streaming frame
 parser, so a burst of packets is handled as one batch (the P10 batching
 window).
 
-The port's copy of ``emqx_tpu/broker/connection.py`` on the per-packet
-ingress path (``broker.columnar_ingress = false``). Not part of the port:
-columnar PUBLISH bursts and the SO_REUSEPORT acceptor lanes that ride
-them, TLS, the congestion alarm and the overload governor's shed hooks.
+The port's copy of ``emqx_tpu/broker/connection.py``, with the columnar
+PUBLISH ingress (``broker.columnar_ingress``, on by default): a read's
+PUBLISH runs decode as ``PublishBurst`` rows (``FrameParser.feed_columnar``)
+and enter the channel's burst hand-off, everything else stays per packet,
+in order; and the SO_REUSEPORT acceptor lanes (``broker.ingress_lanes``).
+Off, the read loop is the per-packet path: ``parser.feed``, one
+``handle_in`` per packet and one accept loop. Not part of the port: TLS,
+the congestion alarm and the overload governor's shed hooks.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
+import socket
 import time
 from typing import Optional
 
@@ -27,11 +33,35 @@ from emqx_tpu_torch.broker.limiter import (ConnectionLimiter,
 from emqx_tpu_torch.broker.supervise import guard_task
 from emqx_tpu_torch.mqtt import constants as C
 from emqx_tpu_torch.mqtt import packet as P
-from emqx_tpu_torch.mqtt.frame import FrameError, FrameParser, serialize
+from emqx_tpu_torch.mqtt.frame import (FrameError, FrameParser,
+                                       PublishBurst, serialize)
 
 log = logging.getLogger("emqx_tpu_torch.connection")
 
 READ_CHUNK = 65536
+
+
+def resolve_columnar_ingress(configured=None) -> bool:
+    """``broker.columnar_ingress``, default on. Off restores the
+    per-packet ingress path exactly: parser.feed, one handle_in per
+    packet, one accept loop, no ``ingress`` telemetry section."""
+    return True if configured is None else bool(configured)
+
+
+def resolve_ingress_lanes(configured=None) -> int:
+    """``broker.ingress_lanes``: SO_REUSEPORT acceptor lanes per TCP
+    listener, default min(4, cpus). 1 is the single accept loop. Must be
+    a positive integer; anything else is a deployment error worth failing
+    loudly on."""
+    if configured is None:
+        return min(4, os.cpu_count() or 1)
+    try:
+        val = int(configured)
+    except (TypeError, ValueError):
+        raise ValueError(f"ingress_lanes={configured!r} is not an integer")
+    if val < 1:
+        raise ValueError(f"ingress_lanes must be >= 1, got {val}")
+    return val
 
 
 class Connection:
@@ -45,6 +75,10 @@ class Connection:
         self.parser = FrameParser(
             max_size=node.config.mqtt(zone).get("max_packet_size"),
             strict=node.config.mqtt(zone).get("strict_mode", False))
+        # columnar ingress, resolved once per node: off, this read loop
+        # is the per-packet path (parser.feed + handle_in, no ingress
+        # counters)
+        self._columnar = bool(getattr(node, "columnar_ingress", False))
         self.channel = Channel(
             node, {"peername": peer, "sockname": sock, "zone": zone},
             send=self._send_packets, close=self._request_close)
@@ -109,15 +143,38 @@ class Connection:
                     reason = "closed"
                     break
                 self.last_rx = time.monotonic()
-                self.node.metrics.inc("bytes.received", len(data))
+                m = self.node.metrics
+                m.inc("bytes.received", len(data))
+                columnar = self._columnar
                 try:
-                    items = self.parser.feed(data)
+                    if columnar:
+                        # PUBLISH runs decode as PublishBurst items;
+                        # everything else (and small reads) stays
+                        # per-packet, in order
+                        items = self.parser.feed_columnar(data)
+                    else:
+                        items = self.parser.feed(data)
                 except FrameError as e:
                     reason = f"frame_error:{e.code}"
                     self._frame_error_out(e)
                     break
-                for n_done, item in enumerate(items, 1):
+                n_rows = sum(len(it) if type(it) is PublishBurst else 1
+                             for it in items)
+                if columnar and items:
+                    m.inc("pipeline.ingress.bytes", len(data))
+                n_done = 0
+                for item in items:
                     try:
+                        if type(item) is PublishBurst:
+                            m.inc("pipeline.ingress.bursts")
+                            m.inc("pipeline.ingress.rows", len(item))
+                            self.node.pipeline_telemetry \
+                                .record_ingress_burst(len(item))
+                            await self.channel.handle_publish_burst(item)
+                            n_done += len(item)
+                            continue
+                        if columnar:
+                            m.inc("pipeline.ingress.fallback_frames")
                         if type(item) is not P.Publish:
                             # acks owed for earlier PUBLISHes go first
                             await self.channel.flush_acks()
@@ -126,6 +183,7 @@ class Connection:
                         reason = f"protocol_error:0x{e.rc:02x}"
                         self._protocol_error_out(e)
                         break
+                    n_done += 1
                     if n_done % 64 == 0:
                         # one read can carry hundreds of frames; without
                         # a scheduling point the whole burst handles
@@ -139,7 +197,7 @@ class Connection:
                     # ingress rate limit: a depleted bucket pauses reading
                     # (the {active,N}-off backpressure, emqx_connection
                     # ensure_rate_limit)
-                    pause = self.limiter.check(len(items), len(data))
+                    pause = self.limiter.check(n_rows, len(data))
                     if pause > 0:
                         self.node.metrics.inc("connection.rate_limited")
                         await asyncio.sleep(pause)
@@ -223,7 +281,8 @@ class Connection:
 
 
 class Listener:
-    """One TCP listener (emqx_listeners:start_listener/3)."""
+    """One TCP listener (emqx_listeners:start_listener/3); with columnar
+    ingress on, ``node.ingress_lanes`` SO_REUSEPORT sockets on one port."""
 
     def __init__(self, node, *, bind: str = "0.0.0.0", port: int = 1883,
                  zone: Optional[str] = None, max_connections: int = 1024000,
@@ -235,6 +294,8 @@ class Listener:
         self.name = name
         self.max_connections = max_connections
         self._server: Optional[asyncio.AbstractServer] = None
+        self._lane_servers: list[asyncio.AbstractServer] = []
+        self.lane_conns: list[int] = []    # live conns per accept lane
         self._conns: set[asyncio.Task] = set()
         self.current_conns = 0
         rate = (node.config.get_zone(zone, "rate_limit") or {}) \
@@ -262,7 +323,48 @@ class Listener:
             self.current_conns -= 1
             self._conns.discard(task)
 
+    def _ingress_lanes(self) -> int:
+        """Acceptor lanes for this listener: N SO_REUSEPORT listening
+        sockets on one port, each with its own accept loop, so the kernel
+        spreads incoming connections. Only with columnar ingress on and on
+        IPv4; an IPv6 bind keeps the single accept loop. All lanes run on
+        one event loop: they spread accepts, they do not parallelize
+        them."""
+        if not getattr(self.node, "columnar_ingress", False):
+            return 1
+        if ":" in self.bind or not hasattr(socket, "SO_REUSEPORT"):
+            return 1
+        return getattr(self.node, "ingress_lanes", 1)
+
     async def start(self) -> None:
+        lanes = self._ingress_lanes()
+        if lanes > 1:
+            port = self.port
+            self.lane_conns = [0] * lanes
+            for i in range(lanes):
+                sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                try:
+                    sock.setsockopt(socket.SOL_SOCKET,
+                                    socket.SO_REUSEADDR, 1)
+                    sock.setsockopt(socket.SOL_SOCKET,
+                                    socket.SO_REUSEPORT, 1)
+                    sock.bind((self.bind, port))
+                except OSError:
+                    sock.close()
+                    if i == 0:
+                        raise
+                    break   # a partial lane set still serves
+                if port == 0:   # ephemeral port: later lanes join it
+                    port = sock.getsockname()[1]
+                srv = await asyncio.start_server(
+                    self._lane_handler(i), sock=sock)
+                self._lane_servers.append(srv)
+            self.port = port
+            self._server = self._lane_servers[0]
+            log.info("listener %s started on %s:%d (%d ingress lanes)",
+                     self.name, self.bind, self.port,
+                     len(self._lane_servers))
+            return
         self._server = await asyncio.start_server(
             self._on_client, self.bind, self.port)
         if self.port == 0:   # ephemeral port for tests
@@ -270,18 +372,31 @@ class Listener:
         log.info("listener %s started on %s:%d", self.name, self.bind,
                  self.port)
 
+    def _lane_handler(self, lane: int):
+        async def _on_lane_client(reader, writer):
+            self.node.metrics.inc(f"pipeline.ingress.lane{lane}.accepted")
+            self.lane_conns[lane] += 1
+            try:
+                await self._on_client(reader, writer)
+            finally:
+                self.lane_conns[lane] -= 1
+        return _on_lane_client
+
     async def stop(self) -> None:
         # stop accepting first so no connection slips in during the cancel
         # window; then cancel handlers (py3.12 wait_closed blocks until
         # every handler coroutine finishes, so cancel before waiting)
-        if self._server is None:
-            return
-        self._server.close()
+        servers = self._lane_servers or \
+            ([self._server] if self._server else [])
+        for srv in servers:
+            srv.close()
         for t in list(self._conns):
             t.cancel()
         if self._conns:
             await asyncio.gather(*self._conns, return_exceptions=True)
-        try:
-            await asyncio.wait_for(self._server.wait_closed(), 2)
-        except asyncio.TimeoutError:
-            pass
+        for srv in servers:
+            try:
+                await asyncio.wait_for(srv.wait_closed(), 2)
+            except asyncio.TimeoutError:
+                pass
+        self._lane_servers = []

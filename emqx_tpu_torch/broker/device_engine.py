@@ -16,7 +16,9 @@ graph captures as its compile accounting), its HBM ledger
 (``broker/hbm_ledger.py``: every persistent device allocation goes
 through ``_hold``, every dispatch handle is pinned) and its delivery
 lanes (``broker/deliver.py``: ``finish_sub`` builds a delivery plan that
-the lanes run). Not ported: supervision, tracing, the latency
+the lanes run), and the columnar ingress's burst pre-encode
+(``preencode_burst``: one native encode per read burst that
+``prepare_window`` gathers from). Not ported: supervision, tracing, the latency
 observatory and overload hooks; the CSR readback is always on. It
 compiles the live routing state (Router filter universe + Broker
 subscriber/shared-group membership) into device tables, runs the route
@@ -628,6 +630,15 @@ class DeviceRouteEngine:
         self.shape_cap = shape_cap
 
         self.intern = I.InternTable()
+        # the columnar-ingress burst pre-encode: one native encode of a
+        # read burst's unique topics, which prepare_window's encode
+        # gathers from. Used only while the intern table's length is
+        # unchanged: ids are append-only, so an equal length proves the
+        # cached rows are what a fresh encode gives (a filter word
+        # interned between burst and window would turn a cached UNKNOWN
+        # stale; the guard drops the whole memo then)
+        self._burst_enc = None    # (idx: dict, enc, lens, dollar,
+                                  #  too_long, intern_len)
         self._built: Optional[_Built] = None
         self._tables = None            # device RouterTables/ShapeRouterTables
         self._cursors = None           # device [G]
@@ -2087,6 +2098,30 @@ class DeviceRouteEngine:
             cache.count_lookups(n_hit, n_miss)
         return plan, info
 
+    def preencode_burst(self, topics: list) -> None:
+        """Encode a read burst's unique topics in ONE native call (split,
+        hash and id probe in C), memoized for prepare_window's encode.
+        The memo is replaced per burst and read only while the intern
+        table's length is unchanged."""
+        uniq = list(dict.fromkeys(topics))
+        self._burst_enc = ({t: i for i, t in enumerate(uniq)},
+                           *encode_topics_str(self.intern, uniq,
+                                              self.max_levels),
+                           len(self.intern))
+
+    def _encode_publish_batch(self, topics: list):
+        """One batch's topic encode: a gather from the burst memo when
+        every topic was pre-encoded under the current intern length, else
+        encode_topics_str (the same outputs either way: the memo is a
+        cache of that call)."""
+        be = self._burst_enc
+        if be is not None and be[5] == len(self.intern):
+            idx_map, enc, lens, dollar, too_long = be[:5]
+            idxs = [idx_map.get(t, -1) for t in topics]
+            if -1 not in idxs:
+                return enc[idxs], lens[idxs], dollar[idxs], too_long[idxs]
+        return encode_topics_str(self.intern, topics, self.max_levels)
+
     def prepare_window(self, lives: list[list[Message]],
                        gate_cold: bool = True):
         """Stage 1 (event loop): encode 1..W micro-batches as one fused
@@ -2108,8 +2143,8 @@ class DeviceRouteEngine:
         encs = []
         Bp = 64
         for msgs in lives:
-            enc, lens, dollar, too_long = encode_topics_str(
-                self.intern, [m.topic for m in msgs], self.max_levels)
+            enc, lens, dollar, too_long = self._encode_publish_batch(
+                [m.topic for m in msgs])
             subs.append((msgs, too_long))
             encs.append((enc, lens, dollar))
             Bp = max(Bp, self._batch_class(len(msgs)))

@@ -2,8 +2,8 @@
 
 A slim counterpart of ``emqx_tpu/broker/node.py`` (:43-48, :77-88,
 :124-145, :186-205, :237-276, :449-460): hooks, metrics, stats, the
-pipeline telemetry (always), the HBM ledger and the session-affine
-delivery lanes (both on by default), router, broker, connection manager,
+pipeline telemetry (always), the HBM ledger, the session-affine
+delivery lanes and the columnar PUBLISH ingress (on by default), router, broker, connection manager,
 the device route engine and the publish batcher, wired as the reference
 wires them for a single-chip node. The layers the reference also builds
 here (flight recorder, supervision, latency observatory, overload
@@ -22,7 +22,9 @@ engine as the reference's ``Node`` passes them (:221-257);
 ``slow_batch_threshold_ms`` (250; 0 or null: no slow-batch watch),
 ``hbm_ledger`` (on) with ``pin_warn_windows`` (64), and
 ``deliver_lanes`` (``min(4, cpus)``; 0: inline delivery) with
-``deliver_lane_depth`` (8). A key that asks for a layer the port does
+``deliver_lane_depth`` (8), and the columnar PUBLISH ingress
+``columnar_ingress`` (on) with ``ingress_lanes`` (``min(4, cpus)``; 1 when
+columnar ingress is off). A key that asks for a layer the port does
 not have (``_UNSUPPORTED``, or ``compact_readback`` off) raises
 ``ValueError`` rather than serving without it.
 """
@@ -36,6 +38,8 @@ from emqx_tpu_torch.broker.batcher import (PublishBatcher,
                                            resolve_dispatch_depth)
 from emqx_tpu_torch.broker.cm import ConnectionManager
 from emqx_tpu_torch.broker.config import Config
+from emqx_tpu_torch.broker.connection import (resolve_columnar_ingress,
+                                              resolve_ingress_lanes)
 from emqx_tpu_torch.broker.deliver import (DeliveryLanePool,
                                            resolve_deliver_lanes)
 from emqx_tpu_torch.broker.device_engine import (DeviceRouteEngine,
@@ -51,8 +55,7 @@ from emqx_tpu_torch.device import resolve_device
 
 
 # reference layers the port does not have: a truthy value asks for one
-_UNSUPPORTED = ("supervise", "trace", "latency_observatory", "overload",
-                "columnar_ingress")
+_UNSUPPORTED = ("supervise", "trace", "latency_observatory", "overload")
 
 
 def check_layers(perf: dict) -> None:
@@ -99,6 +102,14 @@ class Node:
         rebuild_threshold = resolve_rebuild_threshold(
             perf.get("rebuild_threshold"))
         dispatch_depth = resolve_dispatch_depth(perf.get("dispatch_depth"))
+        # columnar PUBLISH ingress, one resolution for the whole layer:
+        # the codec's burst decode, the channel's and the batcher's burst
+        # hand-off and the acceptor lanes read these two attributes. Off
+        # restores the per-packet ingress path and forces one lane
+        self.columnar_ingress = resolve_columnar_ingress(
+            perf.get("columnar_ingress"))
+        self.ingress_lanes = resolve_ingress_lanes(
+            perf.get("ingress_lanes")) if self.columnar_ingress else 1
         self.router = Router(
             use_device=True, device=self.device,
             rebuild_threshold=rebuild_threshold,

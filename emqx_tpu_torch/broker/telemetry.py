@@ -21,8 +21,8 @@ pipeline stage —
     total        oldest-enqueue -> batch completion
 
 — plus batch-occupancy histograms per window class, the routing
-decisions, and the reuse, readback, rebuild, delivery and memory
-sections. Everything lands in the node's Metrics registry.
+decisions, and the reuse, readback, rebuild, delivery, columnar-ingress
+and memory sections. Everything lands in the node's Metrics registry.
 
 Compile accounting becomes CUDA-graph capture accounting: the port has
 no JIT, and what stands in its place is the capture of a window class as
@@ -129,6 +129,16 @@ class PipelineTelemetry:
                           substeps=_STAGE_SUBSTEPS).observe(seconds)
 
     # ---- occupancy -------------------------------------------------------
+    # ---- columnar ingress ------------------------------------------------
+    def record_ingress_burst(self, rows: int) -> None:
+        """One columnar-decoded PublishBurst of `rows` PUBLISH frames:
+        the burst-size histogram (pipeline.ingress.burst). Its companion
+        counters (pipeline.ingress.bursts / rows / fallback_frames / bytes
+        and pipeline.ingress.lane{i}.accepted) are counted by the
+        connection's read loop and the listener."""
+        self.metrics.hist("pipeline.ingress.burst", lo=1.0, n_buckets=16,
+                          unit="rows").observe(rows)
+
     def record_occupancy(self, cls: str, fill: float) -> None:
         """Fill fraction of one dispatched batch within its padded class
         (`b{Bp}` for single batches, `w{Wp}` for the fused-window width,
@@ -302,6 +312,27 @@ class PipelineTelemetry:
                 1.0 - deliver.get("drains", 0) / deliver["deliveries"], 4)
         if self.deliver_state_fn is not None:
             deliver["state"] = self.deliver_state_fn()
+        # columnar ingress: burst, row and fallback counters, the
+        # burst-size histogram and the accepts per acceptor lane. Derived
+        # from traffic alone: with columnar_ingress off nothing counts,
+        # and the section is absent
+        ingress = self._vals("pipeline.ingress.", (
+            "bursts", "rows", "fallback_frames", "bytes"))
+        rows_c = ingress.get("rows", 0)
+        fb = ingress.get("fallback_frames", 0)
+        if rows_c or fb:
+            ingress["columnar_ratio"] = round(rows_c / (rows_c + fb), 4)
+        bh = self.metrics.histograms().get("pipeline.ingress.burst")
+        if bh is not None and bh.count:
+            snap = bh.snapshot()
+            ingress["burst_rows"] = {
+                "count": snap["count"], "mean": round(snap["mean"], 2),
+                "p50": round(snap["p50"], 2), "p95": round(snap["p95"], 2)}
+        lanes_acc = {k.split(".")[2]: v
+                     for k, v in self.metrics.all().items()
+                     if k.startswith("pipeline.ingress.lane") and v}
+        if lanes_acc:
+            ingress["lanes"] = lanes_acc
         memory = self.ledger.section() if self.ledger is not None else {}
         out = {
             "schema": SCHEMA,
@@ -312,7 +343,8 @@ class PipelineTelemetry:
         }
         for name, sec in (("rebuild", rebuild), ("deliver", deliver),
                           ("match_cache", cache), ("dedup", dedup),
-                          ("readback", readback), ("memory", memory)):
+                          ("readback", readback), ("ingress", ingress),
+                          ("memory", memory)):
             if sec or full:
                 out[name] = sec
         if self.graphs_fn is not None:

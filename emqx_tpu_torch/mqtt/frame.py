@@ -14,6 +14,7 @@ behavior and simpler in Python.
 from __future__ import annotations
 
 import struct
+import time
 from typing import Optional
 
 from emqx_tpu_torch.mqtt import constants as C
@@ -23,7 +24,7 @@ from emqx_tpu_torch.mqtt.packet import (
     Unsubscribe, Will,
 )
 
-__all__ = ["FrameParser", "serialize", "FrameError"]
+__all__ = ["FrameParser", "PublishBurst", "serialize", "FrameError"]
 
 
 class FrameError(Exception):
@@ -132,7 +133,9 @@ def _parse_properties(buf: bytes, off: int) -> tuple[dict, int]:
 
 def _parse_props_body(buf: bytes, off: int, end: int) -> tuple[dict, int]:
     """Parse property CONTENT between off and end (the span after the
-    length varint)."""
+    length varint). Split out of _parse_properties so the columnar
+    ingress path, which gets the span boundaries from the native decode,
+    parses property bytes with the same rules."""
     props: dict = {}
     while off < end:
         pid, off = _read_byte(buf, off)
@@ -213,6 +216,36 @@ _FLAG_RULES = {
 }
 
 
+class PublishBurst:
+    """One contiguous run of columnar-decoded PUBLISH frames from a
+    single read burst: parallel per-row lists — topic str
+    (deduplicated within the burst), payload bytes (sliced once from
+    the read buffer), qos/retain/dup, packet id (None at qos 0) and the
+    parsed v5 properties dict ({} when absent). Rides from
+    FrameParser.feed_columnar through Connection to
+    Channel.handle_publish_burst without per-frame Packet objects."""
+
+    __slots__ = ("topics", "payloads", "qos", "retain", "dup", "pids",
+                 "props", "ingress_ns")
+
+    def __init__(self):
+        self.topics: list[str] = []
+        self.payloads: list[bytes] = []
+        self.qos: list[int] = []
+        self.retain: list[bool] = []
+        self.dup: list[bool] = []
+        self.pids: list[Optional[int]] = []
+        self.props: list[dict] = []
+        # ingress stamp: ONE perf_counter_ns read at frame
+        # decode covers every row of the burst — per-row attribution at
+        # burst-level clock cost; the per-packet fallback stamps each
+        # Publish the same way, so the A/B ingress twins stay comparable
+        self.ingress_ns: int = 0
+
+    def __len__(self) -> int:
+        return len(self.topics)
+
+
 class FrameParser:
     """Incremental MQTT frame parser.
 
@@ -227,17 +260,183 @@ class FrameParser:
         self.strict = strict
         self._buf = bytearray()
 
+    BURST_SCAN_MIN = 4096   # buffer size where the native scan pays off
+
     def feed(self, data: bytes) -> list[Packet]:
         """Append raw bytes; return all complete packets now parseable."""
         self._buf += data
         out: list[Packet] = []
+        if len(self._buf) >= self.BURST_SCAN_MIN:
+            fast = self._feed_burst()
+            if fast is not None:
+                out.extend(fast)
+        # the incremental loop also drains any frames past the burst
+        # scan's max_frames cap — nothing complete may be left buffered
         while True:
             pkt, consumed = self._try_parse_one()
             if pkt is None:
                 break
             del self._buf[:consumed]
             out.append(pkt)
+        if out:
+            # ingress stamp: one clock read per feed covers
+            # every PUBLISH decoded from this read — the latency
+            # observatory's ingress→routed/delivered clock starts here
+            ns = time.perf_counter_ns()
+            for p in out:
+                if type(p) is Publish:
+                    p.ingress_ns = ns
         return out
+
+    def _feed_burst(self) -> Optional[list[Packet]]:
+        """Native boundary scan for read bursts: split the whole buffer in
+        one pass and drop the consumed prefix with one delete (the
+        {active,N} batch path; repeated per-frame prefix deletes are
+        quadratic on large bursts). The buffer is scanned and parsed IN
+        PLACE (buffer-protocol views all the way down): a burst costs one
+        prefix delete plus one body extraction per frame — the old path
+        copied the whole buffer into the scan and then each whole frame
+        again."""
+        from emqx_tpu_torch import native
+        try:
+            frames, consumed = native.frame_scan(
+                self._buf, max_frames=4096,
+                max_frame_size=self.max_size or 0)
+        except native.FrameScanError:
+            return None   # let the strict parser raise its precise error
+        if not frames:
+            return []
+        out = []
+        mv = memoryview(self._buf)
+        try:
+            for off, length in frames:
+                out.append(self._parse_frame(mv[off:off + length]))
+        finally:
+            mv.release()   # a live view blocks the bytearray delete
+        del self._buf[:consumed]
+        return out
+
+    def _parse_frame(self, frame) -> Packet:
+        """Parse one complete frame (boundaries already validated by the
+        scan). Accepts bytes or a memoryview into the read buffer — only
+        the BODY is materialized (the payload must outlive the buffer's
+        prefix delete); the fixed header is read through the view."""
+        if len(frame) < 2:
+            raise FrameError("malformed_packet", "bad frame boundary")
+        byte0 = frame[0]
+        ptype, flags = byte0 >> 4, byte0 & 0x0F
+        if ptype == C.RESERVED:
+            raise FrameError("malformed_packet", "reserved packet type 0")
+        rem_len, off = _read_varint(frame, 1)
+        if rem_len > self.max_size:
+            raise FrameError("frame_too_large",
+                             f"{rem_len} > {self.max_size}")
+        if off + rem_len != len(frame):
+            raise FrameError("malformed_packet", "bad frame boundary")
+        body = bytes(frame[off:])
+        return self._parse_packet(ptype, flags, body)
+
+    def feed_columnar(self, data) -> list:
+        """feed() for the columnar ingress path: returns an
+        ORDERED list of items — Packet for frames the strict per-packet
+        parser handled, PublishBurst for each contiguous run of PUBLISH
+        frames decoded columnar (native mqtt_publish_decode_columnar or
+        its pure-python mirror, one pass over the whole read buffer).
+
+        Falls back to the exact per-packet path for small buffers, an
+        unknown protocol version (pre-CONNECT bytes must parse AFTER the
+        CONNECT fixed the version) and scan errors — so the columnar-on
+        and columnar-off paths differ only in who builds the publish
+        rows, never in what they contain or which error they raise."""
+        self._buf += data
+        if len(self._buf) < self.BURST_SCAN_MIN or self.version is None:
+            return self.feed(b"")
+        from emqx_tpu_torch import native
+        try:
+            off, lens, consumed = native.frame_scan_np(
+                self._buf, max_frames=4096,
+                max_frame_size=self.max_size or 0)
+        except native.FrameScanError:
+            return self.feed(b"")   # strict loop raises the precise error
+        if not len(off):
+            return self.feed(b"")
+        cols = native.publish_decode_columnar(
+            self._buf, off, lens, self._v5())
+        # python-int rows once (numpy scalar indexing in the hot loop
+        # costs more than the decode itself)
+        offs = off.tolist()
+        lenl = lens.tolist()
+        kind = cols["kind"].tolist()
+        fl = cols["flags"].tolist()
+        t_off = cols["topic_off"].tolist()
+        t_len = cols["topic_len"].tolist()
+        pids = cols["packet_id"].tolist()
+        pr_off = cols["props_off"].tolist()
+        pr_len = cols["props_len"].tolist()
+        p_off = cols["payload_off"].tolist()
+        p_len = cols["payload_len"].tolist()
+        items: list = []
+        burst: Optional[PublishBurst] = None
+        topic_memo: dict = {}
+        mv = memoryview(self._buf)
+        try:
+            for i in range(len(offs)):
+                if not kind[i]:
+                    # non-PUBLISH (or a PUBLISH needing its precise
+                    # strict-parser error): breaks the current burst so
+                    # cross-frame order is preserved end to end
+                    burst = None
+                    a = offs[i]
+                    items.append(self._parse_frame(mv[a:a + lenl[i]]))
+                    continue
+                a = t_off[i]
+                tb = bytes(mv[a:a + t_len[i]])
+                topic = topic_memo.get(tb)
+                if topic is None:
+                    try:
+                        topic = tb.decode("utf-8")
+                    except UnicodeDecodeError as e:
+                        raise FrameError("utf8_string_invalid", str(e))
+                    topic_memo[tb] = topic
+                props: dict = {}
+                if pr_len[i]:
+                    b = pr_off[i]
+                    span = bytes(mv[b:b + pr_len[i]])
+                    props, _ = _parse_props_body(span, 0, len(span))
+                if burst is None:
+                    burst = PublishBurst()
+                    items.append(burst)
+                f = fl[i]
+                q = (f >> 1) & 0x3
+                a = p_off[i]
+                burst.topics.append(topic)
+                burst.payloads.append(bytes(mv[a:a + p_len[i]]))
+                burst.qos.append(q)
+                burst.retain.append(bool(f & 0x1))
+                burst.dup.append(bool(f & 0x8))
+                burst.pids.append(pids[i] if q else None)
+                burst.props.append(props)
+        finally:
+            mv.release()   # a live view blocks the bytearray delete
+        del self._buf[:consumed]
+        # drain frames past the scan's max_frames cap — nothing complete
+        # may be left buffered (the per-packet feed's contract)
+        while True:
+            pkt, n = self._try_parse_one()
+            if pkt is None:
+                break
+            del self._buf[:n]
+            items.append(pkt)
+        if items:
+            # ingress stamp: one clock read covers the whole
+            # columnar read — bursts carry it once for all their rows,
+            # fallback Publish frames individually (stamp-equivalent to
+            # the per-packet path by construction)
+            ns = time.perf_counter_ns()
+            for it in items:
+                if type(it) is PublishBurst or type(it) is Publish:
+                    it.ingress_ns = ns
+        return items
 
     @property
     def pending_bytes(self) -> int:

@@ -91,6 +91,11 @@ class Publish(Packet):
     packet_id: Optional[int] = None
     properties: dict = field(default_factory=dict)
     type = C.PUBLISH
+    # ingress stamp: perf_counter_ns at frame decode, set by FrameParser
+    # on inbound PUBLISHes. A plain class attribute, not a dataclass
+    # field: every packet answers 0 at no per-instance cost, and equality
+    # and repr are untouched.
+    ingress_ns = 0
 
 
 @dataclass

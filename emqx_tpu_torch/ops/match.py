@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from emqx_tpu_torch.ops.intern import PAD
+from emqx_tpu_torch.ops.intern import PAD, UNKNOWN
 from emqx_tpu_torch.ops.scan import prefix_sum
 from emqx_tpu_torch.ops.trie import MAX_PROBES
 from emqx_tpu_torch.utils.topic import tokens
@@ -232,11 +232,21 @@ def merge_match_results(base_matches: torch.Tensor, base_counts: torch.Tensor,
 
 
 def encode_topics_str(intern, topics: list, max_levels: int):
-    """Encode publish topics from their raw strings. Same outputs as
-    encode_topics: (ids [B,L], lens [B], is_dollar [B], too_long [B]).
-    NOT pre-truncated: encode_topics must see the real level count so
-    deeper-than-L topics get the too_long host-fallback flag (a truncated
-    topic could falsely match a filter on its prefix)."""
+    """Encode publish topics from their raw strings: ONE native call for
+    the whole batch when the host library and the intern table's mirror
+    are there (split, hash and id probe per level in C,
+    ``emqx_tpu_torch/native.topic_encode_batch``), else the Python
+    per-word path. Same outputs as encode_topics: (ids [B,L], lens [B],
+    is_dollar [B], too_long [B])."""
+    h = intern.mirror_handle()
+    if h is not False:
+        from emqx_tpu_torch import native
+        out = native.topic_encode_batch(h, topics, max_levels, UNKNOWN, PAD)
+        if out is not None:
+            return out
+    # NOT pre-truncated: encode_topics must see the real level count so
+    # deeper-than-L topics get the too_long host-fallback flag (a
+    # truncated topic could falsely match a filter on its prefix)
     return encode_topics(intern, [tokens(t) for t in topics], max_levels)
 
 

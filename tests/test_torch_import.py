@@ -42,7 +42,7 @@ MODULES = [
     "emqx_tpu_torch.client", "emqx_tpu_torch.ops.delta",
     "emqx_tpu_torch.broker.match_cache", "emqx_tpu_torch.ops.cover",
     "emqx_tpu_torch.broker.telemetry", "emqx_tpu_torch.broker.hbm_ledger",
-    "chip_smoke",
+    "emqx_tpu_torch.native", "chip_smoke",
 ]
 
 
@@ -60,6 +60,38 @@ def test_every_module_imports_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_columnar_ingress_loads_only_the_ports_library():
+    """With jax and emqx_tpu unimportable, a columnar read burst and a
+    native topic encode run on the port's own host library, built from
+    emqx_tpu_torch/csrc/host_native.cpp; the reference's
+    native/libemqx_native.so is never loaded."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['emqx_tpu'] = None\n"
+        "from emqx_tpu_torch import native\n"
+        "from emqx_tpu_torch.mqtt import packet as P\n"
+        "from emqx_tpu_torch.mqtt.frame import FrameParser, serialize\n"
+        "from emqx_tpu_torch.ops.intern import InternTable\n"
+        "from emqx_tpu_torch.ops.match import encode_topics_str\n"
+        "blob = b''.join(serialize(P.Publish(topic=f't/{i}', payload=b'x' "
+        "* 40), 4) for i in range(200))\n"
+        "items = FrameParser(version=4).feed_columnar(blob)\n"
+        "assert type(items[0]).__name__ == 'PublishBurst', items[:1]\n"
+        "t = InternTable(); t.intern('t')\n"
+        "encode_topics_str(t, ['t/1'], 16)\n"
+        "assert type(t.mirror_handle()) is int\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert native.available() and 'libhost_native-' in maps\n"
+        "assert 'libemqx_native' not in maps\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
 

@@ -13,6 +13,7 @@ rehearses phase 8 itself at a reduced size.
 """
 
 import asyncio
+import os
 
 import pytest
 import torch
@@ -99,8 +100,10 @@ def test_chip_smoke_e2e_on_cpu():
                      n_pub=2, total=400, window=(2, 64), pin_device=True)
     assert r["backend"] == "shapes" and r["window_err"] == 0
     assert set(r["floods"]) == {"d2", "d1", "d2-inline"}
+    assert r["columnar_ingress"] is True
     for f in r["floods"].values():
         assert f["delivered"] == f["sent"] == 400
+        assert f["ingress"]["received"] == 400
         assert f["batches"] >= 1
         assert f["launches"]["shape_match"] == 0
         assert (f["lane_rows"] > 0) == f["lanes_on"]
@@ -282,6 +285,96 @@ def test_chooser_decisions_equal_the_reference():
     j.close()
 
 
+def test_chooser_twin_on_the_same_window_costs():
+    """Both batchers fed the same device windows' costs and the same host
+    estimate, then asked for the next window's decision: the reference
+    through its own per-window sample (the window's cost, divided by the
+    bypass margin as above), the port through ``_device_sample``.
+
+    Full windows (max_batch messages each, costs either side of the
+    margin, spikes included): both decide alike at every step and move
+    the same probe counters and bypass count. A full window is one sample
+    on both, and the port's seed (the median of its first three windows)
+    equals the reference's first sample when the three agree.
+
+    Burst tails (ROADMAP, "departs from the reference on purpose"): full
+    windows at ~30 us a message alternate with windows of 67 messages at
+    90 us, as the columnar ingress's bursts make them. Both keep every
+    full window on the device. The reference's batch estimate, taken at
+    the size it decides for, sends every tail to the host; the port pools
+    each tail with the next window and keeps it on the device."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from emqx_tpu.broker.batcher import PublishBatcher as JBatcher
+    from emqx_tpu.broker.batcher import _ewma as jewma
+    from emqx_tpu.broker.metrics import Metrics as JMetrics
+    from emqx_tpu_torch.broker.batcher import _BYPASS_MARGIN
+    from emqx_tpu_torch.broker.batcher import PublishBatcher as TBatcher
+    from emqx_tpu_torch.broker.metrics import Metrics as TMetrics
+
+    N, host = 1024, 30e-6
+
+    def pair(probe_host: bool):
+        j = JBatcher(SimpleNamespace(metrics=JMetrics()), None, max_batch=N)
+        t = TBatcher(SimpleNamespace(metrics=TMetrics()), None, max_batch=N)
+        j._host_msg_s = t._host_msg_s = host
+        if not probe_host:
+            j.host_probe_every = t.host_probe_every = 1 << 30
+        return j, t
+
+    def decide(j, t, n):
+        got = j._device_worth_it(n), t._device_worth_it()
+        for b, d in zip((j, t), got):     # the producer's counters
+            if d:
+                b._since_host_probe += 1
+                b._since_probe = 0
+            else:
+                b._since_probe += 1
+        return got
+
+    def feed(j, t, n, cost):
+        j._dev_batch_s, j._dev_spike = jewma(
+            j._dev_batch_s, cost / _BYPASS_MARGIN, j._dev_spike)
+        t._device_sample(cost, n)
+
+    def bypassed(b):
+        return b.node.metrics.val("routing.device.bypassed")
+
+    rng = np.random.RandomState(cs.SEED)
+    j, t = pair(probe_host=True)
+    decisions = set()
+    for step in range(2000):
+        want, got = decide(j, t, N)
+        assert got == want, step
+        decisions.add(want)
+        for name in ("_since_probe", "_since_host_probe"):
+            assert getattr(t, name) == getattr(j, name), (step, name)
+        per = host if step < 3 else host * float(
+            rng.uniform(0.5, 2 * _BYPASS_MARGIN))
+        if rng.rand() < 0.02:
+            per *= 4                              # a spike
+        feed(j, t, N, per * N)
+    assert decisions == {True, False} and bypassed(t) == bypassed(j) > 0
+    j.close()
+    t.close()
+
+    j, t = pair(probe_host=False)
+    for _ in range(3):
+        assert decide(j, t, N) == (True, True)
+        feed(j, t, N, host * N)
+    for _ in range(50):
+        assert decide(j, t, N) == (True, True)
+        feed(j, t, N, host * N * float(rng.uniform(0.9, 1.1)))
+        assert decide(j, t, 67) == (False, True)
+        feed(j, t, 67, 67 * 3 * host)
+    assert bypassed(j) == 50 and bypassed(t) == 0
+    assert t._dev_msg_s <= _BYPASS_MARGIN * host
+    j.close()
+    t.close()
+
+
 def test_layer_defaults_are_the_references():
     """The port's Node serves with the reference's routing layers by
     default (dedup on, match cache 8192, delta overlay on, subscription
@@ -311,8 +404,8 @@ def test_layer_defaults_are_the_references():
 def test_unsupported_layer_raises(key, value):
     """A config that asks for a layer the port lacks is refused, not
     served without it; the same key set off is accepted. Subscription
-    covering, the HBM ledger and the delivery lanes, ported since, are
-    accepted either way and reach the node."""
+    covering, the HBM ledger, the delivery lanes and columnar ingress,
+    ported since, are accepted either way and reach the node."""
     if key == "subscription_covering":
         for v in (value, not value):
             eng = TNode({"broker": {key: v}}, device="cpu").device_engine
@@ -330,6 +423,15 @@ def test_unsupported_layer_raises(key, value):
                      device="cpu").deliver_lanes.n_lanes == value
         assert TNode({"broker": {key: 0}}, device="cpu").deliver_lanes \
             is None
+        return
+    if key == "columnar_ingress":
+        on = TNode({"broker": {key: value}}, device="cpu")
+        assert on.columnar_ingress is True \
+            and on.ingress_lanes == min(4, os.cpu_count() or 1)
+        off = TNode({"broker": {key: not value, "ingress_lanes": 4}},
+                    device="cpu")
+        assert (off.columnar_ingress, off.ingress_lanes) == (False, 1)
+        assert TNode(device="cpu").columnar_ingress is True
         return
     with pytest.raises(ValueError, match=key):
         TNode({"broker": {key: value}}, device="cpu")
