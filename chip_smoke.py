@@ -34,7 +34,7 @@ Phases:
    kernel at the same grid (the launch floor), torch.cumsum and the
    wrapper call;
 5. the kernels JSON line, the card line, and the result line last
-   (after phases 6 to 11);
+   (after phases 6 to 12);
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
    every hop count at the mesh phase's [E, 3] block and at a ragged
    [1001, 3] block (aligned and unaligned), and across two cards with
@@ -138,12 +138,51 @@ Phases:
    the device, and hold one window of its flood's topics against the
    plain path; the columnar run must take the burst path (bursts > 0) on
    the host native library (not its Python mirrors), and the per-packet
-   run must have no ``ingress`` section.
+   run must have no ``ingress`` section;
+12. the overload governor, as tools/overload_bench.py:1-60 drives it:
+   twin nodes, the governor on and off, each in a process of its own
+   (``--overload``), the chooser held on the device: 16 connections
+   writing pre-serialized QoS 0 PUBLISHes with every 16th row at QoS 1,
+   8 topics, 64-byte payloads, the governor polled every 0.05 s (the
+   bench's ladder tuning), a 500 ms objective. A warm pass measures the
+   governed node's sustained msgs/s; both twins' floods are paced at
+   twice that, 7,000 PUBLISHes a connection cut to fit 20 s. Both must
+   deliver every accepted QoS 1 PUBLISH in publisher order, launch
+   shape_match and prefix_sum and route at least 0.9 of their messages,
+   and of their windows of at least device_min_batch rows, on the
+   device; only the governed twin may shed (QoS 0 only), and it must
+   shed and come back to normal with nothing armed after the drain.
+   After the drain each twin holds two windows of the flood's own topic
+   sequence against the plain path: a fused one (the dedup plan) and a
+   QoS 1-only one, what a window is while QoS 0 is shed; kernel 2's
+   launch shapes over the flood are recorded, and those no earlier phase
+   timed are timed. The grade timeline and both routed p99s beside the
+   objective are printed, not asserted.
 
 Phase 8's node runs with columnar ingress on (the default); each flood
 prints its ingress counters (bursts, rows, per-packet frames), the share
 of its PUBLISHes that came in bursts, the rows per burst and the prepare
-stage's us per message.
+stage's us per message. It runs the flight recorder, the latency
+observatory and the overload governor too, at the reference's defaults
+(the governor built but not polled, as bench.py's run_e2e leaves it):
+each flood prints the recorder's spans, windows and drops, the analyzer's
+dispatch<->materialize overlap and bubbles by class over the windows the
+ring still holds (each device window among them must have its enqueue,
+dispatch, materialize and deliver spans), and the observatory's
+ingress->routed and ingress->delivered p50 / p99 by (QoS, path) and the
+SLO burn (its routed samples must equal the flood's PUBLISHes by QoS).
+One more depth-2 flood runs with both detached (msgs/s on and off,
+no ratio claimed). The profiled flood runs under the engine's device
+trace with a recorder whose ring holds the whole flood (nothing may be
+overwritten): every ``route_step#<trace id>`` range must name a trace
+the ring holds a dispatch span under.
+
+``python3 chip_smoke.py --trace-cost`` runs phase 8's node alone with
+its depth-2 lanes flood in eight rounds of four layer settings (the
+recorder and the observatory on, off, the observatory alone, both on
+with an objective no message breaches), each round's order rotated,
+and prints each setting's msgs/s and readback us a message over the
+rounds.
 """
 
 from __future__ import annotations
@@ -1028,8 +1067,16 @@ E2E_PUB_CONNS = 8
 E2E_MSGS = 32_000
 E2E_SUB_CHUNK = 512        # filters per SUBSCRIBE packet
 E2E_MIN_DEVICE_SHARE = 0.9
-# (label, dispatch depth, delivery lanes on) of each flood, in order
-E2E_RUNS = (("d2", 2, True), ("d1", 1, True), ("d2-inline", 2, False))
+# (label, dispatch depth, delivery lanes on, observability layers) of each
+# flood, in order; the layers: "on" the flight recorder and the latency
+# observatory, "off" neither, "obs" the observatory alone, "quiet" both
+# with an objective no message breaches (no slo_breach event, no exemplar)
+E2E_RUNS = (("d2", 2, True, "on"), ("d1", 1, True, "on"),
+            ("d2-inline", 2, False, "on"), ("d2-untraced", 2, True, "off"))
+# the --trace-cost floods: the four layer settings at depth 2 with the
+# lanes, in TRACE_ROUNDS rounds, each round's order rotated by one
+TRACE_LAYERS = ("on", "off", "quiet", "obs")
+TRACE_ROUNDS = 8
 
 
 def e2e_grid(n_filters: int) -> tuple:
@@ -1235,6 +1282,7 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
     launches = dict(D.LAUNCHES)
     delta = {k: m.val(k) - v for k, v in before.items()}
     sent = per_pub * n_pub
+    q1_sent = n_pub * len(range(0, per_pub, 4))
     failed = getattr(node.device_engine, "failed", None)
     if failed is not None or any(delta[k] for k in faults):
         raise AssertionError(
@@ -1276,8 +1324,8 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
         raise AssertionError(f"{wrong_conn} deliveries to a connection "
                              f"that does not hold the filter")
     lat_ms = np.sort(np.array(lat)) * 1e3
-    return {"sent": sent, "delivered": int(seen.sum()),
-            "per_sec": int(round(int(seen.sum()) / dt)),
+    return {"sent": sent, "q1_sent": q1_sent, "delivered": int(seen.sum()),
+            "wall_s": dt, "per_sec": int(round(int(seen.sum()) / dt)),
             "device_routed": delta["messages.routed.device"],
             "batches": delta["routing.device.batches"],
             "device_bypassed": delta["routing.device.bypassed"],
@@ -1457,27 +1505,153 @@ def _host_allocs(dev) -> "int | None":
 
 async def _profiled_flood(node, subs, pubs, ids: int, nums: int,
                           total: int, seed: int) -> dict:
-    """One flood under torch.profiler: the card's busy time (kernels and
-    copies, summed by the profiler) against the flood's wall time."""
+    """One flood under the engine's device trace (``start_device_trace``,
+    torch.profiler): the card's busy time (kernels and copies, summed by
+    the profiler) against the flood's wall time, and the join of the
+    capture's ``route_step#<trace id>`` ranges with the flight recorder.
+    The node's recorder is one whose ring holds the whole flood (at the
+    2 ms objective every message's ``slo_breach`` event takes a slot, so
+    the default 4,096 slots hold its last windows only): nothing may be
+    overwritten, and every range must name a trace the ring holds a
+    dispatch span under — a set inclusion, as the profiler can lose
+    records late in a long run (a range names the lead's trace, never a
+    fused follower's)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    eng = node.device_engine
+    rec = node.flight_recorder
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if not eng.start_device_trace():
+        raise AssertionError("a device trace was already running")
+    try:
         t0 = time.time()
         f = await _flood(node, subs, pubs, ids, nums, total, seed)
         torch.cuda.synchronize()
         wall = time.time() - t0
+    finally:
+        prof = eng.stop_device_trace()
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and _dev_us(e) > 0]
     busy = sum(_dev_us(e) for e in rows) / 1e6
     top = sorted(rows, key=_dev_us, reverse=True)[:6]
+    steps = [e.name for e in prof.events()
+             if e.name.startswith("route_step#")]
+    ids_named = {int(n.split("#", 1)[1]) for n in steps}
+    if rec.dropped():
+        raise AssertionError(f"the profiled flood's ring ({rec.cap} slots) "
+                             f"overwrote {rec.dropped()} spans")
+    held = {s.trace_id for s in rec.spans()
+            if s.name in ("dispatch", "dispatch_cached")}
+    if not ids_named:
+        raise AssertionError("the device trace holds no route_step range")
+    if not ids_named <= held:
+        raise AssertionError(
+            f"{len(ids_named - held)} route_step ranges name no trace the "
+            f"ring holds a dispatch span under (e.g. "
+            f"{sorted(ids_named - held)[:5]})")
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1 - busy / wall, "windows": f["windows"],
-            "per_sec": f["per_sec"],
+            "per_sec": f["per_sec"], "route_steps": len(steps),
+            "route_step_traces": len(ids_named),
+            "dispatched_traces": len(held), "ring": rec.state(),
             "top": [(e.key[:60], round(_dev_us(e) / 1e3, 3), e.count)
                     for e in top]}
+
+
+def _observability(node, rec, obs) -> None:
+    """Point every holder of the node's flight recorder and latency
+    observatory at `rec` and `obs`; None for both is what a node built
+    with ``trace`` and ``latency_observatory`` off holds (the untraced
+    flood detaches them, as the inline flood detaches the lane pool)."""
+    node.flight_recorder = node.publish_batcher.rec = rec
+    node.device_engine.rec = node.pipeline_telemetry.recorder = rec
+    node.latency_observatory = node.publish_batcher.obs = obs
+    node.pipeline_telemetry.observatory = node.broker.latency_obs = obs
+    for holder in (node.hbm_ledger, node.overload_governor, obs):
+        if holder is not None:
+            holder.recorder = rec
+
+
+def _objective(obs, ms: float) -> None:
+    """Set the latency observatory's routed p99 objective (the breach
+    threshold) to `ms`."""
+    obs.objective_ms, obs._objective_s = ms, ms / 1000.0
+
+
+TRACE_COUNTERS = ("trace.spans", "trace.windows", "trace.dropped")
+
+
+def trace_numbers(node, first_id: int, counters0: dict) -> dict:
+    """The flight recorder over one flood: the windows minted in it
+    (trace ids above `first_id`) that the ring still holds — their
+    enqueue root span is in it: the ring drops oldest first — and the
+    analyzer's dispatch↔materialize overlap, stage occupancy and bubbles
+    by class over their spans, and the recorder's counters over the flood
+    (`counters0`: their values before it). Every held device window must
+    have its enqueue and deliver spans under its trace and the dispatch
+    and materialize spans under its trace or, fused, under its lead's
+    (the ``fused`` event names the lead)."""
+    from emqx_tpu_torch.broker.trace import analyze_spans
+    rec = node.flight_recorder
+    spans = [sp for sp in rec.spans() if sp.trace_id > first_id]
+    by: dict = {}
+    for sp in spans:
+        by.setdefault(sp.trace_id, []).append(sp)
+    names = {t: {sp.name for sp in sps} for t, sps in by.items()}
+    held = [t for t in by if "enqueue" in names[t]]
+    lead = {sp.trace_id: sp.meta["lead"] for sp in spans
+            if sp.name == "fused"}
+    device, fused, bad = 0, 0, []
+    for t in held:
+        if not any(sp.name == "window" and sp.meta["path"] == "device"
+                   for sp in by[t]):
+            continue
+        device += 1
+        src = lead.get(t, t)
+        fused += src != t
+        if src not in names or "enqueue" not in names[src]:
+            continue           # the lead's spans left the ring first
+        if not ({"enqueue", "deliver"} <= names[t]
+                and {"dispatch", "dispatch_cached"} & names[src]
+                and "materialize" in names[src]):
+            bad.append((t, sorted(names[t]), sorted(names[src])))
+    if bad:
+        raise AssertionError(f"{len(bad)} device windows lack their "
+                             f"spans, e.g. {bad[:3]}")
+    a = analyze_spans([sp for sp in spans if sp.trace_id in set(held)],
+                      per_window=0)
+    m = node.metrics
+    return {"counters": {k.split(".")[1]: m.val(k) - counters0[k]
+                         for k in TRACE_COUNTERS},
+            "minted": len(by), "held": len(held), "device_windows": device,
+            "fused_windows": fused, "overlap": a.get("overlap"),
+            "stage_occupancy": a.get("stage_occupancy"),
+            "bubbles": a.get("bubbles"), "ring": rec.state()}
+
+
+def latency_numbers(node, f: dict) -> dict:
+    """The latency observatory over one flood (reset before it): p50/p99
+    of ingress→routed and ingress→delivered by (qos, path), the legs'
+    means over every series, the SLO burn — and its routed samples must
+    equal the flood's stamped PUBLISHes, split by QoS as the flood's mix
+    (every 4th at QoS 1)."""
+    obs = node.latency_observatory
+    sec = obs.section()
+    by_q = {0: 0, 1: 0}
+    for key, row in sec["routed"].items():
+        by_q[int(key[1])] += row["count"]
+    want = {0: f["sent"] - f["q1_sent"], 1: f["q1_sent"]}
+    if by_q != want:
+        raise AssertionError(f"the observatory's routed samples by QoS "
+                             f"{by_q} are not the flood's {want}")
+    means = {}
+    for leg in ("routed", "delivered"):
+        hs = [h for k, h in node.metrics.histograms().items()
+              if k.startswith(f"pipeline.latency.{leg}.") and h.count]
+        n = sum(h.count for h in hs)
+        means[leg] = sum(h.sum for h in hs) / n * 1e3 if n else None
+    return {"routed": sec["routed"], "delivered": sec["delivered"],
+            "mean_ms": means, "slo": sec["slo"]}
 
 
 def hold_against_plain(eng, h, what: str) -> int:
@@ -1632,17 +1806,40 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
             # collection rescans it in the middle of a flood
             gc.collect()
             gc.freeze()
-            for k, (label, depth, lanes_on) in enumerate(runs):
+            rec, obs = node.flight_recorder, node.latency_observatory
+            objective = obs.objective_ms
+            for k, (label, depth, lanes_on, layers) in enumerate(runs):
                 # the batcher's consumer reads the depth when it starts,
                 # and it parks between floods (the lanes are drained by
                 # then: every future resolved)
                 node.publish_batcher.dispatch_depth = depth
                 node.deliver_lanes = lanes if lanes_on else None
+                traced = layers in ("on", "quiet")
+                _observability(node, rec if traced else None,
+                               obs if layers != "off" else None)
+                _objective(obs, 1e9 if layers == "quiet" else objective)
+                if layers != "off":
+                    obs.reset()
+                first_id = node.publish_batcher.last_trace
+                tr0 = {c: node.metrics.val(c) for c in TRACE_COUNTERS}
                 tele0 = tele_state(node)
                 pinned0 = _host_allocs(dev)
                 f = await _flood(node, subs, pubs, ids, nums, total,
                                  seed + 100 * k)
                 f["lanes_on"] = lanes_on
+                f["traced"] = traced
+                f["layers"] = layers
+                f["trace"] = trace_numbers(node, first_id, tr0) \
+                    if traced else None
+                f["latency"] = latency_numbers(node, f) \
+                    if layers != "off" else None
+                if not traced and node.publish_batcher.last_trace \
+                        != first_id:
+                    raise AssertionError(f"{label}: a window was traced "
+                                         f"with the recorder detached")
+                if layers == "quiet" and f["latency"]["slo"]["breaches"]:
+                    raise AssertionError(f"{label}: a message breached the "
+                                         f"raised objective")
                 f["telemetry"] = tele_delta(node, tele0)
                 st = f["telemetry"]["stages"]
                 f["lane_us_per_msg"] = sum(
@@ -1688,6 +1885,8 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
                     out["window_err"] = e2e_window_check(
                         node, ids, nums, seed + 1, *window)
             node.deliver_lanes = lanes
+            _observability(node, rec, obs)
+            _objective(obs, objective)
             out["ledger"] = ledger_line(node, alloc0) \
                 if node.hbm_ledger is not None else None
             frac = (out["ledger"] or {}).get("accounted_fraction")
@@ -1704,9 +1903,18 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
             if out["cached_windows"] <= 0:
                 raise AssertionError("phase 8 ran no cached window")
             if profile:
+                # a recorder whose ring holds the whole flood: a breach
+                # event a message, the sampled message spans and ~20
+                # spans a window come to about `total` spans
+                from emqx_tpu_torch.broker.trace import FlightRecorder
                 node.publish_batcher.dispatch_depth = runs[0][1]
-                out["profiled"] = await _profiled_flood(
-                    node, subs, pubs, ids, nums, total, seed + 1000)
+                _observability(node, FlightRecorder(
+                    node.metrics, cap=4 * total, sample=rec.sample), obs)
+                try:
+                    out["profiled"] = await _profiled_flood(
+                        node, subs, pubs, ids, nums, total, seed + 1000)
+                finally:
+                    _observability(node, rec, obs)
             out["stats"] = node.device_engine.stats()
             out["ingress_lanes"] = {
                 "lanes": node.ingress_lanes,
@@ -1737,8 +1945,32 @@ def e2e_phase(dev, card: str) -> dict:
                 for k, d in f["window_us"].items()}
         stage_us = {k: round(v, 2) for k, v in f["device_us_per_msg"].items()}
         disp = dict(f["dispatch_ms"], sum=round(f["dispatch_ms"]["sum"], 3))
-        depth = f"{label} (lanes {'on' if f['lanes_on'] else 'off'})"
+        depth = f"{label} (lanes {'on' if f['lanes_on'] else 'off'}, " \
+            f"recorder and observatory {f['layers']})"
         log(f"phase 8 {depth}: {json.dumps(row)}")
+        if f["trace"] is not None:
+            tr, lat = f["trace"], f["latency"]
+            bub = tr["bubbles"] or {}
+            occ = {k: v["total_s"] for k, v in
+                   (tr["stage_occupancy"] or {}).items()}
+            log(f"phase 8 {depth}: trace {json.dumps(tr['counters'])} "
+                f"over the flood, ring {json.dumps(tr['ring'])}; "
+                f"{tr['minted']} windows minted, {tr['held']} held in the "
+                f"ring ({tr['device_windows']} device windows, "
+                f"{tr['fused_windows']} fused followers), each with its "
+                f"enqueue, dispatch, materialize and deliver spans; "
+                f"dispatch<->materialize overlap "
+                f"{json.dumps(tr['overlap'])}; bubbles (s) "
+                f"{json.dumps(bub)}; stage seconds {json.dumps(occ)} over "
+                f"the flood's {f['wall_s']:.3f} s")
+            legs = {leg: {k: [v["p50_ms"], v["p99_ms"], v["count"]]
+                          for k, v in lat[leg].items()}
+                    for leg in ("routed", "delivered")}
+            log(f"phase 8 {depth}: latency observatory (p50 ms, p99 ms, "
+                f"samples) by qos.path {json.dumps(legs)}; means (ms) "
+                f"{json.dumps(lat['mean_ms'])}; SLO "
+                f"{json.dumps(lat['slo'])}; routed samples = the "
+                f"{f['sent']} stamped PUBLISHes ({f['q1_sent']} at QoS 1)")
         log(f"phase 8 {depth}: {f['per_sec']} msgs/s, client "
             f"PUBLISH->deliver p50 {f['lat_p50_ms']:.3f} ms p99 "
             f"{f['lat_p99_ms']:.3f} ms, "
@@ -1799,6 +2031,9 @@ def e2e_phase(dev, card: str) -> dict:
         f"{off['device_us_per_msg']['consume']:.2f} us/msg, dispatch "
         f"{on['device_us_per_msg']['dispatch']:.2f} vs "
         f"{off['device_us_per_msg']['dispatch']:.2f} us/msg")
+    log(f"phase 8 recorder and observatory on / off at depth 2, lanes on: "
+        f"{fl['d2']['per_sec']} / {fl['d2-untraced']['per_sec']} msgs/s "
+        f"(one flood each, no ratio claimed)")
     led = r["ledger"]
     log(f"phase 8 HBM ledger: live {led['live_bytes']} bytes by category "
         f"{json.dumps(led['by_category'])}, peak {led['peak_bytes']}, "
@@ -1814,7 +2049,11 @@ def e2e_phase(dev, card: str) -> dict:
         f"{p['device_busy_s'] * 1e3:.1f} ms of {p['wall_s']:.2f} s, idle "
         f"share {p['idle_share']:.4f}, {p['windows']} windows, "
         f"{p['per_sec']} msgs/s under the profiler; largest device "
-        f"entries (name, ms, count): {p['top']}")
+        f"entries (name, ms, count): {p['top']}; {p['route_steps']} "
+        f"route_step ranges naming {p['route_step_traces']} window traces "
+        f"of the {p['dispatched_traces']} the ring holds a dispatch span "
+        f"under, every one among them; the flood's ring "
+        f"{json.dumps(p['ring'])} (nothing overwritten)")
     for depth, f in r["floods"].items():
         log(f"phase 8 {depth}: every message delivered once "
             f"to a connection holding its filter; per-publisher order held "
@@ -1824,6 +2063,64 @@ def e2e_phase(dev, card: str) -> dict:
             f"device engine")
     log(card)
     return r
+
+
+def trace_cost_runs(rounds: int = TRACE_ROUNDS) -> tuple:
+    """The ``--trace-cost`` floods: each of TRACE_LAYERS at depth 2 with
+    the lanes, in `rounds` rounds, round r's order rotated by r (no
+    setting always runs first, after the warm-up)."""
+    out = []
+    for r in range(rounds):
+        k = r % len(TRACE_LAYERS)
+        for layers in TRACE_LAYERS[k:] + TRACE_LAYERS[:k]:
+            out.append((f"d2-{layers}-{r + 1}", 2, True, layers))
+    return tuple(out)
+
+
+def trace_cost(dev, rounds: int = TRACE_ROUNDS, **kw) -> dict:
+    """The observability layers' cost on phase 8's flood: e2e_drive (its
+    checks included) over trace_cost_runs on one node; for each layer
+    setting, in run order, each flood's msgs/s, the device path's host µs
+    a message by stage (readback: materialize's host part on the card),
+    the lanes' µs a message and the recorder's spans."""
+    r = e2e_drive(dev, runs=trace_cost_runs(rounds), **kw)
+    by: dict = {}
+    for label, f in r["floods"].items():
+        row = by.setdefault(f["layers"], {"labels": [], "per_sec": [],
+                                          "stage_us": [], "lane_us": [],
+                                          "spans": []})
+        row["labels"].append(label)
+        row["per_sec"].append(f["per_sec"])
+        row["stage_us"].append({k: round(v, 2) for k, v in
+                                f["device_us_per_msg"].items()})
+        row["lane_us"].append(round(f["lane_us_per_msg"], 2))
+        row["spans"].append(f["trace"]["counters"]["spans"]
+                            if f["trace"] is not None else 0)
+    return by
+
+
+def trace_cost_main() -> int:
+    """``--trace-cost``: trace_cost at phase 8's size on the card; a line
+    for each layer setting, then one JSON line of the results."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from emqx_tpu_torch.ops.build import build
+    build()
+    card = card_line()
+    log(card)
+    by = trace_cost(torch.device("cuda"))
+    for layers, row in by.items():
+        per = row["per_sec"]
+        log(f"trace cost {layers}: msgs/s {per} (min {min(per)}, median "
+            f"{int(np.median(per))}, max {max(per)}); readback us/msg "
+            f"{[s['readback'] for s in row['stage_us']]}; lanes us/msg "
+            f"{row['lane_us']}; spans {row['spans']}; floods "
+            f"{row['labels']}")
+    log(json.dumps(by))
+    log(card)
+    return 0
 
 
 # ---- phase 9: the reference's default routing layers ----------------------
@@ -2906,6 +3203,451 @@ def ingress_main(arg: str) -> int:
     return 0
 
 
+# ---- phase 12: the overload governor -------------------------------------
+
+# tools/overload_bench.py:1-60: 16 connections, QoS 0 rows with every 16th
+# row at QoS 1, 8 topics, 64-byte payloads, the governor polled every
+# 0.05 s, a 500 ms objective (set on a CPU: recorded, not asserted)
+O_CONNS = 16
+O_MSGS = 7000               # per connection, the bench's; cut by O_FLOOD_S
+O_QOS1_EVERY = 16
+O_TOPICS = 8
+O_PAYLOAD = 64
+O_SLO_MS = 500.0
+O_POLL_S = 0.05
+O_RATE_X = 2.0              # the paced flood's rate: x the warm pass's
+O_FLOOD_S = 20.0            # a flood's planned length at most
+O_WARM_MSGS = 1000          # per connection in the warm pass
+O_DOWN_SUSTAIN = 200        # the bench's: the flood stays shed while timed
+O_RECOVER_S = 30.0
+O_TIMEOUT_S = 120.0
+O_ONE_TIMEOUT_S = 300
+
+
+def _overload_blob(conn_id: int, n_msgs: int, n_topics: int, payload: int,
+                   qos1_every: int) -> bytes:
+    """tools/overload_bench.py:52-73: one publisher's flood,
+    pre-serialized — QoS 0 rows with a QoS 1 row every `qos1_every`
+    frames on a topic family of its own; the payload starts with (conn,
+    seq) for the per-publisher order check."""
+    from emqx_tpu_torch.mqtt import packet as P
+    from emqx_tpu_torch.mqtt.frame import serialize
+    out = bytearray()
+    pad = b"x" * max(0, payload - 16)
+    pid = 0
+    for i in range(n_msgs):
+        head = b"%08d%08d" % (conn_id, i)
+        if qos1_every and i % qos1_every == qos1_every - 1:
+            pid = pid % 65535 + 1
+            out += serialize(P.Publish(topic=f"ov/q1/t{i % n_topics}",
+                                       payload=head + pad, qos=1,
+                                       packet_id=pid), 4)
+        else:
+            out += serialize(P.Publish(topic=f"ov/q0/t{i % n_topics}",
+                                       payload=head + pad, qos=0), 4)
+    return bytes(out)
+
+
+async def _overload_run(dev, governor: bool, rate, conns: int, n_msgs: int,
+                        warm_msgs: int, flood_s: float,
+                        poll_s: float = O_POLL_S) -> dict:
+    """One phase-12 twin: the node with the governor on or off, the
+    chooser held on the device; a warm pass (every class captured, then
+    `warm_msgs` a connection written at once) measures the node's
+    sustained msgs/s with the governor not yet polled; then the paced
+    flood at `rate` msgs/s (O_RATE_X x the warm pass's when None) of at
+    most `flood_s` seconds (`n_msgs` a connection, cut to fit), the
+    governor polled every `poll_s`, the observatory reset once the flood
+    is steady (the bench's rule); the QoS 1 settle, and the recovery."""
+    import asyncio
+
+    from emqx_tpu_torch import device as D
+    from emqx_tpu_torch.broker.connection import Listener
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.broker.node import Node
+    from emqx_tpu_torch.broker.overload import GRADES
+    from emqx_tpu_torch.client import Client
+
+    node = Node({"broker": {"overload": governor,
+                            "slo_route_p99_ms": O_SLO_MS}}, device=dev)
+    node.publish_batcher._device_worth_it = lambda: True
+    m = node.metrics
+    gov = node.overload_governor
+    lst = Listener(node, bind="127.0.0.1", port=0)
+    await lst.start()
+    sub = Client(port=lst.port, clientid="ov-sub")
+    await sub.connect()
+    # QoS 0 grants: deliveries are plain socket writes, so the
+    # subscriber's inflight window never becomes the wall (the bench's)
+    await sub.subscribe("ov/q1/#", qos=0)
+    await sub.subscribe("ov/q0/#", qos=0)
+    got = {"q0": 0, "q1": 0, "order": 0}
+    last_seq: dict = {}
+
+    async def drain_sub():
+        while True:
+            msg = await sub.messages.get()
+            head = bytes(msg.payload[:16])
+            c, k = int(head[:8]), int(head[8:])
+            if msg.topic.startswith("ov/q1/"):
+                got["q1"] += 1
+                # QoS 0 rows may be shed between them: monotone per
+                # publisher, not contiguous
+                if last_seq.get(c, -1) >= k:
+                    got["order"] += 1
+                last_seq[c] = k
+            else:
+                got["q0"] += 1
+
+    async def write_all(pairs, blobs):
+        async def one(w, blob):
+            for x in range(0, len(blob), 65536):
+                w.write(blob[x:x + 65536])
+                await w.drain()
+        await asyncio.gather(*[one(w, b) for (_r, w), b in zip(pairs,
+                                                                blobs)])
+
+    async def quiet(fn, polls: int = 10, limit: float = 30.0) -> None:
+        """Wait until fn() stops moving for `polls` polls."""
+        last, n = fn(), 0
+        deadline = time.perf_counter() + limit
+        while n < polls and time.perf_counter() < deadline:
+            await asyncio.sleep(0.05)
+            cur = fn()
+            n, last = (n + 1, last) if cur == last else (0, cur)
+
+    async def sink(reader):
+        try:                  # the PUBACKs must be read, or the
+            while True:       # publisher's receive buffer fills
+                if not await reader.read(65536):
+                    return
+        except (ConnectionError, OSError):
+            return
+
+    drainer = asyncio.get_running_loop().create_task(drain_sub())
+    pairs, sinks, tasks = [], [], []
+    try:
+        # the warm pass: the flood's classes captured before anything is
+        # timed, then the node's sustained rate on this host
+        w_pairs = [await _connect_raw(lst.port, f"ovwarm{i}")
+                   for i in range(conns)]
+        sinks += [asyncio.get_running_loop().create_task(sink(r))
+                  for r, _w in w_pairs]
+        await write_all(w_pairs[:1], [_overload_blob(
+            900, 256, O_TOPICS, O_PAYLOAD, 0)])
+        eng = node.device_engine
+        bmax = node.publish_batcher.max_batch
+        deadline = time.perf_counter() + 90
+        while time.perf_counter() < deadline:
+            if eng._built is not None and eng.batch_class_warm(bmax) \
+                    and getattr(eng, "_fuse_warm_task", None) is None:
+                break
+            await asyncio.sleep(0.05)
+        await quiet(lambda: got["q0"] + got["q1"])
+        # sustained = delivered: the subscriber holds every topic
+        want = got["q0"] + got["q1"] + conns * warm_msgs
+        t0 = time.perf_counter()
+        await write_all(w_pairs, [_overload_blob(
+            910 + i, warm_msgs, O_TOPICS, O_PAYLOAD, O_QOS1_EVERY)
+            for i in range(conns)])
+        while got["q0"] + got["q1"] < want \
+                and time.perf_counter() - t0 < O_TIMEOUT_S:
+            await asyncio.sleep(0.005)
+        warm_s = time.perf_counter() - t0
+        warm_rate = conns * warm_msgs / warm_s
+        if got["q0"] + got["q1"] < want:
+            raise AssertionError("phase 12: the warm pass did not settle")
+        for _r, w in w_pairs:
+            w.close()
+        if rate is None:
+            rate = O_RATE_X * warm_rate
+        n = max(O_QOS1_EVERY, min(n_msgs, int(rate * flood_s / conns)))
+        got.update(q0=0, q1=0, order=0)
+        last_seq.clear()
+
+        # the paced flood, the governor polled from here on
+        node.start_timers(poll_s)
+        if gov is not None:
+            gov.up_sustain = 2
+            gov.down_sustain = O_DOWN_SUSTAIN
+            gov.thresholds = dict(gov.thresholds,
+                                  queue_fill=(0.25, 0.45, 0.65))
+        pairs = [await _connect_raw(lst.port, f"ovpub{i}")
+                 for i in range(conns)]
+        sinks += [asyncio.get_running_loop().create_task(sink(r))
+                  for r, _w in pairs]
+        blobs = [_overload_blob(i, n, O_TOPICS, O_PAYLOAD, O_QOS1_EVERY)
+                 for i in range(conns)]
+        q1_sent = conns * len(range(O_QOS1_EVERY - 1, n, O_QOS1_EVERY))
+        frame_bytes = len(blobs[0]) / n
+        timeline = []
+
+        async def paced(writer, blob):
+            bps = frame_bytes * rate / conns
+            w = 0
+            start = time.perf_counter()
+            try:
+                while w < len(blob):
+                    due = int(bps * (time.perf_counter() - start + 0.02))
+                    if due > w:
+                        writer.write(blob[w:due])
+                        w = due
+                        await writer.drain()
+                    await asyncio.sleep(0.02)
+            except (ConnectionError, OSError):
+                # the critical grade's offender disconnect: the rest of
+                # this publisher's rows were never accepted
+                pass
+
+        async def grades(t0):
+            last = None
+            while gov is not None:
+                if gov.grade != last:
+                    last = gov.grade
+                    timeline.append((round(time.perf_counter() - t0, 3),
+                                     GRADES[last]))
+                await asyncio.sleep(poll_s / 2)
+
+        # the flood's windows by path: device, and on the host those of
+        # at least device_min_batch rows (the chooser's to send) apart
+        # from the smaller ones (the host's by rule)
+        b = node.publish_batcher
+        wins = {"device": 0, "host": 0, "host_small": 0}
+        record = b._record_decision
+
+        def tally(group, lives, dispatched):
+            if dispatched:
+                wins["device"] += 1
+            else:
+                for e in group:
+                    wins["host" if len(e["live"]) >= b.device_min_batch
+                         else "host_small"] += 1
+            record(group, lives, dispatched)
+
+        b._record_decision = tally
+        keys = ("routing.device.messages", "routing.host.messages",
+                "messages.qos1.received", "messages.publish")
+        before = {k: m.val(k) for k in keys}
+        gc.collect()
+        D.reset_launches()
+        t0 = time.perf_counter()
+        tasks.append(asyncio.get_running_loop().create_task(grades(t0)))
+        flood = asyncio.gather(*[paced(w, blob)
+                                 for (_r, w), blob in zip(pairs, blobs)])
+        steady = time.perf_counter() + 30
+        if gov is not None:
+            while gov.grade < 3 and time.perf_counter() < steady \
+                    and not flood.done():
+                await asyncio.sleep(poll_s)
+            while time.perf_counter() < steady and not flood.done():
+                if len(b._queue) <= 64 and b._inflight is not None \
+                        and b._inflight.qsize() <= 1:
+                    break
+                await asyncio.sleep(poll_s)
+        else:
+            await asyncio.sleep(n * conns / rate / 4)
+        node.latency_observatory.reset()
+        t_meas = time.perf_counter()
+        await flood
+        flood_s_real = time.perf_counter() - t0
+        # the QoS 1 settle: every accepted QoS 1 PUBLISH delivered
+        deadline = time.perf_counter() + O_TIMEOUT_S
+        while time.perf_counter() < deadline and got["q1"] < m.val(
+                "messages.qos1.received") - before["messages.qos1.received"]:
+            await asyncio.sleep(0.05)
+        await quiet(lambda: (got["q0"], got["q1"],
+                             m.val("messages.qos1.received")))
+        settle_s = time.perf_counter() - t0
+        launches = dict(D.LAUNCHES)
+        scan_shapes = dict(D.LAUNCH_SHAPES["prefix_sum"])
+        windows = dict(wins)
+        delta = {k: m.val(k) - v for k, v in before.items()}
+        snap = node.pipeline_telemetry.snapshot()
+        # the recovery at the governor's production step-down
+        recovered = gov is None
+        if gov is not None:
+            gov.down_sustain = 5
+            deadline = time.perf_counter() + O_RECOVER_S
+            while time.perf_counter() < deadline:
+                if gov.grade == 0 and not gov._armed:
+                    recovered = True
+                    break
+                await asyncio.sleep(poll_s)
+        recover_s = time.perf_counter() - t0 - settle_s
+        node.stop_timers()
+        # two windows of the flood's own topic sequence held against the
+        # plain path: a fused window of the mix (16 unique topics: the
+        # dedup plan) and one QoS 1 row from each connection, what a
+        # window holds while QoS 0 is shed
+        qos = [int(i % O_QOS1_EVERY == O_QOS1_EVERY - 1)
+               for i in range(b.max_batch)]
+        hold_err = hold_window(
+            eng, [[make("cmp", q, f"ov/q{q}/t{i % O_TOPICS}", b"")
+                   for i, q in enumerate(qos)] for _ in range(2)],
+            "overload window", True)
+        hold_err = max(hold_err, hold_window(
+            eng, [[make("cmp", 1, f"ov/q1/t{i % O_TOPICS}", b"")
+                   for i in range(conns)]], "overload QoS 1 window", False))
+    finally:
+        for t in (drainer, *sinks, *tasks):
+            t.cancel()
+        for _r, w in pairs:
+            w.close()
+        await sub.close()
+        await lst.stop()
+        await node.publish_batcher.stop()
+        node.publish_batcher.close()
+    lat = snap.get("latency") or {}
+    q1_routed = {k: v["p99_ms"] for k, v in (lat.get("routed") or {}).items()
+                 if k.startswith("q1.")}
+    return {"governor": bool(governor), "conns": conns,
+            "warm_msgs_per_s": round(warm_rate), "rate": round(rate),
+            "msgs_per_conn": n, "cut_from": n_msgs,
+            "flood_s": flood_s_real, "settle_s": settle_s,
+            "recover_s": recover_s, "measured_from_s": t_meas - t0,
+            "qos1_sent": q1_sent,
+            "qos1_received": delta["messages.qos1.received"],
+            "qos1_delivered": got["q1"], "qos0_sent": conns * n - q1_sent,
+            "qos0_delivered": got["q0"],
+            "accepted": delta["messages.publish"],
+            "qos0_shed": m.val("pipeline.overload.qos0_shed"),
+            "disconnects": m.val("pipeline.overload.disconnects"),
+            "order_violations": got["order"],
+            "routed_p99_ms": (lat.get("slo") or {}).get("routed_p99_ms"),
+            "q1_routed_p99_ms": q1_routed,
+            "objective_p99_ms": lat.get("objective_p99_ms"),
+            "verdict": (lat.get("slo") or {}).get("verdict"),
+            "timeline": timeline, "recovered": recovered,
+            "overload": snap.get("overload"), "windows": windows,
+            # of the windows the chooser may send to the device
+            "window_share": windows["device"] / max(
+                1, windows["device"] + windows["host"]),
+            "device_share": delta["routing.device.messages"] / max(
+                1, delta["routing.device.messages"]
+                + delta["routing.host.messages"]),
+            "launches": launches, "hold_err": hold_err,
+            "scan_shapes": [[list(k), v] for k, v in scan_shapes.items()],
+            "device": str(dev)}
+
+
+def overload_one(dev, governor: bool, rate=None, conns: int = O_CONNS,
+                 n_msgs: int = O_MSGS, warm_msgs: int = O_WARM_MSGS,
+                 flood_s: float = O_FLOOD_S) -> dict:
+    """One phase-12 twin in this process (``--overload`` runs it in a
+    child of its own on the card)."""
+    import asyncio
+
+    import torch
+    return asyncio.run(_overload_run(torch.device(dev), governor, rate,
+                                     conns, n_msgs, warm_msgs, flood_s))
+
+
+def check_overload_pair(on: dict, off: dict, cuda: bool) -> None:
+    """Both twins deliver every accepted QoS 1 PUBLISH in per-publisher
+    order; only the governed one sheds, only QoS 0; it recovers to
+    normal with nothing armed; both run the kernels and route at least
+    E2E_MIN_DEVICE_SHARE of their messages, and of their windows of at
+    least device_min_batch rows, on the device. (Each twin's windows
+    held against the plain path raised in its run if they disagreed.)"""
+    for r in (on, off):
+        name = f"phase 12 governor {'on' if r['governor'] else 'off'}"
+        if r["qos1_delivered"] != r["qos1_received"]:
+            raise AssertionError(f"{name}: {r['qos1_delivered']} of "
+                                 f"{r['qos1_received']} accepted QoS 1 "
+                                 f"PUBLISHes delivered")
+        if r["order_violations"]:
+            raise AssertionError(f"{name}: {r['order_violations']} QoS 1 "
+                                 f"deliveries out of publisher order")
+        # by messages, as phases 8 and 11 count it, and by the windows
+        # the chooser decides: while QoS 0 is shed the governed twin's
+        # windows are the QoS 1 rows alone, and those under
+        # device_min_batch go to the host by rule, whatever it says
+        if r["device_share"] < E2E_MIN_DEVICE_SHARE:
+            raise AssertionError(f"{name}: {r['device_share']:.3f} of the "
+                                 f"messages routed on the device")
+        if r["window_share"] < E2E_MIN_DEVICE_SHARE:
+            raise AssertionError(f"{name}: {r['window_share']:.3f} of the "
+                                 f"windows of at least device_min_batch "
+                                 f"rows on the device: {r['windows']}")
+        if cuda and (r["launches"]["shape_match"] == 0
+                     or r["launches"]["prefix_sum"] == 0):
+            raise AssertionError(f"{name}: a kernel was not launched: "
+                                 f"{r['launches']}")
+    if on["qos0_shed"] <= 0:
+        raise AssertionError("phase 12: the governed twin shed no QoS 0")
+    if off["qos0_shed"] != 0:
+        raise AssertionError("phase 12: the ungoverned twin shed")
+    if not on["recovered"]:
+        raise AssertionError(f"phase 12: the governor did not recover: "
+                             f"{on['overload']}")
+
+
+def overload_phase(card: str) -> dict:
+    """Phase 12 on the card: the governed twin first (its warm pass sets
+    the paced rate), then the ungoverned one at the same rate, each in a
+    process of its own."""
+    t0 = time.time()
+    rows = {}
+    rate = None
+    for governor in (True, False):
+        arg = json.dumps({"governor": governor, "rate": rate})
+        sp = subprocess.run([sys.executable, __file__, "--overload", arg],
+                            capture_output=True, text=True,
+                            timeout=O_ONE_TIMEOUT_S)
+        lines = [ln for ln in sp.stdout.splitlines() if ln.startswith("{")]
+        if sp.returncode != 0 or not lines:
+            raise AssertionError(
+                f"phase 12 governor {governor}: the child failed, rc "
+                f"{sp.returncode}: {sp.stderr[-2000:]}")
+        r = rows[governor] = json.loads(lines[-1])
+        rate = r["rate"]
+        log(f"phase 12 governor {'on' if governor else 'off'}: warm pass "
+            f"{r['warm_msgs_per_s']} msgs/s; paced flood at {r['rate']} "
+            f"msgs/s, {r['conns']} x {r['msgs_per_conn']} PUBLISHes (cut "
+            f"from {r['cut_from']} a connection to fit {O_FLOOD_S:.0f} s) "
+            f"in {r['flood_s']:.2f} s, settled at {r['settle_s']:.2f} s; "
+            f"accepted {r['accepted']}; QoS 1 sent / accepted / delivered "
+            f"{r['qos1_sent']} / {r['qos1_received']} / "
+            f"{r['qos1_delivered']}; QoS 0 sent / shed / delivered "
+            f"{r['qos0_sent']} / {r['qos0_shed']} / {r['qos0_delivered']}; "
+            f"{r['disconnects']} offender disconnects; messages on the "
+            f"device {r['device_share']:.3f}, windows of at least "
+            f"device_min_batch rows {r['window_share']:.3f} (windows "
+            f"{json.dumps(r['windows'])}); launches {r['launches']}; kernel "
+            f"2 launches by shape "
+            f"{json.dumps({str(tuple(k)): v for k, v in r['scan_shapes']})}"
+            f"; two windows of the flood's topics == plain path (max "
+            f"|diff| {r['hold_err']})")
+        log(f"phase 12 governor {'on' if governor else 'off'}: grade "
+            f"timeline (s, grade) {json.dumps(r['timeline'])}; recovered "
+            f"to normal {r['recovered']} ({r['recover_s']:.2f} s after the "
+            f"settle); routed p99 {r['routed_p99_ms']} ms, QoS 1 routed "
+            f"p99 {json.dumps(r['q1_routed_p99_ms'])} ms, objective "
+            f"{r['objective_p99_ms']} ms ({r['verdict']}; recorded, not "
+            f"asserted), measured from {r['measured_from_s']:.2f} s; "
+            f"overload {json.dumps(r['overload'])}")
+    check_overload_pair(rows[True], rows[False], cuda=True)
+    log(f"phase 12: both twins delivered every accepted QoS 1 PUBLISH in "
+        f"publisher order; only the governed twin shed ({rows[True]['qos0_shed']} "
+        f"QoS 0) and it recovered to normal; routed p99 on / off "
+        f"{rows[True]['routed_p99_ms']} / {rows[False]['routed_p99_ms']} ms "
+        f"against {O_SLO_MS} ms; {time.time() - t0:.1f} s")
+    log(card)
+    return {"on": rows[True], "off": rows[False]}
+
+
+def overload_main(arg: str) -> int:
+    """``--overload``: one phase-12 twin on the card; its JSON line last."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    a = json.loads(arg)
+    print(json.dumps(overload_one("cuda", a["governor"], a["rate"])),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2993,6 +3735,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cover = cover_phase(dev, card)
     ingress = ingress_phase(card)
+    overload = overload_phase(card)
     timed = {tuple(d["shape"]) for d in scan_shapes + mesh_scan_shapes}
     layer_scan_shapes = []
     for cell, n in (("skew", "windows"), ("churn", "batches")):
@@ -3006,17 +3749,22 @@ def main() -> int:
                if shape not in timed}
         timed |= set(new)
         layer_scan_shapes += time_scan_shapes_apart(new, f"cover {n} A")
-    new = {}
-    for r in ingress.values():       # launches a window, the most of a run
-        for shape, cnt in r["scan_shapes"]:
-            if tuple(shape) not in timed:
-                new[tuple(shape)] = max(new.get(tuple(shape), 0),
-                                        cnt / max(1, r["device_windows"]))
-    layer_scan_shapes += time_scan_shapes_apart(new, "ingress")
+    for where, runs, n in (("ingress", ingress, "device_windows"),
+                           ("overload", overload, None)):
+        new = {}
+        for r in runs.values():      # launches a window, the most of a run
+            wins = r[n] if n else r["windows"]["device"]
+            for shape, cnt in r["scan_shapes"]:
+                if tuple(shape) not in timed:
+                    new[tuple(shape)] = max(new.get(tuple(shape), 0),
+                                            cnt / max(1, wins))
+        timed |= set(new)
+        layer_scan_shapes += time_scan_shapes_apart(new, where)
     layers_err = max(layers["churn"]["hold_skew_err"],
                      layers["churn"]["hold_err"],
                      *(c["hold_err"] for c in cover.values()),
-                     *(r["hold_err"] for r in ingress.values()))
+                     *(r["hold_err"] for r in ingress.values()),
+                     *(r["hold_err"] for r in overload.values()))
     for name in ("shape_match", "prefix_sum"):
         if sum(c["A"]["launches"][name] for c in cover.values()) == 0:
             raise AssertionError(f"phase 10: {name} was not launched on "
@@ -3040,6 +3788,8 @@ def main() -> int:
         out["cover"] = sum(c["A"]["launches"][name] for c in cover.values())
         for label, r in ingress.items():
             out[f"ingress {label}"] = r["launches"][name]
+        for label, r in overload.items():
+            out[f"overload governor {label}"] = r["launches"][name]
         return out
 
     kernels = [
@@ -3077,7 +3827,7 @@ def main() -> int:
                    for k, r in ingress.items()}
     log(json.dumps({"summary": summary, "mesh": mesh, "e2e": e2e_out,
                     "layers": layers_out, "cover": cover_out,
-                    "ingress": ingress_out}))
+                    "ingress": ingress_out, "overload": overload}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -3105,4 +3855,8 @@ if __name__ == "__main__":
         sys.exit(scan_shapes_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--ingress":
         sys.exit(ingress_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--overload":
+        sys.exit(overload_main(sys.argv[2]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--trace-cost":
+        sys.exit(trace_cost_main())
     sys.exit(main())

@@ -15,9 +15,14 @@ the depth-1 synchronous consumer and the depth-N settle ring, FIFO settle
 order, the pipeline telemetry (stage spans, occupancy, decisions) and the
 delivery lanes' hand-off (a host batch drains the lanes first; a device
 batch's futures resolve when its delivery plan completes; ``admit``
-carries the lanes' backpressure up to the publishers) and the columnar
-ingress's burst hand-off (``submit_burst``). Not part of the port: the
-flight-recorder, latency observatory, overload and supervision hooks.
+carries the lanes' backpressure up to the publishers), the columnar
+ingress's burst hand-off (``submit_burst``), the flight recorder's window
+traces (minted at admit, with the ``enqueue`` root span, sampled
+per-message spans, ``batch_form``, ``host_route``, ``window`` and the
+lane waits), the latency observatory's ``record_routed`` /
+``record_delivered`` at settle, and the overload governor's QoS 0 shed
+at every admit path (``_shed_qos0``). Not part of the port: the
+supervision hooks.
 
 - **Non-blocking**: device dispatch and device→host readback run on
   executor threads (DeviceRouteEngine.dispatch/materialize); the event
@@ -176,11 +181,42 @@ class PublishBatcher:
         self._consuming = False       # consumer mid-entry (fast-path gate)
         # pipeline telemetry (stage spans / occupancy / decisions)
         self.tele = getattr(node, "pipeline_telemetry", None)
+        # the flight recorder: every window's trace id is minted HERE at
+        # admit and rides the entry through dispatch/materialize/lanes to
+        # settle. None (broker.trace off) records nothing.
+        self.rec = getattr(node, "flight_recorder", None)
+        # the latency observatory: per-message ingress→routed /
+        # ingress→delivered recording at settle, keyed by the window's
+        # (qos, path). None (broker.latency_observatory off) records
+        # nothing.
+        self.obs = getattr(node, "latency_observatory", None)
+        # the overload governor: at grade critical its shed_qos0 action
+        # drops QoS 0 PUBLISHes HERE, at admit — QoS 1/2 are never shed.
+        # One attribute read per message when armed; none when None.
+        self.gov = getattr(node, "overload_governor", None)
+        # the most recent window's trace id (0 before any window): the
+        # governor's shed events land on it
+        self.last_trace = 0
 
     # ---- producer side --------------------------------------------------
+    def _shed_qos0(self, msg: Message) -> bool:
+        """True when the overload governor's shed_qos0 action is armed AND
+        this message is QoS 0 — the message is dropped at admit (counted;
+        the publisher owes no ack, so nothing hangs). QoS 1/2 never pass
+        this gate."""
+        gov = self.gov
+        if gov is not None and gov.shed_qos0 and msg.qos == 0:
+            gov.count_qos0_shed()
+            return True
+        return False
+
     def submit_future(self, msg: Message) -> asyncio.Future:
-        """Queue one PUBLISH; the future resolves to its delivery count."""
+        """Queue one PUBLISH; the future resolves to its delivery count
+        (0 at once for a shed QoS 0 message)."""
         fut = asyncio.get_running_loop().create_future()
+        if self._shed_qos0(msg):
+            fut.set_result(0)
+            return fut
         self._queue.append((msg, fut))
         self._q_times.append(time.perf_counter())
         self._kick()
@@ -195,6 +231,8 @@ class PublishBatcher:
         connection can pipeline publishes into a single batch window).
         Returns False when the queue is over the backpressure bound — the
         caller must fall back to awaiting submit()."""
+        if self._shed_qos0(msg):
+            return True      # accepted-and-shed: no fallback submit
         if len(self._queue) >= self.max_pending:
             return False
         self._queue.append((msg, None))
@@ -217,9 +255,9 @@ class PublishBatcher:
         Returns {row_index: future} for every row the caller must await:
         all QoS 1/2 rows, plus the burst's LAST row when the queue crossed
         max_pending — awaiting it stalls the read loop, the backpressure
-        a refused enqueue() exerts. (The reference also drops QoS 0 rows
-        here while its overload governor sheds them; the port has no
-        governor.)"""
+        a refused enqueue() exerts. While the overload governor sheds,
+        QoS 0 rows never enter the queue; QoS 1/2 rows always do, and the
+        surviving rows keep their order."""
         loop = asyncio.get_running_loop()
         futs: dict = {}
         q = self._queue
@@ -228,6 +266,8 @@ class PublishBatcher:
         over = len(q) + len(rows) > self.max_pending
         last = len(rows) - 1
         for i, (msg, need) in enumerate(rows):
+            if not need and self._shed_qos0(msg):
+                continue
             fut = None
             if need or (over and i == last):
                 fut = loop.create_future()
@@ -298,18 +338,40 @@ class PublishBatcher:
                     limit = min(self.max_batch, cap) if cap else \
                         self.max_batch
                     batch = []
+                    rec = self.rec
+                    sampled = None
                     t_enq = self._q_times[0] if self._q_times else \
                         time.perf_counter()
                     while self._queue and len(batch) < limit:
                         batch.append(self._queue.popleft())
-                        self._q_times.popleft()
+                        tq = self._q_times.popleft()
+                        if rec is not None and rec.sample_hit():
+                            # sampled per-message span: this message
+                            # records its own enqueue→settle interval on
+                            # the window trace
+                            if sampled is None:
+                                sampled = []
+                            sampled.append((len(batch) - 1, tq))
+                    now = time.perf_counter()
                     if self.tele is not None:
                         # oldest-message queue wait before its batch formed
-                        self.tele.observe_stage(
-                            "enqueue", time.perf_counter() - t_enq)
-                    return {"batch": batch, "handle": None, "sub": 0,
-                            "dispatch_fut": None, "live": None,
-                            "live_idx": None, "t_enq": t_enq}
+                        self.tele.observe_stage("enqueue", now - t_enq)
+                    entry = {"batch": batch, "handle": None, "sub": 0,
+                             "dispatch_fut": None, "live": None,
+                             "live_idx": None, "t_enq": t_enq}
+                    if rec is not None:
+                        # the window's trace id, minted at admit; the
+                        # enqueue span is the root every later span
+                        # parents to
+                        tid = rec.new_trace()
+                        entry["trace"] = tid
+                        self.last_trace = tid
+                        entry["root_span"] = rec.record(
+                            tid, "enqueue", t_enq, now, track="batcher",
+                            meta={"batch": len(batch)})
+                        if sampled:
+                            entry["trace_msgs"] = sampled
+                    return entry
 
                 group = [form_entry()]
                 try:
@@ -361,6 +423,12 @@ class PublishBatcher:
                     lives = [e["live"] for e in group if e["live"]]
                     if use_device and lives:
                         handle = self.engine.prepare_window(lives)
+                        if handle is None:
+                            # the device path was CHOSEN but declined
+                            # (mid-rebuild): these entries route host-side
+                            # as the host_fallback latency series
+                            for e in group:
+                                e["fallback"] = True
                         if handle is not None:
                             dispatched = True
                             k = 0
@@ -378,6 +446,9 @@ class PublishBatcher:
                             # interval 8x
                             self._since_host_probe += len(lives)
                             self._since_probe = 0   # device just tried
+                            if self.rec is not None:
+                                self._trace_window(group, first_live,
+                                                   handle)
                             first_live["dispatch_fut"] = \
                                 self._dispatch(loop, handle)
                     if not dispatched:
@@ -448,6 +519,21 @@ class PublishBatcher:
             fut.set_result(None)
         return fut
 
+    def _trace_window(self, group: list, first_live: dict, handle) -> None:
+        """The fused dispatch records under the LEAD entry's trace; each
+        sub-batch's own trace rides ``handle.sub_traces``, so its deliver
+        and lane spans land on its own window, and fused followers link
+        to the lead with a ``fused`` event. Host-side only: the id never
+        enters the dispatch's inputs (a CUDA graph replays fixed
+        addresses)."""
+        handle.trace = first_live.get("trace", 0)
+        handle.sub_traces = [e.get("trace", 0) for e in group if e["live"]]
+        for e in group:
+            if e["live"] and e is not first_live and "trace" in e:
+                self.rec.event(e["trace"], "fused", track="batcher",
+                               parent=e.get("root_span", 0),
+                               meta={"lead": handle.trace})
+
     def _record_decision(self, group: list, lives: list,
                          dispatched: bool) -> None:
         """The routing decision of a formed group: which device program
@@ -502,6 +588,10 @@ class PublishBatcher:
         entry["live_idx"] = live_idx
         if self.tele is not None:
             self.tele.observe_stage("batch_form", time.perf_counter() - t0)
+        if self.rec is not None and "trace" in entry:
+            self.rec.record(entry["trace"], "batch_form", t0,
+                            time.perf_counter(), track="batcher",
+                            parent=entry.get("root_span", 0))
 
     # ---- consumer: complete batches strictly in order --------------------
     async def _complete_host(self, entry: dict, routed=None) -> None:
@@ -518,7 +608,20 @@ class PublishBatcher:
         batch = entry["batch"]
         counts = [0] * len(batch)
         tele = self.tele
+        rec = self.rec
+        obs = self.obs
+        tid = entry.get("trace") if rec is not None else None
         path = "host" if routed is None else "device"
+        # the latency series key: the five-way split of where the window
+        # was routed (the coarse `path` above keeps its two values)
+        if routed is not None:
+            lpath = "device_cached" \
+                if getattr(entry.get("handle"), "plan", None) is not None \
+                else "device"
+        elif entry.get("fallback") or entry.get("handle") is not None:
+            lpath = "host_fallback"
+        else:
+            lpath = "host"
         try:
             if "error" in entry:
                 raise entry["error"]
@@ -526,9 +629,16 @@ class PublishBatcher:
             if routed is None and live:
                 pool = getattr(self.node, "deliver_lanes", None)
                 if pool is not None and pool.busy():
+                    t_d = time.perf_counter()
                     await pool.drain()
+                    if tid is not None:
+                        # a real wait on the lanes: the lane-backpressure
+                        # bubble, named
+                        rec.record(tid, "lane_drain", t_d,
+                                   time.perf_counter(), track="batcher",
+                                   parent=entry.get("root_span", 0))
                 span = 0.0
-                t0 = time.perf_counter()
+                t0 = t_route = time.perf_counter()
                 routed = []
                 broker = self.node.broker
                 for j, m in enumerate(live):
@@ -548,6 +658,12 @@ class PublishBatcher:
                 span += time.perf_counter() - t0
                 if tele is not None:
                     tele.observe_stage("host_route", span)
+                if tid is not None:
+                    # the walk's wall span, its yields included
+                    rec.record(tid, "host_route", t_route,
+                               time.perf_counter(), track="host",
+                               parent=entry.get("replay_span")
+                               or entry.get("root_span", 0))
                 self.node.metrics.inc("routing.host.route_us",
                                       int(span * 1e6))
                 self.node.metrics.inc("routing.host.messages", len(live))
@@ -555,6 +671,17 @@ class PublishBatcher:
                 self.cost_samples["host"].append(sample)
                 self._host_msg_s, self._host_spike = _ewma(
                     self._host_msg_s, sample, self._host_spike)
+            if obs is not None and live:
+                # ingress→routed: the route result of every live message
+                # is in hand (a device window's came in precomputed).
+                # Only socket-ingress messages carry a stamp
+                t_ns = time.perf_counter_ns()
+                tr = entry.get("trace", 0)
+                for m in live:
+                    ing = m.ingress_ns
+                    if ing:
+                        obs.record_routed(m, lpath, (t_ns - ing) / 1e9,
+                                          trace=tr)
 
             def settle() -> None:
                 if live:
@@ -563,6 +690,17 @@ class PublishBatcher:
                 for i, (_m, fut) in enumerate(batch):
                     if fut is not None and not fut.done():
                         fut.set_result(counts[i])
+                if obs is not None and live:
+                    # ingress→delivered: settle runs when the deliveries
+                    # are written — inline for host batches, from the
+                    # delivery plan's done-callback when the lanes own
+                    # the walk
+                    t_ns = time.perf_counter_ns()
+                    for m in live:
+                        ing = m.ingress_ns
+                        if ing:
+                            obs.record_delivered(m, lpath,
+                                                 (t_ns - ing) / 1e9)
                 # PUBLISH→route latency sample: oldest enqueue →
                 # completion (the device path funnels through here with
                 # `routed` precomputed)
@@ -573,6 +711,19 @@ class PublishBatcher:
                     if tele is not None:
                         tele.record_total(total, batch=len(batch),
                                           path=path)
+                if tid is not None:
+                    now = time.perf_counter()
+                    # the window roll-up span (admit → settle) and the
+                    # sampled per-message enqueue→settle spans
+                    rec.record(tid, "window", t_enq or now, now,
+                               track="window",
+                               meta={"path": path, "batch": len(batch)})
+                    for i, tq in entry.get("trace_msgs", ()):
+                        m = batch[i][0]
+                        rec.record(tid, "message", tq, now,
+                                   track="messages",
+                                   parent=entry.get("root_span", 0),
+                                   meta={"topic": m.topic, "qos": m.qos})
 
             plan = getattr(routed, "plan", None)
             if plan is not None and not plan.done:
@@ -640,8 +791,21 @@ class PublishBatcher:
                 self.engine.abandon(handle, error=e)
                 raise
             self.engine.abandon(handle)
+            self._note_fallback(entry, type(e).__name__)
             return False
         return True
+
+    def _note_fallback(self, entry: dict, kind: str) -> None:
+        """A dispatched window that falls back to the host path: it lands
+        in the ``host_fallback`` latency series, and it KEEPS its trace
+        id, with a ``replay`` event under the window root that the
+        host_route after it parents to."""
+        entry["fallback"] = True
+        if self.rec is not None and "trace" in entry:
+            entry["replay_span"] = self.rec.event(
+                entry["trace"], "replay", track="batcher",
+                parent=entry.get("root_span", 0),
+                meta={"stage": "device", "kind": kind})
 
     async def _consume_pipelined(self) -> None:
         """Depth-N in-flight settle ring.
@@ -764,7 +928,15 @@ class PublishBatcher:
             # the producer's put, which bounces submit()/enqueue() — a
             # blocked lane stalls publishers instead of buffering (or
             # dropping) deliveries
+            t_a = time.perf_counter()
             await pool.admit()
+            if self.rec is not None and "trace" in entry \
+                    and time.perf_counter() - t_a > 5e-4:
+                # only a REAL wait is a lane-backpressure bubble worth a
+                # span; the no-wait fast path stays unrecorded
+                self.rec.record(entry["trace"], "lane_admit", t_a,
+                                time.perf_counter(), track="batcher",
+                                parent=entry.get("root_span", 0))
         if sub == n_subs - 1:
             # the cost is counted per WINDOW, over all of its messages —
             # sampling per entry would count the near-instant later subs

@@ -18,9 +18,10 @@ one socket read enters the batcher, and the acknowledgements follow in
 receive order (``flush_acks``), as the burst hand-off acks them; awaiting
 each QoS 1 PUBLISH in turn kept a publisher to one message in the batcher
 per QoS 1 PUBLISH and the batches too small for the device. Not part of
-the port: TLS peer-cert enrichment, the MQTT5 enhanced-authentication
+the port: TLS peer-cert enrichment and the MQTT5 enhanced-authentication
 (SCRAM) exchange — no method is registered, so a CONNECT naming one is
-refused — and the overload admission gate.
+refused. The overload governor's admission gate is ported: while it
+pauses connects, a CONNECT is answered with reason 0x97.
 """
 
 from __future__ import annotations
@@ -201,6 +202,15 @@ class Channel:
         if pkt.proto_ver not in (C.MQTT_V3, C.MQTT_V4, C.MQTT_V5):
             return self._connack_error(C.RC_UNSUPPORTED_PROTOCOL_VERSION)
 
+        # --- overload admission gate (the governor's pause_connects
+        #     action): at grade overload and above a new CONNECT is
+        #     refused with the v5 reason 0x97 (quota exceeded; the
+        #     serializer downgrades it for v3/v4 clients). Existing
+        #     sessions are untouched; recovery re-admits.
+        gov = getattr(self.node, "overload_governor", None)
+        if gov is not None and gov.connects_paused:
+            gov.count_connect_rejected()
+            return self._connack_error(C.RC_QUOTA_EXCEEDED)
         clientid = pkt.clientid
         if not clientid:
             if pkt.proto_ver < C.MQTT_V5 and not pkt.clean_start:

@@ -14,8 +14,12 @@ PUBLISH runs decode as ``PublishBurst`` rows (``FrameParser.feed_columnar``)
 and enter the channel's burst hand-off, everything else stays per packet,
 in order; and the SO_REUSEPORT acceptor lanes (``broker.ingress_lanes``).
 Off, the read loop is the per-packet path: ``parser.feed``, one
-``handle_in`` per packet and one accept loop. Not part of the port: TLS,
-the congestion alarm and the overload governor's shed hooks.
+``handle_in`` per packet and one accept loop. The overload governor's
+hooks: each connection registers with it (``register_conn``) and ranks
+for its top-offender disconnect by limiter debt or, without a rate
+limit, by its recent PUBLISH rows (``shed_score``), and the extra
+acceptor lanes stop accepting while it pauses connects. Not part of the
+port: TLS and the congestion alarm.
 """
 
 from __future__ import annotations
@@ -93,6 +97,14 @@ class Connection:
         fs = node.config.get_zone(zone, "force_shutdown") or {}
         self.force_shutdown = ForceShutdownPolicy(
             fs.get("max_mqueue_len", 0), fs.get("max_awaiting_rel", 0))
+        # the overload governor: registered (weakly) so its critical-grade
+        # top-offender shed can rank live connections by limiter debt;
+        # shed_rows is the ingress-volume fallback score when no rate
+        # limit is configured (decayed by the governor)
+        self.shed_rows = 0.0
+        gov = getattr(node, "overload_governor", None)
+        if gov is not None:
+            gov.register_conn(self)
 
     # ---- outbound ----
     def _send_packets(self, pkts: list[P.Packet]) -> None:
@@ -120,6 +132,38 @@ class Connection:
             if not self.writer.is_closing():
                 self._flush()
                 self.writer.close()
+
+    # overload top-offender volume floor: without a configured rate
+    # limit, a connection qualifies for the critical-grade disconnect only
+    # when its DECAYED recent row count reads as a genuine flood — a
+    # subscriber's ack stream or a moderate publisher must never rank
+    _SHED_VOLUME_FLOOR = 1000.0
+
+    # ---- overload shed (force_shutdown parity) ----
+    def shed_score(self) -> float:
+        """How much this connection over-drives ingress: limiter debt
+        (seconds-to-repay) when a rate limit is configured — the primary
+        ranking, offset so ANY debt outranks plain volume — else the
+        decayed recent-rows count, floored so only a genuine flooder
+        qualifies. 0.0 = not a shed candidate."""
+        debt = self.limiter.debt()
+        if debt > 0:
+            return 1e6 + debt
+        if self.shed_rows >= self._SHED_VOLUME_FLOOR:
+            return self.shed_rows
+        return 0.0
+
+    def overload_disconnect(self) -> None:
+        """The governor's critical-grade disconnect: v5 clients get a
+        DISCONNECT with reason 0x97 (quota exceeded), everyone gets the
+        close — the force_shutdown lifecycle, so the session parks or
+        terminates per its expiry config."""
+        self.node.metrics.inc("connection.force_shutdown")
+        if self.channel.proto_ver == C.MQTT_V5 \
+                and self.channel.conn_state == "connected":
+            self._send_packets([P.Disconnect(
+                reason_code=C.RC_QUOTA_EXCEEDED)])
+        self._request_close("overload_shed")
 
     # ---- main loop (emqx_connection:recvloop) ----
     async def run(self) -> None:
@@ -158,8 +202,14 @@ class Connection:
                     reason = f"frame_error:{e.code}"
                     self._frame_error_out(e)
                     break
-                n_rows = sum(len(it) if type(it) is PublishBurst else 1
-                             for it in items)
+                n_rows = n_pub = 0
+                for it in items:
+                    if type(it) is PublishBurst:
+                        n_rows += len(it)
+                        n_pub += len(it)
+                    else:
+                        n_rows += 1
+                        n_pub += type(it) is P.Publish
                 if columnar and items:
                     m.inc("pipeline.ingress.bytes", len(data))
                 n_done = 0
@@ -192,6 +242,11 @@ class Connection:
                         # unless they actually block)
                         await asyncio.sleep(0)
                 if items:
+                    # the offender score counts PUBLISH rows only: a
+                    # subscriber's PUBACK stream (or SUBSCRIBE/PING
+                    # chatter) must never rank it for the overload
+                    # disconnect
+                    self.shed_rows += n_pub
                     await self.channel.flush_acks()
                     await self._drain()
                     # ingress rate limit: a depleted bucket pauses reading
@@ -374,6 +429,15 @@ class Listener:
 
     def _lane_handler(self, lane: int):
         async def _on_lane_client(reader, writer):
+            gov = getattr(self.node, "overload_governor", None)
+            if lane > 0 and gov is not None and gov.connects_paused:
+                # the governor's pause_connects: the extra acceptor lanes
+                # stop taking connections; lane 0 keeps accepting so the
+                # CONNECT still gets its v5 0x97 CONNACK (the channel's
+                # half of this action)
+                gov.count_accept_paused()
+                writer.close()
+                return
             self.node.metrics.inc(f"pipeline.ingress.lane{lane}.accepted")
             self.lane_conns[lane] += 1
             try:

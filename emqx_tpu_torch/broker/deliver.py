@@ -311,12 +311,15 @@ class DeliveryPlan:
     LaneCounts the engine returned to the batcher) is back-filled at
     finalize, and done-callbacks fire last (publisher futures, handle
     release). `lane_s` sums the seconds lane workers spent delivering it
-    (their yields to the loop excluded)."""
+    (their yields to the loop excluded). `trace` is its window's
+    flight-recorder trace id, set by the engine: lane work records
+    against it."""
 
     __slots__ = ("pool", "msgs", "counts", "fast_idx", "slow_items",
                  "filters", "_chunks", "routed_device", "pending",
                  "done", "target", "_cbs", "s_midx", "s_sid", "s_opt",
-                 "s_fid", "_barrier_left", "_barrier_evt", "lane_s")
+                 "s_fid", "_barrier_left", "_barrier_evt", "lane_s",
+                 "trace")
 
     def __init__(self, pool: "DeliveryLanePool", msgs: list):
         self.pool = pool
@@ -336,6 +339,7 @@ class DeliveryPlan:
         self._barrier_left = 0
         self._barrier_evt: Optional[asyncio.Event] = None
         self.lane_s = 0.0
+        self.trace = 0
 
     # -- building (engine consume stage, event loop) --
     def register_fast(self, indices) -> None:
@@ -720,6 +724,7 @@ class DeliveryLanePool:
                 if self._live_plans == 0 and q.empty():
                     return
                 continue
+            t0 = time.perf_counter()
             spent = 0.0
             worked = True
             try:
@@ -787,6 +792,14 @@ class DeliveryLanePool:
                 # span, the other tasks the loop ran at the chunks' yields
                 # are not counted
                 tele.observe_stage(f"deliver_lane{lane}", spent)
+                rec = getattr(tele, "recorder", None)
+                if rec is not None:
+                    # the item's wall span, on its plan's window trace
+                    # (item[1] is the plan for a slice and a barrier)
+                    tr = item[1].trace
+                    if tr:
+                        rec.record(tr, f"lane{lane}", t0,
+                                   time.perf_counter(), track=f"lane{lane}")
 
     def _surrender(self, item) -> None:
         """Account a popped-but-unprocessed queue item when its worker

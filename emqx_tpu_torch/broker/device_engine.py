@@ -18,8 +18,12 @@ through ``_hold``, every dispatch handle is pinned) and its delivery
 lanes (``broker/deliver.py``: ``finish_sub`` builds a delivery plan that
 the lanes run), and the columnar ingress's burst pre-encode
 (``preencode_burst``: one native encode per read burst that
-``prepare_window`` gathers from). Not ported: supervision, tracing, the latency
-observatory and overload hooks; the CSR readback is always on. It
+``prepare_window`` gathers from), and the flight recorder (``_rec_span``:
+the dispatch, materialize and deliver spans of each window under its
+trace id, the plans carrying their sub-batch's trace to the lanes; and
+``start_device_trace`` / ``stop_device_trace`` on torch.profiler, each
+dispatch inside ``record_function("route_step#<trace id>")``). Not
+ported: supervision; the CSR readback is always on. It
 compiles the live routing state (Router filter universe + Broker
 subscriber/shared-group membership) into device tables, runs the route
 window over publish micro-batches and consumes the result into session
@@ -555,7 +559,8 @@ class _Handle:
                  "launch_s", "cost_s", "cursors0", "graphed",
                  "n_msgs", "error", "plan", "cache_info", "delta", "dres",
                  "dcres", "np_delta", "arrays", "cls", "tables", "strat",
-                 "consumed", "on_release")
+                 "consumed", "on_release", "trace", "sub_traces",
+                 "__weakref__")
 
     def __init__(self, subs, built, dev_shared):
         self.subs = subs          # list of (msgs, too_long)
@@ -592,6 +597,11 @@ class _Handle:
         self.error = None     # why the window was abandoned, when fatal
         self.consumed = 0     # sub-batches finish_sub has consumed
         self.on_release = None  # called once when the handle releases
+        # flight-recorder trace id: the LEAD entry's window trace (host
+        # side only: it names the dispatch's profiler range, never a
+        # graph input), and each sub-batch's own (fused windows)
+        self.trace = 0
+        self.sub_traces = None
 
 
 class DeviceRouteEngine:
@@ -740,9 +750,17 @@ class DeviceRouteEngine:
         self.fail_on_device_error = cuda
         self.failed: Optional[BaseException] = None
 
-        # the node's HBM ledger (None: no accounting) and telemetry
+        # the node's HBM ledger (None: no accounting), telemetry and
+        # flight recorder (None: no spans)
         self.ledger = getattr(node, "hbm_ledger", None)
         self.tele = getattr(node, "pipeline_telemetry", None)
+        self.rec = getattr(node, "flight_recorder", None)
+        # an active torch.profiler device trace (start_device_trace), the
+        # directory its Chrome trace goes to, and the step counter of
+        # windows without a trace id
+        self._profiler = None
+        self._trace_dir: Optional[str] = None
+        self._step_num = 0
         if self.tele is not None:
             self.tele.rebuild_state_fn = self.rebuild_state
             self.tele.graphs_fn = self.graph_registry
@@ -2184,7 +2202,7 @@ class DeviceRouteEngine:
             # the pin sentinel: this handle pins the snapshot until it
             # releases (with the lanes, when its plans complete)
             self.ledger.note_window()
-            self.ledger.pin(id(h))
+            self.ledger.pin(id(h), h)
         self.node.metrics.inc("routing.device.windows")
         self.node.metrics.inc("routing.device.window_subs", len(lives))
         if b.cover is not None:
@@ -2302,10 +2320,38 @@ class DeviceRouteEngine:
 
     def dispatch(self, h) -> None:
         """Stage 2: launch the route window on the card (on the loop; on
-        an executor thread when the device is the CPU).
-        The table/cursor pair is pinned once for the whole dispatch: a
-        snapshot swap racing it can neither mix old and new tables nor
-        have its cursors clobbered by a late write (the identity guard).
+        an executor thread when the device is the CPU). The span lands on
+        the flight recorder under the window's trace. Under an active
+        device trace the launches run inside
+        ``record_function("route_step#<trace id>")`` — graph replays
+        included: the range is on the host, around the replay, so the
+        card's timeline joins the recorder's Chrome dump on the id
+        without the id entering the graph. A window with no trace (the
+        recorder off) takes a private counter, as the reference's
+        ``StepTraceAnnotation`` does."""
+        t0 = time.perf_counter()
+        ctx = contextlib.nullcontext()
+        if self._profiler is not None:
+            step = h.trace
+            if not step:
+                self._step_num += 1
+                step = self._step_num
+            ctx = torch.profiler.record_function(f"route_step#{step}")
+        try:
+            with ctx:
+                self._dispatch_inner(h)
+        finally:
+            if self.rec is not None and h.enc is not None:
+                self._rec_span(
+                    h.trace, "dispatch" if h.plan is None
+                    else "dispatch_cached", t0, track="dispatch",
+                    meta={"W": h.enc[0].shape[0], "B": h.enc[0].shape[1]})
+
+    def _dispatch_inner(self, h) -> None:
+        """The window's launches. The table/cursor pair is pinned once
+        for the whole dispatch: a snapshot swap racing it can neither mix
+        old and new tables nor have its cursors clobbered by a late write
+        (the identity guard).
         A shape-hash window on the card replays its class's graph; a
         class without one (a sync caller's cold class) runs eagerly and
         is queued for capture off the serving path."""
@@ -2509,7 +2555,7 @@ class DeviceRouteEngine:
                     if info is not None:
                         self._cache_from_csr(h, info, off, c3, pay,
                                              overflow)
-                    self._note_readback("compact", nb, t0)
+                    self._note_readback(h, "compact", nb, t0)
                     return
                 metrics.inc("routing.device.compact_overflow")
                 res = (dense or self._dense_again(h))[0]
@@ -2533,7 +2579,7 @@ class DeviceRouteEngine:
                     [(k, (mflat[i].copy(), int(cflat[i]), bool(oflat[i]))
                       + self._delta_cache_fields(h, i, Bp))
                      for k, i in info.inserts], version=info.version)
-            self._note_readback("dense", nb, t0)
+            self._note_readback(h, "dense", nb, t0)
         finally:
             if h.event is not None:
                 h.event.synchronize()
@@ -2550,14 +2596,57 @@ class DeviceRouteEngine:
             else:       # on the CPU the readback is the host's work
                 h.cost_s += self._stage("materialize", t0)
 
-    def _note_readback(self, path: str, nbytes: int, t0: float) -> None:
+    def _note_readback(self, h, path: str, nbytes: int, t0: float) -> None:
         """One window read back on `path` (compact or dense): the bytes
-        and windows counters and the materialize stage span."""
+        and windows counters, the materialize stage span and its flight-
+        recorder span."""
         m = self.node.metrics
         m.inc(f"pipeline.readback.bytes.{path}", nbytes)
         m.inc(f"pipeline.readback.windows.{path}")
         if self.tele is not None:
             self.tele.observe_stage("materialize", time.perf_counter() - t0)
+        self._rec_span(h.trace, "materialize", t0, track="materialize")
+
+    def _rec_span(self, trace_id: int, name: str, t0: float, *,
+                  track: str, parent: int = 0, meta=None) -> None:
+        """Record one [t0, now] span on the flight recorder (nothing when
+        tracing is off or the window carries no trace)."""
+        if self.rec is not None and trace_id:
+            self.rec.record(trace_id, name, t0, time.perf_counter(),
+                            track=track, parent=parent, meta=meta)
+
+    # ---- device-side tracing -------------------------------------------
+    def start_device_trace(self, log_dir: Optional[str] = None) -> bool:
+        """Begin a torch.profiler capture of the card's work (and the
+        host's): every dispatch is one ``route_step#<trace id>`` range.
+        ``stop_device_trace`` ends it. Returns False when a capture is
+        already running."""
+        if self._profiler is not None:
+            return False
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+        self._profiler = prof
+        self._trace_dir = log_dir
+        return True
+
+    def stop_device_trace(self):
+        """End the capture; returns the finished ``torch.profiler``
+        profile (None when none ran). With a ``log_dir`` it also writes
+        the Chrome trace there as ``route_steps.json``, the document the
+        recorder's dump joins on the trace id."""
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return None
+        prof.__exit__(None, None, None)
+        if self._trace_dir:
+            import os
+            os.makedirs(self._trace_dir, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(self._trace_dir, "route_steps.json"))
+        return prof
 
     def _cache_from_csr(self, h, info, off, c3, pay, overflow) -> None:
         """Cache population from the CSR view: a row is the
@@ -2626,6 +2715,9 @@ class DeviceRouteEngine:
                     plan = pool.new_plan(msgs)   # None without a loop
                     if plan is not None:
                         plan.routed_device = True
+                        # the plan carries its sub-batch's trace, so the
+                        # lanes' spans land on the right window
+                        plan.trace = self._sub_trace(h, k)
             if h.dev_shared and b.n_slots:
                 if plan is None:
                     self._writeback_cursors(occur_k, b)
@@ -2684,6 +2776,8 @@ class DeviceRouteEngine:
             h.cost_s += dt
             if self.tele is not None:
                 self.tele.observe_stage("deliver", dt)
+            self._rec_span(self._sub_trace(h, k), "deliver", t0,
+                           track="consume")
             h.consumed += 1
             if h.consumed >= len(h.subs):
                 # every row consume reads is copied out by now: the
@@ -2693,6 +2787,12 @@ class DeviceRouteEngine:
                 h.res = h.cres = h.dres = h.dcres = None
             if not deferred:
                 self._release_one(h)
+
+    @staticmethod
+    def _sub_trace(h, k: int) -> int:
+        """Sub-batch k's window trace (the lead's for an unfused one)."""
+        st = h.sub_traces
+        return st[k] if st and k < len(st) else h.trace
 
     def _consume_slow(self, ctx: _SlowRows, msgs: list, i: int) -> int:
         """Consume message i of a sub-batch on the slow path: the full host

@@ -149,9 +149,12 @@ class HbmLedger:
     finalizer can run inside a locked region of the same thread)."""
 
     def __init__(self, metrics=None, *, device="cpu", pin_warn_windows=None,
-                 hooks=None):
+                 hooks=None, recorder=None):
         self.metrics = metrics
         self.hooks = hooks
+        # the flight recorder: a stale pin lands a `stale_pin` event on
+        # the pinned window's trace
+        self.recorder = recorder
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:
             # the tensors name their card by index ("cuda:0"): so does the
@@ -165,7 +168,8 @@ class HbmLedger:
         # of per-category peaks (categories peak at different times)
         self._peak_bytes = 0
         self._live: dict[tuple, _Entry] = {}
-        # pinned dispatch handles: key -> [start_window, warned]
+        # pinned dispatch handles: key -> [start_window, weakref to the
+        # handle or None, warned]
         self._pins: dict[int, list] = {}
         self._window_clock = 0
         self.pin_warnings = 0
@@ -276,22 +280,33 @@ class HbmLedger:
         w = self._window_clock
         warn = self.pin_warn_windows
         for rec in list(self._pins.values()):
-            if rec[1] or w - rec[0] <= warn:
+            if rec[2] or w - rec[0] <= warn:
                 continue
-            rec[1] = True
+            rec[2] = True
             self.pin_warnings += 1
+            age = w - rec[0]
+            handle = rec[1]() if rec[1] is not None else None
+            trace = getattr(handle, "trace", 0) or 0
             if self.metrics is not None:
                 self.metrics.inc("pipeline.memory.pin_warnings")
+            if self.recorder is not None:
+                self.recorder.event(
+                    trace, "stale_pin", track="memory",
+                    meta={"age_windows": age, "warn_windows": warn})
             if self.hooks is not None:
                 self.hooks.run("pipeline.pin_stale",
-                               ({"age_windows": w - rec[0],
-                                 "warn_windows": warn},))
+                               ({"age_windows": age,
+                                 "warn_windows": warn,
+                                 "trace": trace},))
 
-    def pin(self, key: int) -> None:
+    def pin(self, key: int, handle=None) -> None:
         """A dispatch handle (keyed by its id) went in flight: it pins its
-        snapshot. The ledger keeps no reference to the handle — a leaked
-        one (the case the sentinel hunts) must stay collectable."""
-        self._pins[key] = [self._window_clock, False]
+        snapshot. The ledger holds the handle by weakref only — a leaked
+        one (the case the sentinel hunts) must stay collectable; the
+        sentinel reads its window's trace id through it."""
+        self._pins[key] = [self._window_clock,
+                           weakref.ref(handle) if handle is not None
+                           else None, False]
 
     def unpin(self, key: int) -> None:
         self._pins.pop(key, None)

@@ -58,7 +58,7 @@ class TokenBucket:
     def debt(self, now: Optional[float] = None) -> float:
         """Outstanding debt in tokens (0 when the balance is positive):
         how far `take()` has charged past capacity, refill applied.
-        The reference's overload governor ranks connections by this for
+        The overload governor ranks connections by this for
         the top-offender disconnect (force_shutdown parity) — the
         connection with the deepest unrepaid ingress debt is the one
         whose flood the limiter is already fighting."""

@@ -1,14 +1,16 @@
 """Broker node: the composition root of the port's serving path.
 
-A slim counterpart of ``emqx_tpu/broker/node.py`` (:43-48, :77-88,
-:124-145, :186-205, :237-276, :449-460): hooks, metrics, stats, the
-pipeline telemetry (always), the HBM ledger, the session-affine
-delivery lanes and the columnar PUBLISH ingress (on by default), router, broker, connection manager,
-the device route engine and the publish batcher, wired as the reference
-wires them for a single-chip node. The layers the reference also builds
-here (flight recorder, supervision, latency observatory, overload
-governor, the mesh server, apps, gateways and the management API) are
-not part of the port.
+A slim counterpart of ``emqx_tpu/broker/node.py`` (:43-48, :77-190,
+:237-276, :403-440, :449-460): hooks, metrics, stats, the pipeline
+telemetry (always), the flight recorder, the HBM ledger, the latency
+observatory, the overload governor, the session-affine delivery lanes
+and the columnar PUBLISH ingress (each on by default), router, broker,
+connection manager, alarms, the device route engine and the publish
+batcher, wired as the reference wires them for a single-chip node, and
+the housekeeping tick (``sweep``, ``start_timers``) the governor polls
+on. The layers the reference also builds here (supervision, the mesh
+server, apps, gateways and the management API) are not part of the
+port.
 
 Config keys read under ``broker.``, with the reference's names and
 defaults: ``batch_window_us`` (200), ``max_publish_batch`` (1024),
@@ -22,11 +24,17 @@ engine as the reference's ``Node`` passes them (:221-257);
 ``slow_batch_threshold_ms`` (250; 0 or null: no slow-batch watch),
 ``hbm_ledger`` (on) with ``pin_warn_windows`` (64), and
 ``deliver_lanes`` (``min(4, cpus)``; 0: inline delivery) with
-``deliver_lane_depth`` (8), and the columnar PUBLISH ingress
+``deliver_lane_depth`` (8), the columnar PUBLISH ingress
 ``columnar_ingress`` (on) with ``ingress_lanes`` (``min(4, cpus)``; 1 when
-columnar ingress is off). A key that asks for a layer the port does
-not have (``_UNSUPPORTED``, or ``compact_readback`` off) raises
-``ValueError`` rather than serving without it.
+columnar ingress is off), the flight recorder ``trace`` (on) with
+``trace_ring`` (4096) and ``trace_sample`` (256), the latency observatory
+``latency_observatory`` (on) with ``slo_route_p99_ms`` (2.0), and the
+overload governor ``overload`` (on; polled by ``sweep``, so only once
+``start_timers`` runs the housekeeping tick or a caller sweeps); and
+under ``alarm.``, ``size_limit`` (1000) and ``validity_period`` (86400).
+A key that asks for a layer the port does not have (``_UNSUPPORTED``, or
+``compact_readback`` off) raises ``ValueError`` rather than serving
+without it.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from __future__ import annotations
 import asyncio
 from typing import Optional
 
+from emqx_tpu_torch.broker.alarm import AlarmManager
 from emqx_tpu_torch.broker.batcher import (PublishBatcher,
                                            resolve_dispatch_depth)
 from emqx_tpu_torch.broker.cm import ConnectionManager
@@ -46,16 +55,21 @@ from emqx_tpu_torch.broker.device_engine import (DeviceRouteEngine,
                                                  resolve_rebuild_threshold)
 from emqx_tpu_torch.broker.hbm_ledger import HbmLedger, resolve_hbm_ledger
 from emqx_tpu_torch.broker.hooks import Hooks
+from emqx_tpu_torch.broker.latency import (LatencyObservatory,
+                                           resolve_latency_observatory)
 from emqx_tpu_torch.broker.message import Message
 from emqx_tpu_torch.broker.metrics import Metrics, Stats
+from emqx_tpu_torch.broker.overload import OverloadGovernor, resolve_overload
 from emqx_tpu_torch.broker.pubsub import Broker
 from emqx_tpu_torch.broker.router import Router
+from emqx_tpu_torch.broker.supervise import guard_task
 from emqx_tpu_torch.broker.telemetry import PipelineTelemetry
+from emqx_tpu_torch.broker.trace import FlightRecorder, resolve_trace
 from emqx_tpu_torch.device import resolve_device
 
 
 # reference layers the port does not have: a truthy value asks for one
-_UNSUPPORTED = ("supervise", "trace", "latency_observatory", "overload")
+_UNSUPPORTED = ("supervise",)
 
 
 def check_layers(perf: dict) -> None:
@@ -89,6 +103,15 @@ class Node:
         self.pipeline_telemetry = PipelineTelemetry(
             self.metrics, hooks=self.hooks,
             slow_batch_s=(slow_ms / 1000.0) if slow_ms else None)
+        # the window-causal flight recorder: trace ids minted at batcher
+        # admit ride the pipeline (dispatch/materialize/lanes/settle) into
+        # a bounded span ring. Off: no recorder anywhere
+        self.flight_recorder = None
+        if resolve_trace(perf.get("trace")):
+            self.flight_recorder = FlightRecorder(
+                self.metrics, cap=perf.get("trace_ring", 4096),
+                sample=perf.get("trace_sample"))
+            self.pipeline_telemetry.recorder = self.flight_recorder
         # per-category accounting of the engine's persistent device
         # allocations and the stale-pin sentinel
         self.hbm_ledger = None
@@ -96,9 +119,29 @@ class Node:
             self.hbm_ledger = HbmLedger(
                 self.metrics, device=self.device,
                 pin_warn_windows=perf.get("pin_warn_windows"),
-                hooks=self.hooks)
+                hooks=self.hooks, recorder=self.flight_recorder)
             self.pipeline_telemetry.ledger = self.hbm_ledger
             self.stats.register_stats_fun(self.hbm_ledger.stats_fun)
+        # the end-to-end latency observatory: per-message ingress→routed
+        # and ingress→delivered percentiles by (qos, path), the SLO burn
+        # and breach exemplars, from the frame-decode stamp. Off: no
+        # observatory anywhere (the stamp itself stays on)
+        self.latency_observatory = None
+        if resolve_latency_observatory(perf.get("latency_observatory")):
+            self.latency_observatory = LatencyObservatory(
+                self.metrics, hooks=self.hooks,
+                recorder=self.flight_recorder,
+                objective_ms=perf.get("slo_route_p99_ms"))
+            self.pipeline_telemetry.observatory = self.latency_observatory
+        # the overload governor: the graded load-shed ladder, polled on
+        # the housekeeping tick (sweep). Off: no governor anywhere
+        self.overload_governor = None
+        if resolve_overload(perf.get("overload")):
+            self.overload_governor = OverloadGovernor(
+                self, self.metrics, hooks=self.hooks,
+                recorder=self.flight_recorder)
+            self.pipeline_telemetry.overload_state_fn = \
+                self.overload_governor.state
         rebuild_threshold = resolve_rebuild_threshold(
             perf.get("rebuild_threshold"))
         dispatch_depth = resolve_dispatch_depth(perf.get("dispatch_depth"))
@@ -120,6 +163,7 @@ class Node:
                                      "round_robin"),
             shared_dispatch_ack=perf.get("shared_dispatch_ack_enabled",
                                          False))
+        self.broker.latency_obs = self.latency_observatory
         # the session-affine egress stage the engine's consume hands
         # delivery plans to; 0 lanes is the inline delivery loop
         self.deliver_lanes = None
@@ -149,8 +193,45 @@ class Node:
             dispatch_depth=dispatch_depth)
         self.cm = ConnectionManager()
         self.cm.broker = self.broker
+        aconf = self.config.get("alarm") or {}
+        self.alarms = AlarmManager(
+            self.hooks, size_limit=aconf.get("size_limit", 1000),
+            validity_period=aconf.get("validity_period", 86400))
         self.stats.register_stats_fun(self.broker.stats_fun)
         self.stats.register_stats_fun(self.cm.stats_fun)
+        self._timer_task: Optional[asyncio.Task] = None
+
+    # ---- periodic housekeeping (node.py:403-440) ----
+    def sweep(self) -> None:
+        """One housekeeping pass: session expiry, alarm history, the
+        overload governor's poll, the stats sample. Callable directly
+        (the tests and a CPU drive poll the governor this way)."""
+        self.cm.sweep_expired_sessions()
+        self.alarms.tick()
+        if self.overload_governor is not None:
+            self.overload_governor.poll()
+        self.stats.sample()
+
+    async def _housekeeping(self, interval: float) -> None:
+        while True:
+            await asyncio.sleep(interval)
+            self.sweep()
+
+    def start_timers(self, interval: float = 1.0) -> None:
+        """Run ``sweep`` every `interval` seconds on the running loop. The
+        governor learns the interval: its loop-lag probe measures the
+        tick's drift against it."""
+        if self._timer_task is None:
+            if self.overload_governor is not None:
+                self.overload_governor.poll_interval_s = interval
+            self._timer_task = guard_task(
+                asyncio.ensure_future(self._housekeeping(interval)),
+                "node-housekeeping", self.metrics)
+
+    def stop_timers(self) -> None:
+        if self._timer_task is not None:
+            self._timer_task.cancel()
+            self._timer_task = None
 
     # ---- the PUBLISH entries the channel calls (node.py:449-460) ----
     async def publish_async(self, msg: Message) -> int:

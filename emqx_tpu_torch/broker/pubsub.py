@@ -5,8 +5,9 @@ subscriber tables :96-109) + emqx_shared_sub.erl (group strategies :62-67,
 pick :239-268). Host-side engine over the Router; the device fused path
 (models.router_engine.route_step) serves the bulk micro-batch pipeline,
 while this engine is the authoritative per-message semantics. The port's
-copy of ``emqx_tpu/broker/pubsub.py`` for a standalone node: the cluster
-forwarding and the latency observatory hooks are not part of the port.
+copy of ``emqx_tpu/broker/pubsub.py`` for a standalone node, with the
+latency observatory's hook on the batcher-less host path
+(``latency_obs``); the cluster forwarding is not part of the port.
 
 Subscribers are registered as deliver callbacks keyed by an integer
 subscriber id (the "session row" of the device tables); the reference's
@@ -16,6 +17,7 @@ subscriber id (the "session row" of the device tables); the reference's
 from __future__ import annotations
 
 import random
+import time
 import zlib
 from dataclasses import dataclass, field
 from typing import Optional, Protocol
@@ -77,6 +79,11 @@ class Broker:
         # set by DeviceRouteEngine: membership-churn listener for the
         # compiled device snapshot
         self.device_engine = None
+        # set by Node when the latency observatory is on: the
+        # per-message host publish path (no batcher) records its
+        # ingress→routed/delivered latency here; the batcher's paths
+        # record at batch settle instead, never both for one message
+        self.latency_obs = None
 
         self._subscribers: dict[int, Subscriber] = {}
         self._sub_meta: dict[int, str] = {}     # sid -> clientid
@@ -201,7 +208,15 @@ class Broker:
         if msg is None or msg.get_header("allow_publish") is False:
             return 0
         self.metrics.inc("messages.publish")
-        return self._route(msg, self.router.match(msg.topic))
+        n = self._route(msg, self.router.match(msg.topic))
+        obs = self.latency_obs
+        if obs is not None and msg.ingress_ns:
+            # routing and delivery are one inline walk: both legs share
+            # the settle clock
+            s = (time.perf_counter_ns() - msg.ingress_ns) / 1e9
+            obs.record_routed(msg, "host", s)
+            obs.record_delivered(msg, "host", s)
+        return n
 
     def publish_soon(self, msg: Message) -> None:
         """Fire-and-forget publish from sync code paths (will messages,

@@ -38,8 +38,12 @@ the static-buffer bytes the HBM ledger holds for it. Its ``flops`` and
 read (XLA's ``cost_analysis`` has no CUDA-graph counterpart), and the
 kernels' own bounds are in chip_smoke.py's kernel table.
 
-Not ported: the reference's supervise, trace, latency, overload, ingress
-and exchange sections (their layers are not part of the port).
+The flight recorder (``recorder``), the latency observatory
+(``observatory``) and the overload governor (``overload_state_fn``) add
+their ``trace``, ``latency`` and ``overload`` sections where the node
+builds them; the ``latency`` and ``overload`` sections exist only then,
+even at ``full=True``. Not ported: the reference's supervise and
+exchange sections (their layers are not part of the port).
 """
 
 from __future__ import annotations
@@ -80,6 +84,15 @@ class PipelineTelemetry:
         # the HBM ledger (set by the node when broker.hbm_ledger is on):
         # snapshot() derives the `memory` section from it
         self.ledger = None
+        # the flight recorder (broker.trace): the `trace` section — ring
+        # state and the overlap/bubble analysis
+        self.recorder = None
+        # the overload governor's live gauges (broker.overload): the
+        # `overload` section's state
+        self.overload_state_fn = None
+        # the latency observatory (broker.latency_observatory): the
+        # `latency` section
+        self.observatory = None
         # slow-batch watch: a total span beyond this fires the
         # `batch.slow` hook and counts pipeline.slow_batches. None
         # disables.
@@ -194,9 +207,24 @@ class PipelineTelemetry:
                 for k, v in self.metrics.all().items()
                 if k.startswith(prefix)}
 
+    def overload_section(self) -> dict:
+        """The ``overload`` section: the shed/reject counters and the
+        governor's live state."""
+        overload = self._vals("pipeline.overload.", (
+            "sheds", "grade_changes", "qos0_shed", "connects_rejected",
+            "accepts_paused", "disconnects", "retained_deferred",
+            "stuck_polls", "rebreaches"))
+        by_action = self._family("pipeline.overload.actions.")
+        if by_action:
+            overload["actions_armed_counts"] = by_action
+        if self.overload_state_fn is not None:
+            overload["state"] = self.overload_state_fn()
+        return overload
+
     def snapshot(self, full: bool = False) -> dict:
         """The one pipeline-telemetry JSON schema. ``full=True`` emits
-        every section, empty when its layer has no traffic."""
+        every section, empty when its layer has no traffic (``latency``
+        and ``overload`` only where their layer exists)."""
         stages = {}
         occupancy = {}
         prefix_s, prefix_o = "pipeline.stage.", "pipeline.occupancy."
@@ -334,6 +362,8 @@ class PipelineTelemetry:
         if lanes_acc:
             ingress["lanes"] = lanes_acc
         memory = self.ledger.section() if self.ledger is not None else {}
+        trace = self.recorder.snapshot_section() \
+            if self.recorder is not None else {}
         out = {
             "schema": SCHEMA,
             "stages": stages,
@@ -343,10 +373,16 @@ class PipelineTelemetry:
         }
         for name, sec in (("rebuild", rebuild), ("deliver", deliver),
                           ("match_cache", cache), ("dedup", dedup),
-                          ("readback", readback), ("ingress", ingress),
-                          ("memory", memory)):
+                          ("readback", readback), ("trace", trace),
+                          ("ingress", ingress), ("memory", memory)):
             if sec or full:
                 out[name] = sec
+        if self.overload_state_fn is not None:
+            out["overload"] = self.overload_section()
+        if self.observatory is not None:
+            latency = self.observatory.section()
+            if latency or full:
+                out["latency"] = latency
         if self.graphs_fn is not None:
             reg = self.graphs_fn()
             out["jit_cache"] = {"graph_classes": reg["graph_classes"]}

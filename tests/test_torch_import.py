@@ -42,7 +42,9 @@ MODULES = [
     "emqx_tpu_torch.client", "emqx_tpu_torch.ops.delta",
     "emqx_tpu_torch.broker.match_cache", "emqx_tpu_torch.ops.cover",
     "emqx_tpu_torch.broker.telemetry", "emqx_tpu_torch.broker.hbm_ledger",
-    "emqx_tpu_torch.native", "chip_smoke",
+    "emqx_tpu_torch.native", "emqx_tpu_torch.broker.trace",
+    "emqx_tpu_torch.broker.latency", "emqx_tpu_torch.broker.alarm",
+    "emqx_tpu_torch.broker.overload", "chip_smoke",
 ]
 
 

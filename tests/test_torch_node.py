@@ -14,6 +14,7 @@ rehearses phase 8 itself at a reduced size.
 
 import asyncio
 import os
+import time
 
 import pytest
 import torch
@@ -95,11 +96,24 @@ def test_chip_smoke_e2e_on_cpu():
     CPU the host path wins the adaptive chooser, so the rehearsal pins it
     to the device to drive the device path; the kernel launch counts stay
     0 here. The lanes floods hand their deliveries to the lanes, the
-    inline one does not, and the ledger accounts the engine's tables."""
+    inline one does not, and the ledger accounts the engine's tables. The
+    traced floods' device windows carry their spans in the flight
+    recorder and the observatory's samples equal the flood's stamped
+    PUBLISHes by QoS (e2e_drive raises otherwise); the untraced flood
+    records nothing."""
     r = cs.e2e_drive(torch.device("cpu"), n_filters=1000, n_sub=4,
                      n_pub=2, total=400, window=(2, 64), pin_device=True)
     assert r["backend"] == "shapes" and r["window_err"] == 0
-    assert set(r["floods"]) == {"d2", "d1", "d2-inline"}
+    assert set(r["floods"]) == {"d2", "d1", "d2-inline", "d2-untraced"}
+    for label, f in r["floods"].items():
+        assert f["traced"] == (label != "d2-untraced")
+        if f["traced"]:
+            assert f["trace"]["device_windows"] > 0
+            assert f["trace"]["overlap"] is not None
+            assert sum(v["count"] for v in f["latency"]["routed"].values()) \
+                == 400
+        else:
+            assert f["trace"] is None and f["latency"] is None
     assert r["columnar_ingress"] is True
     for f in r["floods"].values():
         assert f["delivered"] == f["sent"] == 400
@@ -112,6 +126,67 @@ def test_chip_smoke_e2e_on_cpu():
         assert stages["deliver"]["count"] >= f["batches"]
     assert r["ledger"]["by_category"]["snapshot_tables"] > 0
     assert r["ledger"]["accounted_fraction"] is None     # no card here
+
+
+def test_chip_smoke_trace_cost_on_cpu():
+    """chip_smoke.py's ``--trace-cost`` rehearsed on the CPU at a reduced
+    size, one round: the four layer settings, each flood at depth 2 with
+    the lanes on one node and e2e_drive's checks passing; the recorder
+    records only in the "on" and "quiet" floods, the observatory samples
+    every PUBLISH in all but "off", and nothing breaches the "quiet"
+    flood's raised objective (e2e_drive raises otherwise)."""
+    runs = cs.trace_cost_runs(2)
+    assert [r[3] for r in runs] == ["on", "off", "quiet", "obs",
+                                    "off", "quiet", "obs", "on"]
+    by = cs.trace_cost(torch.device("cpu"), rounds=1, n_filters=1000,
+                       n_sub=4, n_pub=2, total=400, window=(2, 64),
+                       pin_device=True)
+    assert set(by) == set(cs.TRACE_LAYERS)
+    for layers, row in by.items():
+        assert row["labels"] == [f"d2-{layers}-1"]
+        assert row["per_sec"][0] > 0
+        assert set(row["stage_us"][0]) >= {"readback", "consume"}
+        assert (row["spans"][0] > 0) == (layers in ("on", "quiet"))
+
+
+def test_chip_smoke_overload_on_cpu(monkeypatch):
+    """chip_smoke.py's phase 12 rehearsed on the CPU at a reduced size (8
+    connections, 8,000 PUBLISHes each, a warm pass of 300 each): the
+    governed twin's warm pass sets the paced rate (twice its sustained
+    msgs/s), the ungoverned twin floods at the same rate; both deliver
+    every accepted QoS 1 PUBLISH in publisher order, only the governed
+    one sheds (QoS 0 only) and it recovers to normal with nothing
+    armed (check_overload_pair raises otherwise); each twin's two windows
+    of the flood's topics equal the plain path. Whether this host's
+    flood drives its own signals to critical depends on its timing, so
+    the rehearsal adds a queue fill of 0.95 to the governor's readings
+    for the first 1.5 s of polls; the card's run reads the real ones."""
+    from emqx_tpu_torch.broker.overload import OverloadGovernor
+    real = OverloadGovernor.sample_signals
+
+    def forced(self):
+        sig = real(self)
+        t0 = self.__dict__.setdefault("_forced_t0", time.monotonic())
+        if time.monotonic() - t0 < 1.5:
+            sig["queue_fill"] = max(sig.get("queue_fill", 0.0), 0.95)
+        return sig
+
+    monkeypatch.setattr(OverloadGovernor, "sample_signals", forced)
+    kw = dict(conns=8, n_msgs=8000, warm_msgs=300, flood_s=6)
+    on = cs.overload_one("cpu", True, None, **kw)
+    off = cs.overload_one("cpu", False, on["rate"], **kw)
+    cs.check_overload_pair(on, off, cuda=False)
+    assert on["rate"] == off["rate"] > on["warm_msgs_per_s"]
+    assert "critical" in [g for _t, g in on["timeline"]]
+    # an offender disconnect leaves the rest of a flooder's rows unsent
+    assert on["qos0_delivered"] + on["qos0_shed"] <= on["qos0_sent"]
+    if not on["disconnects"]:
+        assert on["qos0_delivered"] + on["qos0_shed"] == on["qos0_sent"]
+    assert off["qos0_delivered"] == off["qos0_sent"]
+    assert off["timeline"] == [] and off["overload"] is None
+    for r in (on, off):
+        assert r["hold_err"] == 0
+        assert r["windows"]["device"] > 0
 
 
 def _flaky_drive(depth: int, fatal: bool):
@@ -404,7 +479,8 @@ def test_layer_defaults_are_the_references():
 def test_unsupported_layer_raises(key, value):
     """A config that asks for a layer the port lacks is refused, not
     served without it; the same key set off is accepted. Subscription
-    covering, the HBM ledger, the delivery lanes and columnar ingress,
+    covering, the HBM ledger, the delivery lanes, columnar ingress, the
+    flight recorder, the latency observatory and the overload governor,
     ported since, are accepted either way and reach the node."""
     if key == "subscription_covering":
         for v in (value, not value):
@@ -417,6 +493,16 @@ def test_unsupported_layer_raises(key, value):
             and on.device_engine.ledger is on.hbm_ledger
         assert TNode({"broker": {key: not value}},
                      device="cpu").hbm_ledger is None
+        return
+    if key in ("trace", "latency_observatory", "overload"):
+        attr = {"trace": "flight_recorder",
+                "latency_observatory": "latency_observatory",
+                "overload": "overload_governor"}[key]
+        on = TNode({"broker": {key: value}}, device="cpu")
+        assert getattr(on, attr) is not None \
+            and getattr(TNode(device="cpu"), attr) is not None
+        assert getattr(TNode({"broker": {key: not value}}, device="cpu"),
+                       attr) is None
         return
     if key == "deliver_lanes":
         assert TNode({"broker": {key: value}},

@@ -166,7 +166,7 @@ def test_ledger_pin_sentinel_fires_once():
         led.note_window()
     assert led.pin_warnings == 1 and m.val("pipeline.memory.pin_warnings") \
         == 1
-    assert fired == [{"age_windows": 4, "warn_windows": 3}]
+    assert fired == [{"age_windows": 4, "warn_windows": 3, "trace": 0}]
     st = led.pin_state()
     assert (st["outstanding"], st["max_age_windows"]) == (1, 12)
     led.unpin(1)
