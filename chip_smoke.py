@@ -34,7 +34,7 @@ Phases:
    kernel at the same grid (the launch floor), torch.cumsum and the
    wrapper call;
 5. the kernels JSON line, the card line, and the result line last
-   (after phases 6 to 12);
+   (after phases 6 to 13);
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
    every hop count at the mesh phase's [E, 3] block and at a ragged
    [1001, 3] block (aligned and unaligned), and across two cards with
@@ -157,7 +157,39 @@ Phases:
    QoS 1-only one, what a window is while QoS 0 is shed; kernel 2's
    launch shapes over the flood are recorded, and those no earlier phase
    timed are timed. The grade timeline and both routed p99s beside the
-   objective are printed, not asserted.
+   objective are printed, not asserted;
+13. fault-domain supervision on the card (emqx_tpu_torch/chaos.py, the
+   port's copy of tools/chaos_bench.py). 13a: the 24 cells (every
+   pipeline injection point x every fault kind) at the bench's size on a
+   cuda node with the bench's tuning (threshold 1, cooldown 0.05 s,
+   watchdog floor 0.1 s, multiplier 0), each graded against the card's
+   fault-free twin (equal counts and per-session order, nothing dropped,
+   a trip within the faulted window, stalls for hangs at dispatch and
+   materialize, replays for raising kinds there, rung 0 again, the
+   journal and the HBM ledger's pins at 0) and held equal to the same
+   cell on the port's CPU node. 13b runs inside phase 8, on its node: one
+   more flood at depth 1 with a readback hang and three dispatch faults
+   armed mid-flood at the node's threshold (3); every message delivered
+   once and in order, the hang a stall, every faulted window replayed,
+   the trip, the seconds back to rung 0, the replayed windows' host us a
+   message, and the first window after recovery held against the plain
+   path. 13c: the half-open dispatch probes' kernel launches (shape_match
+   and prefix_sum, over 13a and 13b) must be above 0. 13d: on the card, a
+   non-injected RuntimeError raised inside one dispatch reaches the
+   publishers and sets engine.failed, while an InjectedFault raised in
+   the same place replays; a real out of memory in the dispatch and a
+   real readback stall past the watchdog (no clause armed) fail as the
+   RuntimeError does.
+
+Every node of phases 8-12 runs supervised, as the default node does, and
+must end its phase with no supervised fault, replay, stall or trip (the
+supervisor hides no device fault on the paths that pass). Phase 8 adds
+its depth-2 lanes flood with the supervisor detached (what ``supervise:
+false`` builds) in three rounds against the supervised one, the order
+rotated, and prints both msgs/s by median and the live ``supervise``
+telemetry section, and times each supervision hook on the live
+supervisor (host us a fault-free window, against the flood's wall time a
+window).
 
 Phase 8's node runs with columnar ingress on (the default); each flood
 prints its ingress counters (bursts, rows, per-packet frames), the share
@@ -1067,12 +1099,24 @@ E2E_PUB_CONNS = 8
 E2E_MSGS = 32_000
 E2E_SUB_CHUNK = 512        # filters per SUBSCRIBE packet
 E2E_MIN_DEVICE_SHARE = 0.9
-# (label, dispatch depth, delivery lanes on, observability layers) of each
-# flood, in order; the layers: "on" the flight recorder and the latency
-# observatory, "off" neither, "obs" the observatory alone, "quiet" both
-# with an objective no message breaches (no slo_breach event, no exemplar)
-E2E_RUNS = (("d2", 2, True, "on"), ("d1", 1, True, "on"),
-            ("d2-inline", 2, False, "on"), ("d2-untraced", 2, True, "off"))
+# (label, dispatch depth, delivery lanes on, observability layers,
+# supervised) of each flood, in order; the layers: "on" the flight
+# recorder and the latency observatory, "off" neither, "obs" the
+# observatory alone, "quiet" both with an objective no message breaches
+# (no slo_breach event, no exemplar)
+E2E_RUNS = (("d2", 2, True, "on", True), ("d1", 1, True, "on", True),
+            ("d2-inline", 2, False, "on", True),
+            ("d2-untraced", 2, True, "off", True))
+# phase 8's supervision rounds: the depth-2 lanes flood with the node's
+# supervisor detached (what ``supervise: false`` builds) against the same
+# flood supervised, in three rounds with the order rotated (round 1 is
+# "d2" and the first unsupervised flood), run after "d2"
+E2E_SUPERVISE_RUNS = (
+    ("d2-unsupervised-1", 2, True, "on", False),
+    ("d2-unsupervised-2", 2, True, "on", False),
+    ("d2-supervised-2", 2, True, "on", True),
+    ("d2-supervised-3", 2, True, "on", True),
+    ("d2-unsupervised-3", 2, True, "on", False))
 # the --trace-cost floods: the four layer settings at depth 2 with the
 # lanes, in TRACE_ROUNDS rounds, each round's order rotated by one
 TRACE_LAYERS = ("on", "off", "quiet", "obs")
@@ -1196,12 +1240,15 @@ async def _warm_up(node, pub, subs, nums: int) -> None:
 
 
 async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
-                 seed: int) -> dict:
+                 seed: int, replays: bool = False) -> dict:
     """bench.py:1283-1366: every publisher floods its share of `total`
     messages to device/d{i}/x/n{n}/t (each matches exactly one filter),
     every 4th at QoS 1 with pipelined PUBACKs; drainers record every
     delivery. Checks exactly-once delivery to the right connection and
-    per-publisher order at every subscriber."""
+    per-publisher order at every subscriber. ``replays``: the supervisor
+    may replay windows on the host (a chaos flood), so failed device
+    stages (``routing.device.dispatch_failed``) are allowed; a failed
+    engine never is."""
     import asyncio
     import struct
 
@@ -1284,7 +1331,9 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
     sent = per_pub * n_pub
     q1_sent = n_pub * len(range(0, per_pub, 4))
     failed = getattr(node.device_engine, "failed", None)
-    if failed is not None or any(delta[k] for k in faults):
+    if failed is not None or any(
+            delta[k] for k in faults
+            if not (replays and k == "routing.device.dispatch_failed")):
         raise AssertionError(
             f"the device path failed during the flood: "
             f"{ {k: delta[k] for k in faults} }, engine {failed!r}")
@@ -1567,7 +1616,8 @@ def _observability(node, rec, obs) -> None:
     node.device_engine.rec = node.pipeline_telemetry.recorder = rec
     node.latency_observatory = node.publish_batcher.obs = obs
     node.pipeline_telemetry.observatory = node.broker.latency_obs = obs
-    for holder in (node.hbm_ledger, node.overload_governor, obs):
+    for holder in (node.hbm_ledger, node.overload_governor, obs,
+                   node.supervisor):
         if holder is not None:
             holder.recorder = rec
 
@@ -1576,6 +1626,92 @@ def _objective(obs, ms: float) -> None:
     """Set the latency observatory's routed p99 objective (the breach
     threshold) to `ms`."""
     obs.objective_ms, obs._objective_s = ms, ms / 1000.0
+
+
+def _supervision(node, sup, lanes) -> None:
+    """Point every holder of the node's supervisor at `sup`; None is what
+    a node built with ``supervise: false`` holds (the unsupervised flood
+    detaches it, as the inline flood detaches the lane pool). `lanes` is
+    the node's own lane pool (detached or not)."""
+    node.supervisor = node.publish_batcher.sup = sup
+    node.device_engine.sup = sup
+    if lanes is not None:
+        lanes.sup = sup
+    node.pipeline_telemetry.supervise_state_fn = \
+        sup.state if sup is not None else None
+
+
+# the supervisor's counters that must stay 0 on a path that passes: a
+# node of phases 8-12 runs supervised (the default) and ends its phase
+# with none of them, so supervision hides no device fault there
+SUPERVISE_ZERO = ("faults", "replays", "stalls", "trips")
+
+
+def supervise_counts(node) -> dict:
+    return {k: node.metrics.val(f"supervise.{k}") for k in SUPERVISE_ZERO}
+
+
+def check_supervised(node, where: str) -> dict:
+    """The node runs supervised and its supervisor noted no fault,
+    replay, stall or trip; its journal is empty. Returns the counts."""
+    sup = node.supervisor
+    if sup is None:
+        raise AssertionError(f"{where}: the node runs without its "
+                             f"supervisor")
+    got = supervise_counts(node)
+    if any(got.values()) or sup.journal_depth():
+        raise AssertionError(f"{where}: the supervisor noted {got}, "
+                             f"journal depth {sup.journal_depth()}")
+    return got
+
+
+# iterations of each supervision hook timed by supervise_hook_cost
+HOOK_ITERS = 20000
+
+
+async def supervise_hook_cost(sup, batch) -> dict:
+    """The host us a window that supervision adds to a fault-free window,
+    hook by hook, timed on the live supervisor after the floods (every
+    breaker closed, the stage histograms full): the journal's admit and
+    settle, the batch tick's ``poll()``, two ``note_ok``, the two watchdog
+    ``deadline()`` lookups, the ``allow_device()`` gate, and the watchdog
+    await (``wait_for`` of a shielded future) over a plain await of the
+    same finished future."""
+    import asyncio
+    loop = asyncio.get_running_loop()
+    n = HOOK_ITERS
+
+    def per(fn) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    out = {
+        "journal": per(lambda: sup.journal_settle(sup.journal_admit(batch))),
+        "poll": per(sup.poll),
+        "note_ok": per(lambda: (sup.note_ok("dispatch"),
+                                sup.note_ok("materialize"))),
+        "deadline": per(lambda: (sup.deadline("dispatch"),
+                                 sup.deadline("materialize"))),
+        "allow_device": per(sup.allow_device)}
+
+    async def awaits(watched: bool) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f = loop.create_future()
+            f.set_result(None)
+            if watched:
+                await asyncio.wait_for(asyncio.shield(f), 10.0)
+            else:
+                await f
+        return (time.perf_counter() - t0) / n * 1e6
+
+    plain = await awaits(False)
+    # two watched awaits a window: dispatch and materialize
+    out["watchdog_awaits"] = 2 * (await awaits(True) - plain)
+    out["total"] = sum(out.values())
+    return {k: round(v, 3) for k, v in out.items()}
 
 
 TRACE_COUNTERS = ("trace.spans", "trace.windows", "trace.dropped")
@@ -1745,12 +1881,179 @@ def e2e_window_check(node, ids: int, nums: int, seed: int, batches: int,
     return err
 
 
+# phase 13b: one fault cycle in phase 8's flood. The materialize hang
+# fires on the (a+1)-th readback, the three dispatch faults on the
+# (b+1)-th to (b+3)-th dispatches, at the node's threshold (3)
+CHAOS_AFTER = (4, 10)
+CHAOS_HANG_S = 1.0
+# the chaos tuning in this flood: a breaker cycle short enough to recover
+# inside it, and a fixed watchdog deadline (multiplier 0) under the hang
+# but 20x the flood's readback p99 (~12 ms on one H100, PERF.md); a p99
+# multiple would follow a loaded host's readbacks past the hang
+CHAOS_TUNING = dict(cooldown_s=0.05, floor_s=0.25, mult=0.0)
+
+
+class _RungLog:
+    """Stands in for the supervisor's flight recorder during the chaos
+    flood: notes the time of every trip and rung change (on the thread
+    that made it) and passes the event on to the node's recorder."""
+
+    def __init__(self, inner):
+        self.inner, self.events = inner, []
+
+    def event(self, trace_id, name, **kw):
+        self.events.append((time.perf_counter(), name, kw.get("meta") or {}))
+        return self.inner.event(trace_id, name, **kw) \
+            if self.inner is not None else 0
+
+    def trip_and_back(self) -> tuple:
+        """(time of the first trip, time the ladder was next back at rung
+        0), None where it did not happen."""
+        t_trip = t_back = None
+        for t, _name, meta in self.events:
+            if meta.get("trip") and t_trip is None:
+                t_trip = t
+            elif t_trip is not None and not meta.get("trip") \
+                    and meta.get("rung") == 0:
+                t_back = t
+                break
+        return t_trip, t_back
+
+
+async def _chaos_flood(node, subs, pubs, ids: int, nums: int, total: int,
+                       seed: int) -> dict:
+    """Phase 13b: one flood of phase 8's traffic at dispatch depth 1 with
+    a ``materialize:hang`` clause and a ``dispatch:exception:count=3``
+    clause armed to fire in the middle of it, at the node's breaker
+    threshold (3) and the chaos tuning above. Every message must still be
+    delivered once and in order (``_flood``); the hang must be caught as a
+    stall and every faulted window replayed on the host, the three
+    consecutive dispatch faults must trip the dispatch breaker (rung 2)
+    and its probe must bring the ladder back to rung 0; the first window
+    dispatched after that is held against the plain path, bit for bit
+    (the held copy of its messages dispatches just before it). Depth 1:
+    at depth 2 a healthy window settles (its ``note_ok`` resets the
+    breaker's consecutive count) between the faulted ones, as in the
+    reference, and three faults need not trip. Afterwards the window
+    journal and the HBM ledger's pins are 0, once the hung readback's
+    thread has left its window. Returns the flood's numbers."""
+    import asyncio
+
+    from emqx_tpu_torch.broker.supervise import FaultInjector, parse_faults
+    sup, eng, pb, m = node.supervisor, node.device_engine, \
+        node.publish_batcher, node.metrics
+    saved = ({p: (b.base_cooldown_s, b.cooldown_s)
+              for p, b in sup.breakers.items()},
+             sup.wd_floor_s, sup.wd_mult, sup.recorder, pb.dispatch_depth)
+    for br in sup.breakers.values():
+        br.base_cooldown_s = br.cooldown_s = CHAOS_TUNING["cooldown_s"]
+    sup.wd_floor_s, sup.wd_mult = CHAOS_TUNING["floor_s"], \
+        CHAOS_TUNING["mult"]
+    pb.dispatch_depth = 1
+    log_ = sup.recorder = _RungLog(saved[3])
+    counts0 = supervise_counts(node)
+    held = {"err": None, "batches": None}
+    replayed = {"us": 0, "msgs": 0, "windows": 0}
+    real_dispatch, real_host = pb._dispatch, pb._complete_host
+
+    def dispatch(loop, handle):
+        if held["err"] is None and log_.trip_and_back()[1] is not None \
+                and all(f.fired >= f.count for f in sup.injector.faults):
+            held["batches"] = m.val("routing.device.batches")
+            held["err"] = hold_window(
+                eng, [msgs for msgs, _t in handle.subs],
+                "phase 13b: the first window after recovery", False)
+        return real_dispatch(loop, handle)
+
+    async def complete_host(entry, routed=None):
+        if routed is not None or not entry.get("replayed"):
+            return await real_host(entry, routed)
+        us0, n0 = m.val("routing.host.route_us"), \
+            m.val("routing.host.messages")
+        await real_host(entry, routed)
+        replayed["us"] += m.val("routing.host.route_us") - us0
+        replayed["msgs"] += m.val("routing.host.messages") - n0
+        replayed["windows"] += 1
+
+    a, b = CHAOS_AFTER
+    spec = (f"materialize:hang:after={a}:count=1:hang_s={CHAOS_HANG_S},"
+            f"dispatch:exception:after={b}:count=3")
+    pb._dispatch, pb._complete_host = dispatch, complete_host
+    sup.injector = FaultInjector(parse_faults(spec))
+    try:
+        f = await _flood(node, subs, pubs, ids, nums, total, seed,
+                         replays=True)
+        # the hung readback's thread leaves its window, then releases it
+        deadline = time.time() + CHAOS_HANG_S + 5
+        while eng._outstanding and time.time() < deadline:
+            await asyncio.sleep(0.01)
+        fired = sup.injector.state()
+    finally:
+        sup.injector = FaultInjector()
+        pb._dispatch, pb._complete_host = real_dispatch, real_host
+        for p, (base, cur) in saved[0].items():
+            sup.breakers[p].base_cooldown_s = base
+            sup.breakers[p].cooldown_s = cur
+        sup.wd_floor_s, sup.wd_mult, sup.recorder, pb.dispatch_depth = \
+            saved[1:]
+    t_trip, t_back = log_.trip_and_back()
+    got = {k: v - counts0[k] for k, v in supervise_counts(node).items()}
+    led = node.hbm_ledger
+    pins = led.pin_state()["outstanding"] if led is not None else 0
+    out = {"spec": spec, "fired": fired, "supervise": got,
+           "trip_to_rung0_s": None if t_back is None else t_back - t_trip,
+           "rung": sup.rung(),
+           "breakers": {p: br.state for p, br in sup.breakers.items()
+                        if br.state != "closed"},
+           "journal_depth": sup.journal_depth(), "ledger_pins": pins,
+           "replayed_windows": replayed["windows"],
+           "replayed_msgs": replayed["msgs"],
+           "replay_host_us_per_msg":
+               replayed["us"] / max(1, replayed["msgs"]),
+           "held_err": held["err"],
+           "probe_launches": dict(eng.probe_launches),
+           "batches_after_recovery":
+               None if held["batches"] is None
+               else m.val("routing.device.batches") - held["batches"],
+           "rung_events": [(round(t - (t_trip or t), 6), n, meta)
+                           for t, n, meta in log_.events],
+           "flood": {k: f[k] for k in ("sent", "delivered", "per_sec",
+                                       "device_routed", "batches",
+                                       "windows", "lat_p99_ms")}}
+    bad = []
+    if any(c["fired"] < c["count"] for c in fired):
+        bad.append(f"a clause did not fire: {fired}")
+    if got["stalls"] < 1:
+        bad.append("the readback hang was not caught as a stall")
+    if got["replays"] < 4 or replayed["windows"] < got["replays"]:
+        bad.append(f"{got['replays']} replays ({replayed['windows']} "
+                   f"windows replayed on the host) for 4 faulted windows")
+    if got["trips"] < 1 or t_trip is None:
+        bad.append("three consecutive dispatch faults did not trip")
+    if t_back is None or out["rung"] != 0 or out["breakers"]:
+        bad.append(f"not back at rung 0: rung {out['rung']}, open "
+                   f"{out['breakers']}")
+    if out["journal_depth"] or pins:
+        bad.append(f"journal depth {out['journal_depth']}, ledger pins "
+                   f"{pins} after the flood")
+    if held["err"] is None:
+        bad.append("no window dispatched after the recovery")
+    elif held["err"] or not out["batches_after_recovery"]:
+        bad.append(f"after the recovery: held window err {held['err']}, "
+                   f"{out['batches_after_recovery']} device batches")
+    if bad:
+        raise AssertionError("phase 13b: " + "; ".join(bad)
+                             + f" ({json.dumps(out, default=str)})")
+    return out
+
+
 def e2e_drive(dev, n_filters: int = E2E_FILTERS,
               n_sub: int = E2E_SUB_CONNS, n_pub: int = E2E_PUB_CONNS,
               total: int = E2E_MSGS, runs=E2E_RUNS,
               min_device_share: float = E2E_MIN_DEVICE_SHARE,
               window=(8, 1024), seed: int = SEED, report=None,
-              pin_device: bool = False, profile: bool = False) -> dict:
+              pin_device: bool = False, profile: bool = False,
+              chaos: bool = False, node_conf=None) -> dict:
     """Phase 8: the port's Node (the reference's defaults, delivery lanes
     and HBM ledger included) with its Listener on 127.0.0.1, the bench.py
     e2e population subscribed over TCP, the bench warm-up, then one flood
@@ -1762,7 +2065,13 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
     (for a rehearsal on the CPU, where the host path wins; never in the
     measured run). With ``profile`` one more flood at the first run's
     depth, lanes on, runs under torch.profiler for the card's busy time
-    (not one of the measured floods). Raises on any failed check."""
+    (not one of the measured floods). A run whose fifth field is False
+    floods with the node's supervisor detached (``_supervision``); every
+    supervised flood must leave the supervisor's fault, replay, stall and
+    trip counts at 0. With ``chaos``, one more flood runs with faults
+    armed in the middle of it (``_chaos_flood``, phase 13b). Raises on any
+    failed check. ``node_conf`` adds ``broker`` keys to the node's
+    configuration (a rehearsal's smaller batches)."""
     import asyncio
 
     async def run():
@@ -1772,8 +2081,10 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
         import torch
         alloc0 = torch.cuda.memory_allocated(dev) \
             if dev.type == "cuda" else None
-        node = Node({"broker": {"dispatch_depth": runs[0][1]}}, device=dev)
+        node = Node({"broker": dict(node_conf or {},
+                                    dispatch_depth=runs[0][1])}, device=dev)
         lanes = node.deliver_lanes
+        sup = node.supervisor
         _time_dispatches(node.device_engine)
         if pin_device:
             node.publish_batcher._device_worth_it = lambda: True
@@ -1808,12 +2119,15 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
             gc.freeze()
             rec, obs = node.flight_recorder, node.latency_observatory
             objective = obs.objective_ms
-            for k, (label, depth, lanes_on, layers) in enumerate(runs):
+            for k, (label, depth, lanes_on, layers, supervised) \
+                    in enumerate(runs):
                 # the batcher's consumer reads the depth when it starts,
                 # and it parks between floods (the lanes are drained by
                 # then: every future resolved)
                 node.publish_batcher.dispatch_depth = depth
                 node.deliver_lanes = lanes if lanes_on else None
+                _supervision(node, sup if supervised else None, lanes)
+                sup0 = supervise_counts(node)
                 traced = layers in ("on", "quiet")
                 _observability(node, rec if traced else None,
                                obs if layers != "off" else None)
@@ -1827,6 +2141,12 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
                 f = await _flood(node, subs, pubs, ids, nums, total,
                                  seed + 100 * k)
                 f["lanes_on"] = lanes_on
+                f["supervised"] = supervised
+                f["supervise"] = {k: v - sup0[k] for k, v in
+                                  supervise_counts(node).items()}
+                if any(f["supervise"].values()):
+                    raise AssertionError(f"{label}: the supervisor noted "
+                                         f"{f['supervise']}")
                 f["traced"] = traced
                 f["layers"] = layers
                 f["trace"] = trace_numbers(node, first_id, tr0) \
@@ -1885,6 +2205,12 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
                     out["window_err"] = e2e_window_check(
                         node, ids, nums, seed + 1, *window)
             node.deliver_lanes = lanes
+            _supervision(node, sup, lanes)
+            out["supervise"] = check_supervised(node, "phase 8")
+            out["supervise_section"] = \
+                node.pipeline_telemetry.snapshot()["supervise"]
+            out["supervise_cost_us"] = await supervise_hook_cost(
+                sup, [(None, None)] * 64)
             _observability(node, rec, obs)
             _objective(obs, objective)
             out["ledger"] = ledger_line(node, alloc0) \
@@ -1915,6 +2241,11 @@ def e2e_drive(dev, n_filters: int = E2E_FILTERS,
                         node, subs, pubs, ids, nums, total, seed + 1000)
                 finally:
                     _observability(node, rec, obs)
+                check_supervised(node, "phase 8's profiled flood")
+            if chaos:
+                node.publish_batcher.dispatch_depth = runs[0][1]
+                out["chaos"] = await _chaos_flood(
+                    node, subs, pubs, ids, nums, total, seed + 2000)
             out["stats"] = node.device_engine.stats()
             out["ingress_lanes"] = {
                 "lanes": node.ingress_lanes,
@@ -1946,7 +2277,8 @@ def e2e_phase(dev, card: str) -> dict:
         stage_us = {k: round(v, 2) for k, v in f["device_us_per_msg"].items()}
         disp = dict(f["dispatch_ms"], sum=round(f["dispatch_ms"]["sum"], 3))
         depth = f"{label} (lanes {'on' if f['lanes_on'] else 'off'}, " \
-            f"recorder and observatory {f['layers']})"
+            f"recorder and observatory {f['layers']}, supervisor " \
+            f"{'on' if f['supervised'] else 'detached'})"
         log(f"phase 8 {depth}: {json.dumps(row)}")
         if f["trace"] is not None:
             tr, lat = f["trace"], f["latency"]
@@ -2005,7 +2337,8 @@ def e2e_phase(dev, card: str) -> dict:
             f"{ing['rows_per_burst']} rows per burst; prepare "
             f"{f['device_us_per_msg']['prepare']:.2f} us/msg")
 
-    r = e2e_drive(dev, report=report, profile=True)
+    r = e2e_drive(dev, runs=E2E_RUNS[:1] + E2E_SUPERVISE_RUNS
+                  + E2E_RUNS[1:], report=report, profile=True, chaos=True)
     log(f"phase 8: {r['filters']} filters ({r['shared_filters']} in "
         f"2-member $share groups) subscribed as {r['subscriptions']} "
         f"subscriptions over {E2E_SUB_CONNS} connections in "
@@ -2034,6 +2367,41 @@ def e2e_phase(dev, card: str) -> dict:
     log(f"phase 8 recorder and observatory on / off at depth 2, lanes on: "
         f"{fl['d2']['per_sec']} / {fl['d2-untraced']['per_sec']} msgs/s "
         f"(one flood each, no ratio claimed)")
+    rounds = E2E_RUNS[:1] + E2E_SUPERVISE_RUNS
+    sup_on = [fl[run[0]]["per_sec"] for run in rounds if run[4]]
+    sup_off = [fl[run[0]]["per_sec"] for run in rounds if not run[4]]
+    r["supervise_rounds"] = {
+        "supervised": sup_on, "unsupervised": sup_off,
+        "ratio_of_medians": float(np.median(sup_on) / np.median(sup_off))}
+    log(f"phase 8 supervised / unsupervised at depth 2, lanes on, "
+        f"{len(sup_off)} rounds in rotated order: msgs/s "
+        f"{sup_on} / {sup_off}, medians {int(np.median(sup_on))} / "
+        f"{int(np.median(sup_off))} "
+        f"({r['supervise_rounds']['ratio_of_medians']:.3f}x)")
+    log(f"phase 8: the supervisor noted {json.dumps(r['supervise'])} over "
+        f"the phase's floods; live supervise section "
+        f"{json.dumps(r['supervise_section'])}")
+    cost, d2 = r["supervise_cost_us"], fl["d2"]
+    win_us = d2["wall_s"] / max(d2["windows"], 1) * 1e6
+    r["supervise_cost_share"] = cost["total"] / win_us
+    log(f"phase 8 supervision hooks, host us a fault-free window "
+        f"({HOOK_ITERS} calls each on the live supervisor): "
+        f"{json.dumps(cost)}; {cost['total']:.2f} us against the d2 "
+        f"flood's {win_us:.1f} us of wall time a window "
+        f"({r['supervise_cost_share']:.5f} of it)")
+    c = r["chaos"]
+    log(f"phase 13b (phase 8's node and flood at depth 1, threshold 3, "
+        f"{json.dumps(CHAOS_TUNING)}): {c['spec']}; every message "
+        f"delivered once and in order {json.dumps(c['flood'])}; "
+        f"supervise {json.dumps(c['supervise'])}; trip -> rung 0 in "
+        f"{c['trip_to_rung0_s']:.4f} s; {c['replayed_windows']} windows "
+        f"({c['replayed_msgs']} messages) replayed on the host at "
+        f"{c['replay_host_us_per_msg']:.2f} host us a message; the first "
+        f"window after recovery == plain path (max |diff| "
+        f"{c['held_err']}), {c['batches_after_recovery']} device batches "
+        f"after it; journal {c['journal_depth']}, ledger pins "
+        f"{c['ledger_pins']}; rung events (s from the trip, name, meta) "
+        f"{json.dumps(c['rung_events'])}")
     led = r["ledger"]
     log(f"phase 8 HBM ledger: live {led['live_bytes']} bytes by category "
         f"{json.dumps(led['by_category'])}, peak {led['peak_bytes']}, "
@@ -2073,7 +2441,7 @@ def trace_cost_runs(rounds: int = TRACE_ROUNDS) -> tuple:
     for r in range(rounds):
         k = r % len(TRACE_LAYERS)
         for layers in TRACE_LAYERS[k:] + TRACE_LAYERS[:k]:
-            out.append((f"d2-{layers}-{r + 1}", 2, True, layers))
+            out.append((f"d2-{layers}-{r + 1}", 2, True, layers, True))
     return tuple(out)
 
 
@@ -2546,8 +2914,11 @@ def layers_drive(dev, n_filters: int = E2E_FILTERS,
             if eng.failed is not None:
                 raise AssertionError(f"phase 9: engine {k} failed") \
                     from eng.failed
+        supervise = {k: check_supervised(node, f"phase 9 node {k}")
+                     for k, node in nodes.items()}
         return {"filters": ids * nums, "subscribe_s": t_sub,
                 "build_s": time.time() - t0, "skew": skew, "churn": churn,
+                "supervise": supervise,
                 "capture": {k: {"captures": nodes[k].device_engine.captures,
                                 "capture_s": nodes[k].device_engine.capture_s}
                             for k in "AB"},
@@ -2583,7 +2954,8 @@ def layers_phase(dev, card: str) -> dict:
             f", detection {st['cover_detect_s']} s")
     log(f"phase 9: a cached window (9a) and an overlay window (9b) == plain "
         f"path: every plane, both CSR payloads, cursors (exact); captures "
-        f"{json.dumps(r['capture'])}; phase 9 {time.time() - t0:.1f} s")
+        f"{json.dumps(r['capture'])}; supervisors (A, B, H) noted "
+        f"{json.dumps(r['supervise'])}; phase 9 {time.time() - t0:.1f} s")
     log(card)
     return r
 
@@ -2842,6 +3214,8 @@ def _cover_cell(dev, n: int, seed: int) -> dict:
             f"the off twin (parts {diff}: counts, session, new session; "
             f"{len(seen['A'][2])} / {len(seen['B'][2])} to the new one)")
     out["stats_A"] = a.stats()
+    out["supervise"] = {k: check_supervised(node, f"phase 10 {n} node {k}")
+                        for k, node in nodes.items()}
     return out
 
 
@@ -2888,7 +3262,8 @@ def cover_phase(dev, card: str) -> dict:
             f"covered SUBSCRIBE landed as an append and "
             f"the next window (graph replay: {c['append_graphed']}) "
             f"delivered it as the off twin; launches on A's timed passes "
-            f"{c['A']['launches']}")
+            f"{c['A']['launches']}; supervisors noted "
+            f"{json.dumps(c['supervise'])}")
     log(f"phase 10 {time.time() - t0:.1f} s")
     log(card)
     return r
@@ -3088,6 +3463,8 @@ async def _ingress_run(dev, conns: int, columnar: bool, n_msgs: int,
             "launches": launches, "hold_err": hold_err,
             "scan_shapes": [[list(k), v] for k, v in scan_shapes.items()],
             "native": native.available(),
+            "supervise": check_supervised(
+                node, f"phase 11 {conns} columnar {columnar}"),
             "device": str(dev)}
 
 
@@ -3176,7 +3553,8 @@ def ingress_phase(card: str) -> dict:
                 f"; kernel 2 launches by shape "
                 f"{json.dumps({str(tuple(k)): v for k, v in r['scan_shapes']})}"
                 f"; stage ms {json.dumps(stage_ms)}; ingress "
-                f"{json.dumps(r['ingress'])}; launches {r['launches']}")
+                f"{json.dumps(r['ingress'])}; launches {r['launches']}; "
+                f"supervisor noted {json.dumps(r['supervise'])}")
     for conns in I_CONNS:
         on, off = rows[(conns, True)], rows[(conns, False)]
         check_ingress_pair(on, off)
@@ -3527,6 +3905,8 @@ async def _overload_run(dev, governor: bool, rate, conns: int, n_msgs: int,
                 + delta["routing.host.messages"]),
             "launches": launches, "hold_err": hold_err,
             "scan_shapes": [[list(k), v] for k, v in scan_shapes.items()],
+            "supervise": check_supervised(
+                node, f"phase 12 governor {'on' if governor else 'off'}"),
             "device": str(dev)}
 
 
@@ -3625,7 +4005,8 @@ def overload_phase(card: str) -> dict:
             f"p99 {json.dumps(r['q1_routed_p99_ms'])} ms, objective "
             f"{r['objective_p99_ms']} ms ({r['verdict']}; recorded, not "
             f"asserted), measured from {r['measured_from_s']:.2f} s; "
-            f"overload {json.dumps(r['overload'])}")
+            f"overload {json.dumps(r['overload'])}; supervisor noted "
+            f"{json.dumps(r['supervise'])}")
     check_overload_pair(rows[True], rows[False], cuda=True)
     log(f"phase 12: both twins delivered every accepted QoS 1 PUBLISH in "
         f"publisher order; only the governed twin shed ({rows[True]['qos0_shed']} "
@@ -3646,6 +4027,163 @@ def overload_main(arg: str) -> int:
     print(json.dumps(overload_one("cuda", a["governor"], a["rate"])),
           flush=True)
     return 0
+
+
+# ---- phase 13: chaos on the card ------------------------------------------
+
+def chaos_matrix(dev) -> dict:
+    """Phase 13a: the 24 cells of ``emqx_tpu_torch.chaos`` (every pipeline
+    injection point x every fault kind) at ``tools/chaos_bench.py``'s size
+    on a node on `dev`, with the bench's tuning (threshold 1, cooldown
+    0.05 s, watchdog floor 0.1 s, multiplier 0), each graded by the
+    chaos oracle against the fault-free twin on `dev`, and its scheduled
+    deliveries held equal to the same cell's on the port's CPU node. The
+    launch counters are set to 0 before the matrix and read after it.
+    Returns the cells' numbers; raises on any violation."""
+    import torch
+
+    from emqx_tpu_torch import chaos as C
+    from emqx_tpu_torch import device as D
+    from emqx_tpu_torch.broker.supervise import FAULT_KINDS
+    twins = {d: C.run_twin(delta=d, device=dev) for d in (False, True)}
+    cpu_twins = {d: C.run_twin(delta=d, device="cpu") for d in (False, True)}
+    for d in (False, True):
+        if C.scheduled(twins[d], twins[d]) \
+                != C.scheduled(cpu_twins[d], cpu_twins[d]):
+            raise AssertionError(f"phase 13a: the fault-free twins (delta "
+                                 f"{d}) deliver differently on {dev} and "
+                                 f"on the CPU")
+        if not twins[d]["device_batches"]:
+            raise AssertionError("phase 13a: the twin ran no device window")
+    D.reset_launches()
+    cells, probes, bad = {}, {}, []
+    for point in C.MATRIX_POINTS:
+        for kind in FAULT_KINDS:
+            t0 = time.time()
+            c = C.run_case(point, kind, device=dev)
+            sec = time.time() - t0
+            cpu = C.run_case(point, kind, device="cpu")
+            twin, cpu_twin = twins[point == "overlay_apply"], \
+                cpu_twins[point == "overlay_apply"]
+            v = C.grade(c, twin, point, kind)
+            v += [f"cpu: {x}" for x in C.grade(cpu, cpu_twin, point, kind)]
+            if C.scheduled(c, twin) != C.scheduled(cpu, cpu_twin):
+                v.append("scheduled deliveries differ from the CPU node's")
+            if c["eager_windows"]:
+                # every window, the rung-1 plain ones included, replays a
+                # class the warm-up captured: none is captured or run
+                # eagerly on the serving path
+                v.append(f"{c['eager_windows']} eager windows")
+            for k, n in c["probe_launches"].items():
+                probes[k] = probes.get(k, 0) + n
+            cells[f"{point}:{kind}"] = {
+                k: c[k] for k in ("faults", "trips", "replays", "stalls",
+                                  "probes", "rung_changes",
+                                  "device_batches", "eager_windows")}
+            cells[f"{point}:{kind}"]["s"] = round(sec, 3)
+            bad += [f"{point}:{kind}: {x}" for x in v]
+            gc.collect()
+            torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("phase 13a: " + "; ".join(bad))
+    return {"cells": cells, "launches": dict(D.LAUNCHES),
+            "probe_launches": probes}
+
+
+def chaos_fatal(dev) -> dict:
+    """Phase 13d: on the card's rules, a non-injected RuntimeError raised
+    inside one dispatch reaches the window's publishers and sets
+    ``engine.failed`` (no replay), while an InjectedFault raised in the
+    same place replays its window on the host. A real out of memory in
+    the dispatch and a real stall of the readback past the watchdog fail
+    as the RuntimeError does, and the stalled window's pins are released
+    when its thread leaves."""
+    import torch
+
+    from emqx_tpu_torch import chaos as C
+    from emqx_tpu_torch.broker.supervise import InjectedFault
+    node, out = C.fatal_drive(lambda eng, sup: C.raise_once(
+        eng, "_dispatch_inner", RuntimeError("not injected")), device=dev)
+    real = {"first_window": sorted({type(c).__name__ for c in out[0]}),
+            "failed": repr(node.device_engine.failed),
+            "replays": node.metrics.val("supervise.replays"),
+            "later_windows_raised": all(isinstance(c, RuntimeError)
+                                        for w in out[1:] for c in w)}
+    if not (all(isinstance(c, RuntimeError) for c in out[0])
+            and "not injected" in {str(c) for c in out[0]}
+            and str(node.device_engine.failed) == "not injected"
+            and real["replays"] == 0 and real["later_windows_raised"]):
+        raise AssertionError(f"phase 13d: a real dispatch error did not "
+                             f"raise to the publishers and fail the "
+                             f"engine: {real}")
+    node, out = C.fatal_drive(lambda eng, sup: C.raise_once(
+        eng, "_dispatch_inner", InjectedFault("injected")), device=dev)
+    inj = {"counts": sorted({c for w in out for c in w}, key=str),
+           "failed": repr(node.device_engine.failed),
+           "replays": node.metrics.val("supervise.replays")}
+    if inj["counts"] != [2] or node.device_engine.failed is not None \
+            or inj["replays"] != 1:
+        raise AssertionError(f"phase 13d: an injected dispatch fault did "
+                             f"not replay: {inj}")
+    # a real out of memory in the dispatch and a real stall of the
+    # readback past the watchdog (no clause armed) fail like the error
+    oom, stall = (
+        (lambda eng, sup: C.raise_once(
+            eng, "_dispatch_inner", torch.cuda.OutOfMemoryError("real"))),
+        (lambda eng, sup: C.stall_once(eng, "_materialize",
+                                       3 * C.WATCHDOG_FLOOR_S)))
+    fatal = {}
+    for name, arm, want in (("oom", oom, torch.cuda.OutOfMemoryError),
+                            ("stall", stall, TimeoutError)):
+        node, out = C.fatal_drive(arm, device=dev)
+        f = {"first_window": sorted({type(c).__name__ for c in out[0]}),
+             "failed": repr(node.device_engine.failed),
+             "replays": node.metrics.val("supervise.replays"),
+             "journal": node.supervisor.journal_depth(),
+             "pins": node.hbm_ledger.pin_state()["outstanding"]}
+        if not (all(isinstance(c, want) for c in out[0])
+                and isinstance(node.device_engine.failed, want)
+                and f["replays"] == 0 and f["journal"] == 0
+                and f["pins"] == 0):
+            raise AssertionError(f"phase 13d: a real {name} did not raise "
+                                 f"to the publishers and fail the engine: "
+                                 f"{f}")
+        fatal[name] = f
+    return {"real_error": real, "injected": inj, **fatal}
+
+
+def chaos_phase(card: str, probes_13b: dict) -> dict:
+    """Phase 13 on the card (13b runs inside phase 8, on its node):
+    the matrix, the probes' kernels and the fatal departure."""
+    import torch
+    t0 = time.time()
+    dev = torch.device("cuda")
+    m = chaos_matrix(dev)
+    for k, c in m["cells"].items():
+        log(f"phase 13a {k}: {json.dumps(c)}")
+    log(f"phase 13a: 24 of 24 cells green on {dev} (graded against the "
+        f"card's fault-free twin: equal counts and per-session order, a "
+        f"trip within the window, stalls for hangs at dispatch/materialize"
+        f", replays for raising kinds there, rung 0 again, journal and "
+        f"ledger pins 0), each equal to the same cell on the port's CPU "
+        f"node; launches over the matrix {m['launches']}")
+    probes = {k: m["probe_launches"].get(k, 0) + probes_13b.get(k, 0)
+              for k in ("shape_match", "prefix_sum")}
+    if not all(probes.values()):
+        raise AssertionError(f"phase 13c: the probes launched {probes}")
+    log(f"phase 13c: the half-open dispatch probes launched {probes} "
+        f"(matrix {m['probe_launches']}, phase 13b {probes_13b})")
+    f = chaos_fatal(dev)
+    log(f"phase 13d: a RuntimeError raised in one dispatch reached the "
+        f"publishers and failed the engine {json.dumps(f['real_error'])}; "
+        f"an InjectedFault in the same place replayed "
+        f"{json.dumps(f['injected'])}; a real out of memory there "
+        f"{json.dumps(f['oom'])} and a real readback stall past the "
+        f"watchdog {json.dumps(f['stall'])} raised and failed the engine "
+        f"too")
+    log(f"phase 13 {time.time() - t0:.1f} s")
+    log(card)
+    return {"matrix": m, "probes": probes, "fatal": f}
 
 
 def main() -> int:
@@ -3736,6 +4274,7 @@ def main() -> int:
     cover = cover_phase(dev, card)
     ingress = ingress_phase(card)
     overload = overload_phase(card)
+    chaos = chaos_phase(card, e2e["chaos"]["probe_launches"])
     timed = {tuple(d["shape"]) for d in scan_shapes + mesh_scan_shapes}
     layer_scan_shapes = []
     for cell, n in (("skew", "windows"), ("churn", "batches")):
@@ -3790,6 +4329,8 @@ def main() -> int:
             out[f"ingress {label}"] = r["launches"][name]
         for label, r in overload.items():
             out[f"overload governor {label}"] = r["launches"][name]
+        out["chaos matrix"] = chaos["matrix"]["launches"].get(name, 0)
+        out["supervise probes"] = chaos["probes"].get(name, 0)
         return out
 
     kernels = [
@@ -3798,7 +4339,8 @@ def main() -> int:
          "replaces": "emqx_tpu/ops/pallas_fold.py:121",
          "launches": launches["shape_match"],
          "launches_by_path": by_path("shape_match"),
-         "max_abs_err": max(err_fold, e2e["window_err"], layers_err),
+         "max_abs_err": max(err_fold, e2e["window_err"], layers_err,
+                            e2e["chaos"]["held_err"]),
          **{k: sm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")}},
         {"name": "prefix_sum", "route": "cuda",
@@ -3806,7 +4348,8 @@ def main() -> int:
          "replaces": "emqx_tpu/ops/pallas_scan.py:79",
          "launches": launches["prefix_sum"],
          "launches_by_path": by_path("prefix_sum"),
-         "max_abs_err": max(err_scan, e2e["window_err"], layers_err),
+         "max_abs_err": max(err_scan, e2e["window_err"], layers_err,
+                            e2e["chaos"]["held_err"]),
          **{k: ps[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
          "shapes": scan_shapes + mesh_scan_shapes + layer_scan_shapes},
@@ -3827,7 +4370,8 @@ def main() -> int:
                    for k, r in ingress.items()}
     log(json.dumps({"summary": summary, "mesh": mesh, "e2e": e2e_out,
                     "layers": layers_out, "cover": cover_out,
-                    "ingress": ingress_out, "overload": overload}))
+                    "ingress": ingress_out, "overload": overload,
+                    "chaos": chaos}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

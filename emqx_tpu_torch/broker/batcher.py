@@ -20,9 +20,23 @@ ingress's burst hand-off (``submit_burst``), the flight recorder's window
 traces (minted at admit, with the ``enqueue`` root span, sampled
 per-message spans, ``batch_form``, ``host_route``, ``window`` and the
 lane waits), the latency observatory's ``record_routed`` /
-``record_delivered`` at settle, and the overload governor's QoS 0 shed
-at every admit path (``_shed_qos0``). Not part of the port: the
-supervision hooks.
+``record_delivered`` at settle, the overload governor's QoS 0 shed at
+every admit path (``_shed_qos0``), and the supervision hooks: the window
+journal (admit → settle), the supervisor's probe tick (inside the
+engine's ``poll_rebuild``) and the ladder's host bypass
+(``routing.device.supervised_bypass``), the watchdog-bounded stage
+awaits (``_await_stage``) and the journaled window's host replay
+(``_note_replay_span``: the ``replay`` latency series).
+
+- **Supervised** (``node.supervisor``): a dispatch, readback or consume
+  that fails is noted against its fault domain and its window replays
+  through the host path at its settle turn, FIFO held. Where device
+  errors are fatal (the card) only the faults ``supervise.contained``
+  names replay, those the injector caused; any other exception or stall
+  raises to the window's publishers and fails the engine. While a
+  ``dispatch`` clause is armed the dispatch runs on the dispatch thread
+  even where the engine dispatches on the loop, so the watchdog can see
+  a hang.
 
 - **Non-blocking**: device dispatch and device→host readback run on
   executor threads (DeviceRouteEngine.dispatch/materialize); the event
@@ -79,7 +93,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 from emqx_tpu_torch.broker.message import Message
-from emqx_tpu_torch.broker.supervise import guard_task
+from emqx_tpu_torch.broker.supervise import contained, guard_task
 
 # re-probe the device path after this many consecutive host-routed
 # batches, so a transiently slow device (cold warm-up, a stall) is not
@@ -181,6 +195,10 @@ class PublishBatcher:
         self._consuming = False       # consumer mid-entry (fast-path gate)
         # pipeline telemetry (stage spans / occupancy / decisions)
         self.tele = getattr(node, "pipeline_telemetry", None)
+        # fault-domain supervision: the consumer's watchdog deadlines, the
+        # window journal and the device/host ladder gate. None
+        # (broker.supervise off) is the unsupervised unwind.
+        self.sup = getattr(node, "supervisor", None)
         # the flight recorder: every window's trace id is minted HERE at
         # admit and rides the entry through dispatch/materialize/lanes to
         # settle. None (broker.trace off) records nothing.
@@ -316,6 +334,8 @@ class PublishBatcher:
                         fut.set_exception(err)
                 if entry.get("handle") is not None:
                     self.engine.abandon(entry["handle"])
+                if self.sup is not None:
+                    self.sup.journal_settle(entry.get("wid"))
         self._task = None
         self._consumer = None
 
@@ -371,6 +391,12 @@ class PublishBatcher:
                             meta={"batch": len(batch)})
                         if sampled:
                             entry["trace_msgs"] = sampled
+                    if self.sup is not None:
+                        # the window journal: the window's (message,
+                        # future) batch, by reference, from admit until
+                        # its counts resolve; a stage death mid-window
+                        # replays exactly this manifest on the host
+                        entry["wid"] = self.sup.journal_admit(batch)
                     return entry
 
                 group = [form_entry()]
@@ -380,7 +406,8 @@ class PublishBatcher:
                         # churn check rides the batch cadence: a threshold
                         # crossing kicks the background double-buffered
                         # rebuild even when batches are too small for the
-                        # device path
+                        # device path; the supervisor's probe tick rides
+                        # the same call
                         self.engine.poll_rebuild()
                     live0 = group[0]["live"]
                     # the device/host DECISION runs on the first batch
@@ -390,6 +417,14 @@ class PublishBatcher:
                     dispatched = False
                     use_device = (bool(live0) and self.engine is not None
                                   and len(live0) >= self.device_min_batch)
+                    if use_device and self.sup is not None \
+                            and not self.sup.allow_device():
+                        # ladder rung 2: the dispatch or materialize
+                        # breaker is open — this window routes through the
+                        # host trie until the off-path probe closes it
+                        self.node.metrics.inc(
+                            "routing.device.supervised_bypass")
+                        use_device = False
                     if use_device \
                             and not self.engine.batch_class_warm(
                                 len(live0)):
@@ -506,8 +541,14 @@ class PublishBatcher:
         an engine whose dispatch only enqueues work on the card
         (``dispatch_on_loop``) — right here on the loop. Such a dispatch
         is Python launch work that holds the GIL throughout; on a thread
-        it would wait for the busy loop at every GIL hand-off."""
-        if not getattr(self.engine, "dispatch_on_loop", False):
+        it would wait for the busy loop at every GIL hand-off. While the
+        supervisor's injector holds a ``dispatch`` clause the dispatch
+        takes the thread all the same: a hang clause on the loop would
+        block the loop, and the watchdog would find the dispatch done."""
+        sup = self.sup
+        if not getattr(self.engine, "dispatch_on_loop", False) or (
+                sup is not None and sup.injector.armed()
+                and sup.injector.armed_at("dispatch")):
             return loop.run_in_executor(self._dispatch_pool,
                                         self.engine.dispatch, handle)
         fut = loop.create_future()
@@ -559,6 +600,10 @@ class PublishBatcher:
         if entry.get("handle") is not None:
             self.engine.abandon(entry["handle"])
             entry["handle"] = None
+        if self.sup is not None:
+            # failed is not lost silently: the futures above carry the
+            # error to their publishers
+            self.sup.journal_settle(entry.get("wid"))
 
     async def _fold_hooks(self, entry: dict) -> None:
         """message.publish hook fold, concurrently across the batch."""
@@ -618,6 +663,8 @@ class PublishBatcher:
             lpath = "device_cached" \
                 if getattr(entry.get("handle"), "plan", None) is not None \
                 else "device"
+        elif entry.get("replayed"):
+            lpath = "replay"
         elif entry.get("fallback") or entry.get("handle") is not None:
             lpath = "host_fallback"
         else:
@@ -690,6 +737,8 @@ class PublishBatcher:
                 for i, (_m, fut) in enumerate(batch):
                     if fut is not None and not fut.done():
                         fut.set_result(counts[i])
+                if self.sup is not None:
+                    self.sup.journal_settle(entry.get("wid"))
                 if obs is not None and live:
                     # ingress→delivered: settle runs when the deliveries
                     # are written — inline for host batches, from the
@@ -734,6 +783,8 @@ class PublishBatcher:
             for _m, fut in batch:
                 if fut is not None and not fut.done():
                     fut.set_exception(e)
+            if self.sup is not None:
+                self.sup.journal_settle(entry.get("wid"))
 
     async def _consume(self) -> None:
         if self.dispatch_depth > 1:
@@ -774,11 +825,24 @@ class PublishBatcher:
 
     async def _stages(self, entry: dict, loop) -> bool:
         """Await one dispatched window's dispatch, then launch + await its
-        materialize. On a failure the handle is abandoned and, where the
-        engine says device errors are fatal (on the card), the error
-        raises to the window's publishers; otherwise this returns False
-        and the window falls back to the host path."""
+        materialize. Returns False when the window falls back to the host
+        path at its settle turn (the handle abandoned).
+
+        Unsupervised, a failure abandons the handle and, where the engine
+        says device errors are fatal (on the card), raises to the
+        window's publishers; otherwise the window falls back. Supervised,
+        each await is bounded by the stage's watchdog deadline and a
+        failure is noted against the stage's fault domain and replayed
+        (``_await_stage``)."""
         handle = entry["handle"]
+        if self.sup is not None:
+            if not await self._await_stage(entry["dispatch_fut"],
+                                           "dispatch", handle, entry):
+                return False
+            mat = loop.run_in_executor(self._read_pool,
+                                       self.engine.materialize, handle)
+            return await self._await_stage(mat, "materialize", handle,
+                                           entry)
         try:
             await entry["dispatch_fut"]
             await loop.run_in_executor(
@@ -791,21 +855,81 @@ class PublishBatcher:
                 self.engine.abandon(handle, error=e)
                 raise
             self.engine.abandon(handle)
-            self._note_fallback(entry, type(e).__name__)
+            self._note_replay_span(entry, "device", type(e).__name__)
             return False
         return True
 
-    def _note_fallback(self, entry: dict, kind: str) -> None:
-        """A dispatched window that falls back to the host path: it lands
-        in the ``host_fallback`` latency series, and it KEEPS its trace
-        id, with a ``replay`` event under the window root that the
-        host_route after it parents to."""
-        entry["fallback"] = True
+    async def _await_stage(self, fut, stage: str, handle,
+                           entry: dict) -> bool:
+        """Await one stage under the supervisor's watchdog deadline
+        (``deadline(stage)``, from the stage histogram's p99). Returns
+        True on success, False when the window replays on the host (the
+        handle abandoned, the fault or stall noted, the replay counted).
+        A failure the ladder does not contain on the card
+        (``supervise.contained``) — a real error, or a stall while no
+        injected hang sleeps in the stage — raises to the publishers
+        instead and fails the engine.
+
+        On a stall the stage's thread may still be inside the stage: the
+        handle stops serving at once (its other sub-batches replay too),
+        but its release — the snapshot pin, the HBM ledger's pin — waits
+        until the thread leaves, so nothing the thread still reads is
+        handed to a later window."""
+        sup = self.sup
+        deadline = sup.deadline(stage)
+        try:
+            await asyncio.wait_for(asyncio.shield(fut), deadline)
+        except asyncio.CancelledError:
+            raise
+        except asyncio.TimeoutError:
+            err = TimeoutError(f"{stage} stalled past its watchdog "
+                               f"deadline ({deadline:.3f} s)")
+            # on the card a real stall (no injected hang sleeps in the
+            # stage) means the kernel or the link is wedged, and the
+            # context with it
+            fatal = not contained(err, self.engine.fail_on_device_error,
+                                  injected=sup.injected_stall(stage))
+            self.engine.abandon(handle, error=err if fatal else None,
+                                defer=True)
+
+            def left(f) -> None:
+                if not f.cancelled():
+                    f.exception()       # retrieved: the window moved on
+                self.engine.abandon(handle)
+
+            fut.add_done_callback(left)
+            self.node.metrics.inc("routing.device.dispatch_failed")
+            if fatal:
+                self.engine._fail(err)
+                raise err
+            sup.note_stall(stage)
+            sup.note_replay()
+            self._note_replay_span(entry, stage, "stall")
+            return False
+        except Exception as e:
+            self.node.metrics.inc("routing.device.dispatch_failed")
+            if not contained(e, self.engine.fail_on_device_error):
+                self.engine.abandon(handle, error=e)
+                raise
+            self.engine.abandon(handle)
+            sup.note_fault(stage, e)
+            sup.note_replay()
+            self._note_replay_span(entry, stage, type(e).__name__)
+            return False
+        return True
+
+    def _note_replay_span(self, entry: dict, stage: str, kind: str) -> None:
+        """A dispatched window that falls back to the host path: a
+        supervised journal replay lands in the ``replay`` latency series,
+        an unsupervised fallback in ``host_fallback``. Either way it KEEPS
+        its trace id, with a ``replay`` event under the window root that
+        the host_route after it parents to."""
+        entry["replayed" if self.sup is not None else "fallback"] = True
         if self.rec is not None and "trace" in entry:
             entry["replay_span"] = self.rec.event(
                 entry["trace"], "replay", track="batcher",
                 parent=entry.get("root_span", 0),
-                meta={"stage": "device", "kind": kind})
+                meta={"stage": stage, "kind": kind})
 
     async def _consume_pipelined(self) -> None:
         """Depth-N in-flight settle ring.
@@ -915,12 +1039,31 @@ class PublishBatcher:
         elif entry["dispatch_fut"] is not None:
             if not await self._stages(entry, loop):
                 return None
-        if handle.built is None or handle.np_res is None:
+        if handle.built is None or handle.np_res is None \
+                or handle.abandoned:
             # the window's dispatching entry failed/abandoned earlier
             if handle.error is not None:
                 raise handle.error
             return None
-        counts = self.engine.finish_sub(handle, sub)
+        sup = self.sup
+        try:
+            counts = self.engine.finish_sub(handle, sub)
+        except Exception as e:
+            if sup is None or not contained(
+                    e, self.engine.fail_on_device_error,
+                    injected=handle.corrupt):
+                raise
+            # consume died mid-window (a corrupt readback): abandon the
+            # pinned snapshot and replay the journaled window on the host
+            # — it re-routes every message, so QoS>=1 loses nothing and
+            # per-session order holds (the host completion drains the
+            # lanes first)
+            self.engine.abandon(handle)
+            sup.note_fault("materialize", e)
+            sup.note_replay()
+            self.node.metrics.inc("routing.device.dispatch_failed")
+            self._note_replay_span(entry, "consume", type(e).__name__)
+            return None
         pool = getattr(self.node, "deliver_lanes", None)
         if pool is not None and pool.active():
             # backpressure: too many plans queued in the delivery lanes
@@ -938,6 +1081,11 @@ class PublishBatcher:
                                 time.perf_counter(), track="batcher",
                                 parent=entry.get("root_span", 0))
         if sub == n_subs - 1:
+            if sup is not None:
+                # one healthy window resets the stage breakers'
+                # consecutive-fault counters
+                sup.note_ok("dispatch")
+                sup.note_ok("materialize")
             # the cost is counted per WINDOW, over all of its messages —
             # sampling per entry would count the near-instant later subs
             # of a window as whole batches and drag the EWMA to ~zero (the

@@ -57,6 +57,13 @@ DEFAULTS: dict = {
         # SO_REUSEPORT acceptor lanes per TCP listener (None = min(4,
         # cpus); must be >= 1; columnar_ingress false forces 1)
         "ingress_lanes": None,
+        # fault-domain supervision (broker/supervise.py): fault
+        # injection points, circuit breakers and the degradation ladder,
+        # the window journal and the stage watchdogs. None = on
+        # (resolve_supervise); false builds no supervisor anywhere
+        "supervise": None,
+        # consecutive faults before a stage's circuit breaker opens
+        "supervise_threshold": 3,
     },
     "zones": {},                 # zone name -> {mqtt: {...}} overrides
     "listeners": {},             # name -> {type,bind,zone,...}

@@ -452,9 +452,12 @@ class DeliveryLanePool:
     one view object instead of a Message copy, coalesced same-session
     drains, and per-slice (not per-row) metric/hook bookkeeping.
 
-    ``supervisor`` is the reference's supervision hook; the port has no
-    supervisor yet, so it is always None and the paths that read it do
-    what the reference does without one.
+    ``supervisor`` is the node's supervisor (None with ``supervise``
+    off): its ``lane_deliver`` breaker gates the lanes (open → inline
+    delivery, once the in-flight lane work drained), a drain or admit
+    wait is bounded by its watchdog deadline with dead lane workers
+    restarted (``note_restart``), and a slice or chunk that raises is
+    noted as a fault and retried once.
     """
 
     def __init__(self, broker, metrics, *, hooks=None, telemetry=None,

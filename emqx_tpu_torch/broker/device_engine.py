@@ -22,8 +22,12 @@ the lanes run), and the columnar ingress's burst pre-encode
 the dispatch, materialize and deliver spans of each window under its
 trace id, the plans carrying their sub-batch's trace to the lanes; and
 ``start_device_trace`` / ``stop_device_trace`` on torch.profiler, each
-dispatch inside ``record_function("route_step#<trace id>")``). Not
-ported: supervision; the CSR readback is always on. It
+dispatch inside ``record_function("route_step#<trace id>")``), and the
+node's supervisor (``broker/supervise.py``: the ``dispatch``,
+``materialize``, ``cache_insert``, ``overlay_apply`` and
+``snapshot_swap`` fault domains with their injection points, the rung-1
+plain dispatch, the off-path probes ``_probe_dispatch`` /
+``_probe_materialize``). The CSR readback is always on. It
 compiles the live routing state (Router filter universe + Broker
 subscriber/shared-group membership) into device tables, runs the route
 window over publish micro-batches and consumes the result into session
@@ -73,7 +77,13 @@ cached and delta dispatches, overlay uploads and match-cache inserts
 too. On the CPU the reference's behaviour stands: the window is routed
 on the host and a failed warm leaves its class cold. Messages the window
 flags overflow or too deep are completed on the host on both, as in the
-reference.
+reference. Under supervision the ladder contains on the card only the
+faults ``supervise.contained`` names, those the injector caused
+(injected faults, a stall while an injected hang sleeps, a corrupt
+readback's consume): those replay on the host as in the reference. Any
+other error, a real out of memory or stall included, keeps the
+fail-fast, and one raised by the engine's own dispatch, readback or
+probe, or a real stall, also sets ``failed``.
 
 Snapshot/consistency model (as the reference):
 
@@ -117,7 +127,7 @@ import logging
 import threading
 import time
 import zlib
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -125,7 +135,7 @@ import torch
 from emqx_tpu_torch.broker.deliver import DEFERRED, OPT_TABLE, LaneCounts
 from emqx_tpu_torch.broker.match_cache import DEFAULT_CAPACITY, MatchCache
 from emqx_tpu_torch.broker.message import Message
-from emqx_tpu_torch.broker.supervise import guard_task
+from emqx_tpu_torch.broker.supervise import contained, guard_task
 from emqx_tpu_torch import device as D
 from emqx_tpu_torch.convert import router_tables_from_numpy, tables_from_numpy
 from emqx_tpu_torch.device import resolve_device
@@ -560,7 +570,7 @@ class _Handle:
                  "n_msgs", "error", "plan", "cache_info", "delta", "dres",
                  "dcres", "np_delta", "arrays", "cls", "tables", "strat",
                  "consumed", "on_release", "trace", "sub_traces",
-                 "__weakref__")
+                 "abandoned", "corrupt", "__weakref__")
 
     def __init__(self, subs, built, dev_shared):
         self.subs = subs          # list of (msgs, too_long)
@@ -595,6 +605,10 @@ class _Handle:
         # (the events) — the batcher's device/host chooser reads it
         self.cost_s = 0.0
         self.error = None     # why the window was abandoned, when fatal
+        # abandoned while a stage thread may still be inside it: it serves
+        # nothing more, and releases once the thread has left
+        self.abandoned = False
+        self.corrupt = False  # an injected corrupt readback truncated it
         self.consumed = 0     # sub-batches finish_sub has consumed
         self.on_release = None  # called once when the handle releases
         # flight-recorder trace id: the LEAD entry's window trace (host
@@ -764,6 +778,20 @@ class DeviceRouteEngine:
         if self.tele is not None:
             self.tele.rebuild_state_fn = self.rebuild_state
             self.tele.graphs_fn = self.graph_registry
+        # fault-domain supervision: injection points at every stage
+        # boundary, breaker-gated degradation (the reuse layers stand down
+        # at rung 1, the whole device path at rung 2 — the batcher reads
+        # the rung), contained cache/overlay/swap faults, and the probes
+        # the half-open breakers run off the serving path. None
+        # (broker.supervise off) is the unsupervised unwind.
+        self.sup = getattr(node, "supervisor", None)
+        # the probes' kernel launches by kernel (counted, and kept here)
+        self.probe_launches: dict[str, int] = {}
+        if self.sup is not None:
+            self.sup.register_probe("dispatch",
+                                    self._probed(self._probe_dispatch))
+            self.sup.register_probe("materialize",
+                                    self._probed(self._probe_materialize))
 
         # wire change notifications
         self.router.on_route_change = self.note_route_change
@@ -1295,6 +1323,11 @@ class DeviceRouteEngine:
     def _apply_build(self, result, journal) -> None:
         """Swap a finished build in and rebase churn tracking onto it by
         replaying the journal of mutations that happened during the build."""
+        if self.sup is not None:
+            # the snapshot_swap injection point: a swap failure is
+            # contained by _try_swap / poll_rebuild — serving stays on the
+            # old snapshot + host deltas (its churn tracking ran live)
+            self.sup.fire("snapshot_swap")
         if self.device.type == "cuda":
             # the old tables may still be read by finished-but-unreleased
             # stream work; the new ones were uploaded on another stream
@@ -1405,16 +1438,32 @@ class DeviceRouteEngine:
     def poll_rebuild(self) -> None:
         """The one rebuild policy, called on the batch cadence: a small
         first build runs inline; a big first build or a compaction trigger
-        runs double-buffered in the background."""
+        runs double-buffered in the background. Under supervision the
+        supervisor's tick rides the same cadence, an open snapshot_swap
+        breaker holds the first build off, and a first build's contained
+        failure is noted against that domain (serving stays on the host
+        until the breaker's probe re-admits builds)."""
         self._check_failed()
+        sup = self.sup
+        if sup is not None:
+            sup.poll()
         if self._building:
             return
         if self._built is None:
             n = len(self.router.exact) + len(self.router.wildcards)
             if n == 0:
                 return
+            if sup is not None and not sup.rebuild_enabled():
+                return      # swap breaker open: host-route until probed
             if n <= 4096 or not self.maybe_background_rebuild():
-                self.rebuild()
+                try:
+                    self.rebuild()
+                except Exception as e:
+                    if sup is None \
+                            or not contained(e, self.fail_on_device_error):
+                        raise
+                    sup.note_fault("snapshot_swap", e)
+                    self.node.metrics.inc("routing.device.rebuild_failed")
         else:
             reason = self._compaction_reason()
             if reason is not None and self.maybe_background_rebuild():
@@ -1426,6 +1475,11 @@ class DeviceRouteEngine:
         the call. Requires a running loop; sync callers use rebuild()."""
         if self._building:
             return True
+        if self.sup is not None and not self.sup.rebuild_enabled():
+            # snapshot_swap breaker open: no rebuild attempts until the
+            # half-open probe succeeds — the old snapshot and the host
+            # deltas keep serving meanwhile
+            return False
         if self._built is not None \
                 and self._compaction_reason() is None:
             return False
@@ -1702,8 +1756,67 @@ class DeviceRouteEngine:
         self._journal = None
         self._building = False
         t0 = time.perf_counter()
-        self._apply_build(result, journal)
+        sup = self.sup
+        try:
+            self._apply_build(result, journal)
+        except Exception as e:
+            if sup is None or not contained(e, self.fail_on_device_error):
+                raise
+            # a contained swap fault: the old snapshot keeps serving (its
+            # dirty/delta tracking ran live during the build, so dropping
+            # the failed result loses nothing); the breaker gates further
+            # rebuild attempts until a probe
+            sup.note_fault("snapshot_swap", e)
+            self.node.metrics.inc("routing.device.rebuild_failed")
+        else:
+            if sup is not None:
+                sup.note_ok("snapshot_swap")
         self._observe_rebuild("swap", t0)
+
+    # ---- supervision probes (run by a half-open breaker on an executor
+    #      thread, off the serving path) ----------------------------------
+    def _probed(self, probe: Callable[[], None]) -> Callable[[], None]:
+        """A probe as the supervisor runs it: its failure keeps the
+        breaker open, and one the ladder does not contain on the card also
+        fails the engine, so a kernel broken while the ladder sat on the
+        host raises to the next window instead of keeping it there."""
+        def run() -> None:
+            try:
+                probe()
+            except Exception as e:
+                self._note_device_error(e)
+                raise
+        return run
+
+    def _probe_dispatch(self) -> None:
+        """End-to-end health check of the dispatch stage: the plain window
+        of the smallest standard class over an all-pad batch against the
+        live tables, eagerly on the engine stream under the device lock
+        (never a graph's static inputs, never beside a capture), from a
+        throwaway cursor buffer. It matches nothing and advances nothing.
+        Its kernel launches are counted, and kept in
+        ``probe_launches``."""
+        b, tables, cursors = self._built, self._tables, self._cursors
+        if b is None or tables is None:
+            return      # nothing to probe: vacuous health
+        cls = (1, self._STD_CLASSES[0][1], None, None, None)
+        with self._cuda_lock, self._on(self._stream), \
+                D.recording_launches() as calls:
+            ins = [torch.from_numpy(a).to(self.device)
+                   for a in self._pad_arrays(b, cls)]
+            res = self._unwrap(self._program(
+                b.backend, tables, None, torch.zeros_like(cursors), ins,
+                self._strategy(), cls))[0]
+            res.match_counts.cpu()
+        for name, shape in calls:
+            D.count_launch(name, shape)
+            self.probe_launches[name] = self.probe_launches.get(name, 0) + 1
+
+    def _probe_materialize(self) -> None:
+        """Health check of the readback stage: one small device→host
+        transfer on the engine stream proves the link."""
+        with self._cuda_lock, self._on(self._stream):
+            torch.zeros(8, dtype=torch.int32, device=self.device).cpu()
 
     # ---- the serving path ----------------------------------------------
     def device_shared_active(self) -> bool:
@@ -1886,9 +1999,29 @@ class DeviceRouteEngine:
         dispatched with, and per-fid membership staleness is judged
         against the pinned version's clock stamp at consume. On the card
         the upload is a pinned copy on the engine stream, ordered before
-        every later dispatch; a failed upload raises."""
+        every later dispatch; a failed upload raises.
+
+        Under supervision this is the overlay_apply fault domain: a
+        contained failure leaves the overlay stale — its filters serve
+        through the host delta trie (``routing.device.host_delta``) —
+        while the breaker opens toward rung 1."""
         if not self.delta_overlay or not self._overlay_stale:
             return
+        sup = self.sup
+        try:
+            if sup is not None:
+                sup.fire("overlay_apply")
+            self._overlay_sync_inner()
+        except Exception as e:
+            if sup is None or not contained(e, self.fail_on_device_error):
+                raise
+            sup.note_fault("overlay_apply", e)
+        else:
+            if sup is not None:
+                sup.note_ok("overlay_apply")
+
+    def _overlay_sync_inner(self) -> None:
+        """The overlay's rebuild and upload (see ``_overlay_sync``)."""
         t0 = time.perf_counter()
         live = sorted(self._delta_filter.items())   # fid order = age
         entries = []
@@ -2186,15 +2319,20 @@ class DeviceRouteEngine:
         h = _Handle(subs, b, self.device_shared_active())
         h.enc = (enc4, len4, dol4)
         seq_trie = b.backend != "shapes" and Wp > 1
-        if not seq_trie:
+        # ladder rung 1: with the cache_insert or overlay_apply breaker
+        # open the reuse layers stand down and this window dispatches the
+        # PLAIN program (a class the warm-up captured; a cold one takes
+        # the eager path and a background capture, never a capture here)
+        degraded = self.sup is not None and not self.sup.reuse_enabled()
+        if not seq_trie and not degraded:
             # the overlay for this dispatch (None: post-snapshot filters
             # route on the host). The rare multi-batch trie window runs
             # sequential steps and has no fused program to carry it.
             h.delta = self._gate_delta(Wp, Bp, gate_cold)
-        if self.dedup:
+        if self.dedup and not degraded:
             h.plan, h.cache_info = self._plan_window(b, enc4, len4, dol4,
                                                      gate_cold, h.delta)
-        if not (seq_trie and h.plan is None):
+        if not degraded and not (seq_trie and h.plan is None):
             # CSR readback class for this dispatch (None = dense)
             h.pcap = self._gate_compact(Wp, Bp, h.plan, gate_cold, h.delta)
         self._outstanding += 1
@@ -2340,6 +2478,9 @@ class DeviceRouteEngine:
         try:
             with ctx:
                 self._dispatch_inner(h)
+        except Exception as e:
+            self._note_device_error(e)
+            raise
         finally:
             if self.rec is not None and h.enc is not None:
                 self._rec_span(
@@ -2355,6 +2496,12 @@ class DeviceRouteEngine:
         A shape-hash window on the card replays its class's graph; a
         class without one (a sync caller's cold class) runs eagerly and
         is queued for capture off the serving path."""
+        if self.sup is not None:
+            # the dispatch injection point, before the device lock (a hang
+            # must not hold it): an exception propagates to the batcher,
+            # which notes the fault and replays the window on the host; a
+            # hang is caught by its watchdog deadline
+            self.sup.fire("dispatch")
         with self._cuda_lock, self._on(self._stream):
             t0 = time.perf_counter()
             if self._stream is not None:
@@ -2508,7 +2655,25 @@ class DeviceRouteEngine:
         whose entries outgrew its class reads the dense planes instead
         (_dense_again), and likewise for the overlay's CSR. Also the
         match-cache population point: the rows of this window's missed
-        unique topics come out of the readback consume needs anyway."""
+        unique topics come out of the readback consume needs anyway.
+
+        Under supervision the materialize injection point comes first: an
+        exception propagates to the batcher (the window replays), a hang
+        is caught by its watchdog, and "corrupt" truncates the host views
+        (``_corrupt_readback``) so the consume fails as a wrong-shape
+        readback would."""
+        corrupt = None
+        if self.sup is not None:
+            corrupt = self.sup.fire("materialize", corrupt_ok=True)
+        try:
+            self._materialize(h)
+        except Exception as e:
+            self._note_device_error(e)
+            raise
+        if corrupt:
+            self._corrupt_readback(h)
+
+    def _materialize(self, h) -> None:
         t0 = time.perf_counter()
         metrics = self.node.metrics
         try:
@@ -2574,7 +2739,7 @@ class DeviceRouteEngine:
                 # overflow cached as the COMBINED flag (match|fanout|slot):
                 # all three are functions of (snapshot, topic), and
                 # post_match re-ORs the fan-out/slot parts
-                self._match_cache.put_many(
+                self._cache_put(
                     info.sid,
                     [(k, (mflat[i].copy(), int(cflat[i]), bool(oflat[i]))
                       + self._delta_cache_fields(h, i, Bp))
@@ -2663,7 +2828,47 @@ class DeviceRouteEngine:
             row[:cm] = pay[w, off[w, bb]:off[w, bb] + cm]
             items.append((key, (row, cm, bool(o_flat[lane]))
                           + self._delta_cache_fields(h, lane, Bp)))
-        self._match_cache.put_many(info.sid, items, version=info.version)
+        self._cache_put(info.sid, items, version=info.version)
+
+    def _cache_put(self, sid, items, version=None) -> None:
+        """Match-cache population, the cache_insert fault domain: under
+        supervision a contained failure costs the reuse layer (its breaker
+        opens toward rung 1, plain dispatches), never the window."""
+        sup = self.sup
+        try:
+            if sup is not None:
+                sup.fire("cache_insert")
+            self._match_cache.put_many(sid, items, version=version)
+        except Exception as e:
+            if sup is None or not contained(e, self.fail_on_device_error):
+                raise
+            sup.note_fault("cache_insert", e)
+        else:
+            if sup is not None:
+                sup.note_ok("cache_insert")
+
+    def _corrupt_readback(self, h) -> None:
+        """Apply an injected corrupt-readback fault: truncate the window
+        axis of the host views (views only: the pinned buffers are never
+        written) so the consume fails as a wrong-shape readback would, at
+        the first plane it reads — the supervisor's replay must then
+        re-route the window on the host."""
+        h.corrupt = True
+        nr = h.np_res
+        if isinstance(nr, _CsrRes):
+            h.np_res = _CsrRes(nr.off[:0], nr.c3[:0], nr.pay[:0],
+                               nr.overflow[:0], nr.occur[:0])
+        elif nr is not None:
+            h.np_res = tuple(a[:0] for a in nr)
+
+    def _note_device_error(self, e: BaseException) -> None:
+        """The engine's own dispatch, readback or probe raised. Under
+        supervision an error the ladder does not contain on the card fails
+        the engine (``failed``: every later batch raises it); a window's
+        publishers get it from the batcher."""
+        if self.sup is not None \
+                and not contained(e, self.fail_on_device_error):
+            self._fail(e)
 
     def finish_sub(self, h, k: int, defer: bool = True) -> list[int]:
         """Stage 4 (event loop): consume sub-batch k of the window into
@@ -2996,13 +3201,23 @@ class DeviceRouteEngine:
         if self._building:
             self._try_swap()
 
-    def abandon(self, h, error: Optional[BaseException] = None) -> None:
+    def abandon(self, h, error: Optional[BaseException] = None,
+                defer: bool = False) -> None:
         """Release a handle ENTIRELY (error path: on the CPU the caller
         falls back to the host route for every remaining sub-batch; with
-        `error` every remaining sub-batch raises it). Idempotent."""
-        if h is not None and error is not None:
+        `error` every remaining sub-batch raises it). With `defer` (a
+        stage thread may still be inside the window) the handle only
+        stops serving: the release — its snapshot pin and HBM ledger pin —
+        waits for a later ``abandon(h)`` once the thread has left.
+        Idempotent."""
+        if h is None:
+            return
+        if error is not None:
             h.error = error
-        if h is not None and h.built is not None:
+        if defer:
+            h.abandoned = True
+            return
+        if h.built is not None:
             h.refs = 0
             self._release(h)
 

@@ -17,8 +17,7 @@ Mechanics:
   → every delivery written, i.e. the window's delivery plan settled).
   Both are recorded per message at batch settle, keyed by
   ``(qos, path)`` where path ∈ {device, device_cached, host,
-  host_fallback, replay} (``replay`` stays empty until the port has the
-  supervisor's window journal).
+  host_fallback, replay} (``replay``: a supervised journal replay).
 - **Fine histograms**: the quarter-octave log2 ladder from 1µs
   (``metrics.Histogram(substeps=4)``), so a 2ms objective resolves to
   ~19% instead of a factor of 2.
@@ -56,7 +55,7 @@ SCHEMA = "emqx_tpu.latency/v1"
 #                  unsupervised dispatch failure)
 #   replay         a journaled window re-routed through the host rung by
 #                  the supervisor (breaker trip, watchdog stall, injected
-#                  fault); empty until the port has the supervisor
+#                  fault)
 PATHS = ("device", "device_cached", "host", "host_fallback", "replay")
 LEGS = ("routed", "delivered")
 

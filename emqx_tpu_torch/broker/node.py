@@ -2,15 +2,15 @@
 
 A slim counterpart of ``emqx_tpu/broker/node.py`` (:43-48, :77-190,
 :237-276, :403-440, :449-460): hooks, metrics, stats, the pipeline
-telemetry (always), the flight recorder, the HBM ledger, the latency
-observatory, the overload governor, the session-affine delivery lanes
-and the columnar PUBLISH ingress (each on by default), router, broker,
-connection manager, alarms, the device route engine and the publish
-batcher, wired as the reference wires them for a single-chip node, and
-the housekeeping tick (``sweep``, ``start_timers``) the governor polls
-on. The layers the reference also builds here (supervision, the mesh
-server, apps, gateways and the management API) are not part of the
-port.
+telemetry (always), the flight recorder, fault-domain supervision, the
+HBM ledger, the latency observatory, the overload governor, the
+session-affine delivery lanes and the columnar PUBLISH ingress (each on
+by default), router, broker, connection manager, alarms, the device
+route engine and the publish batcher, wired as the reference wires them
+for a single-chip node, and the housekeeping tick (``sweep``,
+``start_timers``) the governor polls on. The layers the reference also
+builds here (the mesh server, apps, gateways and the management API)
+are not part of the port.
 
 Config keys read under ``broker.``, with the reference's names and
 defaults: ``batch_window_us`` (200), ``max_publish_batch`` (1024),
@@ -27,14 +27,16 @@ engine as the reference's ``Node`` passes them (:221-257);
 ``deliver_lane_depth`` (8), the columnar PUBLISH ingress
 ``columnar_ingress`` (on) with ``ingress_lanes`` (``min(4, cpus)``; 1 when
 columnar ingress is off), the flight recorder ``trace`` (on) with
-``trace_ring`` (4096) and ``trace_sample`` (256), the latency observatory
+``trace_ring`` (4096) and ``trace_sample`` (256), supervision
+``supervise`` (on) with ``supervise_threshold`` (3; the supervisor's
+other tunables are ``PipelineSupervisor`` keyword arguments with the
+reference's defaults), the latency observatory
 ``latency_observatory`` (on) with ``slo_route_p99_ms`` (2.0), and the
 overload governor ``overload`` (on; polled by ``sweep``, so only once
 ``start_timers`` runs the housekeeping tick or a caller sweeps); and
 under ``alarm.``, ``size_limit`` (1000) and ``validity_period`` (86400).
-A key that asks for a layer the port does not have (``_UNSUPPORTED``, or
-``compact_readback`` off) raises ``ValueError`` rather than serving
-without it.
+``compact_readback: false`` (the port's CSR readback is always on)
+raises ``ValueError`` rather than serving without it.
 """
 
 from __future__ import annotations
@@ -62,26 +64,22 @@ from emqx_tpu_torch.broker.metrics import Metrics, Stats
 from emqx_tpu_torch.broker.overload import OverloadGovernor, resolve_overload
 from emqx_tpu_torch.broker.pubsub import Broker
 from emqx_tpu_torch.broker.router import Router
-from emqx_tpu_torch.broker.supervise import guard_task
+from emqx_tpu_torch.broker.supervise import (PipelineSupervisor,
+                                             guard_task, resolve_supervise)
 from emqx_tpu_torch.broker.telemetry import PipelineTelemetry
 from emqx_tpu_torch.broker.trace import FlightRecorder, resolve_trace
 from emqx_tpu_torch.device import resolve_device
 
 
-# reference layers the port does not have: a truthy value asks for one
-_UNSUPPORTED = ("supervise",)
-
-
 def check_layers(perf: dict) -> None:
-    """Raise ValueError when the ``broker`` config asks for a layer the
-    port does not implement."""
-    asked = [k for k in _UNSUPPORTED if perf.get(k)]
+    """Raise ValueError when the ``broker`` config asks for a path the
+    port does not implement: every reference layer of a single-chip node
+    is ported, and the CSR readback is always on, so only
+    ``compact_readback: false`` is refused."""
     if perf.get("compact_readback") is not None \
             and not perf.get("compact_readback"):
-        asked.append("compact_readback=false")
-    if asked:
-        raise ValueError(f"emqx_tpu_torch does not implement broker "
-                         f"{', '.join(asked)}; set them off (false/0)")
+        raise ValueError("emqx_tpu_torch does not implement broker "
+                         "compact_readback=false; leave it on")
 
 
 class Node:
@@ -112,6 +110,20 @@ class Node:
                 self.metrics, cap=perf.get("trace_ring", 4096),
                 sample=perf.get("trace_sample"))
             self.pipeline_telemetry.recorder = self.flight_recorder
+        # fault-domain supervision: fault injection points, per-stage
+        # circuit breakers driving the degradation ladder (device + cache
+        # + delta → device-plain → host trie), the window journal and the
+        # stage watchdogs; its trips, rung changes and restarts land in
+        # the flight recorder as node-scope events. Off: no supervisor
+        # anywhere (the engine, batcher, lanes and governor read None)
+        self.supervisor = None
+        if resolve_supervise(perf.get("supervise")):
+            self.supervisor = PipelineSupervisor(
+                self.metrics, telemetry=self.pipeline_telemetry,
+                threshold=perf.get("supervise_threshold"))
+            self.pipeline_telemetry.supervise_state_fn = \
+                self.supervisor.state
+            self.supervisor.recorder = self.flight_recorder
         # per-category accounting of the engine's persistent device
         # allocations and the stale-pin sentinel
         self.hbm_ledger = None
@@ -172,7 +184,8 @@ class Node:
             self.deliver_lanes = DeliveryLanePool(
                 self.broker, self.metrics, hooks=self.hooks,
                 telemetry=self.pipeline_telemetry, n_lanes=n_lanes,
-                depth=perf.get("deliver_lane_depth", 8))
+                depth=perf.get("deliver_lane_depth", 8),
+                supervisor=self.supervisor)
             self.pipeline_telemetry.deliver_state_fn = \
                 self.deliver_lanes.state
             self.stats.register_stats_fun(self.deliver_lanes.stats_fun)

@@ -46,9 +46,9 @@ Every arm/unwind is counted (``pipeline.overload.*``), fires the
 (``broker/alarm.py``), and lands an ``overload_shed`` instant event on
 the flight recorder (on the most recent window's trace).
 
-The reference's fault-injection points (``signal_spike``,
-``stuck_grade``) come with the supervisor's injector: until the port
-has it, ``_fire`` finds no injector and returns False.
+The supervisor's fault-injection points ``signal_spike`` and
+``stuck_grade`` are traversed on every poll (``_fire``), and its window
+journal's depth is the ``journal_depth`` signal.
 
 Knob (config only): ``broker.overload`` (on). Off builds no governor
 anywhere: no ``overload`` telemetry section, and delivery counts and
@@ -98,8 +98,7 @@ THRESHOLDS = {
     "queue_fill": (0.50, 0.75, 0.90),
     # batcher pipeline-queue fill (_inflight.qsize / pipeline_depth)
     "inflight_fill": (1.0, None, None),
-    # supervisor window-journal depth (admitted, unsettled windows): no
-    # reading until the port has the journal
+    # supervisor window-journal depth (admitted, unsettled windows)
     "journal_depth": (16, 64, 256),
     # delivery-lane plan fill (live_plans / depth_limit)
     "lane_fill": (1.0, None, None),
@@ -207,10 +206,18 @@ class OverloadGovernor:
     # ---- fault injection (the supervisor grammar's overload points) ------
     def _fire(self, point: str) -> bool:
         """Traverse an overload injection point (``signal_spike``,
-        ``stuck_grade``). The points' clauses come with the supervisor's
-        fault injector, which the port does not have yet: no clause can
-        fire."""
-        return False
+        ``stuck_grade``) through the supervisor's injector. ANY fired
+        clause is the condition (the recommended kind is ``corrupt`` — it
+        fires without raising; exception/resource clauses are caught and
+        count the same; a hang clause blocks the tick like a real loop
+        stall would, then counts)."""
+        sup = getattr(self.node, "supervisor", None)
+        if sup is None or not sup.injector.armed():
+            return False
+        try:
+            return sup.fire(point, corrupt_ok=True) is not None
+        except Exception:  # noqa: BLE001 — raising kinds: same signal
+            return True
 
     # ---- signal sampling -------------------------------------------------
     def sample_signals(self) -> dict:
@@ -227,7 +234,9 @@ class OverloadGovernor:
             if q is not None:
                 s["inflight_fill"] = round(
                     q.qsize() / max(1, b.pipeline_depth), 4)
-        # journal_depth: the supervisor's window journal is not ported
+        sup = getattr(node, "supervisor", None)
+        if sup is not None:
+            s["journal_depth"] = sup.journal_depth()
         pool = getattr(node, "deliver_lanes", None)
         if pool is not None:
             st = pool.state()

@@ -42,8 +42,11 @@ The flight recorder (``recorder``), the latency observatory
 (``observatory``) and the overload governor (``overload_state_fn``) add
 their ``trace``, ``latency`` and ``overload`` sections where the node
 builds them; the ``latency`` and ``overload`` sections exist only then,
-even at ``full=True``. Not ported: the reference's supervise and
-exchange sections (their layers are not part of the port).
+even at ``full=True``. The ``supervise`` section carries the
+supervisor's counters (faults by point, stalls by stage) and, where the
+node builds a supervisor (``supervise_state_fn``), its live breaker,
+rung and journal state. Not ported: the reference's exchange section
+(the mesh is not served under ``Node``).
 """
 
 from __future__ import annotations
@@ -81,6 +84,9 @@ class PipelineTelemetry:
         self.rebuild_state_fn = None
         self.graphs_fn = None
         self.deliver_state_fn = None
+        # the supervisor's live gauges (broker.supervise): the
+        # `supervise` section's state
+        self.supervise_state_fn = None
         # the HBM ledger (set by the node when broker.hbm_ledger is on):
         # snapshot() derives the `memory` section from it
         self.ledger = None
@@ -256,6 +262,19 @@ class PipelineTelemetry:
                         "total_s": round(self.compile_s, 4),
                         "by_shape": by_shape}
         decisions = self._family("pipeline.batches.")
+        # fault-domain supervision: fault/trip/replay/stall counters and
+        # the supervisor's live breaker/rung/journal state
+        supervise = self._vals("supervise.", (
+            "faults", "trips", "probes", "probe_failures", "replays",
+            "stalls", "restarts", "task_errors", "rung_changes"))
+        by_point = self._family("supervise.faults.")
+        if by_point:
+            supervise["faults_by_point"] = by_point
+        by_stall = self._family("supervise.stalls.")
+        if by_stall:
+            supervise["stalls_by_stage"] = by_stall
+        if self.supervise_state_fn is not None:
+            supervise["state"] = self.supervise_state_fn()
         for extra in ("routing.device.bypassed", "routing.device.cold_class",
                       "routing.device.cold_cached_class",
                       "routing.device.cold_compact_class",
@@ -371,7 +390,8 @@ class PipelineTelemetry:
             "compiles": compiles,
             "decisions": decisions,
         }
-        for name, sec in (("rebuild", rebuild), ("deliver", deliver),
+        for name, sec in (("supervise", supervise), ("rebuild", rebuild),
+                          ("deliver", deliver),
                           ("match_cache", cache), ("dedup", dedup),
                           ("readback", readback), ("trace", trace),
                           ("ingress", ingress), ("memory", memory)):

@@ -10,7 +10,11 @@ bubbles sit). This module is the causal layer under the histograms:
   batcher admit (`FlightRecorder.new_trace`) and carried through the
   pipeline — enqueue and batch_form, dispatch, materialize, the consume
   (deliver), the delivery lanes (the plan carries its window's trace),
-  down to settle. Under an active device trace
+  down to settle. A window the supervisor replays on the host KEEPS its
+  trace id: the replay is a child event of the window root and the host
+  route parents to it. The supervisor's breaker trips, rung changes and
+  lane-worker restarts land as node-scope events (trace id 0). Under an
+  active device trace
   (``DeviceRouteEngine.start_device_trace``) each dispatch, a CUDA graph
   replay included, runs inside ``torch.profiler.record_function(
   "route_step#<trace id>")``, so the card's timeline joins the host one

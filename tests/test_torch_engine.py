@@ -6,9 +6,11 @@ observatory or overload governor, inline delivery, per-packet ingress, CSR
 readback on) and each routing-layer configuration (``LAYERS``: all off;
 dedup + match cache; dedup + cache + delta overlay; and the reference's
 full default, dedup + cache + overlay + subscription covering — each given
-to both nodes explicitly), and the port's ``Node(device="cpu")`` with the
-same layers — get the same sessions and the same ~500 subscriptions (plain
-and ``$share``) through ``broker.subscribe``, then the same message windows
+to both nodes explicitly; and that default again with both nodes
+supervised, as each package's default node is), and the port's
+``Node(device="cpu")`` with the same layers — get the same sessions and
+the same ~500 subscriptions (plain and ``$share``) through
+``broker.subscribe``, then the same message windows
 through ``prepare_window`` / ``dispatch`` / ``materialize`` /
 ``finish_sub``. The ``rich`` cases run the full default with sinks that
 nack every fifth delivery, subopts carrying ``nl``/``rap``/``rh`` and
@@ -71,6 +73,9 @@ LAYERS = {
 LAYERS["rich"] = dict(LAYERS["full"], device_fanout_cap=8,
                       device_slot_cap=2)
 RICH = ("rich",)
+# the reference's full default with its supervision on too: the JAX node
+# at its default against the port's default (supervised)
+LAYERS["supervised"] = dict(LAYERS["full"], supervise=True)
 
 # the reference path: every layer the port lacks off
 JAX_BROKER = {
@@ -334,11 +339,10 @@ def _twin_trie(layers, strategy):
     twin.window(1, gate_cold=False)
     # covering may match the roots on the shape tables (they fit the
     # shape cap where the full set does not), as the reference does
-    want = "trie" if layers not in ("full",) + RICH else \
-        twin.j.device_engine._built.backend
+    covering = LAYERS[layers]["subscription_covering"]
+    want = twin.j.device_engine._built.backend if covering else "trie"
     assert twin.t.device_engine._built.backend == want
-    assert twin.j.device_engine._built.backend == "trie" \
-        or layers in ("full",) + RICH
+    assert twin.j.device_engine._built.backend == "trie" or covering
     twin.window(1)
     twin.window(2)           # a multi-batch trie window: sequential steps
     twin.depth = 2
@@ -409,6 +413,23 @@ def test_engine_twin_trie_layers(layers, strategy):
         assert twin.t.metrics.val("routing.device.delta_applies") > 0
     if layers in ("full",) + RICH:
         assert twin.t.device_engine.stats()["cover"] is not None
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("backend", ["shapes", "trie"])
+def test_engine_twin_supervised(backend, strategy):
+    """Both nodes supervised, as each package's default node is, fault-free:
+    the same deliveries, picks, cursors and counts as every case above,
+    with the supervisor's gates read on every window and nothing noted."""
+    twin = _twin_shapes("supervised", strategy, 1) if backend == "shapes" \
+        else _twin_trie("supervised", strategy)
+    for node in (twin.j, twin.t):
+        sup = node.supervisor
+        assert sup is not None and node.device_engine.sup is sup
+        assert sup.rung() == 0 and sup.journal_depth() == 0
+        for k in ("faults", "replays", "stalls", "trips"):
+            assert node.metrics.val(f"supervise.{k}") == 0, k
+    assert twin.t.metrics.val("routing.device.cached_windows") > 0
 
 
 def test_route_batch_counts_match_host_path():

@@ -44,7 +44,7 @@ MODULES = [
     "emqx_tpu_torch.broker.telemetry", "emqx_tpu_torch.broker.hbm_ledger",
     "emqx_tpu_torch.native", "emqx_tpu_torch.broker.trace",
     "emqx_tpu_torch.broker.latency", "emqx_tpu_torch.broker.alarm",
-    "emqx_tpu_torch.broker.overload", "chip_smoke",
+    "emqx_tpu_torch.broker.overload", "emqx_tpu_torch.chaos", "chip_smoke",
 ]
 
 

@@ -479,9 +479,33 @@ def test_layer_defaults_are_the_references():
 def test_unsupported_layer_raises(key, value):
     """A config that asks for a layer the port lacks is refused, not
     served without it; the same key set off is accepted. Subscription
-    covering, the HBM ledger, the delivery lanes, columnar ingress, the
-    flight recorder, the latency observatory and the overload governor,
-    ported since, are accepted either way and reach the node."""
+    covering, supervision, the HBM ledger, the delivery lanes, columnar
+    ingress, the flight recorder, the latency observatory and the
+    overload governor, ported since, are accepted either way and reach
+    the node: the supervisor reaches the batcher, the engine, the lanes,
+    the governor (its journal_depth signal) and the telemetry (the
+    supervise section), and off it is None everywhere."""
+    if key == "supervise":
+        for node in (TNode({"broker": {key: value}}, device="cpu"),
+                     TNode(device="cpu")):
+            sup = node.supervisor
+            assert sup is not None
+            assert node.publish_batcher.sup is sup
+            assert node.device_engine.sup is sup
+            assert node.deliver_lanes.sup is sup
+            assert node.overload_governor.sample_signals()[
+                "journal_depth"] == 0
+            assert node.pipeline_telemetry.snapshot()["supervise"][
+                "state"] == sup.state()
+            assert sup.recorder is node.flight_recorder
+        off = TNode({"broker": {key: not value}}, device="cpu")
+        assert off.supervisor is None
+        assert (off.publish_batcher.sup, off.device_engine.sup,
+                off.deliver_lanes.sup) == (None, None, None)
+        assert "journal_depth" not in \
+            off.overload_governor.sample_signals()
+        assert "supervise" not in off.pipeline_telemetry.snapshot()
+        return
     if key == "subscription_covering":
         for v in (value, not value):
             eng = TNode({"broker": {key: v}}, device="cpu").device_engine
