@@ -34,7 +34,7 @@ Phases:
    kernel at the same grid (the launch floor), torch.cumsum and the
    wrapper call;
 5. the kernels JSON line, the card line, and the result line last
-   (after phases 6 to 13);
+   (after phases 6 to 14);
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
    every hop count at the mesh phase's [E, 3] block and at a ragged
    [1001, 3] block (aligned and unaligned), and across two cards with
@@ -180,6 +180,31 @@ Phases:
    the same place replays; a real out of memory in the dispatch and a
    real readback stall past the watchdog (no clause armed) fail as the
    RuntimeError does.
+14. the mesh serving under Node (``broker.multichip``: the port's
+   ShardedRouteServer, dp=2 x route=4 shards on the card). 14a:
+   tools/sharded_bench.py's drive at its size (SHARDED_r05.json): 99,856
+   filters dev/d{i}/+/n{n}/#, max_batch 128, the exchange class warmed
+   on flood-shaped traffic, 40 oracle-checked batches through the
+   pipelined dispatch (one delivery each message), a window held
+   against the plain path (the step, the exchange and the CSR
+   compaction, exact), 10 x 32 subscribes served as single-shard updates,
+   and a shared-slot burst that outgrows its class: windows route on the
+   host (counted) while the background full build runs, none lost. 14b:
+   phase 8's population and 32,000 PUBLISHes over TCP through a
+   multichip node at the reference's max_batch 256 (the chooser held on
+   the mesh): every message once, in publisher order per topic at every
+   session (the mesh delivers a window by source shard, as the
+   reference does), msgs/s, latency, the device share, exchange windows
+   against gathers by reason, the exchange telemetry section, the
+   ledger's mesh categories and its share of memory_allocated;
+   prefix_sum and ring_rotate must be launched. 14c: a mesh_exchange
+   fault armed mid-flood on the same node trips the breaker, replays on
+   the host and returns to rung 0 (seconds printed), and a real failure
+   in a small mesh node's step raises and fails the server. Then the
+   single-chip engine's incremental capture at phase 8's population:
+   the capture seconds of the full build against the incremental one
+   after 512 churned filters, the two captures equal, the next window
+   exact against the plain path.
 
 Every node of phases 8-12 runs supervised, as the default node does, and
 must end its phase with no supervised fault, replay, stall or trip (the
@@ -225,6 +250,7 @@ import re
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -1240,7 +1266,8 @@ async def _warm_up(node, pub, subs, nums: int) -> None:
 
 
 async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
-                 seed: int, replays: bool = False) -> dict:
+                 seed: int, replays: bool = False,
+                 per_topic: bool = False) -> dict:
     """bench.py:1283-1366: every publisher floods its share of `total`
     messages to device/d{i}/x/n{n}/t (each matches exactly one filter),
     every 4th at QoS 1 with pipelined PUBACKs; drainers record every
@@ -1248,7 +1275,10 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
     per-publisher order at every subscriber. ``replays``: the supervisor
     may replay windows on the host (a chaos flood), so failed device
     stages (``routing.device.dispatch_failed``) are allowed; a failed
-    engine never is."""
+    engine never is. ``per_topic``: the order is held per publisher and
+    topic (MQTT's ordered topic), as the mesh's consume orders a window's
+    deliveries by source shard (a session's filters on two shards may
+    receive a publisher's two messages in shard order)."""
     import asyncio
     import struct
 
@@ -1360,6 +1390,8 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
             # later QoS 0 one pass (MQTT orders per QoS), so when any
             # session queued, the order is held per QoS too
             key = (p, shared, qos) if queued else (p, shared)
+            if per_topic:
+                key += (i, n)
             if last.get(key, -1) >= s:
                 raise AssertionError(
                     f"esub{c}: publisher {p} out of order ({s} after "
@@ -1931,7 +1963,10 @@ async def _chaos_flood(node, subs, pubs, ids: int, nums: int, total: int,
     consecutive dispatch faults must trip the dispatch breaker (rung 2)
     and its probe must bring the ladder back to rung 0; the first window
     dispatched after that is held against the plain path, bit for bit
-    (the held copy of its messages dispatches just before it). Depth 1:
+    (a held copy of its messages, run by the consumer once the window's
+    stages are through: the hold blocks the loop and takes the device
+    lock, so run while a window's stage is awaited it would pass that
+    stage's 0.25 s watchdog and read as a real stall). Depth 1:
     at depth 2 a healthy window settles (its ``note_ok`` resets the
     breaker's consecutive count) between the faulted ones, as in the
     reference, and three faults need not trip. Afterwards the window
@@ -1952,18 +1987,28 @@ async def _chaos_flood(node, subs, pubs, ids: int, nums: int, total: int,
     pb.dispatch_depth = 1
     log_ = sup.recorder = _RungLog(saved[3])
     counts0 = supervise_counts(node)
-    held = {"err": None, "batches": None}
+    held = {"err": None, "batches": None, "handle": None}
     replayed = {"us": 0, "msgs": 0, "windows": 0}
-    real_dispatch, real_host = pb._dispatch, pb._complete_host
+    real_dispatch, real_stages, real_host = \
+        pb._dispatch, pb._stages, pb._complete_host
 
     def dispatch(loop, handle):
-        if held["err"] is None and log_.trip_and_back()[1] is not None \
+        if held["handle"] is None and log_.trip_and_back()[1] is not None \
                 and all(f.fired >= f.count for f in sup.injector.faults):
+            held["handle"] = handle
+        return real_dispatch(loop, handle)
+
+    async def stages(entry, loop):
+        ok = await real_stages(entry, loop)
+        # at depth 1 the consumer awaits one window's stages at a time:
+        # once they are through none is awaited, so the hold's time
+        # counts against no watchdog
+        if held["err"] is None and entry["handle"] is held["handle"]:
             held["batches"] = m.val("routing.device.batches")
             held["err"] = hold_window(
-                eng, [msgs for msgs, _t in handle.subs],
+                eng, [msgs for msgs, _t in entry["handle"].subs],
                 "phase 13b: the first window after recovery", False)
-        return real_dispatch(loop, handle)
+        return ok
 
     async def complete_host(entry, routed=None):
         if routed is not None or not entry.get("replayed"):
@@ -1978,7 +2023,8 @@ async def _chaos_flood(node, subs, pubs, ids: int, nums: int, total: int,
     a, b = CHAOS_AFTER
     spec = (f"materialize:hang:after={a}:count=1:hang_s={CHAOS_HANG_S},"
             f"dispatch:exception:after={b}:count=3")
-    pb._dispatch, pb._complete_host = dispatch, complete_host
+    pb._dispatch, pb._stages, pb._complete_host = \
+        dispatch, stages, complete_host
     sup.injector = FaultInjector(parse_faults(spec))
     try:
         f = await _flood(node, subs, pubs, ids, nums, total, seed,
@@ -1990,7 +2036,8 @@ async def _chaos_flood(node, subs, pubs, ids: int, nums: int, total: int,
         fired = sup.injector.state()
     finally:
         sup.injector = FaultInjector()
-        pb._dispatch, pb._complete_host = real_dispatch, real_host
+        pb._dispatch, pb._stages, pb._complete_host = \
+            real_dispatch, real_stages, real_host
         for p, (base, cur) in saved[0].items():
             sup.breakers[p].base_cooldown_s = base
             sup.breakers[p].cooldown_s = cur
@@ -4186,6 +4233,677 @@ def chaos_phase(card: str, probes_13b: dict) -> dict:
     return {"matrix": m, "probes": probes, "fatal": f}
 
 
+# ---- phase 14: the mesh serving under Node ---------------------------------
+# 14a: tools/sharded_bench.py's drive at its size (SHARDED_r05.json): the
+# filters dev/d{i}/+/n{n}/# (99,856) over dp=2 x route=4, max_batch 128,
+# oracle-checked batches through the pipelined dispatch, single-shard
+# churn while serving, and a shared-slot burst that outgrows its class
+# with host serving during the background rebuild
+MN_DEVICES, MN_DP = 8, 2
+MN_FILTERS = 100_000
+MN_BATCH = 128
+MN_BATCHES = 40
+MN_CHURN_ROUNDS = 10         # x 32 subscribes
+MN_WARM_TRIES = 5            # tools/sharded_bench.py:127-140
+# 14b: phase 8's population and flood through a multichip node (max_batch
+# 256, the reference's default); 14c: one counted mesh_exchange fault in a
+# flood of MN_FAULT_MSGS on the same node
+MN_FAULT_MSGS = 4_000
+MN_FAULT_AFTER = 5
+# the single-chip engine's incremental capture at phase 8's population:
+# the filters churned between the two captures
+CAPTURE_CHURN = 512
+CAPTURE_PAIRS = 5            # full / incremental captures of one state
+
+
+class _Count:
+    """A session that counts its deliveries."""
+
+    def __init__(self):
+        self.n = 0
+
+    def deliver(self, topic_filter, msg):
+        self.n += 1
+        return True
+
+
+def _mesh_topics(r, ids: int, nums: int, n: int) -> list:
+    return [f"dev/d{i}/x/n{k}/t" for i, k in zip(r.randint(0, ids, n),
+                                                 r.randint(0, nums, n))]
+
+
+def _warm_mesh_exchange(eng, make, topics_fn, B: int, metrics) -> None:
+    """tools/sharded_bench.py:127-140: warm the exchange class of a
+    B-wide window and let the EWMA ladder adapt on flood-shaped traffic
+    (a cold or undersized class gathers)."""
+    for _ in range(MN_WARM_TRIES):
+        before = metrics.val("pipeline.exchange.windows")
+        eng.warm_exchange(B)
+        eng.route_batch([make("w", 0, t, b"") for t in topics_fn(B)],
+                        wait=True)
+        if metrics.val("pipeline.exchange.windows") > before:
+            break
+
+
+def hold_mesh_window(eng, topics: list, what: str) -> int:
+    """One mesh window of `topics` held against the plain path on the
+    same device: the sharded step's planes (kernel 2 against
+    prefix_sum_ref), the exchange (kernels 2 and 3 against their plain
+    versions) and the gather's CSR compaction (kernel 2), bit for bit.
+    Nothing is delivered. Returns max |diff| (0)."""
+    import torch
+
+    from emqx_tpu_torch.ops.compact import compact_result
+    from emqx_tpu_torch.ops.exchange import ring_rotate_ref
+    from emqx_tpu_torch.ops.match import encode_topics_str
+    from emqx_tpu_torch.ops.scan import prefix_sum_ref
+    from emqx_tpu_torch.ops.shared import STRATEGIES
+    from emqx_tpu_torch.parallel.sharded import (make_exchange_step,
+                                                 make_sharded_route_step)
+    B = eng._batch_class(len(topics))
+    enc, lens, dollar, _tl = encode_topics_str(eng.intern, topics,
+                                               eng.level_cap)
+    mh = np.array([zlib.crc32(t.encode()) & 0x7FFFFFFF for t in topics],
+                  np.int32)
+    ins = eng._enc_tensors(enc[:B], lens[:B], dollar[:B], mh[:B])
+    strat = STRATEGIES[eng.broker.shared_strategy]
+    with eng._lock:
+        tables, cur, aux = eng.tables, eng.cursors.clone(), eng.aux
+    with eng._cuda_lock:
+        res_k = eng.step(tables, cur, *ins, strat)
+        plain = make_sharded_route_step(
+            eng.mesh, scan=prefix_sum_ref, frontier_cap=eng.frontier_cap,
+            match_cap=eng.match_cap, fanout_cap=eng.fanout_cap,
+            slot_cap=eng.slot_cap)
+        res_p = plain(tables, cur, *ins, strat)
+        err = 0
+        for name in res_k._fields:
+            err = max(err, exact(getattr(res_k, name), getattr(res_p, name),
+                                 f"{what} step {name}"))
+        E = eng._choose_ecap(B)
+        planes = (res_k.matches, res_k.rows, res_k.opts, res_k.shared_sids,
+                  res_k.overflow)
+        ex_k = eng.exchange_step(E)(*planes, aux)
+        ex_p = make_exchange_step(eng.mesh, seg_cap=E, scan=prefix_sum_ref,
+                                  rotate=ring_rotate_ref)(*planes, aux)
+        for name in ex_k._fields:
+            err = max(err, exact(getattr(ex_k, name), getattr(ex_p, name),
+                                 f"{what} exchange {name}"))
+        P = eng._choose_pcap(B) or 32 * B
+        cp_k = eng._compact(res_k, P)
+        Bk, R = res_k.matches.shape[:2]
+
+        def flat(x):
+            return x.reshape((1, Bk * R) + tuple(x.shape[2:]))
+
+        cp_p = compact_result(
+            *(flat(getattr(res_k, k)) for k in (
+                "matches", "rows", "opts", "fan_counts", "shared_sids",
+                "shared_rows", "shared_opts")),
+            payload_cap=P, match_holes=False, scan=prefix_sum_ref)
+        for name in cp_k._fields:
+            err = max(err, exact(getattr(cp_k, name), getattr(cp_p, name),
+                                 f"{what} compact {name}"))
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+    return err
+
+
+def mesh_sharded_drive(dev, n_filters: int = MN_FILTERS,
+                       batch: int = MN_BATCH, batches: int = MN_BATCHES,
+                       churn_rounds: int = MN_CHURN_ROUNDS,
+                       seed: int = SEED) -> dict:
+    """Phase 14a: tools/sharded_bench.py's drive on the port's multichip
+    node (no sockets): the population with one counting session per
+    filter, the full build, the exchange warm-up, `batches` windows of
+    `batch` flood topics through the pipelined dispatch (one dispatch
+    thread, one readback thread, the node's depth in flight, settle in
+    order) each checked against the oracle (one delivery a message), a
+    window held against the plain path, churn_rounds x 32 subscribes
+    each served at once (the dirty shards update before the window), and
+    a shared-slot burst on one filter that outgrows its capacity class:
+    windows route on the host while the background full build runs, and
+    not one delivery is lost across it. Raises on any failed check."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    from emqx_tpu_torch import device as D
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.broker.node import Node
+    node = Node({"broker": {"multichip": {
+        "enable": True, "devices": MN_DEVICES, "dp": MN_DP,
+        "max_batch": batch}, "deliver_lanes": 0}}, device=dev)
+    b, eng, m = node.broker, node.device_engine, node.metrics
+    ids, nums = e2e_grid(n_filters)
+    out = {"filters": ids * nums, "batch": batch,
+           "mesh": {"dp": eng.n_dp, "route": eng.n_route}}
+    t0 = time.time()
+    for i in range(ids):
+        for n in range(nums):
+            b.subscribe(b.register(_Count(), f"s{i}-{n}"),
+                        f"dev/d{i}/+/n{n}/#")
+    out["subscribe_s"] = time.time() - t0
+    t0 = time.time()
+    eng.rebuild()
+    out["build_s"] = time.time() - t0
+    out["caps"] = dict(eng._caps)
+    r = np.random.RandomState(seed)
+    eng.route_batch([make("p", 0, "dev/d0/x/n0/t", b"")] * batch, wait=True)
+    _warm_mesh_exchange(eng, make, lambda n: _mesh_topics(r, ids, nums, n),
+                        batch, m)
+    out["exchange_warm"] = {"classes": sorted(eng._exch_warm),
+                            "ewma": eng._exch_ewma}
+    depth = eng.dispatch_depth
+    x0 = {k: m.val(k) for k in ("pipeline.exchange.windows",
+                                "pipeline.readback.windows.compact",
+                                "pipeline.readback.windows.dense")}
+    disp = ThreadPoolExecutor(1, thread_name_prefix="mesh-disp")
+    read = ThreadPoolExecutor(1, thread_name_prefix="mesh-read")
+    inflight: deque = deque()
+    routed = 0
+
+    def settle(rec):
+        nonlocal routed
+        bi, h, fut = rec
+        fut.result().result()
+        counts = eng.finish(h)
+        if counts != [1] * batch:
+            raise AssertionError(f"phase 14a batch {bi}: {counts[:8]}...")
+        routed += batch
+
+    D.reset_launches()
+    t0 = time.time()
+    try:
+        for bi in range(batches):
+            msgs = [make("p", 0, t, b"x")
+                    for t in _mesh_topics(r, ids, nums, batch)]
+            while len(inflight) >= depth:
+                settle(inflight.popleft())
+            h = eng.prepare(msgs)
+            if h is None:
+                raise AssertionError(f"phase 14a: the mesh stood down at "
+                                     f"batch {bi}")
+
+            def stages(h=h):
+                eng.dispatch(h)
+                return read.submit(eng.materialize, h)
+
+            inflight.append((bi, h, disp.submit(stages)))
+        while inflight:
+            settle(inflight.popleft())
+        dt = time.time() - t0
+    finally:
+        disp.shutdown(wait=True)
+        read.shutdown(wait=True)
+    out["launches"] = dict(D.LAUNCHES)
+    out["flood"] = {"msgs": routed, "per_s": routed / dt, "wall_s": dt,
+                    "dispatch_depth": depth,
+                    **{k.rsplit(".", 2)[-2] + "_" + k.rsplit(".", 1)[-1]:
+                       m.val(k) - v for k, v in x0.items()}}
+    out["window_err"] = hold_mesh_window(
+        eng, _mesh_topics(r, ids, nums, batch), "phase 14a window")
+
+    t0 = time.time()
+    u0 = m.val("routing.mesh.shard_updates")
+    for rnd in range(churn_rounds):
+        for k in range(32):
+            b.subscribe(b.register(_Count(), f"ch{rnd}-{k}"),
+                        f"churn/r{rnd}/k{k}/+")
+        if not eng.dirty_shards:
+            raise AssertionError("phase 14a: churn dirtied no shard")
+        msgs = [make("p", 0, f"churn/r{rnd}/k{k}/z", b"y")
+                for k in range(min(32, batch))]
+        counts = eng.route_batch(msgs, wait=True)
+        if counts != [1] * len(msgs) or eng.dirty_shards:
+            raise AssertionError(f"phase 14a churn round {rnd}: "
+                                 f"{counts[:8]}, dirty {eng.dirty_shards}")
+    out["churn"] = {"rounds": churn_rounds,
+                    "shard_updates": m.val("routing.mesh.shard_updates") - u0,
+                    "wall_s": time.time() - t0}
+
+    t0 = time.time()
+    caps_before = dict(eng._caps)
+    n_groups = int(caps_before["slots"]) + 2
+    grow = []
+    for k in range(n_groups):
+        c = _Count()
+        grow.append(c)
+        b.subscribe(b.register(c, f"g{k}"), f"$share/g{k}/grow/hot/topic")
+    host_served = mesh_served = 0
+    h0 = m.val("routing.mesh.rebuild_host")
+    deadline = time.time() + 300
+    while time.time() < deadline:
+        msgs = [make("p", 0, "grow/hot/topic", b"z")]
+        counts = eng.route_batch(msgs)
+        if counts is None:
+            # the mesh rebuilds: the node's path routes on the host
+            b._route(msgs[0], b.router.match(msgs[0].topic))
+            host_served += 1
+            time.sleep(0.01)
+            continue
+        if counts != [n_groups]:
+            raise AssertionError(f"phase 14a overflow: {counts}")
+        mesh_served += 1
+        if eng._caps["slots"] > caps_before["slots"] and mesh_served >= 3:
+            break
+    if eng._caps["slots"] <= caps_before["slots"]:
+        raise AssertionError(f"phase 14a: the slots class never grew "
+                             f"{caps_before} -> {eng._caps}")
+    got = sum(c.n for c in grow)
+    want = (host_served + mesh_served) * n_groups
+    if got != want:
+        raise AssertionError(f"phase 14a: deliveries lost across the "
+                             f"capacity rebuild: {got} != {want}")
+    if m.val("routing.mesh.rebuild_host") - h0 != host_served:
+        raise AssertionError("phase 14a: host-served windows not counted")
+    out["overflow"] = {"slots_cap": [caps_before["slots"],
+                                     eng._caps["slots"]],
+                       "host_served_during_rebuild": host_served,
+                       "mesh_served_after": mesh_served,
+                       "wall_s": time.time() - t0}
+    out["stats"] = eng.stats()
+    eng.close()
+    if eng.failed is not None:
+        raise AssertionError(f"phase 14a: the server failed: "
+                             f"{eng.failed!r}")
+    return out
+
+
+def mesh_fatal_check(dev) -> dict:
+    """A real failure on the mesh raises (phase 14c's second half): the
+    step raising a plain RuntimeError once on a small supervised mesh
+    node is not replayed — route_batch raises it, the server keeps it
+    (``failed``) and the next window raises too."""
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.broker.node import Node
+    from emqx_tpu_torch.chaos import raise_once
+    node = Node({"broker": {"multichip": {
+        "enable": True, "devices": MN_DEVICES, "dp": MN_DP,
+        "max_batch": 16}, "deliver_lanes": 0}}, device=dev)
+    b, eng = node.broker, node.device_engine
+    eng.fail_on_device_error = True     # the card's rule (on the CPU too)
+    for i in range(64):
+        b.subscribe(b.register(_Count(), f"f{i}"), f"fatal/{i}/+")
+    if eng.route_batch([make("p", 0, "fatal/1/x", b"")], wait=True) != [1]:
+        raise AssertionError("phase 14c: the small mesh node did not route")
+    eng.close()             # no warm-up thread may take the failure first
+    raise_once(eng, "step", RuntimeError("mesh kernel broke"))
+    out = {}
+    for k in ("first", "next"):
+        try:
+            eng.route_batch([make("p", 0, "fatal/2/x", b"")], wait=True)
+        except RuntimeError as e:
+            out[k] = str(e)
+        else:
+            raise AssertionError(f"phase 14c: the {k} window after a real "
+                                 f"failure did not raise")
+    eng.close()
+    if eng.failed is None or node.metrics.val("supervise.replays"):
+        raise AssertionError("phase 14c: a real failure was replayed")
+    return out
+
+
+def mesh_node_drive(dev, n_filters: int = E2E_FILTERS,
+                    n_sub: int = E2E_SUB_CONNS, n_pub: int = E2E_PUB_CONNS,
+                    total: int = E2E_MSGS, fault_msgs: int = MN_FAULT_MSGS,
+                    fault_after: int = MN_FAULT_AFTER,
+                    seed: int = SEED) -> dict:
+    """Phases 14b and 14c: a multichip node (dp=2 x route=4 shards on the
+    card, the reference's max_batch 256, the reference's defaults: lanes,
+    ledger, supervision, recorder, observatory, governor) over live TCP
+    with phase 8's population and flood (``_flood``: every message
+    delivered once, in per-session publisher order per topic, to a
+    connection that holds its filter). The batcher's chooser is held on the device (the
+    path under test). Then 14c on the same node: one mesh_exchange fault
+    armed mid-flood (breaker threshold 1, cooldown 0.05 s): it must trip,
+    replay on the host, and return to rung 0; every message still once.
+    Raises on any failed check."""
+    import asyncio
+
+    async def run():
+        import torch
+
+        from emqx_tpu_torch import device as D
+        from emqx_tpu_torch.broker.connection import Listener
+        from emqx_tpu_torch.broker.message import make
+        from emqx_tpu_torch.broker.node import Node
+        from emqx_tpu_torch.broker.supervise import (FaultInjector,
+                                                     parse_faults)
+        from emqx_tpu_torch.client import Client
+        alloc0 = torch.cuda.memory_allocated(dev) \
+            if dev.type == "cuda" else None
+        node = Node({"broker": {"multichip": {
+            "enable": True, "devices": MN_DEVICES, "dp": MN_DP},
+            "dispatch_depth": 2}}, device=dev)
+        eng, m, sup = node.device_engine, node.metrics, node.supervisor
+        node.publish_batcher._device_worth_it = lambda: True
+        lst = Listener(node, bind="127.0.0.1", port=0)
+        await lst.start()
+        clients = []
+        try:
+            t0 = time.time()
+            subs, ids, nums, n_shared, n_entries = \
+                await _subscribe_population(lst.port, n_filters, n_sub)
+            clients += subs
+            out = {"filters": ids * nums, "shared_filters": n_shared,
+                   "subscriptions": n_entries,
+                   "subscribe_s": time.time() - t0,
+                   "max_batch": node.publish_batcher.max_batch}
+            for c in range(n_pub):
+                cl = Client(port=lst.port, clientid=f"epub{c}")
+                await cl.connect()
+                clients.append(cl)
+            pubs = clients[n_sub:]
+            t0 = time.time()
+            eng.route_batch([make("w", 0, "warmup/none/t", b"")], wait=True)
+            out["build_s"] = time.time() - t0
+            Bp = eng.n_dp
+            while Bp <= eng.max_batch:
+                eng._warm_one(Bp)
+                Bp *= 2
+            r = np.random.RandomState(seed)
+            topics = lambda n: [f"device/d{i}/x/n{k}/t" for i, k in zip(
+                r.randint(0, ids, n), r.randint(0, nums, n))]
+            _warm_mesh_exchange(eng, make, topics, eng.max_batch, m)
+            Bp = eng.n_dp
+            while Bp < eng.max_batch:
+                eng.warm_exchange(Bp)
+                Bp *= 2
+            out["warm_up_s"] = time.time() - t0
+            # the warm-up's deliveries reach the subscribers: drain them
+            # before the flood's drainers start
+            last = -1
+            while True:
+                await asyncio.sleep(0.2)
+                n = sum(cl.messages.qsize() for cl in subs)
+                if n == last:
+                    break
+                last = n
+            for cl in subs:
+                while not cl.messages.empty():
+                    cl.messages.get_nowait()
+            out["window_err"] = hold_mesh_window(
+                eng, topics(eng.max_batch), "phase 14b window")
+            gc.collect()
+            gc.freeze()
+            tele0 = tele_state(node)
+            x0 = {k: v for k, v in m.all().items()
+                  if k.startswith("pipeline.exchange.")}
+            f = await _flood(node, subs, pubs, ids, nums, total, seed + 7,
+                             per_topic=True)
+            f.pop("got")
+            out["scan_shapes"] = dict(D.LAUNCH_SHAPES["prefix_sum"])
+            f["telemetry"] = tele_delta(node, tele0)
+            f["exchange"] = {k: v - x0.get(k, 0) for k, v in m.all().items()
+                             if k.startswith("pipeline.exchange.")
+                             and v - x0.get(k, 0)}
+            f["device_share"] = f["device_routed"] / f["sent"]
+            if dev.type == "cuda" and (f["launches"]["prefix_sum"] == 0
+                                       or f["launches"]["ring_rotate"]
+                                       == 0):
+                raise AssertionError(f"phase 14b: a kernel was not "
+                                     f"launched: {f['launches']}")
+            if f["batches"] <= 0 or f["device_share"] < \
+                    E2E_MIN_DEVICE_SHARE:
+                raise AssertionError(f"phase 14b: {f['device_share']:.3f} "
+                                     f"of the flood routed by the mesh")
+            out["flood"] = f
+            out["exchange_section"] = \
+                node.pipeline_telemetry.snapshot().get("exchange")
+            out["supervise"] = check_supervised(node, "phase 14b")
+            out["ledger"] = ledger_line(node, alloc0) \
+                if node.hbm_ledger is not None else None
+
+            # 14c: one counted mesh_exchange fault in a flood
+            saved = {s: (br.threshold, br.base_cooldown_s)
+                     for s, br in sup.breakers.items()}
+            for br in sup.breakers.values():
+                br.threshold = 1
+                br.base_cooldown_s = br.cooldown_s = 0.05
+            sup.injector = FaultInjector(parse_faults(
+                f"mesh_exchange:exception:after={fault_after}:count=1"))
+            times = {}
+
+            async def watch():
+                br = sup.breakers["mesh_exchange"]
+                while "closed" not in times:
+                    now = time.perf_counter()
+                    if "fired" not in times and sup.injector.faults[0].fired:
+                        times["fired"] = now
+                    if "fired" in times and "open" not in times \
+                            and br.state != "closed":
+                        times["open"] = now
+                    if "open" in times and br.state == "closed" \
+                            and sup.rung() == 0:
+                        times["closed"] = now
+                    await asyncio.sleep(0.001)
+
+            w = asyncio.get_running_loop().create_task(watch())
+            c = await _flood(node, subs, pubs, ids, nums, fault_msgs,
+                             seed + 9, replays=True, per_topic=True)
+            c.pop("got")
+            for _ in range(2000):
+                if "closed" in times:
+                    break
+                # the breaker's probe rides the windows' poll: tick it
+                await asyncio.gather(*[node.publish_async(
+                    make("tick", 0, "tick/none", b"")) for _ in range(8)])
+                await asyncio.sleep(0.01)
+            w.cancel()
+            for s, (th, cd) in saved.items():
+                sup.breakers[s].threshold = th
+                sup.breakers[s].base_cooldown_s = \
+                    sup.breakers[s].cooldown_s = cd
+            sup.injector = FaultInjector()
+            if "closed" not in times:
+                raise AssertionError(f"phase 14c: the breaker did not "
+                                     f"trip and re-close: {times}, "
+                                     f"{sup.state()}")
+            out["fault"] = {
+                "msgs": c["sent"], "delivered": c["delivered"],
+                "per_sec": c["per_sec"],
+                "faults": m.val("supervise.faults.mesh_exchange"),
+                "replays": m.val("supervise.replays"),
+                "trips": m.val("supervise.trips"),
+                "rung": sup.rung(),
+                "trip_s": times["open"] - times["fired"],
+                "recover_s": times["closed"] - times["fired"],
+                "launches": c["launches"]}
+            if out["fault"]["faults"] != 1 or out["fault"]["replays"] < 1:
+                raise AssertionError(f"phase 14c: {out['fault']}")
+            out["stats"] = eng.stats()
+            if eng.failed is not None:
+                raise AssertionError(f"phase 14: the server failed: "
+                                     f"{eng.failed!r}")
+            return out
+        finally:
+            gc.unfreeze()
+            for cl in clients:
+                await cl.disconnect()
+            await lst.stop()
+            await node.publish_batcher.stop()
+            node.publish_batcher.close()
+            node.device_engine.close()
+
+    return asyncio.run(run())
+
+
+def capture_drive(dev, n_filters: int = E2E_FILTERS, n_sub: int = E2E_SUB_CONNS,
+                  churn: int = CAPTURE_CHURN, seed: int = SEED) -> dict:
+    """The single-chip engine's incremental capture at phase 8's
+    population: a node at the reference's defaults (overlay on), its
+    first build (a full capture), windows that advance the shared
+    groups' cursors, then `churn` filters churned — a quarter new plain
+    filters, a quarter plain filters dropped, a quarter new shared
+    members, a quarter members leaving — and the compaction's rebuild,
+    which captures incrementally. The rebuild telemetry's capture
+    seconds of both builds, and of a full capture of the same state; the
+    incremental capture must equal that full capture, and the next
+    window must equal the plain path bit for bit."""
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.broker.node import Node
+    node = Node({"broker": {"deliver_lanes": 0}}, device=dev)
+    eng, b, m = node.device_engine, node.broker, node.metrics
+    ids, nums = e2e_grid(n_filters)
+    sinks = _populate(node, ids, nums, n_sub)
+    sids = list(range(len(sinks)))
+
+    def captured() -> float:
+        h = m.histograms().get("pipeline.rebuild.capture.seconds")
+        return h.snapshot()["sum"] if h is not None and h.count else 0.0
+
+    eng.rebuild()
+    full_s = captured()
+    r = np.random.RandomState(seed)
+    for _ in range(4):
+        eng.route_batch([make("p", 0, "device/d%d/x/n%d/t" % (
+            r.randint(0, ids), r.randint(0, nums)), b"") for _ in range(256)])
+    q = churn // 4
+    for k in range(q):
+        b.subscribe(sids[k % n_sub], f"device/d{k % ids}/+/n{nums + k}/#",
+                    {"qos": 0})
+    plain = [(i, n) for i in range(ids) for n in range(nums)
+             if not e2e_shared(i, n, nums)]
+    for k in range(q):
+        i, n = plain[(k * 7919) % len(plain)]
+        b.unsubscribe(i % n_sub, f"device/d{i}/+/n{n}/#")
+    shared = [(i, n) for i in range(ids) for n in range(nums)
+              if e2e_shared(i, n, nums)]
+    for k in range(q):
+        i, n = shared[(k * 104729) % len(shared)]
+        b.subscribe((i + 2) % n_sub, f"$share/bg/device/d{i}/+/n{n}/#",
+                    {"qos": 1})
+    for k in range(q):
+        i, n = shared[(k * 15485863 + 1) % len(shared)]
+        b.unsubscribe(i % n_sub, f"$share/bg/device/d{i}/+/n{n}/#")
+    if not eng._can_capture_incremental():
+        raise AssertionError("capture: no incremental baseline")
+    touched = eng.journal_depth()
+    # the two captures of this one state, in turns (each incremental
+    # capture from the same baseline and touched set, the first of a
+    # pair alternating): host seconds over a few pairs, each after a
+    # full collection (no collector debt carried in), each pair compared
+    base, marks = eng._last_capture, set(eng._touched)
+    inc_t, full_t = [], []
+
+    def timed(fn, into):
+        gc.collect()
+        t0 = time.perf_counter()
+        out = fn()
+        into.append(time.perf_counter() - t0)
+        return out
+
+    for k in range(CAPTURE_PAIRS):
+        eng._last_capture, eng._touched = base, set(marks)
+        if k % 2:
+            full = timed(eng._capture_state_sync, full_t)
+            eng._last_capture, eng._touched = base, set(marks)
+            inc = timed(eng._capture_state_incremental, inc_t)
+        else:
+            inc = timed(eng._capture_state_incremental, inc_t)
+            full = timed(eng._capture_state_sync, full_t)
+        same = (sorted(inc[0]) == sorted(full[0])
+                and sorted(inc[1]) == sorted(full[1])
+                and inc[2] == full[2] and inc[3] == full[3])
+        if not same:
+            raise AssertionError("capture: the incremental capture "
+                                 "differs from the full capture")
+    eng._last_capture, eng._touched = base, marks
+    c0 = captured()
+    eng.rebuild()
+    inc_s = captured() - c0
+    lives = [[make("cmp", 0, "device/d%d/x/n%d/t" % (
+        r.randint(0, ids), r.randint(0, nums)), b"") for _ in range(1024)]]
+    err = hold_window(eng, lives, "capture window", False)
+    return {"filters": ids * nums, "churned": 4 * q, "touched": touched,
+            "full_capture_s": full_s, "incremental_capture_s": inc_s,
+            "pairs_full_s": full_t, "pairs_incremental_s": inc_t,
+            "equal": same, "window_err": err,
+            "backend": eng._built.backend}
+
+
+def mesh_node_phase(dev, card: str) -> dict:
+    """Phase 14 on the card (14a, 14b, 14c, and the single-chip engine's
+    incremental capture); prints its lines."""
+    import torch
+    t_all = time.time()
+    a = mesh_sharded_drive(dev)
+    log(f"phase 14a: {a['filters']} filters dev/d{{i}}/+/n{{n}}/# over "
+        f"dp={a['mesh']['dp']} x route={a['mesh']['route']} on {dev}, "
+        f"built in {a['build_s']:.2f} s (caps {json.dumps(a['caps'])}); "
+        f"exchange warm {json.dumps(a['exchange_warm'])}")
+    fl = a["flood"]
+    log(f"phase 14a: {MN_BATCHES} oracle-checked batches of {a['batch']} "
+        f"through the pipelined dispatch (depth {fl['dispatch_depth']}): "
+        f"{fl['msgs']} msgs in {fl['wall_s']:.2f} s = {fl['per_s']:.0f}/s; "
+        f"exchange windows {fl['exchange_windows']}, gathered compact "
+        f"{fl['windows_compact']}, dense {fl['windows_dense']}; launches "
+        f"{json.dumps(a['launches'])}; a window == plain path (step, "
+        f"exchange, CSR compaction, exact)")
+    log(f"phase 14a churn: {a['churn']['rounds']} rounds x 32 subscribes, "
+        f"{a['churn']['shard_updates']} shard updates while serving in "
+        f"{a['churn']['wall_s']:.2f} s")
+    ov = a["overflow"]
+    log(f"phase 14a overflow: slots class {ov['slots_cap'][0]} -> "
+        f"{ov['slots_cap'][1]}; {ov['host_served_during_rebuild']} windows "
+        f"served on the host during the background rebuild (counted), "
+        f"{ov['mesh_served_after']} by the mesh after; no delivery lost; "
+        f"{ov['wall_s']:.2f} s")
+    log(f"phase 14a: {time.time() - t_all:.1f} s")
+    gc.collect()            # 14a's node (its engine refers back to it)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    r = mesh_node_drive(dev)
+    f = r["flood"]
+    log(f"phase 14b: {r['filters']} filters ({r['shared_filters']} in "
+        f"shared groups) over TCP in {r['subscribe_s']:.1f} s; mesh built "
+        f"in {r['build_s']:.2f} s, warm {r['warm_up_s']:.2f} s; batcher "
+        f"max_batch {r['max_batch']}; a window == plain path (exact)")
+    log(f"phase 14b: {f['sent']} msgs, every one delivered once in "
+        f"per-session publisher order: {f['per_sec']} msgs/s, client "
+        f"latency p50 {f['lat_p50_ms']:.2f} ms p99 {f['lat_p99_ms']:.2f} "
+        f"ms; device share {f['device_share']:.4f} ({f['batches']} mesh "
+        f"windows); exchange {json.dumps(f['exchange'])}; launches "
+        f"{json.dumps(f['launches'])}")
+    log(f"phase 14b telemetry stages: {json.dumps(f['telemetry']['stages'])}")
+    log(f"phase 14b exchange section: {json.dumps(r['exchange_section'])}")
+    led = r["ledger"]
+    log(f"phase 14b HBM ledger: live {led['live_bytes']} bytes by category "
+        f"{json.dumps(led['by_category'])}; accounted "
+        f"{led['accounted_fraction']} of memory_allocated "
+        f"{led['memory_allocated']} ({led['accounted_of_phase']} of the "
+        f"bytes allocated since this phase began)")
+    fa = r["fault"]
+    log(f"phase 14c: mesh_exchange fault after {MN_FAULT_AFTER} traversals "
+        f"in a flood of {fa['msgs']}: {fa['faults']} fault, "
+        f"{fa['trips']} trip(s), {fa['replays']} replay(s); tripped in "
+        f"{fa['trip_s']:.4f} s, rung back to {fa['rung']} in "
+        f"{fa['recover_s']:.4f} s; every message delivered once "
+        f"({fa['delivered']})")
+    fatal = mesh_fatal_check(dev)
+    log(f"phase 14c: a real failure raises: {json.dumps(fatal)}")
+    log(f"phase 14b/c: {time.time() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    c = capture_drive(dev)
+    log(f"phase 14 capture: {c['filters']} filters ({c['backend']}), "
+        f"{c['churned']} churned ({c['touched']} touched): rebuild "
+        f"capture seconds, the first build (full) "
+        f"{c['full_capture_s']:.4f}, the compaction's (incremental) "
+        f"{c['incremental_capture_s']:.4f}; {CAPTURE_PAIRS} pairs of the "
+        f"same state, the first alternating, each after gc.collect(): full "
+        f"{json.dumps([round(x, 4) for x in c['pairs_full_s']])} against "
+        f"incremental "
+        f"{json.dumps([round(x, 4) for x in c['pairs_incremental_s']])} "
+        f"(medians {np.median(c['pairs_full_s']):.4f} / "
+        f"{np.median(c['pairs_incremental_s']):.4f}); incremental == full "
+        f"every pair; the next window == plain path (exact); "
+        f"{time.time() - t0:.1f} s")
+    return {"a": a, "b": r, "fatal": fatal, "capture": c,
+            "err": max(a["window_err"], r["window_err"], c["window_err"])}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4275,6 +4993,7 @@ def main() -> int:
     ingress = ingress_phase(card)
     overload = overload_phase(card)
     chaos = chaos_phase(card, e2e["chaos"]["probe_launches"])
+    mesh_node = mesh_node_phase(dev, card)
     timed = {tuple(d["shape"]) for d in scan_shapes + mesh_scan_shapes}
     layer_scan_shapes = []
     for cell, n in (("skew", "windows"), ("churn", "batches")):
@@ -4299,6 +5018,13 @@ def main() -> int:
                                             cnt / max(1, wins))
         timed |= set(new)
         layer_scan_shapes += time_scan_shapes_apart(new, where)
+    # phase 14b: the mesh node's window shapes, launches a window
+    wins = max(1, mesh_node["b"]["flood"]["batches"])
+    new = {tuple(shape): cnt / wins
+           for shape, cnt in mesh_node["b"]["scan_shapes"].items()
+           if tuple(shape) not in timed}
+    timed |= set(new)
+    layer_scan_shapes += time_scan_shapes_apart(new, "mesh node")
     layers_err = max(layers["churn"]["hold_skew_err"],
                      layers["churn"]["hold_err"],
                      *(c["hold_err"] for c in cover.values()),
@@ -4331,6 +5057,12 @@ def main() -> int:
             out[f"overload governor {label}"] = r["launches"][name]
         out["chaos matrix"] = chaos["matrix"]["launches"].get(name, 0)
         out["supervise probes"] = chaos["probes"].get(name, 0)
+        # phase 14: the mesh node's flood (14b), tools/sharded_bench.py's
+        # pipelined batches on it (14a) and the faulted flood (14c)
+        out["mesh-node"] = mesh_node["b"]["flood"]["launches"][name]
+        out["mesh-node sharded drive"] = mesh_node["a"]["launches"][name]
+        out["mesh-node fault flood"] = \
+            mesh_node["b"]["fault"]["launches"][name]
         return out
 
     kernels = [
@@ -4349,11 +5081,12 @@ def main() -> int:
          "launches": launches["prefix_sum"],
          "launches_by_path": by_path("prefix_sum"),
          "max_abs_err": max(err_scan, e2e["window_err"], layers_err,
-                            e2e["chaos"]["held_err"]),
+                            e2e["chaos"]["held_err"], mesh_node["err"]),
          **{k: ps[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
          "shapes": scan_shapes + mesh_scan_shapes + layer_scan_shapes},
-        dict(ring, launches_by_path=by_path("ring_rotate")),
+        dict(ring, launches_by_path=by_path("ring_rotate"),
+             max_abs_err=max(ring["max_abs_err"], mesh_node["err"])),
     ]
     e2e_out = {k: v for k, v in e2e.items() if k != "floods"}
     e2e_out["floods"] = {d: {k: v for k, v in f.items() if k != "got"}
@@ -4371,7 +5104,11 @@ def main() -> int:
     log(json.dumps({"summary": summary, "mesh": mesh, "e2e": e2e_out,
                     "layers": layers_out, "cover": cover_out,
                     "ingress": ingress_out, "overload": overload,
-                    "chaos": chaos}))
+                    "chaos": chaos,
+                    "mesh_node": {k: v for k, v in mesh_node["b"].items()
+                                  if k != "scan_shapes"},
+                    "mesh_sharded": mesh_node["a"],
+                    "capture": mesh_node["capture"]}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

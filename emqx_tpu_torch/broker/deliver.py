@@ -319,7 +319,7 @@ class DeliveryPlan:
                  "filters", "_chunks", "routed_device", "pending",
                  "done", "target", "_cbs", "s_midx", "s_sid", "s_opt",
                  "s_fid", "_barrier_left", "_barrier_evt", "lane_s",
-                 "trace")
+                 "trace", "_own_filters")
 
     def __init__(self, pool: "DeliveryLanePool", msgs: list):
         self.pool = pool
@@ -329,6 +329,7 @@ class DeliveryPlan:
         # (message index, fn) — fn() — or (indices, fn) — fn(i) for each
         self.slow_items: list[tuple] = []
         self.filters = None         # fid -> topic-filter string
+        self._own_filters = False   # `filters` is this plan's own list
         self._chunks: list[tuple] = []
         self.routed_device = False
         self.pending = 0            # outstanding lane parts
@@ -358,11 +359,31 @@ class DeliveryPlan:
             # one snapshot per plan; remap should another table appear
             base = len(self.filters)
             self.filters = list(self.filters) + list(filters)
+            self._own_filters = True
             fid = np.asarray(fid) + base
         self._chunks.append((np.asarray(midx, np.int64),
                              np.asarray(sid, np.int64),
                              np.asarray(opt, np.int64),
                              np.asarray(fid, np.int64)))
+
+    def add_rows_py(self, msg_idx: int, rows: list) -> None:
+        """Python-built fast rows of one message (the mesh consume's
+        per-message collection): `rows` is [(sid, packed_opt,
+        filter_string)], indexed through a filter table of the plan's
+        own."""
+        if not rows:
+            return
+        if not self._own_filters:
+            self.filters = list(self.filters or ())
+            self._own_filters = True
+        base = len(self.filters)
+        n = len(rows)
+        self.filters.extend(r[2] for r in rows)
+        self._chunks.append((
+            np.full(n, msg_idx, np.int64),
+            np.fromiter((r[0] for r in rows), np.int64, n),
+            np.fromiter((r[1] for r in rows), np.int64, n),
+            np.arange(base, base + n, dtype=np.int64)))
 
     def add_slow(self, msg_idx: Optional[int],
                  fn: Callable[[], int]) -> None:

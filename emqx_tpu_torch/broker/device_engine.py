@@ -107,7 +107,10 @@ Snapshot/consistency model (as the reference):
   double-buffered: the state is captured in
   chunks on the loop, compiled, uploaded and warmed off the loop, and
   swapped in once no dispatched window is outstanding; mutations during
-  the build are journaled and replayed against the new snapshot.
+  the build are journaled and replayed against the new snapshot. With
+  the overlay on, a compaction's capture is incremental: the previous
+  capture with only the filters touched since, and every shared filter,
+  re-read (``_capture_state_incremental``).
 
 Delivery attribution: device fan-out rows for one message are the
 concatenation of per-filter CSR segments in match order, so the host walks
@@ -733,6 +736,11 @@ class DeviceRouteEngine:
         # delivers it from the host dict
         self._fid_member_clock: dict[int, int] = {}
         self._built_deleted: set[str] = set()  # snapshot tombstones
+        # incremental capture: the last build's capture and the filters
+        # touched since it — with the overlay on a compaction re-walks
+        # only those (and every shared filter) instead of the world
+        self._last_capture = None
+        self._touched: set[str] = set()
         # subscription covering: the snapshot matches the covering set
         # and expands it after the match stage (ops/cover). New filters
         # no built root covers erode the reduction; past a budget they
@@ -814,6 +822,11 @@ class DeviceRouteEngine:
             base += len(self._delta_filter)
         return base
 
+    def journal_depth(self) -> int:
+        """Filters touched since the last capture: the incremental
+        capture's pending work (the rebuild telemetry's gauge)."""
+        return len(self._touched)
+
     def _mark_dirty(self, f: str) -> None:
         """dirty_filters.add with the hostside-memo version bump (only
         on actual growth — the subscribe path's double notification
@@ -871,6 +884,7 @@ class DeviceRouteEngine:
         """Router filter-universe change."""
         if self._journal is not None:
             self._journal.append(("route", topic_filter, added))
+        self._touched.add(topic_filter)
         removed_words = None
         if not added:
             removed_words = self._enc_cache.pop(topic_filter, None)
@@ -908,6 +922,7 @@ class DeviceRouteEngine:
         """Broker membership change (subscribe/unsubscribe/opts update)."""
         if self._journal is not None:
             self._journal.append(("member", real, group))
+        self._touched.add(real)
         if self._built is None:
             return
         if group is None:
@@ -1060,9 +1075,14 @@ class DeviceRouteEngine:
     def rebuild(self) -> None:
         """Compile router+broker state into fresh device tables and swap,
         synchronously (first build / callers without a loop). The
-        background path is `maybe_background_rebuild`."""
+        background path is `maybe_background_rebuild`. With the overlay
+        on and a previous capture, the capture is incremental
+        (``_capture_state_incremental``)."""
         t0 = time.perf_counter()
-        capture = self._capture_state_sync()
+        if self._can_capture_incremental():
+            capture = self._capture_state_incremental()
+        else:
+            capture = self._capture_state_sync()
         self._observe_rebuild("capture", t0)
         t0 = time.perf_counter()
         result = self._build_from_capture(capture)
@@ -1071,9 +1091,78 @@ class DeviceRouteEngine:
         self._apply_build(result, journal=())
         self._observe_rebuild("swap", t0)
 
+    def _note_captured(self, capture) -> None:
+        """A capture just completed: with the overlay on it becomes the
+        incremental baseline. Every capture path calls this before churn
+        racing the build can land (that re-enters ``_touched``)."""
+        if self.delta_overlay:
+            self._last_capture = capture
+
+    def _can_capture_incremental(self) -> bool:
+        return self.delta_overlay and self._last_capture is not None
+
+    def _incremental_refresh_set(self) -> set:
+        """Filters an incremental capture re-walks: every filter touched
+        since the last capture, and every shared-group filter, old and
+        new — a group's cursor advances on every dispatch with no
+        ``note_*`` call, so a stale shared capture would reset its
+        round-robin rotation at each compaction."""
+        refresh = set(self._touched)
+        self._touched = set()     # touches during the capture re-add
+        refresh |= set(self._last_capture[3])
+        refresh |= set(self.broker.shared)
+        return refresh
+
+    def _apply_refresh(self, subs: dict, shared: dict, fs) -> None:
+        """Re-read filters `fs` from the live state into the capture's
+        dicts (dropping what is gone)."""
+        broker = self.broker
+        for f in fs:
+            s = broker.subs.get(f)
+            if s:
+                subs[f] = list(s.items())
+            else:
+                subs.pop(f, None)
+            cap = capture_shared(broker, f)
+            if cap:
+                shared[f] = cap
+            else:
+                shared.pop(f, None)
+
+    def _capture_state_incremental(self):
+        """The previous capture with only the refresh set re-walked
+        (``emqx_tpu/broker/device_engine.py:1093``). The filter universe
+        is re-listed live; ``_build_from_capture`` keys everything off
+        it, so filters added or removed since are taken or dropped."""
+        router = self.router
+        exact, wild = list(router.exact), list(router.wildcards)
+        _e, _w, subs0, shared0 = self._last_capture
+        subs, shared = dict(subs0), dict(shared0)
+        self._apply_refresh(subs, shared, self._incremental_refresh_set())
+        capture = (exact, wild, subs, shared)
+        self._note_captured(capture)
+        return capture
+
+    async def _capture_state_incremental_async(self, chunk: int = 1024):
+        """The incremental capture in chunks, yielding between them;
+        churn landing meanwhile re-enters ``_touched`` and the build
+        journal, as the full capture's races do."""
+        router = self.router
+        exact, wild = list(router.exact), list(router.wildcards)
+        _e, _w, subs0, shared0 = self._last_capture
+        subs, shared = dict(subs0), dict(shared0)
+        refresh = sorted(self._incremental_refresh_set())
+        for i in range(0, len(refresh), chunk):
+            self._apply_refresh(subs, shared, refresh[i:i + chunk])
+            await asyncio.sleep(0)
+        capture = (exact, wild, subs, shared)
+        self._note_captured(capture)
+        return capture
+
     def _capture_state_sync(self):
         """Point-in-time copy of the routing state (sync, may stall)."""
         broker, router = self.broker, self.router
+        self._touched = set()
         exact, wild = list(router.exact), list(router.wildcards)
         filters = exact + wild
         subs = {f: list(broker.subs[f].items())
@@ -1083,7 +1172,9 @@ class DeviceRouteEngine:
             cap = capture_shared(broker, f)
             if cap:
                 shared[f] = cap
-        return exact, wild, subs, shared
+        capture = (exact, wild, subs, shared)
+        self._note_captured(capture)
+        return capture
 
     async def _capture_state_async(self, chunk: int = 1024):
         """Chunked capture: yields to the loop between chunks so serving
@@ -1091,6 +1182,7 @@ class DeviceRouteEngine:
         replayed at swap, so a half-captured filter at worst serves
         host-side."""
         broker, router = self.broker, self.router
+        self._touched = set()
         exact, wild = list(router.exact), list(router.wildcards)
         filters = exact + wild
         subs: dict = {}
@@ -1104,7 +1196,9 @@ class DeviceRouteEngine:
                 if cap:
                     shared[f] = cap
             await asyncio.sleep(0)
-        return exact, wild, subs, shared
+        capture = (exact, wild, subs, shared)
+        self._note_captured(capture)
+        return capture
 
     def _build_from_capture(self, capture):
         """Compile a captured state into device tables (loop-free: safe on
@@ -1501,7 +1595,10 @@ class DeviceRouteEngine:
         loop = asyncio.get_running_loop()
         try:
             t0 = time.perf_counter()
-            capture = await self._capture_state_async()
+            if self._can_capture_incremental():
+                capture = await self._capture_state_incremental_async()
+            else:
+                capture = await self._capture_state_async()
             self._observe_rebuild("capture", t0)
             t0 = time.perf_counter()
             result = await loop.run_in_executor(
@@ -3411,7 +3508,7 @@ class DeviceRouteEngine:
         carry."""
         ov = self._overlay
         return {
-            "journal_depth": len(self._journal or ()),
+            "journal_depth": self.journal_depth(),
             "building": self._building,
             "staleness": self.staleness(),
             "tombstones": len(self._built_deleted),

@@ -8,9 +8,14 @@ session-affine delivery lanes and the columnar PUBLISH ingress (each on
 by default), router, broker, connection manager, alarms, the device
 route engine and the publish batcher, wired as the reference wires them
 for a single-chip node, and the housekeeping tick (``sweep``,
-``start_timers``) the governor polls on. The layers the reference also
-builds here (the mesh server, apps, gateways and the management API)
-are not part of the port.
+``start_timers``) the governor polls on. Under ``broker.multichip`` with
+``enable`` true the node serves through the dp×route mesh instead
+(``parallel/serving.ShardedRouteServer``, reference :206-236) behind a
+batcher of the mesh's ``max_batch``: sub-keys ``devices`` (8 shards),
+``dp`` (1) and ``max_batch`` (256), all on the node's device, with
+``device_exchange`` (on) read under ``broker.``. The layers the
+reference also builds here (apps, gateways and the management API) are
+not part of the port.
 
 Config keys read under ``broker.``, with the reference's names and
 defaults: ``batch_window_us`` (200), ``max_publish_batch`` (1024),
@@ -35,8 +40,9 @@ reference's defaults), the latency observatory
 overload governor ``overload`` (on; polled by ``sweep``, so only once
 ``start_timers`` runs the housekeeping tick or a caller sweeps); and
 under ``alarm.``, ``size_limit`` (1000) and ``validity_period`` (86400).
-``compact_readback: false`` (the port's CSR readback is always on)
-raises ``ValueError`` rather than serving without it.
+``compact_readback: false`` (the port's CSR readback is always on, on
+either engine) and ``device_route: false`` (the host-only node is not
+ported) raise ``ValueError`` rather than serving without them.
 """
 
 from __future__ import annotations
@@ -73,13 +79,13 @@ from emqx_tpu_torch.device import resolve_device
 
 def check_layers(perf: dict) -> None:
     """Raise ValueError when the ``broker`` config asks for a path the
-    port does not implement: every reference layer of a single-chip node
-    is ported, and the CSR readback is always on, so only
-    ``compact_readback: false`` is refused."""
-    if perf.get("compact_readback") is not None \
-            and not perf.get("compact_readback"):
-        raise ValueError("emqx_tpu_torch does not implement broker "
-                         "compact_readback=false; leave it on")
+    port does not implement: the dense readback (``compact_readback:
+    false``, on the single-chip engine or the mesh) and the host-only
+    node (``device_route: false``)."""
+    for key in ("compact_readback", "device_route"):
+        if perf.get(key) is not None and not perf.get(key):
+            raise ValueError(f"emqx_tpu_torch does not implement broker "
+                             f"{key}=false; leave it on")
 
 
 class Node:
@@ -189,19 +195,37 @@ class Node:
             self.pipeline_telemetry.deliver_state_fn = \
                 self.deliver_lanes.state
             self.stats.register_stats_fun(self.deliver_lanes.stats_fun)
-        self.device_engine = DeviceRouteEngine(
-            self, device=self.device,
-            rebuild_threshold=rebuild_threshold,
-            fanout_cap=perf.get("device_fanout_cap", 128),
-            slot_cap=perf.get("device_slot_cap", 16),
-            match_cache_size=perf.get("match_cache_size"),
-            dedup=perf.get("topic_dedup"),
-            delta_overlay=perf.get("delta_overlay"),
-            subscription_covering=perf.get("subscription_covering"))
+        mc = perf.get("multichip") or {}
+        if mc.get("enable"):
+            # the dp×route mesh serves instead of the single-chip
+            # engine, behind the same batcher protocol
+            from emqx_tpu_torch.parallel.serving import ShardedRouteServer
+            self.device_engine = ShardedRouteServer(
+                self, n_devices=mc.get("devices"), dp=mc.get("dp"),
+                device=self.device,
+                fanout_cap=perf.get("device_fanout_cap", 128),
+                slot_cap=perf.get("device_slot_cap", 16),
+                max_batch=mc.get("max_batch", 256),
+                delta_overlay=perf.get("delta_overlay"),
+                dispatch_depth=dispatch_depth,
+                device_exchange=perf.get("device_exchange"),
+                subscription_covering=perf.get("subscription_covering"))
+            max_batch = mc.get("max_batch", 256)
+        else:
+            self.device_engine = DeviceRouteEngine(
+                self, device=self.device,
+                rebuild_threshold=rebuild_threshold,
+                fanout_cap=perf.get("device_fanout_cap", 128),
+                slot_cap=perf.get("device_slot_cap", 16),
+                match_cache_size=perf.get("match_cache_size"),
+                dedup=perf.get("topic_dedup"),
+                delta_overlay=perf.get("delta_overlay"),
+                subscription_covering=perf.get("subscription_covering"))
+            max_batch = perf.get("max_publish_batch", 1024)
         self.publish_batcher = PublishBatcher(
             self, self.device_engine,
             window_us=perf.get("batch_window_us", 200),
-            max_batch=perf.get("max_publish_batch", 1024),
+            max_batch=max_batch,
             device_min_batch=perf.get("device_min_batch", 4),
             dispatch_depth=dispatch_depth)
         self.cm = ConnectionManager()

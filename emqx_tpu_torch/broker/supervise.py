@@ -41,8 +41,9 @@ lanes) plugs into this supervision tree:
   and probe success steps back up. The ``lane_deliver`` breaker gates
   the delivery lanes (open → inline delivery), ``snapshot_swap`` gates
   background rebuild attempts, ``mesh_exchange`` gates the sharded mesh
-  (nothing in the port traverses it yet: the mesh is not served under
-  ``Node``). Knob: ``broker.supervise`` (on); off builds no supervisor
+  (``parallel/serving.ShardedRouteServer``: open, its windows route on
+  the host; its injection point rides the mesh's dispatch, which the
+  ``dispatch`` stage's watchdog covers). Knob: ``broker.supervise`` (on); off builds no supervisor
   anywhere and restores the unsupervised unwind exactly.
 
 - **Window-journal replay** (`journal_admit`/`journal_settle`): every
@@ -155,8 +156,9 @@ def contained(exc: BaseException, on_card: bool, *,
 
 # the injection points each watchdogged stage traverses on its thread: a
 # stall of the stage is the injector's while a hang clause sleeps at one
-# of them (the match cache's insert runs inside the readback)
-STAGE_POINTS = {"dispatch": ("dispatch",),
+# of them (the match cache's insert runs inside the readback, the mesh's
+# exchange point inside its dispatch)
+STAGE_POINTS = {"dispatch": ("dispatch", "mesh_exchange"),
                 "materialize": ("materialize", "cache_insert")}
 
 

@@ -45,8 +45,11 @@ builds them; the ``latency`` and ``overload`` sections exist only then,
 even at ``full=True``. The ``supervise`` section carries the
 supervisor's counters (faults by point, stalls by stage) and, where the
 node builds a supervisor (``supervise_state_fn``), its live breaker,
-rung and journal state. Not ported: the reference's exchange section
-(the mesh is not served under ``Node``).
+rung and journal state. The ``exchange`` section counts the mesh
+server's exchange windows against its gathers by reason, the ring's
+rounds and bytes, and the bytes landed on the host; with exchange
+traffic it also lists the process's exchange steps
+(``parallel/sharded.exchange_step_stats``: segment class and calls).
 """
 
 from __future__ import annotations
@@ -316,6 +319,24 @@ class PipelineTelemetry:
             readback["reduction"] = round(
                 readback["bytes_per_window_dense"]
                 / readback["bytes_per_window_compact"], 2)
+        # the mesh's device-to-device exchange: windows served from the
+        # exchanged per-dest plans against the gathers by reason, ring
+        # rounds, interconnect and host-landed bytes. Absent without
+        # exchange traffic
+        exchange = self._vals("pipeline.exchange.", (
+            "windows", "rounds", "bytes_exchanged", "host_landed_bytes",
+            "overflow", "cold_class", "probe_bytes"))
+        fb = self._family("pipeline.exchange.fallback.")
+        if fb:
+            exchange["fallbacks"] = fb
+        if exchange.get("windows"):
+            exchange["host_landed_per_window"] = round(
+                exchange.get("host_landed_bytes", 0) / exchange["windows"])
+        if exchange:
+            import sys
+            sh = sys.modules.get("emqx_tpu_torch.parallel.sharded")
+            if sh is not None:
+                exchange["steps"] = sh.exchange_step_stats()
         # rebuild machinery: stage spans, counts, compaction reasons and
         # the engine's live gauges
         rebuild = {}
@@ -393,7 +414,8 @@ class PipelineTelemetry:
         for name, sec in (("supervise", supervise), ("rebuild", rebuild),
                           ("deliver", deliver),
                           ("match_cache", cache), ("dedup", dedup),
-                          ("readback", readback), ("trace", trace),
+                          ("readback", readback), ("exchange", exchange),
+                          ("trace", trace),
                           ("ingress", ingress), ("memory", memory)):
             if sec or full:
                 out[name] = sec

@@ -50,9 +50,10 @@ WINDOWS = 8
 # completes inline — slow, but nothing failed and nothing was lost
 WATCHDOGGED = ("dispatch", "materialize", "mesh_exchange")
 
-# the single-node matrix: mesh_exchange needs the mesh under Node (not
-# served by the port yet); the overload points are traversed by the
-# governor's poll and ride the overload cells below
+# the single-node matrix: mesh_exchange is traversed by the mesh server
+# only (run_case(..., mesh=True) builds a multichip node for it); the
+# overload points are traversed by the governor's poll and ride the
+# overload cells below
 MATRIX_POINTS = tuple(
     p for p in FAULT_POINTS
     if p not in ("mesh_exchange", "signal_spike", "stuck_grade"))
@@ -75,13 +76,21 @@ class Rec:
         return True
 
 
+# the mesh node of the mesh_exchange cells: dp=2 x route=4 shards, and a
+# window class that holds a scheduled window
+MESH = {"enable": True, "devices": 8, "dp": 2, "max_batch": 128}
+
+
 def build_node(*, lanes: int = 2, supervise: bool = True,
-               threshold: int = 1, device=None) -> Node:
-    return Node({"broker": {
+               threshold: int = 1, device=None, mesh: bool = False) -> Node:
+    broker = {
         "device_fanout_cap": 16, "device_slot_cap": 4,
         "deliver_lanes": lanes, "device_min_batch": 4,
         "batch_window_us": 2000, "supervise": supervise,
-        "supervise_threshold": threshold}}, device=device)
+        "supervise_threshold": threshold}
+    if mesh:
+        broker["multichip"] = MESH
+    return Node({"broker": broker}, device=device)
 
 
 def tune(sup, *, cooldown_s: float = COOLDOWN_S,
@@ -137,6 +146,16 @@ async def _warm(node: Node) -> None:
     hit the DEVICE path, not a cold-class host detour)."""
     eng = node.device_engine
     eng.rebuild()
+    if hasattr(eng, "warm_exchange"):
+        # the mesh: every batch class, and the exchange classes of a
+        # scheduled window and of a settle tick
+        Bp = eng.n_dp
+        while Bp <= eng.max_batch:
+            eng._warm_one(Bp)
+            Bp *= 2
+        eng.warm_exchange(BATCH)
+        eng.warm_exchange(N_FILTERS)
+        return
     eng._kick_class_warm()
     if eng._fuse_warm_task is not None:
         await eng._fuse_warm_task
@@ -191,10 +210,11 @@ async def _released(node: Node, timeout_s: float) -> None:
 
 def run_case(point: str, kind: str, *, lanes: int = 2,
              hang_s: float = 0.5, count: int = 1, device=None,
-             pin_device: bool = True) -> dict:
+             pin_device: bool = True, mesh: bool = False) -> dict:
     """One faulted run: returns the settled counts, per-session order and
-    the supervision counters for the oracle."""
-    node = build_node(lanes=lanes, threshold=1, device=device)
+    the supervision counters for the oracle. ``mesh`` serves through the
+    multichip node (the mesh_exchange point's)."""
+    node = build_node(lanes=lanes, threshold=1, device=device, mesh=mesh)
     sup = node.supervisor
     tune(sup)
     if pin_device:
@@ -246,14 +266,15 @@ def run_case(point: str, kind: str, *, lanes: int = 2,
         # rung-1 plain windows must find theirs captured)
         "eager_windows": m.val("routing.device.eager_windows"),
         "probe_launches": dict(node.device_engine.probe_launches),
+        "exchange_windows": m.val("pipeline.exchange.windows"),
     }
 
 
 def run_twin(*, lanes: int = 2, delta: bool = False, device=None,
-             pin_device: bool = True) -> dict:
+             pin_device: bool = True, mesh: bool = False) -> dict:
     """The fault-free twin: same node shape, same schedule, no armed
     clauses — the oracle both the counts and the order compare to."""
-    node = build_node(lanes=lanes, threshold=1, device=device)
+    node = build_node(lanes=lanes, threshold=1, device=device, mesh=mesh)
     if pin_device:
         node.publish_batcher._device_worth_it = lambda: True
     sinks = build_world(node, with_delta=delta)
@@ -275,6 +296,7 @@ def run_twin(*, lanes: int = 2, delta: bool = False, device=None,
         "counts": [list(c) for c in counts],
         "order": {sid: list(s.got) for sid, s in sinks.items()},
         "device_batches": node.metrics.val("routing.device.batches"),
+        "exchange_windows": node.metrics.val("pipeline.exchange.windows"),
     }
 
 

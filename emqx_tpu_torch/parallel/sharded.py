@@ -1,8 +1,11 @@
 """The sharded route step and the device-to-device exchange over a mesh.
 
 Counterpart of ``emqx_tpu/parallel/sharded.py``: ``stack_tables`` (:36),
-``put_sharded`` (:45, without the ledger), ``update_shard`` (:84),
-``make_sharded_route_step`` (:115) and ``make_exchange_step`` (:240).
+``put_sharded`` (:45), ``_apply_shard_update_keep`` (:74),
+``update_shard`` (:84), ``make_sharded_route_step`` (:115),
+``make_exchange_step`` (:240) and the process's record of exchange
+steps (``exchange_step_stats``, the counterpart of
+``exchange_compile_stats`` :214-240).
 
 Each route shard owns a disjoint filter subset compiled into its own
 tables (same array shapes, different contents, stacked on a leading
@@ -20,6 +23,9 @@ device gets its slice, and its exchange blocks, moved there. On one card
 """
 
 from __future__ import annotations
+
+import itertools
+import weakref
 
 import numpy as np
 import torch
@@ -54,12 +60,28 @@ def stack_tables(tables_list: list):
     return tree_map(lambda _x: next(stacked), first)
 
 
-def put_sharded(mesh, tables_stacked, cursors_stacked):
+def put_sharded(mesh, tables_stacked, cursors_stacked, ledger=None):
     """Upload stacked tables and cursors [R, G] to the mesh's first
-    device."""
+    device. With `ledger` (``broker/hbm_ledger.HbmLedger``) they are
+    held under ``mesh_tables`` and ``mesh_cursors``."""
     dev = mesh.grid[0][0]
-    return (stacked_from_numpy(tables_stacked, dev),
-            torch.as_tensor(np.asarray(cursors_stacked)).to(dev))
+    tables = stacked_from_numpy(tables_stacked, dev)
+    cursors = torch.as_tensor(np.asarray(cursors_stacked)).to(dev)
+    if ledger is not None:
+        tables = ledger.hold("mesh_tables", tables)
+        cursors = ledger.hold("mesh_cursors", cursors)
+    return tables, cursors
+
+
+def _apply_shard_update_keep(full, new, idx: int):
+    """Write shard `idx`'s slices of `new` into copies of the stacked
+    tensors `full`: the previous tensors stay valid for whoever still
+    reads them (a window in flight, a warm-up thread), at the cost of a
+    transient second copy."""
+    out = tree_map(torch.clone, full)
+    for f, n in zip(_leaves(out), _leaves(new)):
+        f[idx].copy_(torch.as_tensor(np.asarray(n)))
+    return out
 
 
 def update_shard(tables_stacked, shard_idx: int, shard_tables,
@@ -83,7 +105,8 @@ def update_shard(tables_stacked, shard_idx: int, shard_tables,
             "shard tables shapes diverge from the stacked capacity "
             "classes; rebuild every shard with matching capacities")
     if not donate:
-        tables_stacked = tree_map(torch.clone, tables_stacked)
+        return _apply_shard_update_keep(tables_stacked, shard_tables,
+                                        shard_idx)
     for f, n in zip(_leaves(tables_stacked), new):
         f[shard_idx].copy_(torch.as_tensor(np.asarray(n)))
     return tables_stacked
@@ -125,12 +148,14 @@ def _flatten_subs(subs):
 def make_sharded_route_step(mesh, *, backend: str = "trie",
                             frontier_cap: int = 16, match_cap: int = 64,
                             fanout_cap: int = 128, slot_cap: int = 16,
-                            scan=prefix_sum):
+                            scan=prefix_sum, hold=None):
     """The multi-shard route step for `mesh` ('dp', 'route').
 
     backend: 'trie' (RouterTables shards) or 'shapes' (ShapeRouterTables
     shards). ``scan`` defaults to the kernel wrapper; ``prefix_sum_ref``
-    gives the reference path.
+    gives the reference path. ``hold(category, tree)``, where given,
+    registers the step's own copy of the tables (laid end to end per
+    device) with an HBM ledger under ``mesh_tables``.
 
     step(tables [R, ...], cursors [R, G], topics [B, L], lens [B],
          is_dollar [B], msg_hash [B], strategy) -> RouteResult
@@ -177,6 +202,8 @@ def make_sharded_route_step(mesh, *, backend: str = "trie",
             else [tree_map(lambda x, j=j: x[j].to(dev), tables) for j in rs]
         out = (part._replace(subs=_flatten_subs(part.subs)), per_shard,
                covers)
+        if hold is not None:
+            hold("mesh_tables", out[0])
         flat_cache[(dev, tuple(rs))] = (key, out)
         return out
 
@@ -297,6 +324,29 @@ def _merge(recv: torch.Tensor, cnts: torch.Tensor, E: int, scan):
     return plan, torch.clamp(tot, max=E), src_cnt, tot
 
 
+# the exchange steps this process built, held weakly (the record must not
+# keep a dead server's steps alive): seq -> (weakref, segment class)
+_EXCHANGE_STEPS: dict = {}
+_EXCHANGE_SEQ = itertools.count()
+
+
+def exchange_step_stats() -> dict:
+    """The live exchange steps: ``exchange_step_<seq>`` -> their segment
+    class and the windows each ran (the telemetry's exchange section)."""
+    out: dict = {}
+    for seq, (ref, E) in sorted(_EXCHANGE_STEPS.items()):
+        fn = ref()
+        if fn is not None:
+            out[f"exchange_step_{seq}"] = {"seg_cap": E, "calls": fn.calls}
+    return out
+
+
+def _register_exchange_step(fn, E: int) -> None:
+    seq = next(_EXCHANGE_SEQ)
+    _EXCHANGE_STEPS[seq] = (weakref.ref(
+        fn, lambda _r, s=seq: _EXCHANGE_STEPS.pop(s, None)), E)
+
+
 def make_exchange_step(mesh, *, seg_cap: int, scan=prefix_sum,
                        rotate=ring_rotate):
     """The exchange program for `mesh` ('dp', 'route'), segment capacity
@@ -329,6 +379,7 @@ def make_exchange_step(mesh, *, seg_cap: int, scan=prefix_sum,
 
     def exch(matches, rows, opts, shared_sids, overflow,
              aux) -> ExchangeResult:
+        exch.calls += 1
         B, _, M = matches.shape
         F = rows.shape[2]
         b = B // dp
@@ -410,4 +461,6 @@ def make_exchange_step(mesh, *, seg_cap: int, scan=prefix_sum,
         return ExchangeResult(plan=plan, plan_cnt=plan_cnt,
                               src_cnt=src_cnt, ok=ok)
 
+    exch.calls = 0
+    _register_exchange_step(exch, E)
     return exch

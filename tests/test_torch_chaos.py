@@ -76,6 +76,31 @@ def test_chaos_cell_equals_reference(point, kind, twins):
         assert j["replays"] >= 1
 
 
+@pytest.fixture(scope="module")
+def mesh_twin():
+    """The fault-free run of the mesh node (multichip, dp=2 x route=4)."""
+    t = TC.run_twin(device="cpu", mesh=True)
+    assert t["device_batches"] > 0 and t["exchange_windows"] > 0
+    return t
+
+
+@pytest.mark.parametrize("kind", FAULT_KINDS)
+def test_mesh_exchange_cell(kind, twins, mesh_twin):
+    """The mesh_exchange point on the mesh node: each kind, counted by the
+    injector (one firing), replays its window on the host or stalls and
+    replays (hang), the breaker trips and re-closes, the ladder ends at
+    rung 0, and every session's deliveries equal the fault-free mesh
+    run's, which equal the single-chip node's."""
+    case = TC.run_case("mesh_exchange", kind, device="cpu", mesh=True)
+    assert TC.grade(case, mesh_twin, "mesh_exchange", kind) == []
+    assert case["replays"] >= 1 and case["fired"] == 1
+    t_twin, _j = twins[False]
+    assert TC.scheduled(case, mesh_twin) == TC.scheduled(mesh_twin, t_twin) \
+        == TC.scheduled(t_twin, t_twin)
+    if kind == "hang":
+        assert case["stalls"] >= 1
+
+
 @pytest.mark.parametrize("fault", [
     "dispatch:exception", "materialize:resource", "materialize:corrupt",
     "dispatch:hang", "oom"])

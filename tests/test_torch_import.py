@@ -5,6 +5,7 @@ refuse to run without CUDA unless the caller asks for the CPU."""
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -154,6 +155,23 @@ class TestDefaultDevice:
         plan = eng.route(["a/b"])[0]
         assert list(plan.rows) == [1]
         assert eng.filters[int(plan.fids[0])] == "a/+"
+
+    def test_mesh_server_under_node(self):
+        """The multichip node (ShardedRouteServer) defaults to the card as
+        the single-chip node does; a mesh without a device given is
+        placed on cuda:0 and raises here."""
+        from emqx_tpu_torch.broker.node import Node
+        from emqx_tpu_torch.parallel.serving import ShardedRouteServer
+        conf = {"broker": {"multichip": {"enable": True, "devices": 8,
+                                         "dp": 2}}}
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Node(conf)
+        node = Node(conf, device="cpu")
+        assert isinstance(node.device_engine, ShardedRouteServer)
+        assert node.device_engine.device.type == "cpu"
+        bare = types.SimpleNamespace(broker=node.broker)   # no device
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ShardedRouteServer(bare)
 
 
 def test_chip_smoke_fails_without_a_card():

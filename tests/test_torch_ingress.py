@@ -535,12 +535,31 @@ async def _channel_burst(pkg, node, ver, blob, columnar=True):
             {k: m.val(k) - v for k, v in before.items()})
 
 
+class _ScriptedClock:
+    """One clock for both packages' token buckets: it stands still, so a
+    bucket refills the same (not at all) in both runs, however long each
+    takes to route its rows."""
+
+    def __init__(self, t0: float = 1000.0):
+        self.t = t0
+
+    def monotonic(self) -> float:
+        return self.t
+
+
 @pytest.mark.parametrize("ver", [V4, V5])
 @pytest.mark.parametrize("case", list(CASES))
-def test_handle_publish_burst_equals_reference(case, ver):
+def test_handle_publish_burst_equals_reference(case, ver, monkeypatch):
     """The acks, error acks and DISCONNECTs on the publisher's wire, in
     row order, the subscriber's deliveries and the counters equal the
-    reference channel's."""
+    reference channel's. Both limiters read one scripted clock: each run
+    read its own wall clock before, and the quota case's buckets refilled
+    by different amounts when one run was slower (under xdist)."""
+    from emqx_tpu.broker import limiter as JL
+    from emqx_tpu_torch.broker import limiter as TL
+    clock = _ScriptedClock()
+    monkeypatch.setattr(JL, "time", clock)
+    monkeypatch.setattr(TL, "time", clock)
     blob = _serialize(_burst_specs(case, ver), ver)
     conf = dict(CASES[case])
     t = TNode(dict(conf, broker={"deliver_lanes": 0}), device="cpu")

@@ -475,7 +475,8 @@ def test_layer_defaults_are_the_references():
     ("subscription_covering", True), ("supervise", True),
     ("hbm_ledger", True), ("trace", True), ("latency_observatory", True),
     ("overload", True), ("deliver_lanes", 4), ("columnar_ingress", True),
-    ("compact_readback", False)])
+    ("compact_readback", False), ("device_route", False),
+    ("multichip", {"enable": True, "devices": 8, "dp": 2})])
 def test_unsupported_layer_raises(key, value):
     """A config that asks for a layer the port lacks is refused, not
     served without it; the same key set off is accepted. Subscription
@@ -484,7 +485,12 @@ def test_unsupported_layer_raises(key, value):
     overload governor, ported since, are accepted either way and reach
     the node: the supervisor reaches the batcher, the engine, the lanes,
     the governor (its journal_depth signal) and the telemetry (the
-    supervise section), and off it is None everywhere."""
+    supervise section), and off it is None everywhere. The mesh
+    (``multichip``) builds the port's ShardedRouteServer behind a batcher
+    of the reference's max_batch 256 (the twin of
+    ``tests/test_multichip_serving.py:49``); the dense readback
+    (``compact_readback: false``) is refused on either engine, and the
+    host-only node (``device_route: false``) is refused."""
     if key == "supervise":
         for node in (TNode({"broker": {key: value}}, device="cpu"),
                      TNode(device="cpu")):
@@ -533,6 +539,26 @@ def test_unsupported_layer_raises(key, value):
                      device="cpu").deliver_lanes.n_lanes == value
         assert TNode({"broker": {key: 0}}, device="cpu").deliver_lanes \
             is None
+        return
+    if key == "multichip":
+        from emqx_tpu_torch.parallel.serving import ShardedRouteServer
+        node = TNode({"broker": {key: value}}, device="cpu")
+        ref = JNode({"broker": {key: value}})
+        eng = node.device_engine
+        assert isinstance(eng, ShardedRouteServer)
+        assert (eng.n_dp, eng.n_route) == (ref.device_engine.n_dp,
+                                           ref.device_engine.n_route)
+        assert node.publish_batcher.engine is eng
+        assert node.publish_batcher.max_batch == \
+            ref.publish_batcher.max_batch == 256
+        assert eng.sup is node.supervisor \
+            and eng.ledger is node.hbm_ledger
+        with pytest.raises(ValueError, match="compact_readback"):
+            TNode({"broker": {key: value, "compact_readback": False}},
+                  device="cpu")
+        assert not isinstance(TNode({"broker": {key: {"enable": False}}},
+                                    device="cpu").device_engine,
+                              ShardedRouteServer)
         return
     if key == "columnar_ingress":
         on = TNode({"broker": {key: value}}, device="cpu")
