@@ -34,7 +34,7 @@ Phases:
    kernel at the same grid (the launch floor), torch.cumsum and the
    wrapper call;
 5. the kernels JSON line, the card line, and the result line last
-   (after phases 6 to 14);
+   (after phases 6 to 15);
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
    every hop count at the mesh phase's [E, 3] block and at a ragged
    [1001, 3] block (aligned and unaligned), and across two cards with
@@ -205,6 +205,39 @@ Phases:
    the capture seconds of the full build against the incremental one
    after 512 churned filters, the two captures equal, the next window
    exact against the plain path.
+15. the default node booted from the repo's etc/emqx.conf, as the
+   reference's README boots it: the file copied unchanged to a temp dir
+   with a runtime-override file beside it (the shipped tcp and ws
+   listeners moved to 127.0.0.1 port 0, the commented ssl_default
+   listener added with certificates made by
+   utils.tls.generate_self_signed, the congestion alarm on with a 1 s
+   sustain, a 5 s latency objective), Config.load_file, then
+   Node.from_config_file on the card, start_listeners and
+   start_timers. 15a: phase 8's population
+   subscribed over TCP, the warm-up, then 32,000 PUBLISHes from 4 TCP, 2
+   TLS and 2 WebSocket publishers (every 4th at QoS 1): every message
+   once and in order (as phase 8), at least 0.9 on the device, kernels 1
+   and 2 launched (one shape_match a window); msgs/s overall and by
+   transport (delivered: a transport's messages over the time to their
+   last delivery), client p50 / p99, the columnar burst share by
+   transport and the launches a window by shape. 15b on that node: a
+   banned clientid refused with CONNACK 0x8A over each transport and
+   admitted once its ban expired and sweep ran; OsMon's readings and the
+   alarms it raised (printed, not failed on); a subscriber that stops
+   reading during a 5,000-message QoS 0 burst of 8 KB raises
+   conn_congestion/<clientid>/<user> and connection.congested, and the
+   alarm clears once it reads again. 15c: 16,000 PUBLISHes through that
+   node (CSR readback) and through a compact_readback: false node booted
+   from the same files: every plain subscription's deliveries equal per
+   session, no compact window and no cold compact class on the dense
+   node; readback bytes a message and windows by mode, msgs/s and kernel
+   2's launches a window by shape both ways; then a multichip node with
+   compact_readback false and its CSR twin, phase 8's population in
+   process, 4,000 messages in the same windows through both: every
+   session's deliveries equal. 15d: a device_route: false node with the
+   same population and 16,000 PUBLISHes: every message once and in
+   order, no kernel launched, torch.cuda.memory_allocated unchanged by
+   the node; its msgs/s is the host baseline.
 
 Every node of phases 8-12 runs supervised, as the default node does, and
 must end its phase with no supervised fault, replay, stall or trip (the
@@ -234,6 +267,9 @@ trace with a recorder whose ring holds the whole flood (nothing may be
 overwritten): every ``route_step#<trace id>`` range must name a trace
 the ring holds a dispatch span under.
 
+``python3 chip_smoke.py --boot`` builds the kernels and runs phase 15
+alone.
+
 ``python3 chip_smoke.py --trace-cost`` runs phase 8's node alone with
 its depth-2 lanes flood in eight rounds of four layer settings (the
 recorder and the observatory on, off, the observatory alone, both on
@@ -246,6 +282,8 @@ from __future__ import annotations
 
 import gc
 import json
+import logging
+import os
 import re
 import subprocess
 import sys
@@ -1267,7 +1305,7 @@ async def _warm_up(node, pub, subs, nums: int) -> None:
 
 async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
                  seed: int, replays: bool = False,
-                 per_topic: bool = False) -> dict:
+                 per_topic: bool = False, groups=None) -> dict:
     """bench.py:1283-1366: every publisher floods its share of `total`
     messages to device/d{i}/x/n{n}/t (each matches exactly one filter),
     every 4th at QoS 1 with pipelined PUBACKs; drainers record every
@@ -1278,7 +1316,10 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
     engine never is. ``per_topic``: the order is held per publisher and
     topic (MQTT's ordered topic), as the mesh's consume orders a window's
     deliveries by source shard (a session's filters on two shards may
-    receive a publisher's two messages in shard order)."""
+    receive a publisher's two messages in shard order). ``groups``
+    ({label: publisher indices}, e.g. by transport): each group's
+    delivered msgs/s (its messages over the time to its last delivery)
+    and client p50 / p99 as ``by_group``."""
     import asyncio
     import struct
 
@@ -1287,13 +1328,18 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
     per_pub = total // n_pub
     got = [[] for _ in range(n_sub)]   # (pub, seq, i, n, qos) per conn
     lat: list[float] = []
+    lat_pub: list[int] = []
+    last_seen = [0.0] * n_pub          # time of a publisher's last delivery
     fmt = "<dIIII"
 
     async def drain(c, cl):
         while True:
             m = await cl.messages.get()
             t, p, s, i, n = struct.unpack(fmt, m.payload)
-            lat.append(time.perf_counter() - t)
+            now = time.perf_counter()
+            lat.append(now - t)
+            lat_pub.append(p)
+            last_seen[p] = now
             got[c].append((p, s, i, n, m.qos))
 
     async def flood(p, cl):
@@ -1332,10 +1378,12 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
         "pipeline.deliver.plans", *INGRESS_COUNTERS, *faults,
         *LAYER_COUNTERS,
         *(f"routing.device.{s}_us" for s in stages))}
+    # (the host-only node has no batcher; the JAX reference's batcher,
+    # driven by the CPU tests, keeps no samples and its engine no
+    # `failed`)
     pb = node.publish_batcher
-    pb.route_lat.clear()
-    # (the JAX reference's batcher, driven by the CPU tests, keeps no
-    # samples and its engine no `failed`)
+    if pb is not None:
+        pb.route_lat.clear()
     samples = getattr(pb, "cost_samples", {})
     wins = getattr(pb, "window_costs", [])
     for q in (*samples.values(), wins):
@@ -1345,6 +1393,7 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
     D.reset_launches()
     _DISPATCHES.clear()
     t0 = time.time()
+    t0_perf = time.perf_counter()
     try:
         await asyncio.gather(*[flood(p, cl) for p, cl in enumerate(pubs)])
         deadline = time.time() + 120
@@ -1405,7 +1454,19 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
         raise AssertionError(f"{wrong_conn} deliveries to a connection "
                              f"that does not hold the filter")
     lat_ms = np.sort(np.array(lat)) * 1e3
-    return {"sent": sent, "q1_sent": q1_sent, "delivered": int(seen.sum()),
+    by_group = None
+    if groups:
+        lat_a, pub_a = np.array(lat) * 1e3, np.array(lat_pub)
+        by_group = {}
+        for label, ps in groups.items():
+            g = lat_a[np.isin(pub_a, ps)]
+            by_group[label] = {
+                "publishers": len(ps), "sent": per_pub * len(ps),
+                "per_sec": int(round(per_pub * len(ps) / (
+                    max(last_seen[p] for p in ps) - t0_perf))),
+                "lat_p50_ms": float(np.percentile(g, 50)),
+                "lat_p99_ms": float(np.percentile(g, 99))}
+    return {"sent": sent, "by_group": by_group, "q1_sent": q1_sent, "delivered": int(seen.sum()),
             "wall_s": dt, "per_sec": int(round(int(seen.sum()) / dt)),
             "device_routed": delta["messages.routed.device"],
             "batches": delta["routing.device.batches"],
@@ -1425,14 +1486,14 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
             / max(1, delta["routing.host.messages"]),
             "lat_p50_ms": float(np.percentile(lat_ms, 50)),
             "lat_p99_ms": float(np.percentile(lat_ms, 99)),
-            "route_lat": pb.lat_percentiles(),
+            "route_lat": pb.lat_percentiles() if pb is not None else None,
             "launches": launches, "order_per_qos": queued,
             "dev_msg_us": (getattr(pb, "_dev_msg_s", 0) or 0) * 1e6,
-            "host_msg_us": (pb._host_msg_s or 0) * 1e6,
+            "host_msg_us": (getattr(pb, "_host_msg_s", 0) or 0) * 1e6,
             "samples_us": {k: _spread(q) for k, q in samples.items()},
             # the device windows' own cost a message, by window size (the
             # chooser pools the small ones: batcher._device_sample)
-            "small_window": pb.max_batch // 4,
+            "small_window": pb.max_batch // 4 if pb is not None else None,
             "window_us": {
                 size: _spread([c / n for n, c in wins
                                if (n < pb.max_batch // 4) == (size == "small")])
@@ -4904,6 +4965,600 @@ def mesh_node_phase(dev, card: str) -> dict:
             "err": max(a["window_err"], r["window_err"], c["window_err"])}
 
 
+# ---- phase 15: the default node booted from its config file ------------
+
+# the repo's shipped configuration
+BOOT_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "etc",
+                         "emqx.conf")
+BOOT_PUBS = (("tcp", 4), ("ssl", 2), ("ws", 2))   # publishers by transport
+BOOT_MSGS = E2E_MSGS                 # 15a's flood
+BOOT_BAN_S = 2.0                     # 15b's ban duration
+BOOT_SUSTAIN_S = 1                   # conn_congestion's sustain in 15b
+BOOT_SLOW_MSGS = 5_000               # 15b's QoS 0 burst to a stalled reader
+BOOT_SLOW_PAYLOAD = 8192
+BOOT_DENSE_MSGS = 16_000             # 15c's floods, dense and CSR
+BOOT_MESH_MSGS = 4_000               # 15c's mesh leg
+BOOT_HOST_MSGS = 16_000              # 15d's flood
+BOOT_TIMEOUT_S = 30.0
+# the latency objective the override sets: at the 2 ms default every
+# message of a flood beyond the node's rate breaches, and the governor
+# (polled once start_timers runs) sheds QoS 0 and disconnects publishers
+BOOT_SLO_MS = 5000
+
+
+def boot_override(certs: dict) -> str:
+    """The runtime-override file (``emqx_override.conf``, beside a copy
+    of the shipped file in a temp dir) 15a boots with: the shipped
+    listeners on
+    127.0.0.1 port 0, the commented ``ssl_default`` listener with fresh
+    certificates, the congestion alarm on with a short sustain, and an
+    end-to-end objective a max-rate flood can keep (BOOT_SLO_MS)."""
+    return (
+        "listeners {\n"
+        '  tcp_default { bind = "127.0.0.1", port = 0 }\n'
+        '  ws_default { bind = "127.0.0.1", port = 0 }\n'
+        '  ssl_default { type = ssl, bind = "127.0.0.1", port = 0\n'
+        f'    ssl {{ certfile = "{certs["certfile"]}"\n'
+        f'          keyfile = "{certs["keyfile"]}"\n'
+        f'          cacertfile = "{certs["cacertfile"]}"\n'
+        "          verify = verify_none } }\n"
+        "}\n"
+        "conn_congestion { enable_alarm = true, "
+        f"min_alarm_sustain_duration = {BOOT_SUSTAIN_S}s }}\n"
+        f"broker.slo_route_p99_ms = {BOOT_SLO_MS}\n")
+
+
+def _boot_ports(node) -> dict:
+    """Transport -> port of a booted node's listeners."""
+    out = {}
+    for lst in node.listeners:
+        kind = getattr(lst, "protocol", None) or lst.name.split(":")[0]
+        out[{"mqtt:ws": "ws", "mqtt:wss": "wss"}.get(kind, kind)] = lst.port
+    return out
+
+
+def _boot_client(ports: dict, transport: str, certs: dict, **kw):
+    """A port Client over one of the booted node's transports."""
+    from emqx_tpu_torch.broker.ws import open_ws_connection
+    from emqx_tpu_torch.client import Client
+    if transport == "ws":
+        port = ports["ws"]
+        return Client(conn_factory=lambda: open_ws_connection(
+            "127.0.0.1", port), **kw)
+    if transport == "ssl":
+        kw["ssl"] = {"cacertfile": certs["cacertfile"]}
+    return Client(port=ports[transport], **kw)
+
+
+async def _boot_pubs(ports: dict, certs: dict, tag: str) -> tuple:
+    """BOOT_PUBS' publishers, connected; (clients, {transport: indices})."""
+    pubs, groups = [], {}
+    for tr, n in BOOT_PUBS:
+        for _ in range(n):
+            groups.setdefault(tr, []).append(len(pubs))
+            cl = _boot_client(ports, tr, certs,
+                              clientid=f"{tag}pub{len(pubs)}")
+            await cl.connect()
+            pubs.append(cl)
+    return pubs, groups
+
+
+def _plain_sets(f: dict, nums: int) -> list:
+    """Per subscriber connection: the sorted (publisher, seq) pairs it got
+    for plain (non-shared) filters."""
+    return [sorted((p, s) for p, s, i, n, _q in rows
+                   if not e2e_shared(i, n, nums)) for rows in f["got"]]
+
+
+READBACK = ("pipeline.readback.bytes.dense", "pipeline.readback.bytes.compact",
+            "pipeline.readback.windows.dense",
+            "pipeline.readback.windows.compact",
+            "routing.device.cold_compact_class",
+            "routing.device.compact_overflow")
+
+
+async def _boot_flood(node, subs, pubs, ids, nums, total, seed, groups=None,
+                      min_share=E2E_MIN_DEVICE_SHARE, where="",
+                      device=True) -> dict:
+    """One flood through a booted node (``_flood``) with the readback
+    counters and kernel 2's launches by shape read around it; on a device
+    node it checks the kernels and, with `min_share`, the device
+    share."""
+    from emqx_tpu_torch import device as D
+    m = node.metrics
+    r0 = {k: m.val(k) for k in READBACK}
+    f = await _flood(node, subs, pubs, ids, nums, total, seed,
+                     groups=groups)
+    f["readback"] = {k: m.val(k) - v for k, v in r0.items()}
+    f["scan_shapes"] = dict(D.LAUNCH_SHAPES["prefix_sum"])
+    f["fold_shapes"] = dict(D.LAUNCH_SHAPES["shape_match"])
+    f["device_share"] = f["device_routed"] / f["sent"]
+    f["readback_bytes_per_msg"] = (
+        f["readback"]["pipeline.readback.bytes.dense"]
+        + f["readback"]["pipeline.readback.bytes.compact"]) / f["sent"]
+    if not device:
+        return f
+    if f["batches"] <= 0 or f["device_share"] < min_share:
+        raise AssertionError(f"{where}: {f['device_share']:.3f} of the "
+                             f"flood routed by the device engine")
+    cuda = node.device.type == "cuda"
+    if cuda and (f["launches"]["shape_match"] == 0
+                 or f["launches"]["prefix_sum"] == 0):
+        raise AssertionError(f"{where}: a kernel was not launched: "
+                             f"{f['launches']}")
+    if cuda and node.device_engine._built.backend == "shapes" \
+            and f["launches"]["shape_match"] != f["windows"]:
+        raise AssertionError(f"{where}: {f['launches']['shape_match']} "
+                             f"shape_match launches for {f['windows']} "
+                             f"windows")
+    return f
+
+
+async def _boot_conn(node, certs, ports, tr, clientid):
+    """CONNECT (v5) over transport `tr`; the CONNACK reason code."""
+    from emqx_tpu_torch.client import MqttError
+    from emqx_tpu_torch.mqtt import constants as C
+    cl = _boot_client(ports, tr, certs, clientid=clientid,
+                      proto_ver=C.MQTT_V5)
+    try:
+        await cl.connect()
+    except MqttError:
+        pass
+    rc = cl.connack.reason_code
+    await cl.disconnect()
+    return rc
+
+
+async def _boot_layers(node, certs, ports, pub) -> dict:
+    """15b: the banned table, the OS monitor and the congestion alarm on
+    the booted node."""
+    import asyncio
+
+    from emqx_tpu_torch.client import Client
+    from emqx_tpu_torch.mqtt import constants as C
+    out = {}
+    # a banned clientid is refused (0x8A) over every transport, and
+    # admitted once its ban expired and sweep ran
+    t_ban = time.time()
+    node.banned.create("clientid", "boot-banned", reason="phase 15b",
+                       duration=BOOT_BAN_S)
+    refused = {tr: await _boot_conn(node, certs, ports, tr, "boot-banned")
+               for tr in ports}
+    await asyncio.sleep(max(0.0, t_ban + BOOT_BAN_S + 0.05 - time.time()))
+    node.sweep()
+    left = len(node.banned.all())
+    admitted = {tr: await _boot_conn(node, certs, ports, tr, "boot-banned")
+                for tr in ports}
+    out["banned"] = {"refused": refused, "left_after_sweep": left,
+                     "admitted": admitted}
+    if set(refused.values()) != {C.RC_BANNED} or left \
+            or set(admitted.values()) != {0}:
+        raise AssertionError(f"phase 15b: banned {out['banned']}")
+    # the OS monitor's readings and the alarms it raised (the reference's
+    # behaviour: printed, not failed on)
+    node.os_mon.tick()
+    out["os_mon"] = {"info": node.os_mon.info(),
+                     "watermarks": [node.os_mon.sysmem_high,
+                                    node.os_mon.procmem_high],
+                     "alarms": [
+                         {"name": a["name"], "details": a.get("details")}
+                         for a in node.alarms.get_alarms("activated")
+                         if a["name"].startswith("high_")]}
+    # a subscriber that stops reading during a QoS 0 burst: its
+    # connection's send buffer fills, the timer tick raises the alarm;
+    # once it reads again and the buffer stays empty for the sustain,
+    # the alarm clears
+    m = node.metrics
+    name = "conn_congestion/boot-slow/unknown_user"
+    slow = Client(port=ports["tcp"], clientid="boot-slow")
+    await slow.connect()
+    await slow.subscribe("boot/slow/#", qos=0)
+    cong0 = m.val("connection.congested")
+    shed0 = m.val("pipeline.overload.qos0_shed")
+    slow._writer.transport.pause_reading()
+    payload = b"s" * BOOT_SLOW_PAYLOAD
+    t0 = time.perf_counter()
+    for k in range(BOOT_SLOW_MSGS):
+        pub.publish_start("boot/slow/t", payload, qos=0)
+        if pub.needs_drain:
+            await pub.drain()
+    await pub.drain()
+    raised = None
+    for _ in range(int(BOOT_TIMEOUT_S / 0.05)):
+        if node.alarms.is_active(name):
+            raised = time.perf_counter() - t0
+            break
+        await asyncio.sleep(0.05)
+    t1 = time.perf_counter()
+    slow._writer.transport.resume_reading()
+    got = 0
+    cleared = None
+    for _ in range(int(BOOT_TIMEOUT_S / 0.05)):
+        while not slow.messages.empty():
+            slow.messages.get_nowait()
+            got += 1
+        if got and not node.alarms.is_active(name):
+            cleared = time.perf_counter() - t1
+            break
+        await asyncio.sleep(0.05)
+    await asyncio.sleep(0.5)
+    while not slow.messages.empty():
+        slow.messages.get_nowait()
+        got += 1
+    shed = m.val("pipeline.overload.qos0_shed") - shed0
+    out["congestion"] = {
+        "sent": BOOT_SLOW_MSGS, "payload": BOOT_SLOW_PAYLOAD,
+        "received": got, "qos0_shed": shed,
+        "raised_after_s": raised, "cleared_after_s": cleared,
+        "congested": m.val("connection.congested") - cong0,
+        "sustain_s": BOOT_SUSTAIN_S}
+    await slow.disconnect()
+    if raised is None or cleared is None \
+            or out["congestion"]["congested"] < 1:
+        raise AssertionError(f"phase 15b: congestion {out['congestion']}")
+    if got + shed != BOOT_SLOW_MSGS:
+        raise AssertionError(f"phase 15b: {got} received and {shed} shed "
+                             f"of {BOOT_SLOW_MSGS}")
+    return out
+
+
+def _burst_counter():
+    """Count columnar-burst rows by the listener port they came in on
+    (the channel's sockname): the burst share by transport."""
+    from emqx_tpu_torch.broker.channel import Channel
+    rows: dict = {}
+    orig = Channel.handle_publish_burst
+
+    async def counted(self, burst):
+        port = (self.conninfo.get("sockname") or ("?", 0))[1]
+        rows[port] = rows.get(port, 0) + len(burst.topics)
+        return await orig(self, burst)
+    return rows, orig, counted
+
+
+async def _boot_node_drive(node, certs, n_filters, n_sub, pin_device, tag):
+    """Start the node's listeners, subscribe phase 8's population over
+    TCP and connect BOOT_PUBS' publishers; returns (ports, subs, pubs,
+    groups, ids, nums, shared filters, subscriptions)."""
+    await node.start_listeners()
+    ports = _boot_ports(node)
+    subs, ids, nums, n_shared, n_entries = \
+        await _subscribe_population(ports["tcp"], n_filters, n_sub)
+    pubs, groups = await _boot_pubs(ports, certs, tag)
+    if pin_device and node.publish_batcher is not None:
+        node.publish_batcher._device_worth_it = lambda: True
+    return ports, subs, pubs, groups, ids, nums, n_shared, n_entries
+
+
+async def _boot_stop(node, clients) -> None:
+    for cl in clients:
+        await cl.disconnect()
+    node.stop_timers()
+    await node.stop_listeners()
+    if node.publish_batcher is not None:
+        await node.publish_batcher.stop()
+        node.publish_batcher.close()
+
+
+def _mesh_leg(dev, conf_fn, n_filters, n_sub, total, seed) -> dict:
+    """15c's mesh leg: a multichip node with compact_readback false and
+    its CSR twin, phase 8's population subscribed in-process, the same
+    windows through both (route_batch of max_batch, classes warmed
+    first): equal deliveries per session, dense readback only on the
+    dense one, kernel launches read around each drive."""
+    from emqx_tpu_torch import device as D
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.broker.node import Node
+    ids, nums = e2e_grid(n_filters)
+    r = np.random.RandomState(seed)
+    topics = [f"device/d{i}/x/n{k}/t" for i, k in zip(
+        r.randint(0, ids, total), r.randint(0, nums, total))]
+    out, sinks = {}, {}
+    for mode, compact in (("dense", False), ("csr", True)):
+        conf = conf_fn()
+        conf.update(("broker", "compact_readback"), compact, persist=False)
+        conf.update(("broker", "multichip"), {
+            "enable": True, "devices": MN_DEVICES, "dp": MN_DP},
+            persist=False)
+        node = Node(conf, device=dev)
+        eng, m = node.device_engine, node.metrics
+        try:
+            sk = _populate(node, ids, nums, n_sub)
+            t0 = time.time()
+            eng.route_batch([make("w", 0, "warmup/none/t", b"")], wait=True)
+            Bp = eng.n_dp
+            while Bp <= eng.max_batch:
+                eng._warm_one(Bp)
+                Bp *= 2
+            wr = np.random.RandomState(seed + 1)
+            _warm_mesh_exchange(eng, make, lambda n: [
+                f"device/d{i}/x/n{k}/t" for i, k in zip(
+                    wr.randint(0, ids, n), wr.randint(0, nums, n))],
+                eng.max_batch, m)
+            warm_s = time.time() - t0
+            _take(sk)
+            r0 = {k: m.val(k) for k in READBACK}
+            D.reset_launches()
+            t0 = time.perf_counter()
+            B = eng.max_batch
+            counts = []
+            for k in range(0, total, B):
+                counts += eng.route_batch(
+                    [make(f"p{k // B % 8}", 0, t, b"%d" % (k + j))
+                     for j, t in enumerate(topics[k:k + B])], wait=True)
+            dt = time.perf_counter() - t0
+            launches = dict(D.LAUNCHES)
+            out[mode] = {
+                "msgs": total, "delivered": int(sum(counts)),
+                "per_sec": int(round(total / dt)), "warm_s": warm_s,
+                "windows": -(-total // B), "launches": launches,
+                "scan_shapes": dict(D.LAUNCH_SHAPES["prefix_sum"]),
+                "readback": {k: m.val(k) - v for k, v in r0.items()},
+                "compact_readback": eng.stats()["compact_readback"]}
+            sinks[mode] = _take(sk)
+            if eng.failed is not None:
+                raise AssertionError(f"phase 15c mesh {mode}: the server "
+                                     f"failed: {eng.failed!r}")
+        finally:
+            node.publish_batcher.close()
+            eng.close()
+    d, c = out["dense"], out["csr"]
+    if sinks["dense"] != sinks["csr"] or d["delivered"] != total:
+        raise AssertionError(
+            f"phase 15c mesh: dense and CSR deliveries differ "
+            f"({d['delivered']} / {c['delivered']} of {total})")
+    rb = d["readback"]
+    if rb["pipeline.readback.windows.compact"] \
+            or rb["routing.device.cold_compact_class"] \
+            or not rb["pipeline.readback.windows.dense"]:
+        raise AssertionError(f"phase 15c mesh: dense node read back {rb}")
+    if dev.type == "cuda" and d["launches"]["prefix_sum"] == 0:
+        raise AssertionError(f"phase 15c mesh: kernel 2 was not launched: "
+                             f"{d['launches']}")
+    return out
+
+
+def boot_drive(dev, n_filters: int = E2E_FILTERS,
+               n_sub: int = E2E_SUB_CONNS, total: int = BOOT_MSGS,
+               dense_total: int = BOOT_DENSE_MSGS,
+               mesh_total: int = BOOT_MESH_MSGS,
+               host_total: int = BOOT_HOST_MSGS, seed: int = SEED,
+               pin_device: bool = False, conf_path: str = BOOT_CONF) -> dict:
+    """Phase 15: the default node booted from the repo's ``etc/emqx.conf``,
+    copied unchanged to a temp dir with ``emqx_override.conf`` beside it
+    (``Config.load_file``, then ``Node.from_config_file``,
+    ``start_listeners`` and ``start_timers``):
+    15a phase 8's population over TCP and a flood from publishers over
+    TCP, TLS and WebSocket; 15b the banned table, the OS monitor and the
+    congestion alarm on that node; 15c the dense readback against the
+    CSR one (a TCP flood on a ``compact_readback: false`` node against
+    the booted one, then a mesh node and its CSR twin); 15d the host-only
+    node (``device_route: false``). ``pin_device`` pins the chooser (a
+    CPU rehearsal only). Raises on any failed check."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    import torch
+
+    from emqx_tpu_torch.broker import channel as CH
+    from emqx_tpu_torch.broker.config import Config
+    from emqx_tpu_torch.broker.node import Node
+    from emqx_tpu_torch.utils.tls import generate_self_signed
+    tmp = tempfile.mkdtemp(prefix="emqx-boot-")
+    cuda = dev.type == "cuda"
+
+    async def run():
+        out = {}
+        t0 = time.time()
+        certs = generate_self_signed(os.path.join(tmp, "certs"),
+                                     cn="localhost")
+        # the shipped file, unchanged, with the override beside it: the
+        # reference's boot (emqx_override.conf next to emqx.conf)
+        path = os.path.join(tmp, "emqx.conf")
+        shutil.copy(conf_path, path)
+        with open(os.path.join(tmp, "emqx_override.conf"), "w") as fh:
+            fh.write(boot_override(certs))
+        conf = Config.load_file(path)
+        want = {"tcp_default", "ws_default", "ssl_default"}
+        if set(conf.get("listeners")) != want:
+            raise AssertionError(f"phase 15a: listeners "
+                                 f"{sorted(conf.get('listeners'))}")
+        out["certs_s"] = time.time() - t0
+        alloc0 = torch.cuda.memory_allocated(dev) if cuda else None
+        node = Node.from_config_file(path, device=dev)
+        clients = []
+        try:
+            t0 = time.time()
+            ports, subs, pubs, groups, ids, nums, n_shared, n_entries = \
+                await _boot_node_drive(node, certs, n_filters, n_sub,
+                                       pin_device, "a")
+            clients += subs + pubs
+            node.start_timers()
+            out["a"] = {"filters": ids * nums, "shared_filters": n_shared,
+                        "subscriptions": n_entries,
+                        "subscribe_s": time.time() - t0,
+                        "listeners": sorted(
+                            [getattr(x, "name", None) or x.protocol,
+                             x.port > 0] for x in node.listeners),
+                        "log_handlers": len(logging.getLogger(
+                            "emqx_tpu_torch").handlers)}
+            t0 = time.time()
+            await _warm_up(node, pubs[0], subs, nums)
+            out["a"]["warm_up_s"] = time.time() - t0
+            gc.collect()
+            gc.freeze()
+            rows, orig, counted = _burst_counter()
+            CH.Channel.handle_publish_burst = counted
+            try:
+                f = await _boot_flood(node, subs, pubs, ids, nums, total,
+                                      seed, groups, where="phase 15a")
+            finally:
+                CH.Channel.handle_publish_burst = orig
+            for tr, g in f["by_group"].items():
+                g["burst_share"] = rows.get(ports[tr], 0) / g["sent"]
+            f.pop("got")
+            out["a"]["flood"] = f
+            out["a"]["supervise"] = check_supervised(node, "phase 15a")
+            gov = node.overload_governor
+            out["a"]["governor"] = {"grade": gov.state()["grade"],
+                                    "grade_changes": gov.grade_changes}
+            out["a"]["ledger"] = ledger_line(node, alloc0) \
+                if node.hbm_ledger is not None else None
+            # 15b on the same node
+            out["b"] = await _boot_layers(node, certs, ports, pubs[0])
+            out["b"]["governor"] = {"grade": gov.state()["grade"],
+                                    "grade_changes": gov.grade_changes}
+            # 15c, the CSR side: the booted (default) node's flood
+            csr = await _boot_flood(node, subs, pubs, ids, nums,
+                                    dense_total, seed + 300, min_share=0,
+                                    where="phase 15c csr")
+            out["c"] = {"csr": csr}
+        finally:
+            gc.unfreeze()
+            await _boot_stop(node, clients)
+        # 15c: a compact_readback: false node, the same flood
+        dconf = Config.load_file(path)
+        dconf.update(("broker", "compact_readback"), False, persist=False)
+        dense_node = Node(dconf, device=dev)
+        clients = []
+        try:
+            ports, subs, pubs, groups, ids, nums, _s, _e = \
+                await _boot_node_drive(dense_node, certs, n_filters, n_sub,
+                                       pin_device, "c")
+            clients += subs + pubs
+            await _warm_up(dense_node, pubs[0], subs, nums)
+            gc.collect()
+            gc.freeze()
+            dense = await _boot_flood(dense_node, subs, pubs, ids, nums,
+                                      dense_total, seed + 300, min_share=0,
+                                      where="phase 15c dense")
+            out["c"]["dense"] = dense
+            out["c"]["supervise"] = check_supervised(dense_node,
+                                                     "phase 15c")
+        finally:
+            gc.unfreeze()
+            await _boot_stop(dense_node, clients)
+        rb = dense["readback"]
+        if rb["pipeline.readback.windows.compact"] \
+                or rb["routing.device.cold_compact_class"] \
+                or not rb["pipeline.readback.windows.dense"]:
+            raise AssertionError(f"phase 15c: the dense node read back {rb}")
+        if _plain_sets(dense, nums) != _plain_sets(out["c"]["csr"], nums):
+            raise AssertionError("phase 15c: dense and CSR plain deliveries "
+                                 "differ per session")
+        for f in (dense, out["c"]["csr"]):
+            f.pop("got")
+        # 15d: the host-only node
+        if cuda:
+            torch.cuda.synchronize(dev)
+        alloc0 = torch.cuda.memory_allocated(dev) if cuda else None
+        hconf = Config.load_file(path)
+        hconf.update(("broker", "device_route"), False, persist=False)
+        host_node = Node(hconf, device=dev)
+        if host_node.device_engine is not None \
+                or host_node.publish_batcher is not None:
+            raise AssertionError("phase 15d: the host-only node built a "
+                                 "device engine or a batcher")
+        clients = []
+        try:
+            ports, subs, pubs, groups, ids, nums, _s, _e = \
+                await _boot_node_drive(host_node, certs, n_filters, n_sub,
+                                       False, "d")
+            clients += subs + pubs
+            gc.collect()
+            gc.freeze()
+            host = await _boot_flood(host_node, subs, pubs, ids, nums,
+                                     host_total, seed + 400, groups,
+                                     where="phase 15d", device=False)
+            host.pop("got")
+        finally:
+            gc.unfreeze()
+            await _boot_stop(host_node, clients)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        host["memory_allocated_delta"] = \
+            torch.cuda.memory_allocated(dev) - alloc0 if cuda else None
+        if any(host["launches"].values()) or host["device_routed"] \
+                or host["memory_allocated_delta"]:
+            raise AssertionError(
+                f"phase 15d: the host-only node used the card: launches "
+                f"{host['launches']}, {host['device_routed']} routed, "
+                f"{host['memory_allocated_delta']} bytes")
+        out["d"] = host
+        return out
+
+    try:
+        out = asyncio.run(run())
+        out["c"]["mesh"] = _mesh_leg(
+            dev, lambda: Config.load_file(os.path.join(tmp, "emqx.conf")),
+            n_filters, n_sub, mesh_total, seed + 500)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _shape_rates(shapes: dict, windows: int) -> list:
+    """Kernel launches a window by shape, largest first."""
+    return [[list(k), round(v / max(1, windows), 3)]
+            for k, v in sorted(shapes.items(), key=lambda kv: -kv[1])]
+
+
+def boot_phase(dev, card: str) -> dict:
+    """Phase 15 on the card; prints its lines."""
+    t0 = time.time()
+    r = boot_drive(dev)
+    a, b, c, d = r["a"], r["b"], r["c"], r["d"]
+    f = a["flood"]
+    log(f"phase 15a: booted etc/emqx.conf with a runtime override "
+        f"(certificates made by generate_self_signed in "
+        f"{r['certs_s']:.2f} s); listeners {a['listeners']}; "
+        f"{a['filters']} filters ({a['shared_filters']} shared) subscribed "
+        f"over TCP in {a['subscribe_s']:.1f} s, warm-up "
+        f"{a['warm_up_s']:.1f} s; logger handlers {a['log_handlers']}")
+    log(f"phase 15a: {f['sent']} PUBLISHes from "
+        f"{', '.join(f'{n} {tr}' for tr, n in BOOT_PUBS)}: {f['per_sec']} "
+        f"msgs/s, every message once and in order; client p50 "
+        f"{f['lat_p50_ms']:.1f} / p99 {f['lat_p99_ms']:.1f} ms; device "
+        f"share {f['device_share']:.4f} over {f['windows']} windows "
+        f"({f['batches']} batches); {card}")
+    for tr, g in f["by_group"].items():
+        log(f"phase 15a {tr}: {g['sent']} msgs from {g['publishers']} "
+            f"publishers, {g['per_sec']} msgs/s delivered, p50 "
+            f"{g['lat_p50_ms']:.1f} / p99 {g['lat_p99_ms']:.1f} ms, burst "
+            f"share {g['burst_share']:.3f}")
+    log(f"phase 15a: launches {f['launches']}; a window: shape_match "
+        f"{_shape_rates(f['fold_shapes'], f['windows'])}, prefix_sum "
+        f"{_shape_rates(f['scan_shapes'], f['windows'])}")
+    log(f"phase 15a: the governor (polled every 1 s, objective "
+        f"{BOOT_SLO_MS} ms) after the flood {a['governor']}, after 15b "
+        f"{b['governor']}")
+    log(f"phase 15b: banned {b['banned']}")
+    log(f"phase 15b: OsMon {b['os_mon']}")
+    log(f"phase 15b: congestion {b['congestion']}")
+    for mode in ("csr", "dense"):
+        x = c[mode]
+        log(f"phase 15c {mode}: {x['sent']} msgs {x['per_sec']} msgs/s, "
+            f"share {x['device_share']:.4f}, readback "
+            f"{x['readback_bytes_per_msg']:.1f} B/msg, windows dense "
+            f"{x['readback']['pipeline.readback.windows.dense']} / compact "
+            f"{x['readback']['pipeline.readback.windows.compact']} of "
+            f"{x['windows']}; prefix_sum a window "
+            f"{_shape_rates(x['scan_shapes'], x['windows'])}")
+    for mode in ("dense", "csr"):
+        x = c["mesh"][mode]
+        log(f"phase 15c mesh {mode}: {x['msgs']} msgs in {x['windows']} "
+            f"windows, {x['per_sec']} msgs/s, launches {x['launches']}, "
+            f"readback {x['readback']}; deliveries equal per session")
+    log(f"phase 15d host-only: {d['sent']} msgs {d['per_sec']} msgs/s, "
+        f"every message once and in order; launches {d['launches']}; "
+        f"memory_allocated delta {d['memory_allocated_delta']} B; client "
+        f"p50 {d['lat_p50_ms']:.1f} / p99 {d['lat_p99_ms']:.1f} ms")
+    r["seconds"] = time.time() - t0
+    log(f"phase 15: {r['seconds']:.1f} s; {card}")
+    return r
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4994,6 +5649,8 @@ def main() -> int:
     overload = overload_phase(card)
     chaos = chaos_phase(card, e2e["chaos"]["probe_launches"])
     mesh_node = mesh_node_phase(dev, card)
+    torch.cuda.empty_cache()
+    boot = boot_phase(dev, card)
     timed = {tuple(d["shape"]) for d in scan_shapes + mesh_scan_shapes}
     layer_scan_shapes = []
     for cell, n in (("skew", "windows"), ("churn", "batches")):
@@ -5025,6 +5682,15 @@ def main() -> int:
            if tuple(shape) not in timed}
     timed |= set(new)
     layer_scan_shapes += time_scan_shapes_apart(new, "mesh node")
+    # phase 15: the booted node's and the dense node's window shapes
+    new = {}
+    for f in (boot["a"]["flood"], boot["c"]["csr"], boot["c"]["dense"]):
+        for shape, cnt in f["scan_shapes"].items():
+            if tuple(shape) not in timed:
+                new[tuple(shape)] = max(new.get(tuple(shape), 0),
+                                        cnt / max(1, f["windows"]))
+    timed |= set(new)
+    layer_scan_shapes += time_scan_shapes_apart(new, "boot")
     layers_err = max(layers["churn"]["hold_skew_err"],
                      layers["churn"]["hold_err"],
                      *(c["hold_err"] for c in cover.values()),
@@ -5063,7 +5729,25 @@ def main() -> int:
         out["mesh-node sharded drive"] = mesh_node["a"]["launches"][name]
         out["mesh-node fault flood"] = \
             mesh_node["b"]["fault"]["launches"][name]
+        # phase 15: the booted node (15a), the CSR and dense floods and
+        # the mesh twins (15c), the host-only node (15d: none)
+        out["boot 15a"] = boot["a"]["flood"]["launches"][name]
+        for mode in ("csr", "dense"):
+            out[f"boot 15c {mode}"] = boot["c"][mode]["launches"][name]
+            out[f"boot 15c mesh {mode}"] = \
+                boot["c"]["mesh"][mode]["launches"][name]
+        out["boot 15d host-only"] = boot["d"]["launches"][name]
         return out
+
+    def per_window(name):
+        """Phase 15's launches a window: 15a and 15c's floods and mesh
+        drives."""
+        out = {"boot 15a": boot["a"]["flood"]}
+        for mode in ("csr", "dense"):
+            out[f"boot 15c {mode}"] = boot["c"][mode]
+            out[f"boot 15c mesh {mode}"] = boot["c"]["mesh"][mode]
+        return {k: round(f["launches"][name] / max(1, f["windows"]), 3)
+                for k, f in out.items()}
 
     kernels = [
         {"name": "shape_match", "route": "cuda",
@@ -5071,6 +5755,7 @@ def main() -> int:
          "replaces": "emqx_tpu/ops/pallas_fold.py:121",
          "launches": launches["shape_match"],
          "launches_by_path": by_path("shape_match"),
+         "launches_per_window_boot": per_window("shape_match"),
          "max_abs_err": max(err_fold, e2e["window_err"], layers_err,
                             e2e["chaos"]["held_err"]),
          **{k: sm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -5080,12 +5765,14 @@ def main() -> int:
          "replaces": "emqx_tpu/ops/pallas_scan.py:79",
          "launches": launches["prefix_sum"],
          "launches_by_path": by_path("prefix_sum"),
+         "launches_per_window_boot": per_window("prefix_sum"),
          "max_abs_err": max(err_scan, e2e["window_err"], layers_err,
                             e2e["chaos"]["held_err"], mesh_node["err"]),
          **{k: ps[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
          "shapes": scan_shapes + mesh_scan_shapes + layer_scan_shapes},
         dict(ring, launches_by_path=by_path("ring_rotate"),
+             launches_per_window_boot=per_window("ring_rotate"),
              max_abs_err=max(ring["max_abs_err"], mesh_node["err"])),
     ]
     e2e_out = {k: v for k, v in e2e.items() if k != "floods"}
@@ -5108,12 +5795,43 @@ def main() -> int:
                     "mesh_node": {k: v for k, v in mesh_node["b"].items()
                                   if k != "scan_shapes"},
                     "mesh_sharded": mesh_node["a"],
-                    "capture": mesh_node["capture"]}))
+                    "capture": mesh_node["capture"],
+                    "boot": _boot_out(boot)}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _boot_out(boot: dict) -> dict:
+    """Phase 15's results for the JSON line: the shape dicts keyed by
+    strings."""
+    def fix(x):
+        if isinstance(x, dict):
+            return {str(list(k)) if isinstance(k, tuple) else k: fix(v)
+                    for k, v in x.items()}
+        return x
+    return fix(boot)
+
+
+def boot_main() -> int:
+    """``--boot``: build the kernels and run phase 15 alone on a card,
+    then print its results as one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from emqx_tpu_torch import native
+    from emqx_tpu_torch.ops.build import build
+    card = card_line()
+    log(build().strip())
+    if not native.available():
+        raise AssertionError("the host native library did not build")
+    boot = boot_phase(torch.device("cuda"), card)
+    log(json.dumps({"boot": _boot_out(boot)}))
+    log(card)
     return 0
 
 
@@ -5140,4 +5858,6 @@ if __name__ == "__main__":
         sys.exit(overload_main(sys.argv[2]))
     if len(sys.argv) == 2 and sys.argv[1] == "--trace-cost":
         sys.exit(trace_cost_main())
+    if len(sys.argv) == 2 and sys.argv[1] == "--boot":
+        sys.exit(boot_main())
     sys.exit(main())

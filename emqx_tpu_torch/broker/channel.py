@@ -18,9 +18,12 @@ one socket read enters the batcher, and the acknowledgements follow in
 receive order (``flush_acks``), as the burst hand-off acks them; awaiting
 each QoS 1 PUBLISH in turn kept a publisher to one message in the batcher
 per QoS 1 PUBLISH and the batches too small for the device. Not part of
-the port: TLS peer-cert enrichment and the MQTT5 enhanced-authentication
-(SCRAM) exchange — no method is registered, so a CONNECT naming one is
-refused. The overload governor's admission gate is ported: while it
+the port: the MQTT5 enhanced-authentication (SCRAM) exchange — no method
+is registered, so a CONNECT naming one is refused. A TLS listener's client
+certificate (``conninfo["peercert"]``) names the username or clientid under
+the zone's ``peer_cert_as_username`` / ``peer_cert_as_clientid``. On a node
+without a batcher (``device_route: false``) a burst's rows take the host
+per-message path in row order, as ``publish_async`` would. The overload governor's admission gate is ported: while it
 pauses connects, a CONNECT is answered with reason 0x97.
 """
 
@@ -37,6 +40,8 @@ from emqx_tpu_torch.broker.session import Session, SessionConf, SessionError
 from emqx_tpu_torch.mqtt import constants as C
 from emqx_tpu_torch.mqtt import packet as P
 from emqx_tpu_torch.utils import topic as T
+from emqx_tpu_torch.utils.logger import set_metadata_clientid
+from emqx_tpu_torch.utils.tls import cert_field
 
 
 class ParkedSubscriber:
@@ -231,7 +236,17 @@ class Channel:
 
         if self.mqtt.get("use_username_as_clientid") and pkt.username:
             clientid = pkt.username
+        # TLS peer-cert enrichment (emqx_channel peer_cert_as_username/
+        # clientid zone opts; cert fields via utils.tls.cert_field)
         username = pkt.username
+        peercert = self.conninfo.get("peercert")
+        if peercert:
+            src = self.mqtt.get("peer_cert_as_username")
+            if src:
+                username = cert_field(peercert, src) or username
+            src = self.mqtt.get("peer_cert_as_clientid")
+            if src:
+                clientid = cert_field(peercert, src) or clientid
         self.clientid = clientid
         self.clientinfo = {
             "clientid": clientid, "username": username,
@@ -296,6 +311,7 @@ class Channel:
         process_connect half of emqx_channel handle_in CONNECT)."""
         clientid = self.clientid
         props = pkt.properties or {}
+        set_metadata_clientid(clientid)
         # --- will message
         if pkt.will is not None:
             self.will_msg = make(
@@ -635,7 +651,21 @@ class Channel:
             if qos_counts[q]:
                 m.inc("messages.received", qos_counts[q])
                 m.inc(f"messages.qos{q}.received", qos_counts[q])
-        futs = node.publish_batcher.submit_burst(rows) if rows else {}
+        futs: dict = {}
+        if rows:
+            pb = node.publish_batcher
+            if pb is not None:
+                futs = pb.submit_burst(rows)
+            else:
+                # no batcher (the host-only node): the host per-message
+                # path, awaited in row order (what publish_async does)
+                loop = asyncio.get_running_loop()
+                for k, (msg, need) in enumerate(rows):
+                    cnt = await node.broker.publish_async(msg)
+                    if need:
+                        f = loop.create_future()
+                        f.set_result(cnt)
+                        futs[k] = f
         # flush: acks/errors/disconnects strictly in row order (wire
         # order is the order of _send calls — awaits between them do
         # not reorder the transport buffer)

@@ -3,14 +3,20 @@
 Parity: emqx_config.erl (get/put with zone- and listener-scoped lookups,
 emqx_config.erl:63-100) + the mqtt/zone portions of emqx_schema.erl. The
 port's copy of ``emqx_tpu/broker/config.py``, cut to the sections its
-channel, connection, listener and node read; the HOCON file boot and the
-runtime-override handlers are not part of the port.
+channel, connection, listener, node, logger, OS monitor and congestion
+alarm read, with the HOCON file boot (``Config.load_file``, the
+``emqx_override.conf`` beside the file) and the runtime-update handlers
+(``register_handler``, ``update``) that persist through
+``emqx_tpu_torch.utils.hocon.dumps``.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 from typing import Any, Optional
+
+from emqx_tpu_torch.utils import hocon
 
 # schema defaults — the reference's emqx_schema.erl zone/mqtt roots
 DEFAULTS: dict = {
@@ -44,6 +50,8 @@ DEFAULTS: dict = {
         "idle_timeout": 15,
     },
     "broker": {
+        "sys_msg_interval": 60,
+        "sys_heartbeat_interval": 30,
         "shared_subscription_strategy": "round_robin",
         "shared_dispatch_ack_enabled": False,
         # None = the built-in 256 (device_engine.resolve_rebuild_threshold)
@@ -63,18 +71,25 @@ DEFAULTS: dict = {
         # (resolve_supervise); false builds no supervisor anywhere
         "supervise": None,
         # consecutive faults before a stage's circuit breaker opens
-        "supervise_threshold": 3,
+        # (None = 3, supervise.resolve_breaker_threshold)
+        "supervise_threshold": None,
     },
     "zones": {},                 # zone name -> {mqtt: {...}} overrides
     "listeners": {},             # name -> {type,bind,zone,...}
     "authz": {"no_match": "allow", "deny_action": "ignore", "sources": []},
     "force_shutdown": {"max_mqueue_len": 10000, "max_awaiting_rel": 0},
+    "conn_congestion": {"enable_alarm": False,
+                        "min_alarm_sustain_duration": 60},
     "rate_limit": {
         "max_conn_rate": 0,          # new connections/sec per listener
         "conn_messages_in": 0,       # packets/sec per connection
         "conn_bytes_in": 0,          # bytes/sec per connection
         "quota_messages_routing": 0,  # publishes/sec per connection
     },
+    "alarm": {"size_limit": 1000, "validity_period": 86400},
+    "log": {"enable": False, "level": "warning", "formatter": "text"},
+    "sysmon": {"os": {"sysmem_high_watermark": 0.7,
+                      "procmem_high_watermark": 0.05}},
 }
 
 
@@ -95,7 +110,6 @@ def check_schema(conf: dict, schema: Optional[dict] = None,
     size strings ("1MB") are coerced in place where the schema default is
     numeric; unknown keys are allowed (feature apps read their own
     sections). Returns a list of error strings."""
-    from emqx_tpu_torch.utils.hocon import parse_duration, parse_size
     schema = DEFAULTS if schema is None else schema
     errors: list[str] = []
     for key, val in list(conf.items()):
@@ -116,9 +130,9 @@ def check_schema(conf: dict, schema: Optional[dict] = None,
             continue
         if isinstance(want, (int, float)) and not isinstance(want, bool):
             if isinstance(val, str):
-                coerced = parse_duration(val)
+                coerced = hocon.parse_duration(val)
                 if coerced is None:
-                    coerced = parse_size(val)
+                    coerced = hocon.parse_size(val)
                 if coerced is None:
                     errors.append(f"{here}: expected number, got {val!r}")
                 else:
@@ -138,8 +152,59 @@ def check_schema(conf: dict, schema: Optional[dict] = None,
 
 
 class Config:
-    def __init__(self, overrides: Optional[dict] = None):
+    def __init__(self, overrides: Optional[dict] = None,
+                 override_file: Optional[str] = None):
         self._c = deep_merge(copy.deepcopy(DEFAULTS), overrides or {})
+        self.override_file = override_file
+        self._overrides: dict = {}
+        self._handlers: list[tuple[tuple, Any]] = []
+
+    @classmethod
+    def load_file(cls, path: str,
+                  override_file: Optional[str] = None) -> "Config":
+        """Boot from an etc/emqx.conf-style HOCON file, applying the
+        persisted runtime-override file on top (emqx_config:init_load).
+        Raises ValueError on schema type errors."""
+        conf = hocon.load(path)
+        if override_file is None:
+            override_file = os.path.join(
+                os.path.dirname(path) or ".", "emqx_override.conf")
+        persisted: dict = {}
+        if os.path.exists(override_file):
+            persisted = hocon.load(override_file)
+            conf = deep_merge(conf, persisted)
+        errors = check_schema(conf)
+        if errors:
+            raise ValueError("config schema errors: " + "; ".join(errors))
+        out = cls(conf, override_file=override_file)
+        # seed with what is already on disk so the next update() rewrite
+        # does not discard overrides persisted by previous runs
+        out._overrides = persisted
+        return out
+
+    # ---- runtime updates (emqx_config_handler) ----
+    def register_handler(self, path: "tuple | list", handler) -> None:
+        """handler(path, new_value, config) called before the update is
+        applied for any update at or under `path`; raising vetoes it."""
+        self._handlers.append((tuple(path), handler))
+
+    def update(self, path: "tuple | list", value: Any,
+               persist: bool = True) -> None:
+        """Apply a runtime config update through registered handlers and
+        persist it to the override file (emqx_config_handler:update +
+        save_to_override_conf)."""
+        path = tuple(path)
+        for prefix, handler in self._handlers:
+            if path[:len(prefix)] == prefix or prefix[:len(path)] == path:
+                handler(path, value, self)
+        self.put(path, value)
+        cur = self._overrides
+        for p in path[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[path[-1]] = value
+        if persist and self.override_file:
+            with open(self.override_file, "w", encoding="utf-8") as f:
+                f.write(hocon.dumps(self._overrides))
 
     def get(self, *path, default: Any = None) -> Any:
         """get('mqtt') or get('mqtt', 'max_inflight')."""

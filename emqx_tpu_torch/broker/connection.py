@@ -1,4 +1,4 @@
-"""Per-client connection task + the TCP listener.
+"""Per-client connection task + config-driven listeners.
 
 Parity: emqx_connection.erl (per-client recvloop with {active,N}-style
 read batching :318-345,404-516, keepalive + idle timeout, force-shutdown
@@ -18,8 +18,12 @@ Off, the read loop is the per-packet path: ``parser.feed``, one
 hooks: each connection registers with it (``register_conn``) and ranks
 for its top-offender disconnect by limiter debt or, without a rate
 limit, by its recent PUBLISH rows (``shed_score``), and the extra
-acceptor lanes stop accepting while it pauses connects. Not part of the
-port: TLS and the congestion alarm.
+acceptor lanes stop accepting while it pauses connects. A TLS listener
+(``ssl_opts``, the listener's emqx-style ``ssl`` block through
+``utils/tls.make_server_context``) keeps one accept loop, as the
+reference's does, and hands the client certificate to the channel
+(``peercert``); each connection checks its ``conn_congestion`` alarm
+(``broker/congestion.py``) on its timer tick.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import time
 from typing import Optional
 
 from emqx_tpu_torch.broker.channel import Channel, ProtocolError
+from emqx_tpu_torch.broker.congestion import Congestion
 from emqx_tpu_torch.broker.limiter import (ConnectionLimiter,
                                            ForceShutdownPolicy, TokenBucket)
 from emqx_tpu_torch.broker.supervise import guard_task
@@ -39,6 +44,8 @@ from emqx_tpu_torch.mqtt import constants as C
 from emqx_tpu_torch.mqtt import packet as P
 from emqx_tpu_torch.mqtt.frame import (FrameError, FrameParser,
                                        PublishBurst, serialize)
+from emqx_tpu_torch.utils.logger import set_metadata_peername
+from emqx_tpu_torch.utils.tls import make_server_context, peer_cert_info
 
 log = logging.getLogger("emqx_tpu_torch.connection")
 
@@ -76,6 +83,7 @@ class Connection:
         self.writer = writer
         peer = writer.get_extra_info("peername") or ("?", 0)
         sock = writer.get_extra_info("sockname") or ("?", 0)
+        peercert = peer_cert_info(writer)
         self.parser = FrameParser(
             max_size=node.config.mqtt(zone).get("max_packet_size"),
             strict=node.config.mqtt(zone).get("strict_mode", False))
@@ -84,7 +92,8 @@ class Connection:
         # counters)
         self._columnar = bool(getattr(node, "columnar_ingress", False))
         self.channel = Channel(
-            node, {"peername": peer, "sockname": sock, "zone": zone},
+            node, {"peername": peer, "sockname": sock, "zone": zone,
+                   "peercert": peercert},
             send=self._send_packets, close=self._request_close)
         self.last_rx = time.monotonic()
         self._out: list[bytes] = []   # packets written this loop turn
@@ -97,6 +106,12 @@ class Connection:
         fs = node.config.get_zone(zone, "force_shutdown") or {}
         self.force_shutdown = ForceShutdownPolicy(
             fs.get("max_mqueue_len", 0), fs.get("max_awaiting_rel", 0))
+        cc = node.config.get_zone(zone, "conn_congestion") or {}
+        self.congestion = Congestion(
+            node, self.channel, writer,
+            enable_alarm=cc.get("enable_alarm", False),
+            min_alarm_sustain_duration=cc.get(
+                "min_alarm_sustain_duration", 60))
         # the overload governor: registered (weakly) so its critical-grade
         # top-offender shed can rank live connections by limiter debt;
         # shed_rows is the ingress-volume fallback score when no rate
@@ -167,6 +182,9 @@ class Connection:
 
     # ---- main loop (emqx_connection:recvloop) ----
     async def run(self) -> None:
+        peer = self.channel.conninfo.get("peername")
+        if peer:
+            set_metadata_peername(f"{peer[0]}:{peer[1]}")
         self._timer_task = guard_task(
             asyncio.ensure_future(self._timers()), "conn-timers",
             self.node.metrics)
@@ -267,6 +285,7 @@ class Connection:
         finally:
             if self._timer_task:
                 self._timer_task.cancel()
+            self.congestion.cancel()
             self.channel.terminate(self._closing or reason)
             self._flush()
             try:
@@ -317,6 +336,7 @@ class Connection:
         while True:
             await asyncio.sleep(1.0)
             now = time.monotonic()
+            self.congestion.check()
             ka = self.channel.keepalive
             if (ka and self.channel.conn_state == "connected"
                     and now - self.last_rx > ka * 2 * backoff):
@@ -336,17 +356,22 @@ class Connection:
 
 
 class Listener:
-    """One TCP listener (emqx_listeners:start_listener/3); with columnar
-    ingress on, ``node.ingress_lanes`` SO_REUSEPORT sockets on one port."""
+    """One TCP/TLS listener (emqx_listeners:start_listener/3; ssl opts per
+    emqx_listeners.erl:126-129 + emqx_schema ssl block via utils.tls);
+    with columnar ingress on, a plain TCP one takes ``node.ingress_lanes``
+    SO_REUSEPORT sockets on one port."""
 
     def __init__(self, node, *, bind: str = "0.0.0.0", port: int = 1883,
                  zone: Optional[str] = None, max_connections: int = 1024000,
-                 name: str = "tcp:default"):
+                 name: str = "tcp:default", ssl_opts: Optional[dict] = None):
         self.node = node
         self.bind = bind
         self.port = port
         self.zone = zone
         self.name = name
+        self.ssl_opts = ssl_opts
+        if ssl_opts and name == "tcp:default":
+            self.name = "ssl:default"
         self.max_connections = max_connections
         self._server: Optional[asyncio.AbstractServer] = None
         self._lane_servers: list[asyncio.AbstractServer] = []
@@ -381,17 +406,20 @@ class Listener:
     def _ingress_lanes(self) -> int:
         """Acceptor lanes for this listener: N SO_REUSEPORT listening
         sockets on one port, each with its own accept loop, so the kernel
-        spreads incoming connections. Only with columnar ingress on and on
-        IPv4; an IPv6 bind keeps the single accept loop. All lanes run on
-        one event loop: they spread accepts, they do not parallelize
-        them."""
+        spreads incoming connections. Only for plain IPv4 TCP with columnar
+        ingress on; TLS and an IPv6 bind keep the single accept loop. All
+        lanes run on one event loop: they spread accepts, they do not
+        parallelize them."""
         if not getattr(self.node, "columnar_ingress", False):
             return 1
-        if ":" in self.bind or not hasattr(socket, "SO_REUSEPORT"):
+        if self.ssl_opts or ":" in self.bind \
+                or not hasattr(socket, "SO_REUSEPORT"):
             return 1
         return getattr(self.node, "ingress_lanes", 1)
 
     async def start(self) -> None:
+        ssl_ctx = make_server_context(self.ssl_opts) \
+            if self.ssl_opts else None
         lanes = self._ingress_lanes()
         if lanes > 1:
             port = self.port
@@ -421,7 +449,7 @@ class Listener:
                      len(self._lane_servers))
             return
         self._server = await asyncio.start_server(
-            self._on_client, self.bind, self.port)
+            self._on_client, self.bind, self.port, ssl=ssl_ctx)
         if self.port == 0:   # ephemeral port for tests
             self.port = self._server.sockets[0].getsockname()[1]
         log.info("listener %s started on %s:%d", self.name, self.bind,

@@ -27,7 +27,9 @@ node's supervisor (``broker/supervise.py``: the ``dispatch``,
 ``materialize``, ``cache_insert``, ``overlay_apply`` and
 ``snapshot_swap`` fault domains with their injection points, the rung-1
 plain dispatch, the off-path probes ``_probe_dispatch`` /
-``_probe_materialize``). The CSR readback is always on. It
+``_probe_materialize``). The CSR readback is on unless
+``compact_readback`` is off (then every window reads its dense planes
+back, the reference's A/B baseline). It
 compiles the live routing state (Router filter universe + Broker
 subscriber/shared-group membership) into device tables, runs the route
 window over publish micro-batches and consumes the result into session
@@ -175,6 +177,12 @@ def resolve_match_cache_size(configured=None) -> int:
     ``DEFAULT_CAPACITY``; 0 disables the cache only (in-window dedup
     still engages)."""
     return DEFAULT_CAPACITY if configured is None else int(configured)
+
+
+def resolve_compact_readback(configured=None) -> bool:
+    """``broker.compact_readback``, default on; off reads every window's
+    dense planes back (no payload class is chosen, warmed or captured)."""
+    return True if configured is None else bool(configured)
 
 
 def resolve_delta_overlay(configured=None) -> bool:
@@ -641,6 +649,7 @@ class DeviceRouteEngine:
                  slot_cap: int = 16, shape_cap: int = 32,
                  match_cache_size: Optional[int] = None,
                  dedup: Optional[bool] = None,
+                 compact_readback: Optional[bool] = None,
                  delta_overlay: Optional[bool] = None,
                  subscription_covering: Optional[bool] = None):
         self.node = node
@@ -714,7 +723,9 @@ class DeviceRouteEngine:
         self._rebuild_task = None
         # CSR readback: payload capacity quantizes onto _PAYLOAD_MULTS * Bp
         # classes sized by a peak-biased EWMA of recent window totals, with
-        # a dense-readback fallback when a window outgrows its class
+        # a dense-readback fallback when a window outgrows its class; off,
+        # every window reads back dense
+        self.compact_readback = resolve_compact_readback(compact_readback)
         self._pay_ewma: dict[int, float] = {}   # Bp -> peak entry total
 
         # reuse layers: in-window unique-topic dedup and the cross-batch
@@ -1809,8 +1820,11 @@ class DeviceRouteEngine:
 
     def _payload_variants(self, b, cls) -> list:
         """Class `cls` with the dense readback and with each payload class
-        the chooser can pick for its Bp."""
+        the chooser can pick for its Bp (none with ``compact_readback``
+        off)."""
         Wp, Bp, Bm, dC, _P = cls
+        if not self.compact_readback:
+            return [(Wp, Bp, Bm, dC, None)]
         dense = self._dense_msg_entries(b)
         return [(Wp, Bp, Bm, dC, None)] + [
             (Wp, Bp, Bm, dC, m * Bp) for m in self._PAYLOAD_MULTS
@@ -1981,8 +1995,8 @@ class DeviceRouteEngine:
         headroom, quantized onto the _PAYLOAD_MULTS * Bp ladder. A window
         that still outgrows its class reads the dense planes of the SAME
         dispatch (row_overflow), so an undershoot costs bytes, never
-        correctness."""
-        if self._built is None:
+        correctness. None when ``compact_readback`` is off."""
+        if not self.compact_readback or self._built is None:
             return None
         dense = self._dense_msg_entries()
         mults = [m for m in self._PAYLOAD_MULTS if m < dense]
@@ -3536,6 +3550,7 @@ class DeviceRouteEngine:
             "dedup": self.dedup,
             "match_cache": self._match_cache.stats()
             if self._match_cache is not None else None,
+            "compact_readback": self.compact_readback,
             "delta_overlay": self.delta_overlay,
             "overlay": {"rows": ov.n, "class": ov.cap,
                         "version": ov.version, "hostfan": len(ov.hostfan)}

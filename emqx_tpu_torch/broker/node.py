@@ -1,21 +1,32 @@
 """Broker node: the composition root of the port's serving path.
 
-A slim counterpart of ``emqx_tpu/broker/node.py`` (:43-48, :77-190,
-:237-276, :403-440, :449-460): hooks, metrics, stats, the pipeline
-telemetry (always), the flight recorder, fault-domain supervision, the
-HBM ledger, the latency observatory, the overload governor, the
-session-affine delivery lanes and the columnar PUBLISH ingress (each on
-by default), router, broker, connection manager, alarms, the device
-route engine and the publish batcher, wired as the reference wires them
-for a single-chip node, and the housekeeping tick (``sweep``,
-``start_timers``) the governor polls on. Under ``broker.multichip`` with
+A counterpart of ``emqx_tpu/broker/node.py`` (:26-330, :386-464): the
+logger (``log``), hooks, metrics, stats, the pipeline telemetry (always),
+the flight recorder, fault-domain supervision, the HBM ledger, the latency
+observatory, the overload governor, the session-affine delivery lanes and
+the columnar PUBLISH ingress (each on by default), router, broker,
+connection manager, the banned table, alarms, the OS monitor
+(``sysmon.os``), the device route engine and the publish batcher, wired
+as the reference wires them for a single-chip node, and the housekeeping
+tick (``sweep``, ``start_timers``). Under ``broker.multichip`` with
 ``enable`` true the node serves through the dp×route mesh instead
 (``parallel/serving.ShardedRouteServer``, reference :206-236) behind a
 batcher of the mesh's ``max_batch``: sub-keys ``devices`` (8 shards),
 ``dp`` (1) and ``max_batch`` (256), all on the node's device, with
-``device_exchange`` (on) read under ``broker.``. The layers the
-reference also builds here (apps, gateways and the management API) are
-not part of the port.
+``device_exchange`` (on) read under ``broker.``. With ``device_route:
+false`` the node is the reference's host-only node: no engine and no
+batcher, no recorder, supervisor, HBM ledger or delivery lanes (the
+observatory and the governor stay), and every PUBLISH routes on the
+host trie through ``broker.publish_async``; it still resolves its device
+but allocates nothing there.
+
+``Node.from_config_file(path)`` boots from an ``etc/emqx.conf``-style
+HOCON file (``Config.load_file``, with the ``emqx_override.conf`` beside
+it on top) and ``start_listeners`` starts every listener under ``listeners``:
+``tcp`` and ``ssl`` (``broker/connection.Listener``), ``ws`` and ``wss``
+(``broker/ws.WsListener``); a TLS type needs its ``ssl`` block. The
+layers the reference also boots from the file (apps, gateways, the
+dashboard and the QUIC listener) are not part of the port.
 
 Config keys read under ``broker.``, with the reference's names and
 defaults: ``batch_window_us`` (200), ``max_publish_batch`` (1024),
@@ -38,11 +49,10 @@ other tunables are ``PipelineSupervisor`` keyword arguments with the
 reference's defaults), the latency observatory
 ``latency_observatory`` (on) with ``slo_route_p99_ms`` (2.0), and the
 overload governor ``overload`` (on; polled by ``sweep``, so only once
-``start_timers`` runs the housekeeping tick or a caller sweeps); and
-under ``alarm.``, ``size_limit`` (1000) and ``validity_period`` (86400).
-``compact_readback: false`` (the port's CSR readback is always on, on
-either engine) and ``device_route: false`` (the host-only node is not
-ported) raise ``ValueError`` rather than serving without them.
+``start_timers`` runs the housekeeping tick or a caller sweeps), the
+readback ``compact_readback`` (on; off reads every window's dense planes
+back, on either engine) and ``device_route`` (on); under ``alarm.``,
+``size_limit`` (1000) and ``validity_period`` (86400).
 """
 
 from __future__ import annotations
@@ -51,11 +61,13 @@ import asyncio
 from typing import Optional
 
 from emqx_tpu_torch.broker.alarm import AlarmManager
+from emqx_tpu_torch.broker.banned import Banned
 from emqx_tpu_torch.broker.batcher import (PublishBatcher,
                                            resolve_dispatch_depth)
 from emqx_tpu_torch.broker.cm import ConnectionManager
 from emqx_tpu_torch.broker.config import Config
-from emqx_tpu_torch.broker.connection import (resolve_columnar_ingress,
+from emqx_tpu_torch.broker.connection import (Listener,
+                                              resolve_columnar_ingress,
                                               resolve_ingress_lanes)
 from emqx_tpu_torch.broker.deliver import (DeliveryLanePool,
                                            resolve_deliver_lanes)
@@ -67,6 +79,7 @@ from emqx_tpu_torch.broker.latency import (LatencyObservatory,
                                            resolve_latency_observatory)
 from emqx_tpu_torch.broker.message import Message
 from emqx_tpu_torch.broker.metrics import Metrics, Stats
+from emqx_tpu_torch.broker.monitor import OsMon
 from emqx_tpu_torch.broker.overload import OverloadGovernor, resolve_overload
 from emqx_tpu_torch.broker.pubsub import Broker
 from emqx_tpu_torch.broker.router import Router
@@ -74,18 +87,9 @@ from emqx_tpu_torch.broker.supervise import (PipelineSupervisor,
                                              guard_task, resolve_supervise)
 from emqx_tpu_torch.broker.telemetry import PipelineTelemetry
 from emqx_tpu_torch.broker.trace import FlightRecorder, resolve_trace
+from emqx_tpu_torch.broker.ws import WsListener
 from emqx_tpu_torch.device import resolve_device
-
-
-def check_layers(perf: dict) -> None:
-    """Raise ValueError when the ``broker`` config asks for a path the
-    port does not implement: the dense readback (``compact_readback:
-    false``, on the single-chip engine or the mesh) and the host-only
-    node (``device_route: false``)."""
-    for key in ("compact_readback", "device_route"):
-        if perf.get(key) is not None and not perf.get(key):
-            raise ValueError(f"emqx_tpu_torch does not implement broker "
-                             f"{key}=false; leave it on")
+from emqx_tpu_torch.utils.logger import setup_from_config
 
 
 class Node:
@@ -97,12 +101,17 @@ class Node:
         self.name = name
         self.config = config if hasattr(config, "get_zone") \
             else Config(config)
+        setup_from_config(self.config.get("log") or {})
         self.device = resolve_device(device)
         self.hooks = Hooks()
         self.metrics = Metrics()
         self.stats = Stats()
         perf = self.config.get("broker") or {}
-        check_layers(perf)
+        use_device = bool(perf.get("device_route", True))
+        mc = perf.get("multichip") or {}
+        # the layers of the device pipeline; the host-only node builds
+        # none of them
+        device_path = use_device or bool(mc.get("enable"))
         slow_ms = perf.get("slow_batch_threshold_ms", 250)
         self.pipeline_telemetry = PipelineTelemetry(
             self.metrics, hooks=self.hooks,
@@ -111,7 +120,7 @@ class Node:
         # admit ride the pipeline (dispatch/materialize/lanes/settle) into
         # a bounded span ring. Off: no recorder anywhere
         self.flight_recorder = None
-        if resolve_trace(perf.get("trace")):
+        if resolve_trace(perf.get("trace")) and device_path:
             self.flight_recorder = FlightRecorder(
                 self.metrics, cap=perf.get("trace_ring", 4096),
                 sample=perf.get("trace_sample"))
@@ -123,7 +132,7 @@ class Node:
         # the flight recorder as node-scope events. Off: no supervisor
         # anywhere (the engine, batcher, lanes and governor read None)
         self.supervisor = None
-        if resolve_supervise(perf.get("supervise")):
+        if resolve_supervise(perf.get("supervise")) and device_path:
             self.supervisor = PipelineSupervisor(
                 self.metrics, telemetry=self.pipeline_telemetry,
                 threshold=perf.get("supervise_threshold"))
@@ -133,7 +142,7 @@ class Node:
         # per-category accounting of the engine's persistent device
         # allocations and the stale-pin sentinel
         self.hbm_ledger = None
-        if resolve_hbm_ledger(perf.get("hbm_ledger")):
+        if resolve_hbm_ledger(perf.get("hbm_ledger")) and device_path:
             self.hbm_ledger = HbmLedger(
                 self.metrics, device=self.device,
                 pin_warn_windows=perf.get("pin_warn_windows"),
@@ -143,7 +152,8 @@ class Node:
         # the end-to-end latency observatory: per-message ingress→routed
         # and ingress→delivered percentiles by (qos, path), the SLO burn
         # and breach exemplars, from the frame-decode stamp. Off: no
-        # observatory anywhere (the stamp itself stays on)
+        # observatory anywhere (the stamp itself stays on). Not gated on
+        # the device path: the host-only node measures the same legs
         self.latency_observatory = None
         if resolve_latency_observatory(perf.get("latency_observatory")):
             self.latency_observatory = LatencyObservatory(
@@ -152,7 +162,9 @@ class Node:
                 objective_ms=perf.get("slo_route_p99_ms"))
             self.pipeline_telemetry.observatory = self.latency_observatory
         # the overload governor: the graded load-shed ladder, polled on
-        # the housekeeping tick (sweep). Off: no governor anywhere
+        # the housekeeping tick (sweep). Off: no governor anywhere. Not
+        # gated on the device path: a host-only node overloads the same
+        # way
         self.overload_governor = None
         if resolve_overload(perf.get("overload")):
             self.overload_governor = OverloadGovernor(
@@ -172,7 +184,7 @@ class Node:
         self.ingress_lanes = resolve_ingress_lanes(
             perf.get("ingress_lanes")) if self.columnar_ingress else 1
         self.router = Router(
-            use_device=True, device=self.device,
+            use_device=use_device, device=self.device,
             rebuild_threshold=rebuild_threshold,
             device_min_batch=perf.get("device_min_batch", 4))
         self.broker = Broker(
@@ -186,7 +198,7 @@ class Node:
         # delivery plans to; 0 lanes is the inline delivery loop
         self.deliver_lanes = None
         n_lanes = resolve_deliver_lanes(perf.get("deliver_lanes"))
-        if n_lanes > 0:
+        if n_lanes > 0 and device_path:
             self.deliver_lanes = DeliveryLanePool(
                 self.broker, self.metrics, hooks=self.hooks,
                 telemetry=self.pipeline_telemetry, n_lanes=n_lanes,
@@ -195,7 +207,8 @@ class Node:
             self.pipeline_telemetry.deliver_state_fn = \
                 self.deliver_lanes.state
             self.stats.register_stats_fun(self.deliver_lanes.stats_fun)
-        mc = perf.get("multichip") or {}
+        self.device_engine = None
+        self.publish_batcher = None
         if mc.get("enable"):
             # the dp×route mesh serves instead of the single-chip
             # engine, behind the same batcher protocol
@@ -206,12 +219,13 @@ class Node:
                 fanout_cap=perf.get("device_fanout_cap", 128),
                 slot_cap=perf.get("device_slot_cap", 16),
                 max_batch=mc.get("max_batch", 256),
+                compact_readback=perf.get("compact_readback"),
                 delta_overlay=perf.get("delta_overlay"),
                 dispatch_depth=dispatch_depth,
                 device_exchange=perf.get("device_exchange"),
                 subscription_covering=perf.get("subscription_covering"))
             max_batch = mc.get("max_batch", 256)
-        else:
+        elif use_device:
             self.device_engine = DeviceRouteEngine(
                 self, device=self.device,
                 rebuild_threshold=rebuild_threshold,
@@ -219,32 +233,89 @@ class Node:
                 slot_cap=perf.get("device_slot_cap", 16),
                 match_cache_size=perf.get("match_cache_size"),
                 dedup=perf.get("topic_dedup"),
+                compact_readback=perf.get("compact_readback"),
                 delta_overlay=perf.get("delta_overlay"),
                 subscription_covering=perf.get("subscription_covering"))
             max_batch = perf.get("max_publish_batch", 1024)
-        self.publish_batcher = PublishBatcher(
-            self, self.device_engine,
-            window_us=perf.get("batch_window_us", 200),
-            max_batch=max_batch,
-            device_min_batch=perf.get("device_min_batch", 4),
-            dispatch_depth=dispatch_depth)
+        if self.device_engine is not None:
+            self.publish_batcher = PublishBatcher(
+                self, self.device_engine,
+                window_us=perf.get("batch_window_us", 200),
+                max_batch=max_batch,
+                device_min_batch=perf.get("device_min_batch", 4),
+                dispatch_depth=dispatch_depth)
         self.cm = ConnectionManager()
         self.cm.broker = self.broker
+        self.banned = Banned()
         aconf = self.config.get("alarm") or {}
         self.alarms = AlarmManager(
             self.hooks, size_limit=aconf.get("size_limit", 1000),
             validity_period=aconf.get("validity_period", 86400))
+        self.os_mon = OsMon(self.alarms,
+                            self.config.get("sysmon", "os") or {})
         self.stats.register_stats_fun(self.broker.stats_fun)
         self.stats.register_stats_fun(self.cm.stats_fun)
+        self.listeners: list = []
         self._timer_task: Optional[asyncio.Task] = None
+
+    # ---- config-file boot (emqx_machine_app load_config_files +
+    #      emqx_listeners:start; node.py:283-330) ----
+    @classmethod
+    def from_config_file(cls, path: str, **kw) -> "Node":
+        """Boot from a HOCON file with the runtime overrides persisted
+        beside it (``emqx_override.conf``) on top."""
+        return cls(Config.load_file(path), **kw)
+
+    async def start_listeners(self) -> list:
+        """Start every listener configured under `listeners`
+        (emqx_listeners.erl:91,126-138: tcp/ssl esockd, ws/wss cowboy)."""
+        for name, lc in (self.config.get("listeners") or {}).items():
+            if not lc.get("enabled", True):
+                continue
+            ltype = lc.get("type", "tcp")
+            ssl_opts = lc.get("ssl") \
+                if ltype in ("ssl", "wss") or "ssl" in lc else None
+            if ltype in ("ssl", "wss") and not ssl_opts:
+                # never silently downgrade a TLS listener to plaintext
+                raise ValueError(
+                    f"listener {name!r} is type {ltype} but has no ssl "
+                    f"block")
+            common = dict(bind=lc.get("bind", "0.0.0.0"),
+                          port=int(lc.get("port", 0)),
+                          zone=lc.get("zone"),
+                          max_connections=int(
+                              lc.get("max_connections", 1024000)),
+                          ssl_opts=ssl_opts)
+            if ltype in ("ws", "wss"):
+                lst = WsListener(self, path=lc.get("path", "/mqtt"),
+                                 **common)
+            elif ltype in ("tcp", "ssl"):
+                lst = Listener(self, name=f"{ltype}:{name}", **common)
+            elif ltype == "quic":
+                raise ValueError(
+                    f"listener {name!r}: MQTT over QUIC is not part of "
+                    f"emqx_tpu_torch (ROADMAP.md Queue A item 20(d))")
+            else:
+                raise ValueError(f"unknown listener type {ltype!r}")
+            await lst.start()
+            self.listeners.append(lst)
+        return self.listeners
+
+    async def stop_listeners(self) -> None:
+        for lst in self.listeners:
+            await lst.stop()
+        self.listeners.clear()
 
     # ---- periodic housekeeping (node.py:403-440) ----
     def sweep(self) -> None:
-        """One housekeeping pass: session expiry, alarm history, the
-        overload governor's poll, the stats sample. Callable directly
-        (the tests and a CPU drive poll the governor this way)."""
+        """One housekeeping pass: session expiry, ban expiry, alarm
+        history, the OS watermarks, the overload governor's poll, the
+        stats sample. Callable directly (the tests and a CPU drive poll
+        the governor this way)."""
         self.cm.sweep_expired_sessions()
+        self.banned.tick()
         self.alarms.tick()
+        self.os_mon.tick()
         if self.overload_governor is not None:
             self.overload_governor.poll()
         self.stats.sample()
@@ -273,19 +344,31 @@ class Node:
     # ---- the PUBLISH entries the channel calls (node.py:449-460) ----
     async def publish_async(self, msg: Message) -> int:
         """The channel PUBLISH entry: batched through the device route
-        pipeline."""
-        return await self.publish_batcher.submit(msg)
+        pipeline when there is one, else the host per-message path."""
+        if self.publish_batcher is not None:
+            return await self.publish_batcher.submit(msg)
+        return await self.broker.publish_async(msg)
 
     def publish_future(self, msg: Message) -> asyncio.Future:
         """Queue a PUBLISH into the batch window without awaiting it; the
         future resolves to its delivery count (the channel's QoS 1/2
-        path, which acks in receive order once counts resolve)."""
-        return self.publish_batcher.submit_future(msg)
+        path, which acks in receive order once counts resolve). Without a
+        batcher the host path starts at once (an eager task): it routes
+        before the caller's next PUBLISH unless a message.publish hook
+        suspends."""
+        if self.publish_batcher is not None:
+            return self.publish_batcher.submit_future(msg)
+        return asyncio.Task(self.broker.publish_async(msg),
+                            loop=asyncio.get_running_loop(),
+                            eager_start=True)
 
     def publish_nowait(self, msg: Message) -> bool:
         """Fire-and-forget PUBLISH (QoS0 path): pipelines into the batch
         window without serializing the caller's read loop. Returns False
-        when the backpressure bound is hit — the caller must `await
-        publish_async` instead, which both preserves per-publisher
-        ordering and stalls an overloading read loop."""
-        return self.publish_batcher.enqueue(msg)
+        when not accepted (no batcher, or the backpressure bound is hit)
+        — the caller must `await publish_async` instead, which both
+        preserves per-publisher ordering and stalls an overloading read
+        loop."""
+        if self.publish_batcher is not None:
+            return self.publish_batcher.enqueue(msg)
+        return False

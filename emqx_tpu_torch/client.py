@@ -5,9 +5,10 @@ the MQTT data bridge (emqx_bridge_worker.erl); this is the equivalent —
 a small, complete client over the same wire codec, used by tests and by
 the egress MQTT bridge.
 
-The port's copy of ``emqx_tpu/client.py`` over plain TCP: TLS, non-TCP
-transports and the SCRAM enhanced-authentication exchange are not part
-of the port.
+The port's copy of ``emqx_tpu/client.py``, over TCP, TLS (``ssl``) or a
+transport of the caller's (``conn_factory``, e.g. WebSocket through
+``broker.ws.open_ws_connection``). The SCRAM enhanced-authentication
+exchange is not part of the port.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Optional
 from emqx_tpu_torch.mqtt import constants as C
 from emqx_tpu_torch.mqtt import packet as P
 from emqx_tpu_torch.mqtt.frame import FrameParser, serialize
+from emqx_tpu_torch.utils.tls import make_client_context
 
 
 class MqttError(Exception):
@@ -30,8 +32,17 @@ class Client:
                  password: Optional[bytes] = None, clean_start: bool = True,
                  keepalive: int = 0, proto_ver: int = C.MQTT_V4,
                  properties: Optional[dict] = None,
-                 will: Optional[P.Will] = None):
+                 will: Optional[P.Will] = None, ssl=None,
+                 conn_factory=None):
+        # conn_factory: async () -> (reader, writer) for non-TCP
+        # transports (WebSocket; the reference's emqtt takes a quic
+        # option the same way)
+        self._conn_factory = conn_factory
         self.host, self.port = host, port
+        # ssl: an ssl.SSLContext, or a dict of emqx-style client tls opts
+        if isinstance(ssl, dict):
+            ssl = make_client_context(ssl)
+        self.ssl = ssl
         self.clientid = clientid
         self.username, self.password = username, password
         self.clean_start = clean_start
@@ -64,8 +75,11 @@ class Client:
         return self._next_pid
 
     async def connect(self, timeout: float = 5.0) -> P.Connack:
-        self._reader, self._writer = await asyncio.open_connection(
-            self.host, self.port)
+        if self._conn_factory is not None:
+            self._reader, self._writer = await self._conn_factory()
+        else:
+            self._reader, self._writer = await asyncio.open_connection(
+                self.host, self.port, ssl=self.ssl)
         pkt = P.Connect(
             proto_name=C.PROTOCOL_NAMES[self.proto_ver],
             proto_ver=self.proto_ver, clean_start=self.clean_start,

@@ -65,7 +65,8 @@ from emqx_tpu_torch import device as D
 from emqx_tpu_torch.broker.deliver import DEFERRED, OPT_TABLE, LaneCounts
 from emqx_tpu_torch.broker.device_engine import (DeviceRouteEngine,
                                                  _device_lock, _is_rich,
-                                                 _pack_opts, capture_shared)
+                                                 _pack_opts, capture_shared,
+                                                 resolve_compact_readback)
 from emqx_tpu_torch.broker.device_engine import _next_pow2 as _batch_pow2
 from emqx_tpu_torch.broker.supervise import contained, guard_task
 from emqx_tpu_torch.engine import Plan, pack_opts
@@ -819,6 +820,7 @@ class ShardedRouteServer(_MeshCore):
                  frontier_cap: int = 16, match_cap: int = 64,
                  fanout_cap: int = 128, slot_cap: int = 16,
                  level_cap: int = 16, max_batch: int = 256,
+                 compact_readback: Optional[bool] = None,
                  delta_overlay: Optional[bool] = None,
                  dispatch_depth: Optional[int] = None,
                  device_exchange: Optional[bool] = None,
@@ -860,7 +862,9 @@ class ShardedRouteServer(_MeshCore):
         self._lock = threading.Lock()   # dispatch thread vs loop updates
 
         # the CSR readback of gathered windows: payload classes (Bp, P)
-        # sized by a peak-biased EWMA, warmed beside the batch classes
+        # sized by a peak-biased EWMA, warmed beside the batch classes;
+        # off, every gathered window reads back dense
+        self.compact_readback = resolve_compact_readback(compact_readback)
         self._payload_mults = (8, 32, 128)
         self._pay_ewma: Optional[float] = None
         self._compact_warm: set[tuple] = set()    # {(Bp, P)}
@@ -1510,7 +1514,9 @@ class ShardedRouteServer(_MeshCore):
         """Payload class of a Bp-wide gather's CSR readback, or None for
         the dense planes (the single-chip engine's peak-biased EWMA and
         pow2-multiple ladder; entries sum over shards, so the ladder
-        multiplies Bp)."""
+        multiplies Bp). None when ``compact_readback`` is off."""
+        if not self.compact_readback:
+            return None
         dense = self.match_cap + 2 * self.fanout_cap + 3 * self.slot_cap
         mults = [m for m in self._payload_mults if m < dense]
         if not mults:
@@ -2214,7 +2220,7 @@ class ShardedRouteServer(_MeshCore):
             "caps": dict(self._caps or {}),
             "warm_classes": sorted(self._warm_classes),
             "match_cache": "bypassed",
-            "compact_readback": True,
+            "compact_readback": self.compact_readback,
             "dispatch_depth": self.dispatch_depth,
             "delta_overlay": "per-shard-rebuild" if self.delta_overlay
             else False,

@@ -76,6 +76,9 @@ RICH = ("rich",)
 # the reference's full default with its supervision on too: the JAX node
 # at its default against the port's default (supervised)
 LAYERS["supervised"] = dict(LAYERS["full"], supervise=True)
+# the reference's full default with the dense readback (compact_readback
+# off: every window reads its dense planes back)
+LAYERS["dense"] = dict(LAYERS["full"], compact_readback=False)
 
 # the reference path: every layer the port lacks off
 JAX_BROKER = {
@@ -430,6 +433,37 @@ def test_engine_twin_supervised(backend, strategy):
         for k in ("faults", "replays", "stalls", "trips"):
             assert node.metrics.val(f"supervise.{k}") == 0, k
     assert twin.t.metrics.val("routing.device.cached_windows") > 0
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("backend", ["shapes", "trie"])
+def test_engine_twin_dense(backend, strategy):
+    """``compact_readback: false`` on both engines (the reference's A/B
+    baseline): the same deliveries, picks, cursors and counts as every
+    case above; every window reads back dense — the same windows and
+    bytes as the reference's where the port split none — and no payload
+    class is chosen, warmed or left cold."""
+    twin = _twin_shapes("dense", strategy, 1) if backend == "shapes" \
+        else _twin_trie("dense", strategy)
+    te = twin.t.device_engine
+    assert te.compact_readback is False \
+        and twin.j.device_engine.compact_readback is False
+    assert te._choose_payload_cap(64) is None
+    assert all(c[-1] is None for c in te._wanted)
+    assert not any(str(k[-1]).startswith("c") for k in te._warm_classes)
+    keys = ["pipeline.readback.windows.compact",
+            "pipeline.readback.bytes.compact",
+            "routing.device.cold_compact_class",
+            "routing.device.compact_overflow"]
+    if not twin.split:      # a split window reads back twice
+        keys += ["pipeline.readback.windows.dense",
+                 "pipeline.readback.bytes.dense"]
+    for key in keys:
+        assert twin.t.metrics.val(key) == twin.j.metrics.val(key), key
+    assert twin.t.metrics.val("pipeline.readback.windows.dense") > 0
+    assert twin.t.metrics.val("pipeline.readback.windows.compact") == 0
+    assert twin.t.metrics.val("routing.device.cold_compact_class") == 0
+    assert te.stats()["compact_readback"] is False
 
 
 def test_route_batch_counts_match_host_path():

@@ -45,7 +45,11 @@ MODULES = [
     "emqx_tpu_torch.broker.telemetry", "emqx_tpu_torch.broker.hbm_ledger",
     "emqx_tpu_torch.native", "emqx_tpu_torch.broker.trace",
     "emqx_tpu_torch.broker.latency", "emqx_tpu_torch.broker.alarm",
-    "emqx_tpu_torch.broker.overload", "emqx_tpu_torch.chaos", "chip_smoke",
+    "emqx_tpu_torch.broker.overload", "emqx_tpu_torch.chaos",
+    "emqx_tpu_torch.utils.logger", "emqx_tpu_torch.utils.tls",
+    "emqx_tpu_torch.broker.banned", "emqx_tpu_torch.broker.monitor",
+    "emqx_tpu_torch.broker.congestion", "emqx_tpu_torch.broker.ws",
+    "chip_smoke",
 ]
 
 

@@ -488,9 +488,12 @@ def test_unsupported_layer_raises(key, value):
     supervise section), and off it is None everywhere. The mesh
     (``multichip``) builds the port's ShardedRouteServer behind a batcher
     of the reference's max_batch 256 (the twin of
-    ``tests/test_multichip_serving.py:49``); the dense readback
-    (``compact_readback: false``) is refused on either engine, and the
-    host-only node (``device_route: false``) is refused."""
+    ``tests/test_multichip_serving.py:49``). The dense readback
+    (``compact_readback: false``) is accepted and reaches either engine,
+    whose payload chooser then reads back dense, as the reference's; the
+    host-only node (``device_route: false``) is accepted and builds no
+    engine and no batcher (its PUBLISH takes the host path), as the
+    reference's."""
     if key == "supervise":
         for node in (TNode({"broker": {key: value}}, device="cpu"),
                      TNode(device="cpu")):
@@ -553,9 +556,15 @@ def test_unsupported_layer_raises(key, value):
             ref.publish_batcher.max_batch == 256
         assert eng.sup is node.supervisor \
             and eng.ledger is node.hbm_ledger
-        with pytest.raises(ValueError, match="compact_readback"):
-            TNode({"broker": {key: value, "compact_readback": False}},
-                  device="cpu")
+        dense = TNode({"broker": {key: value, "compact_readback": False}},
+                      device="cpu").device_engine
+        jdense = JNode({"broker": {key: value,
+                                   "compact_readback": False}})
+        assert dense.compact_readback is False \
+            and jdense.device_engine.compact_readback is False
+        assert dense._choose_pcap(64) is None \
+            and jdense.device_engine._choose_pcap(64) is None
+        assert eng.compact_readback is True
         assert not isinstance(TNode({"broker": {key: {"enable": False}}},
                                     device="cpu").device_engine,
                               ShardedRouteServer)
@@ -569,10 +578,28 @@ def test_unsupported_layer_raises(key, value):
         assert (off.columnar_ingress, off.ingress_lanes) == (False, 1)
         assert TNode(device="cpu").columnar_ingress is True
         return
-    with pytest.raises(ValueError, match=key):
-        TNode({"broker": {key: value}}, device="cpu")
-    TNode({"broker": {key: not value if isinstance(value, bool) else 0}},
-          device="cpu")
+    if key == "compact_readback":
+        node = TNode({"broker": {key: value}}, device="cpu")
+        ref = JNode({"broker": {key: value}}, use_device=True)
+        for eng in (node.device_engine, ref.device_engine):
+            assert eng.compact_readback is False
+            eng.rebuild()
+            assert eng._choose_payload_cap(64) is None
+        assert TNode({"broker": {key: not value}}, device="cpu") \
+            .device_engine.compact_readback is True
+        assert TNode(device="cpu").device_engine.compact_readback is True
+        return
+    assert key == "device_route"
+    node = TNode({"broker": {key: value}}, device="cpu")
+    ref = JNode({"broker": {key: value}})
+    for n in (node, ref):
+        assert n.device_engine is None and n.publish_batcher is None
+        assert n.router.use_device is False
+        assert n.publish_nowait(None) is False
+    assert (node.flight_recorder, node.supervisor, node.hbm_ledger,
+            node.deliver_lanes) == (None, None, None, None)
+    on = TNode({"broker": {key: not value}}, device="cpu")
+    assert on.device_engine is not None and on.router.use_device
     TNode({"broker": JAX_BROKER}, device="cpu")
 
 

@@ -444,6 +444,46 @@ def test_exchange_shared_groups_fall_back_identically():
     tw.cursors()
 
 
+READBACK_KEYS = ("pipeline.readback.windows.dense",
+                 "pipeline.readback.windows.compact",
+                 "pipeline.readback.bytes.compact",
+                 "routing.device.cold_compact_class")
+
+
+@pytest.mark.parametrize("exchange", [True, False])
+def test_dense_readback_equals_reference(exchange):
+    """``compact_readback: false`` on both mesh servers (exchange on or
+    off; shared groups make the windows gather): every gathered window
+    reads its dense planes back, no CSR payload class is chosen, wanted
+    or warmed, and the deliveries, cursors, exchange decisions and
+    readback counts equal the reference's; the deliveries also equal the
+    CSR twin's on the same traffic."""
+    spec = _SPEC + [(f"sh{i}", "$share/g/ab/+", 0) for i in range(3)]
+    out = []
+    for compact in (False, True):
+        tw = _exchange_twin(spec=spec, extra={
+            "compact_readback": compact, "device_exchange": exchange})
+        for _ in range(3):
+            tw.route(_TOPICS)
+            tw.route(list(reversed(_TOPICS)))
+        tw.cursors()
+        tw.decisions()
+        out.append(tw.got())
+        if compact:
+            assert tw.decisions(READBACK_KEYS[:2])[
+                "pipeline.readback.windows.compact"] > 0
+            continue
+        reads = tw.decisions(READBACK_KEYS)
+        assert reads["pipeline.readback.windows.dense"] > 0
+        assert reads["pipeline.readback.windows.compact"] == 0
+        assert reads["routing.device.cold_compact_class"] == 0
+        te = tw.t.device_engine
+        assert te.compact_readback is False and te._choose_pcap(16) is None
+        assert te._compact_warm == set() and te._wanted_pcap == set()
+        assert te.stats()["compact_readback"] is False
+    assert out[0] == out[1]
+
+
 def test_exchange_dirty_shards_at_consume_fall_back_identically():
     tw = _exchange_twin()
     tw.both(lambda e, mk: (e.warm_exchange(4),
