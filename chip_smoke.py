@@ -34,7 +34,7 @@ Phases:
    kernel at the same grid (the launch floor), torch.cumsum and the
    wrapper call;
 5. the kernels JSON line, the card line, and the result line last
-   (after phases 6 to 15);
+   (after phases 6 to 16);
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
    every hop count at the mesh phase's [E, 3] block and at a ragged
    [1001, 3] block (aligned and unaligned), and across two cards with
@@ -238,6 +238,41 @@ Phases:
    same population and 16,000 PUBLISHes: every message once and in
    order, no kernel launched, torch.cuda.memory_allocated unchanged by
    the node; its msgs/s is the host baseline.
+16. the feature apps and the management API, as the reference's README
+   boots them: phase 15's files plus, in the override, the dashboard on
+   127.0.0.1 port 0, one rewrite rule (rw/src/# to rw/dst/$1, no flood
+   topic matches it), topic metrics on device/d0/+/n0/# and
+   device/+/x/n0/#, and flapping detection (5 disconnects in 10 s ban for
+   2 s); Node.from_config_file on the card, start_listeners, start_apps
+   (the shipped retainer and delayed publish, rewrite, topic metrics,
+   flapping), start_dashboard and start_timers(1.0). 16a: phase 8's
+   population over 16 TCP connections, the warm-up, 32,000 PUBLISHes
+   from 8 TCP publishers (every 4th QoS 1, every 8th retained), the
+   message.publish hook fold live in every window: every message once
+   and in order, at least 0.9 on the device, kernels 1 and 2 launched,
+   the retained count equal to the distinct retained topics sent and
+   each topic-metrics filter's in and out counts equal to the messages
+   sent to it; msgs/s, client p50 / p99, the burst share, the fold's
+   batch_form stage p50 / p99 beside 15a's, and the launches a window by
+   shape. 16b (bench.py's run_config5 replay, CONFIG5_10M.json's
+   100,000 retained): one TCP publisher sends 100,000 retained QoS 0
+   PUBLISHes c5r/{i % 64}/k{i} through the node (a QoS 1 PUBLISH acked
+   every 4,096 paces it); a c5r/0/+ subscriber replays exactly 1,563, a
+   retain-handling-2 one none and a late c5r/# one all 100,000, each
+   with the retain flag; publish and replay msgs/s, and a sweep's
+   seconds with them stored and after they are cleaned. 16c, run
+   between 16b's stream and its replays: the governor's readings
+   scripted into overload park a c5r/2/# subscriber's replay
+   (defer_retained, counted once); back to normal, the sweep that
+   unwinds defer_retained replays its 1,563 (and leaves the governor
+   at normal for 16b's replays). 16d: login, the five
+   /api/v5/pipeline endpoints (trace with windows, perfetto JSON, the
+   ledger's share of the card's allocated bytes at most 1), a REST
+   publish, the rewrite, a $delayed/2 PUBLISH arriving 2 to 3 s later,
+   /api/v5/routes against the population, SysBroker's $SYS pipeline
+   payloads one per snapshot section, the CLI (status, trace device
+   start/stop) and a flapping client refused 0x8A then admitted once its
+   ban expired and sweep ran.
 
 Every node of phases 8-12 runs supervised, as the default node does, and
 must end its phase with no supervised fault, replay, stall or trip (the
@@ -268,7 +303,12 @@ overwritten): every ``route_step#<trace id>`` range must name a trace
 the ring holds a dispatch span under.
 
 ``python3 chip_smoke.py --boot`` builds the kernels and runs phase 15
-alone.
+alone; ``python3 chip_smoke.py --apps`` phase 16.
+``python3 chip_smoke.py --warm-stress`` runs 16a, then 16b's stream
+beside a loop of the engine's class warms: the reproducer of a fixed
+fault (a graph capture on a stream serving used, after which every
+``pin_memory`` raised ``CUDA error: invalid argument``); it exits 1
+where the fault shows.
 
 ``python3 chip_smoke.py --trace-cost`` runs phase 8's node alone with
 its depth-2 lanes flood in eight rounds of four layer settings (the
@@ -1241,14 +1281,17 @@ async def _subscribe_population(port: int, n_filters: int, n_sub: int):
     """bench.py:1219-1243: each subscriber connection takes its own plain
     filters and shared groups, plus the second membership of the previous
     connection's groups (2 members per group on different sockets), in
-    SUBSCRIBE packets of E2E_SUB_CHUNK filters."""
+    SUBSCRIBE packets of E2E_SUB_CHUNK filters. Every connection is made
+    before the first SUBSCRIBE: the subscriptions can hold the loop long
+    enough for a polled governor to pause CONNECTs."""
     from emqx_tpu_torch.client import Client
     from emqx_tpu_torch.mqtt import packet as P
     ids, nums = e2e_grid(n_filters)
     subs, n_shared, n_entries = [], 0, 0
     for c in range(n_sub):
-        cl = Client(port=port, clientid=f"esub{c}")
-        await cl.connect()
+        subs.append(Client(port=port, clientid=f"esub{c}"))
+        await subs[-1].connect()
+    for c, cl in enumerate(subs):
         batch = []
         for cc, second in ((c, False), ((c - 1) % n_sub, True)):
             for i in range(cc, ids, n_sub):
@@ -1264,7 +1307,6 @@ async def _subscribe_population(port: int, n_filters: int, n_sub: int):
             if any(rc >= 0x80 for rc in ack.reason_codes):
                 raise AssertionError(f"esub{c}: a SUBSCRIBE was refused")
         n_entries += len(batch)
-        subs.append(cl)
     return subs, ids, nums, n_shared, n_entries
 
 
@@ -1303,9 +1345,19 @@ async def _warm_up(node, pub, subs, nums: int) -> None:
         raise AssertionError("no snapshot after the warm-up")
 
 
+def flood_pairs(seed: int, p: int, per_pub: int, ids: int,
+                nums: int) -> list:
+    """Publisher p's (i, n) sequence in ``_flood``: its k-th message goes
+    to device/d{i}/x/n{n}/t."""
+    r = np.random.RandomState(seed + p)
+    return [(int(r.randint(0, ids)), int(r.randint(0, nums)))
+            for _ in range(per_pub)]
+
+
 async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
                  seed: int, replays: bool = False,
-                 per_topic: bool = False, groups=None) -> dict:
+                 per_topic: bool = False, groups=None,
+                 retain_every: int = 0) -> dict:
     """bench.py:1283-1366: every publisher floods its share of `total`
     messages to device/d{i}/x/n{n}/t (each matches exactly one filter),
     every 4th at QoS 1 with pipelined PUBACKs; drainers record every
@@ -1319,7 +1371,8 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
     receive a publisher's two messages in shard order). ``groups``
     ({label: publisher indices}, e.g. by transport): each group's
     delivered msgs/s (its messages over the time to its last delivery)
-    and client p50 / p99 as ``by_group``."""
+    and client p50 / p99 as ``by_group``. ``retain_every``: every
+    such k-th message of a publisher carries the retain flag."""
     import asyncio
     import struct
 
@@ -1343,14 +1396,14 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
             got[c].append((p, s, i, n, m.qos))
 
     async def flood(p, cl):
-        r = np.random.RandomState(seed + p)
         acks = []
-        for k in range(per_pub):
-            i, n = int(r.randint(0, ids)), int(r.randint(0, nums))
+        for k, (i, n) in enumerate(flood_pairs(seed, p, per_pub, ids,
+                                               nums)):
             fut = cl.publish_start(
                 f"device/d{i}/x/n{n}/t",
                 struct.pack(fmt, time.perf_counter(), p, k, i, n),
-                qos=1 if k % 4 == 0 else 0)
+                qos=1 if k % 4 == 0 else 0,
+                retain=bool(retain_every) and k % retain_every == 0)
             if fut is not None:
                 acks.append(fut)
             if len(acks) >= 256:
@@ -5057,18 +5110,38 @@ READBACK = ("pipeline.readback.bytes.dense", "pipeline.readback.bytes.compact",
             "routing.device.compact_overflow")
 
 
+def hist_window(h, counts0: list) -> dict:
+    """A telemetry histogram's observations since `counts0` (a copy of
+    its counts): the count and the p50 / p99 upper bucket bounds in us
+    (one quarter-octave over at most, ``Histogram.percentile``)."""
+    d = [c - c0 for c, c0 in zip(h.counts, counts0)]
+    n = sum(d)
+
+    def pct(p):
+        acc = 0
+        for b, c in zip(h.bounds + [2 * h.bounds[-1]], d):
+            acc += c
+            if n and acc >= p * n:
+                return round(b * 1e6, 1)
+        return 0.0
+    return {"count": n, "p50_us": pct(0.5), "p99_us": pct(0.99)}
+
+
 async def _boot_flood(node, subs, pubs, ids, nums, total, seed, groups=None,
                       min_share=E2E_MIN_DEVICE_SHARE, where="",
-                      device=True) -> dict:
+                      device=True, retain_every: int = 0) -> dict:
     """One flood through a booted node (``_flood``) with the readback
-    counters and kernel 2's launches by shape read around it; on a device
-    node it checks the kernels and, with `min_share`, the device
-    share."""
+    counters, kernel 2's launches by shape and the batch_form stage (the
+    message.publish hook fold) read around it; on a device node it
+    checks the kernels and, with `min_share`, the device share."""
     from emqx_tpu_torch import device as D
     m = node.metrics
     r0 = {k: m.val(k) for k in READBACK}
+    bf = node.pipeline_telemetry._stage_hist("batch_form")
+    bf0 = list(bf.counts)
     f = await _flood(node, subs, pubs, ids, nums, total, seed,
-                     groups=groups)
+                     groups=groups, retain_every=retain_every)
+    f["batch_form"] = hist_window(bf, bf0)
     f["readback"] = {k: m.val(k) - v for k, v in r0.items()}
     f["scan_shapes"] = dict(D.LAUNCH_SHAPES["prefix_sum"])
     f["fold_shapes"] = dict(D.LAUNCH_SHAPES["shape_match"])
@@ -5104,7 +5177,7 @@ async def _boot_conn(node, certs, ports, tr, clientid):
         await cl.connect()
     except MqttError:
         pass
-    rc = cl.connack.reason_code
+    rc = cl.connack.reason_code if cl.connack is not None else None
     await cl.disconnect()
     return rc
 
@@ -5217,14 +5290,15 @@ def _burst_counter():
 
 
 async def _boot_node_drive(node, certs, n_filters, n_sub, pin_device, tag):
-    """Start the node's listeners, subscribe phase 8's population over
-    TCP and connect BOOT_PUBS' publishers; returns (ports, subs, pubs,
-    groups, ids, nums, shared filters, subscriptions)."""
+    """Start the node's listeners, connect BOOT_PUBS' publishers and
+    subscribe phase 8's population over TCP (every connection before the
+    first SUBSCRIBE, see _subscribe_population); returns (ports, subs,
+    pubs, groups, ids, nums, shared filters, subscriptions)."""
     await node.start_listeners()
     ports = _boot_ports(node)
+    pubs, groups = await _boot_pubs(ports, certs, tag)
     subs, ids, nums, n_shared, n_entries = \
         await _subscribe_population(ports["tcp"], n_filters, n_sub)
-    pubs, groups = await _boot_pubs(ports, certs, tag)
     if pin_device and node.publish_batcher is not None:
         node.publish_batcher._device_worth_it = lambda: True
     return ports, subs, pubs, groups, ids, nums, n_shared, n_entries
@@ -5559,6 +5633,759 @@ def boot_phase(dev, card: str) -> dict:
     return r
 
 
+# ---- phase 16: the feature apps and the management API ------------------
+
+APPS_RETAIN_EVERY = 8                # 16a: every 8th PUBLISH retained
+APPS_RETAINED = 100_000              # 16b: CONFIG5_10M.json's retained
+APPS_RETAINED_GROUPS = 64            # 16b: c5r/{i % 64}/k{i}
+# 16a's topic metrics: two filters of the flood's shape (its topics are
+# device/d{i}/x/n{n}/t), over 1/ids and 1/nums of it (~100 of 32,000)
+APPS_TM_FILTERS = ("device/d0/+/+/#", "device/+/x/n0/#")
+APPS_DELAY_S = 2                     # 16d's $delayed/2/...
+APPS_FLAP_MAX = 5                    # 16d: flapping_detect max_count
+APPS_BAN_S = 2                       # 16d: flapping_detect ban_time
+APPS_TIMEOUT_S = 60.0
+APPS_PACE = 4096                     # 16b: a QoS 1 PUBLISH acked every
+                                     # this many retained ones
+APPS_GOVERNOR_S = 180.0              # the longest wait for the governor
+APPS_HOLD_S = 6.0                    # 16b: the 1 s sweeps read with the
+                                     # 100,000 retained stored
+# the later legs' clients (16b's publisher and subscribers, 16c's, 16d's)
+APPS_LATE_CLIENTS = ("c5-pub", "c5-sub", "c5-one", "c5-rh2", "c5-defer",
+                     "op-sub", "op-pub", "op-sys")
+
+
+def apps_override(certs: dict) -> str:
+    """Phase 15's override plus the dashboard on 127.0.0.1 port 0, one
+    rewrite rule no flood topic matches, topic metrics on
+    APPS_TM_FILTERS and flapping detection (the shipped file's retainer
+    and delayed publish stay on)."""
+    return boot_override(certs) + (
+        'dashboard { listeners { http { bind = "127.0.0.1", port = 0 } } }\n'
+        'rewrite = [ { action = publish, source = "rw/src/#",\n'
+        '              re = "^rw/src/(.+)$", dest = "rw/dst/$1" } ]\n'
+        f'topic_metrics = {json.dumps(list(APPS_TM_FILTERS))}\n'
+        f"flapping_detect {{ enable = true, max_count = {APPS_FLAP_MAX}, "
+        f"window_time = 10, ban_time = {APPS_BAN_S} }}\n")
+
+
+async def _http(port: int, method: str, path: str, body=None,
+                bearer=None) -> tuple:
+    """One HTTP/1.1 request to the dashboard server: (status, JSON body
+    or raw bytes)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = json.dumps(body).encode() if body is not None else b""
+    hdrs = [f"{method} {path} HTTP/1.1", "host: x",
+            f"content-length: {len(data)}", "connection: close"]
+    if bearer:
+        hdrs.append(f"authorization: Bearer {bearer}")
+    writer.write(("\r\n".join(hdrs) + "\r\n\r\n").encode() + data)
+    await writer.drain()
+    raw = await reader.read(-1)
+    writer.close()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    if b"application/json" in head:
+        payload = json.loads(payload) if payload else None
+    return int(head.split()[1]), payload
+
+
+async def _recv_all(cl, idle_s: float = 0.5, limit: float = APPS_TIMEOUT_S):
+    """Every message a client receives until it is idle for `idle_s`."""
+    import asyncio
+    got, t_end = [], time.perf_counter() + limit
+    while time.perf_counter() < t_end:
+        try:
+            got.append(await cl.recv(timeout=idle_s))
+        except asyncio.TimeoutError:
+            break
+    return got
+
+
+async def _below_overload(node, limit: float = APPS_GOVERNOR_S) -> float:
+    """Wait until the governor (polled by the node's 1 s timers) is below
+    its overload grade, where defer_retained parks replays and
+    pause_connects refuses CONNECTs; the seconds waited."""
+    import asyncio
+    gov, t0 = node.overload_governor, time.perf_counter()
+    while gov.retained_deferred or gov.connects_paused:
+        if time.perf_counter() - t0 > limit:
+            raise AssertionError(f"the governor stayed at "
+                                 f"{gov.state()['grade']} for {limit} s")
+        await asyncio.sleep(0.1)
+    return time.perf_counter() - t0
+
+
+async def _apps_retained_stream(node, late: dict, retained: int) -> dict:
+    """16b's stream: the c5-pub client sends `retained` retained QoS 0
+    PUBLISHes c5r/{i % 64}/k{i} through the node's device path, paced by
+    a QoS 1 PUBLISH acked every APPS_PACE (the stream keeps the node's
+    queue short: a flood past its rate is phase 12's)."""
+    import asyncio
+
+    from emqx_tpu_torch import device as D
+    from emqx_tpu_torch.apps.retainer import Retainer
+    m = node.metrics
+    ret = node.get_app(Retainer)
+    base = ret.retained_count()
+    pub = late["c5-pub"]
+    w0 = m.val("routing.device.windows")
+    dev0 = m.val("routing.device.messages")
+    D.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(retained):
+        pub.publish_start(f"c5r/{i % APPS_RETAINED_GROUPS}/k{i}",
+                          b"retained-%d" % i, qos=0, retain=True)
+        if pub.needs_drain:
+            await pub.drain()
+        if i % APPS_PACE == APPS_PACE - 1:
+            await pub.publish("c5s/pace", b"", qos=1,
+                              timeout=APPS_TIMEOUT_S)
+        elif i % 512 == 511:
+            await asyncio.sleep(0)
+        if i % 20_000 == 19_999:
+            log(f"phase 16b: {i + 1} sent in "
+                f"{time.perf_counter() - t0:.1f} s, "
+                f"{ret.retained_count() - base} retained, "
+                f"{m.val('routing.device.windows') - w0} device windows")
+    # the retainer stores a message in the fold, before its window
+    # routes: a QoS 1 PUBLISH behind the stream is acked once the stream
+    # has routed, so no late subscriber meets its tail as live traffic
+    await pub.publish("c5s/end", b"", qos=1, timeout=APPS_TIMEOUT_S)
+    pub_s = time.perf_counter() - t0
+    out = {"retained": retained, "publish_s": pub_s,
+           "publish_per_sec": int(round(retained / pub_s)),
+           "windows": m.val("routing.device.windows") - w0,
+           "device_messages": m.val("routing.device.messages") - dev0,
+           "launches": dict(D.LAUNCHES),
+           "scan_shapes": dict(D.LAUNCH_SHAPES["prefix_sum"]),
+           "fold_shapes": dict(D.LAUNCH_SHAPES["shape_match"]),
+           "retained_count": node.stats.sample()["retained.count"]}
+    if ret.retained_count() != base + retained:
+        raise AssertionError(f"phase 16b: {ret.retained_count() - base} of "
+                             f"{retained} retained")
+    return out
+
+
+async def _apps_stored_reading(node, ports) -> dict:
+    """16b's reading of an open fault (ROADMAP Queue C): with the
+    retained messages stored, each 1 s sweep's expiry scan
+    (``Retainer.tick``, the reference's) and the full collections its
+    allocations set off add their time to the governor's loop-lag probe;
+    past 0.25 s the booted node climbs to overload and refuses CONNECTs
+    while they are kept. APPS_HOLD_S of the
+    node's own sweeps, then one CONNECT: each sweep's seconds and each
+    full collection's, the highest grade seen, the grade and loop lag
+    after, the CONNACK (None: the acceptor lane closed the socket) and
+    the governor's refusal counters so far."""
+    import asyncio
+
+    from emqx_tpu_torch.broker.overload import GRADES
+    gov, m = node.overload_governor, node.metrics
+    sweeps, full, t_gc = [], [], [0.0]
+
+    def timed(sweep=node.sweep):
+        t = time.perf_counter()
+        sweep()
+        sweeps.append(round(time.perf_counter() - t, 4))
+
+    def on_gc(phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                t_gc[0] = time.perf_counter()
+            else:
+                full.append(round(time.perf_counter() - t_gc[0], 4))
+
+    node.sweep = timed
+    gc.callbacks.append(on_gc)
+    try:
+        top, t_end = gov.grade, time.perf_counter() + APPS_HOLD_S
+        while time.perf_counter() < t_end:
+            await asyncio.sleep(0.1)
+            top = max(top, gov.grade)
+    finally:
+        del node.sweep
+        gc.callbacks.remove(on_gc)
+    st = gov.state()
+    return {"sweeps_s": sweeps, "full_collections_s": full,
+            "grade_max": GRADES[top], "grade": st["grade"],
+            "loop_lag_ms": st["loop_lag_ms"],
+            "connects_paused": gov.connects_paused,
+            "connack": await _boot_conn(node, {}, ports, "tcp", "c5-probe"),
+            "connects_rejected": m.val("pipeline.overload.connects_rejected"),
+            "accepts_paused": m.val("pipeline.overload.accepts_paused")}
+
+
+async def _apps_replay(node, ports, subs: dict, retained: int,
+                       out: dict) -> dict:
+    """16b's replays, with the governor below overload (a parked replay
+    is 16c's): c5r/0/+, c5r/# with retain handling 2, then the whole
+    c5r/# (one synchronous hook call: its stall may arm the governor, so
+    it goes last)."""
+    import asyncio
+
+    from emqx_tpu_torch.apps.retainer import Retainer
+    out["waited_s"] = await _below_overload(node)
+    await subs["c5-one"].subscribe("c5r/0/+", qos=0)
+    await subs["c5-rh2"].subscribe("c5r/#", qos=0, opts={"rh": 2})
+    one = await _recv_all(subs["c5-one"])
+    rh2 = await _recv_all(subs["c5-rh2"])
+    out["waited_s"] += await _below_overload(node)
+    t0 = time.perf_counter()
+    await subs["c5-sub"].subscribe("c5r/#", qos=0, timeout=60)
+    n_all, flags = 0, True
+    t_end = time.perf_counter() + APPS_TIMEOUT_S
+    while n_all < retained and time.perf_counter() < t_end:
+        try:
+            msg = await subs["c5-sub"].recv(timeout=5)
+        except asyncio.TimeoutError:
+            break
+        n_all += 1
+        flags = flags and bool(msg.retain)
+    replay_s = time.perf_counter() - t0
+    out["stored"] = await _apps_stored_reading(node, ports)
+    # the store back to 16a's size, so that the governor can leave
+    # overload for 16d (see _apps_stored_reading)
+    t1 = time.perf_counter()
+    node.sweep()
+    sweep_s = time.perf_counter() - t1
+    ret = node.get_app(Retainer)
+    cleaned = ret.clean("c5r/#")
+    t1 = time.perf_counter()
+    node.sweep()
+    out.update({"sweep_s_full": sweep_s, "cleaned": cleaned,
+                "sweep_s_after": time.perf_counter() - t1})
+    extra = await _recv_all(subs["c5-sub"], idle_s=0.2)
+    want_one = len(range(0, retained, APPS_RETAINED_GROUPS))
+    out.update({"replayed": n_all, "replay_s": replay_s,
+                "replay_per_sec": int(round(n_all / replay_s)),
+                "retain_flag": flags, "one_group": len(one),
+                "one_group_want": want_one, "rh2": len(rh2),
+                "duplicates": len(extra)})
+    if n_all != retained or not flags or extra or cleaned != retained:
+        raise AssertionError(f"phase 16b: c5r/# replayed {n_all} of "
+                             f"{retained} (retain flag on all: {flags}, "
+                             f"{len(extra)} more)")
+    if len(one) != want_one or not all(x.retain for x in one) or rh2:
+        raise AssertionError(f"phase 16b: c5r/0/+ got {len(one)} of "
+                             f"{want_one}, rh 2 got {len(rh2)}")
+    return out
+
+
+async def _apps_warm_stress(node, late: dict, retained: int) -> dict:
+    """``--warm-stress``, the reproducer of a fault (ROADMAP Queue C,
+    fixed): a graph capture on a pooled stream that was also the
+    engine's serving or warm stream, after which ``pin_memory`` in
+    ``DeviceRouteEngine._replay`` raised ``CUDA error: invalid argument``
+    on every window and warm. Here 16b's stream runs
+    beside a loop of class warms on an executor thread, each a whole
+    ``_warm_dispatch`` (the eager program, the graph capture, the replay
+    through pinned memory, the pinned sets) of a class this snapshot has
+    a graph for, those of the stream's cached windows (Bm set) first
+    (the standard classes where nothing is captured: the CPU). Raises if
+    a warm or the engine failed."""
+    import asyncio
+    eng = node.device_engine
+    loop = asyncio.get_running_loop()
+    done = asyncio.Event()
+    c0 = eng.captures
+
+    def warm(b, tables, cursors, cls):
+        with eng._on(eng._warm_stream):
+            eng._warm_dispatch(b, tables, cursors, cls)
+
+    async def warms():
+        n, seen = 0, set()
+        while not done.is_set():
+            b, tables, cursors = eng._built, eng._tables, eng._cursors
+            classes = sorted(
+                {k[1:6] for k in eng._graphs if k[0] == b.sid}
+                or set(eng._std_classes(b)),
+                key=lambda c: (c[2] is None, tuple(x or 0 for x in c)))
+            cls = classes[n % len(classes)]
+            try:
+                await loop.run_in_executor(None, warm, b, tables, cursors,
+                                           cls)
+            except Exception as e:
+                raise AssertionError(f"warm-stress: the warm of class {cls} "
+                                     f"raised after {n} warms: {e!r}") from e
+            n += 1
+            seen.add(eng._class_label(cls))
+        return n, sorted(seen)
+
+    task = asyncio.ensure_future(warms())
+    try:
+        b = await _apps_retained_stream(node, late, retained)
+    finally:
+        done.set()
+        n, seen = await task
+    if eng.failed is not None:
+        raise AssertionError(f"warm-stress: the engine failed: "
+                             f"{eng.failed!r}")
+    return {"warms": n, "captures": eng.captures - c0, "classes": seen,
+            "stream": b}
+
+
+async def _apps_defer_leg(node, cl, retained: int) -> dict:
+    """16c: the governor's readings scripted (this leg only) into the
+    overload grade: the c5r/2/# subscription of `cl` has its replay
+    parked and counted; the readings back to normal, the sweep that
+    unwinds defer_retained replays it."""
+    gov, m = node.overload_governor, node.metrics
+    want = len(range(2, retained, APPS_RETAINED_GROUPS))
+    d0 = m.val("pipeline.overload.retained_deferred")
+    saved = (gov.up_sustain, gov.down_sustain)
+    reading = {"queue_fill": 0.80}
+    gov.sample_signals = lambda: dict(reading)
+    gov.up_sustain = gov.down_sustain = 1
+    try:
+        for _ in range(4):
+            node.sweep()
+            if gov.grade >= 2:
+                break
+        grade_in = gov.state()["grade"]
+        armed = gov.retained_deferred
+        await cl.subscribe("c5r/2/#", qos=0)
+        parked = await _recv_all(cl)
+        deferred = m.val("pipeline.overload.retained_deferred") - d0
+        # back to normal: sweeps step the grade down (a re-breach
+        # backoff, _down_mult, may ask for several); the sweep that
+        # unwinds defer_retained drains the parked replay
+        reading["queue_fill"] = 0.0
+        sweeps = 0
+        while gov.retained_deferred and sweeps < 256:
+            node.sweep()
+            sweeps += 1
+        t0 = time.perf_counter()
+        drained = await _recv_all(cl)
+        drain_s = time.perf_counter() - t0
+        for _ in range(256):
+            if gov.grade == 0:
+                break
+            node.sweep()
+        grade_out = gov.state()["grade"]
+    finally:
+        del gov.sample_signals          # the class's own readings again
+        gov.up_sustain, gov.down_sustain = saved
+    out = {"grade_in": grade_in, "armed": armed, "parked": len(parked),
+           "deferred": deferred, "sweeps_to_unwind": sweeps,
+           "drained": len(drained), "want": want, "drain_s": drain_s,
+           "grade_after": grade_out}
+    if grade_in != "overload" or not armed or parked or deferred != 1:
+        raise AssertionError(f"phase 16c: overload did not park: {out}")
+    if len(drained) != want or not all(x.retain for x in drained):
+        raise AssertionError(f"phase 16c: the drain replayed {len(drained)}"
+                             f" of {want}")
+    return out
+
+
+async def _apps_operator_leg(node, ports, late: dict, ids: int, nums: int,
+                             tmp: str) -> dict:
+    """16d: the dashboard's /api/v5 surface, a REST publish, the rewrite
+    rule, delayed publish, $SYS, the CLI and flapping detection on the
+    booted node."""
+    import asyncio
+
+    from emqx_tpu_torch.apps.sys import SysBroker
+    from emqx_tpu_torch.mgmt import Cli
+    from emqx_tpu_torch.mqtt import constants as C
+    srv = node.dashboard_server
+    out = {}
+    st, body = await _http(srv.port, "POST", "/api/v5/login",
+                           {"username": "admin", "password": "public"})
+    if st != 200:
+        raise AssertionError(f"phase 16d: login answered {st}")
+    tok = body["token"]
+    cuda = node.device.type == "cuda"
+    eps = {}
+    for name in ("stats", "trace", "memory", "latency", "overload"):
+        st, body = await _http(srv.port, "GET", f"/api/v5/pipeline/{name}",
+                               bearer=tok)
+        eps[name] = st
+        if st != 200:
+            raise AssertionError(f"phase 16d: pipeline/{name} answered {st}")
+        if name == "stats":
+            out["snapshot_sections"] = sorted(body)
+        if name == "trace":
+            out["trace_windows"] = body["ring"]["windows"]
+            if body["ring"]["windows"] <= 0:
+                raise AssertionError("phase 16d: no window in the trace")
+        if name == "memory":
+            out["accounted_fraction"] = body.get("accounted_fraction")
+            if cuda and not 0 < (body.get("accounted_fraction") or 0) <= 1:
+                raise AssertionError(f"phase 16d: memory accounted "
+                                     f"{body.get('accounted_fraction')}")
+        if name == "overload":
+            out["grade"] = body["state"]["grade"] if "state" in body \
+                else body.get("grade")
+    st, doc = await _http(srv.port, "GET",
+                          "/api/v5/pipeline/trace?format=perfetto",
+                          bearer=tok)
+    out["perfetto_events"] = len(doc["traceEvents"]) if st == 200 else None
+    if st != 200 or not out["perfetto_events"]:
+        raise AssertionError(f"phase 16d: perfetto answered {st}")
+    out["pipeline"] = eps
+    # a REST publish, the rewrite rule, delayed publish
+    sub, pub = late["op-sub"], late["op-pub"]
+    for f in ("op/rest", "rw/dst/#", "rw/src/#", "dl/#"):
+        await sub.subscribe(f, qos=1)
+    st, body = await _http(srv.port, "POST", "/api/v5/mqtt/publish",
+                           {"topic": "op/rest", "payload": "r", "qos": 1},
+                           bearer=tok)
+    await pub.publish("rw/src/x", b"w", qos=1)
+    got = [(x.topic, x.payload.decode()) for x in await _recv_all(sub)]
+    out["rest_publish"] = [st, body, got]
+    if st != 200 or got != [("op/rest", "r"), ("rw/dst/x", "w")]:
+        raise AssertionError(f"phase 16d: REST publish / rewrite "
+                             f"{out['rest_publish']}")
+    # the timers sweep every 1 s: a message due at 2 s fires by 3 s
+    t0 = time.perf_counter()
+    await pub.publish(f"$delayed/{APPS_DELAY_S}/dl/x", b"d", qos=1)
+    early = await _recv_all(sub, idle_s=APPS_DELAY_S - 0.2,
+                            limit=APPS_DELAY_S - 0.2)
+    arrived, after_s = [], None
+    try:
+        x = await sub.recv(timeout=2.0)
+        after_s = time.perf_counter() - t0
+        arrived = [(y.topic, y.payload.decode())
+                   for y in [x] + await _recv_all(sub)]
+    except asyncio.TimeoutError:
+        pass
+    out["delayed"] = {"early": len(early), "arrived": arrived,
+                      "after_s": after_s}
+    if early or arrived != [("dl/x", "d")] \
+            or not APPS_DELAY_S <= after_s <= APPS_DELAY_S + 1.2:
+        raise AssertionError(f"phase 16d: delayed {out['delayed']}")
+    # the routes: the population's distinct filters plus this node's own
+    st, body = await _http(srv.port, "GET", "/api/v5/routes?_limit=1",
+                           bearer=tok)
+    topics = node.router.topics()
+    population = sum(t.startswith("device/") for t in topics)
+    out["routes"] = {"count": body["meta"]["count"],
+                     "population": population}
+    if st != 200 or body["meta"]["count"] != len(topics) \
+            or population != ids * nums:
+        raise AssertionError(f"phase 16d: routes {out['routes']} of "
+                             f"{ids * nums} filters")
+    # flapping: APPS_FLAP_MAX connect/disconnects ban the clientid (with
+    # the governor below overload: pause_connects would refuse them)
+    out["waited_s"] = await _below_overload(node)
+    rcs = []
+    for _ in range(APPS_FLAP_MAX + 1):
+        rcs.append(await _boot_conn(node, {}, ports, "tcp", "flapper"))
+    t_ban = time.time()
+    await asyncio.sleep(max(0.0, t_ban + APPS_BAN_S + 0.05 - time.time()))
+    node.sweep()
+    out["waited_s"] += await _below_overload(node)
+    rcs.append(await _boot_conn(node, {}, ports, "tcp", "flapper"))
+    out["flapping"] = rcs
+    if rcs != [0] * APPS_FLAP_MAX + [C.RC_BANNED, 0]:
+        raise AssertionError(f"phase 16d: flapping CONNACKs {rcs}")
+    # $SYS: one pipeline payload per section of the snapshot
+    watch = late["op-sys"]
+    await watch.subscribe("$SYS/brokers/+/pipeline/#", qos=0)
+    sysb = SysBroker(node).load()
+    snap = node.pipeline_telemetry.snapshot()
+    sysb.publish_stats_metrics()
+    sysb.unload()
+    got = await _recv_all(watch)
+    want = {f"stages/{k}" for k in snap["stages"]} | \
+        {f"occupancy/{k}" for k in snap["occupancy"]} | \
+        {"compiles", "decisions"} | {
+            k for k in ("match_cache", "dedup", "readback", "rebuild",
+                        "deliver", "supervise", "trace", "ingress",
+                        "memory", "program_costs", "latency", "overload")
+            if k in snap}
+    seen = [x.topic.split("/pipeline/", 1)[1] for x in got]
+    out["sys"] = {"payloads": len(seen), "sections": len(want)}
+    if sorted(seen) != sorted(want):
+        raise AssertionError(f"phase 16d: $SYS pipeline topics "
+                             f"{sorted(set(seen) ^ want)} differ")
+    # the CLI
+    cli = Cli(node)
+    trace_dir = os.path.join(tmp, "device-trace")
+    out["cli"] = [await cli.run(["status"]),
+                  await cli.run(["trace", "device", "start", trace_dir])]
+    await pub.publish("op/rest", b"traced", qos=1)
+    out["cli"].append(await cli.run(["trace", "device", "stop"]))
+    await _recv_all(sub, idle_s=0.2)
+    if "is running" not in out["cli"][0] or out["cli"][1:] != [
+            "device trace started", "device trace stopped"]:
+        raise AssertionError(f"phase 16d: cli {out['cli']}")
+    return out
+
+
+def apps_drive(dev, n_filters: int = E2E_FILTERS,
+               n_sub: int = E2E_SUB_CONNS, n_pub: int = E2E_PUB_CONNS,
+               total: int = E2E_MSGS, retained: int = APPS_RETAINED,
+               pin_device: bool = False, warm_stress: bool = False) -> dict:
+    """Phase 16: the shipped file booted with its apps (``Node.
+    from_config_file`` on `dev`, ``start_listeners``, ``start_apps``,
+    ``start_dashboard``, ``start_timers(1.0)``) under ``apps_override``:
+    16a phase 8's population and a flood with every 8th PUBLISH retained,
+    16b the retained replay at CONFIG5_10M.json's size, 16c the
+    governor's defer_retained, 16d the operator surface. ``pin_device``
+    pins the chooser (a CPU rehearsal only); ``warm_stress`` runs 16a,
+    then ``_apps_warm_stress`` in place of 16b-16d. Raises on any failed
+    check."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from emqx_tpu_torch.apps.retainer import Retainer
+    from emqx_tpu_torch.apps.topic_metrics import TopicMetrics
+    from emqx_tpu_torch.broker import channel as CH
+    from emqx_tpu_torch.broker.node import Node
+    from emqx_tpu_torch.client import Client
+    from emqx_tpu_torch.utils.tls import generate_self_signed
+    tmp = tempfile.mkdtemp(prefix="emqx-apps-")
+
+    async def run():
+        out = {}
+        certs = generate_self_signed(os.path.join(tmp, "certs"),
+                                     cn="localhost")
+        path = os.path.join(tmp, "emqx.conf")
+        shutil.copy(BOOT_CONF, path)
+        with open(os.path.join(tmp, "emqx_override.conf"), "w") as fh:
+            fh.write(apps_override(certs))
+        node = Node.from_config_file(path, device=dev)
+        clients = []
+        try:
+            t0 = time.time()
+            await node.start_listeners()
+            apps = await node.start_apps()
+            srv = await node.start_dashboard()
+            node.start_timers(1.0)
+            ports = _boot_ports(node)
+            out["apps"] = [type(a).__name__ for a in apps]
+            want_apps = ["Retainer", "DelayedPublish", "TopicRewrite",
+                         "TopicMetrics", "FlappingDetect"]
+            if out["apps"] != want_apps or srv is None:
+                raise AssertionError(f"phase 16a: started {out['apps']}, "
+                                     f"dashboard {srv}")
+            # every client of 16a-16d but the flapper connects before
+            # any load: under load (the population's subscriptions among
+            # it) the governor may pause CONNECTs (pause_connects)
+            pubs = []
+            for p in range(n_pub):
+                cl = Client(port=ports["tcp"], clientid=f"apub{p}")
+                await cl.connect()
+                pubs.append(cl)
+            clients += pubs
+            late = {}
+            for cid in APPS_LATE_CLIENTS:
+                cl = Client(port=ports["tcp"], clientid=cid, proto_ver=5)
+                await cl.connect()
+                late[cid] = cl
+            clients += list(late.values())
+            parked0 = node.metrics.val("pipeline.overload.retained_deferred")
+            subs, ids, nums, n_shared, n_entries = \
+                await _subscribe_population(ports["tcp"], n_filters, n_sub)
+            clients += subs
+            if pin_device:
+                node.publish_batcher._device_worth_it = lambda: True
+            log(f"phase 16a: subscribed in {time.time() - t0:.1f} s")
+            a = {"filters": ids * nums, "shared_filters": n_shared,
+                 "publishers": n_pub,
+                 "subscriptions": n_entries, "setup_s": time.time() - t0,
+                 "hooks": {h: len(node.hooks.lookup(h)) for h in (
+                     "message.publish", "message.delivered",
+                     "session.subscribed", "client.disconnected")}}
+            t0 = time.time()
+            await _warm_up(node, pubs[0], subs, nums)
+            a["warm_up_s"] = time.time() - t0
+            # a subscription made while the governor had defer_retained
+            # armed has its replay parked until the sweep after recovery
+            # (the reference's semantics); run mid-flood it would deliver
+            # what the flood retained by then: the parked replays (of an
+            # empty store) drain before the flood
+            a["parked_replays"] = node.metrics.val(
+                "pipeline.overload.retained_deferred") - parked0
+            a["governor_wait_s"] = await _below_overload(node)
+            if node.get_app(Retainer)._deferred:
+                raise AssertionError("phase 16a: parked retained replays "
+                                     "outlived the governor's recovery")
+            tm = node.get_app(TopicMetrics)
+            tm0 = tm.metrics()
+            ret = node.get_app(Retainer)
+            r0 = ret.retained_count()
+            gc.collect()
+            gc.freeze()
+            rows, orig, counted = _burst_counter()
+            CH.Channel.handle_publish_burst = counted
+            try:
+                f = await _boot_flood(node, subs, pubs, ids, nums, total,
+                                      SEED, where="phase 16a",
+                                      retain_every=APPS_RETAIN_EVERY)
+            finally:
+                CH.Channel.handle_publish_burst = orig
+            f["burst_share"] = sum(rows.values()) / f["sent"]
+            f.pop("got")
+            per_pub = total // n_pub
+            pairs = [flood_pairs(SEED, p, per_pub, ids, nums)
+                     for p in range(n_pub)]
+            to_tm = {APPS_TM_FILTERS[0]: sum(i == 0 for ps in pairs
+                                             for i, _n in ps),
+                     APPS_TM_FILTERS[1]: sum(n == 0 for ps in pairs
+                                             for _i, n in ps)}
+            kept = {pr for ps in pairs for k, pr in enumerate(ps)
+                    if k % APPS_RETAIN_EVERY == 0}
+            tm1 = tm.metrics()
+            a["topic_metrics"] = {
+                t: {k: v - tm0[t][k] for k, v in c.items() if v - tm0[t][k]}
+                for t, c in tm1.items()}
+            a["topic_metrics_sent"] = to_tm
+            a["retained"] = ret.retained_count() - r0
+            a["retained_sent"] = len(kept)
+            a["flood"] = f
+            if a["retained"] != len(kept) or \
+                    node.stats.sample()["retained.count"] != r0 + len(kept):
+                raise AssertionError(f"phase 16a: {a['retained']} retained "
+                                     f"of {len(kept)} topics")
+            for t, n in to_tm.items():
+                got = a["topic_metrics"][t]
+                if got.get("messages.in", 0) != n \
+                        or got.get("messages.out", 0) != n:
+                    raise AssertionError(f"phase 16a: topic metrics {t} "
+                                         f"{got} for {n} messages")
+            a["supervise"] = check_supervised(node, "phase 16a")
+            out["a"] = a
+            log(f"phase 16a: {f['sent']} msgs {f['per_sec']} msgs/s, share "
+                f"{f['device_share']:.4f}, batch_form {f['batch_form']}; "
+                f"setup {a['setup_s']:.1f} s, warm-up {a['warm_up_s']:.1f} "
+                f"s")
+            # (the population stays frozen: a full collection over it
+            # stalls the loop for seconds and arms the governor)
+            if warm_stress:
+                out["warm_stress"] = await _apps_warm_stress(node, late,
+                                                             retained)
+            else:
+                b = await _apps_retained_stream(node, late, retained)
+                # 16c between the stream and the replays: its scripted
+                # recovery leaves the governor at normal (and its
+                # re-breach backoff reset) for them
+                out["c"] = await _apps_defer_leg(node, late["c5-defer"],
+                                                 retained)
+                out["b"] = await _apps_replay(node, ports, late, retained,
+                                              b)
+                out["d"] = await _apps_operator_leg(node, ports, late, ids,
+                                                    nums, tmp)
+        finally:
+            gc.unfreeze()
+            await _boot_stop(node, clients)
+        if node.dashboard_server is not None:
+            raise AssertionError("phase 16: stop_listeners left the "
+                                 "dashboard serving")
+        return out
+
+    try:
+        return asyncio.run(run())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def apps_phase(dev, card: str, batch_form_15a=None) -> dict:
+    """Phase 16 on the card; prints its lines."""
+    t0 = time.time()
+    r = apps_drive(dev)
+    a, b, c, d = r["a"], r["b"], r["c"], r["d"]
+    f = a["flood"]
+    log(f"phase 16a: booted etc/emqx.conf with apps {r['apps']}, the "
+        f"dashboard and the 1 s timers; {a['filters']} filters "
+        f"({a['shared_filters']} shared) subscribed over TCP, setup "
+        f"{a['setup_s']:.1f} s, warm-up {a['warm_up_s']:.1f} s; "
+        f"{a['parked_replays']} retained replays parked by the governor "
+        f"while subscribing, drained {a['governor_wait_s']:.1f} s after "
+        f"the warm-up; hooks {a['hooks']}")
+    log(f"phase 16a: {f['sent']} PUBLISHes from {a['publishers']} "
+        f"TCP publishers (every 4th QoS 1, every {APPS_RETAIN_EVERY}th "
+        f"retained), the message.publish fold live: {f['per_sec']} msgs/s, "
+        f"every message once and in order; client p50 "
+        f"{f['lat_p50_ms']:.1f} / p99 {f['lat_p99_ms']:.1f} ms; device "
+        f"share {f['device_share']:.4f} over {f['windows']} windows "
+        f"({f['batches']} batches); burst share {f['burst_share']:.3f}; "
+        f"{card}")
+    log(f"phase 16a: batch_form (the fold) p50 / p99 "
+        f"{f['batch_form']['p50_us']} / {f['batch_form']['p99_us']} us over "
+        f"{f['batch_form']['count']} batches; phase 15a's in this run "
+        f"{batch_form_15a}")
+    log(f"phase 16a: launches {f['launches']}; a window: shape_match "
+        f"{_shape_rates(f['fold_shapes'], f['windows'])}, prefix_sum "
+        f"{_shape_rates(f['scan_shapes'], f['windows'])}")
+    log(f"phase 16a: retained {a['retained']} topics (sent "
+        f"{a['retained_sent']}); topic metrics {a['topic_metrics']} for "
+        f"{a['topic_metrics_sent']} sent")
+    log(f"phase 16b: {b['retained']} retained PUBLISHes stored in "
+        f"{b['publish_s']:.2f} s ({b['publish_per_sec']} msgs/s, "
+        f"{b['device_messages']} through {b['windows']} device windows, "
+        f"launches {b['launches']}); a late c5r/# subscriber "
+        f"replayed {b['replayed']} in {b['replay_s']:.2f} s "
+        f"({b['replay_per_sec']} msgs/s), all with the retain flag; "
+        f"c5r/0/+ got {b['one_group']}, rh 2 got {b['rh2']}; a sweep "
+        f"with them stored {b['sweep_s_full']:.3f} s, after clean "
+        f"(c5r/#: {b['cleaned']}) {b['sweep_s_after']:.3f} s; waited "
+        f"{b['waited_s']:.1f} s for the governor; {card}")
+    x = b["stored"]
+    log(f"phase 16b: with the {b['retained']} stored, {APPS_HOLD_S} s of "
+        f"1 s sweeps (each {x['sweeps_s']} s; full collections "
+        f"{x['full_collections_s']} s): governor at most {x['grade_max']}, "
+        f"then {x['grade']} "
+        f"(loop lag {x['loop_lag_ms']} ms, connects paused "
+        f"{x['connects_paused']}); a new CONNECT answered {x['connack']}; "
+        f"CONNECTs refused {x['connects_rejected']}, accepts closed "
+        f"{x['accepts_paused']} so far (the open fault, ROADMAP Queue C)")
+    log(f"phase 16b: a window: shape_match "
+        f"{_shape_rates(b['fold_shapes'], b['windows'])}, prefix_sum "
+        f"{_shape_rates(b['scan_shapes'], b['windows'])}")
+    log(f"phase 16c: governor {c['grade_in']} (defer_retained "
+        f"{c['armed']}): parked {c['parked']} delivered, "
+        f"{c['deferred']} deferred; back to normal, the sweep that unwound "
+        f"it ({c['sweeps_to_unwind']} sweeps) replayed {c['drained']} of "
+        f"{c['want']} in {c['drain_s']:.2f} s; "
+        f"grade after {c['grade_after']}")
+    log(f"phase 16d: pipeline endpoints {d['pipeline']}, snapshot sections "
+        f"{d['snapshot_sections']}, trace windows {d['trace_windows']}, "
+        f"perfetto events {d['perfetto_events']}, memory accounted "
+        f"{d['accounted_fraction']}; REST publish and rewrite "
+        f"{d['rest_publish']}; delayed {d['delayed']}; routes "
+        f"{d['routes']}; $SYS {d['sys']}; cli {d['cli']}; flapping "
+        f"CONNACKs {d['flapping']}")
+    r["seconds"] = time.time() - t0
+    log(f"phase 16: {r['seconds']:.1f} s; {card}")
+    return r
+
+
+def apps_main(warm_stress: bool = False) -> int:
+    """``--apps``: build the kernels and run phase 16 alone on a card,
+    then print its results as one JSON line. ``--warm-stress``: 16a, then
+    16b's stream beside looped class warms (``_apps_warm_stress``); it
+    exits 1 where the fault shows."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from emqx_tpu_torch import native
+    from emqx_tpu_torch.ops.build import build
+    card = card_line()
+    log(build().strip())
+    if not native.available():
+        raise AssertionError("the host native library did not build")
+    if warm_stress:
+        w = apps_drive(torch.device("cuda"), warm_stress=True)["warm_stress"]
+        x = w["stream"]
+        log(f"warm-stress: {w['warms']} class warms ({w['captures']} graph "
+            f"captures) of {w['classes']} beside "
+            f"{x['retained']} retained PUBLISHes in {x['publish_s']:.2f} s "
+            f"({x['windows']} device windows); no warm and no engine "
+            f"failed; {card}")
+        log(card)
+        return 0
+    apps = apps_phase(torch.device("cuda"), card)
+    log(json.dumps({"apps": _boot_out(apps)}))
+    log(card)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5651,6 +6478,8 @@ def main() -> int:
     mesh_node = mesh_node_phase(dev, card)
     torch.cuda.empty_cache()
     boot = boot_phase(dev, card)
+    torch.cuda.empty_cache()
+    apps = apps_phase(dev, card, boot["a"]["flood"]["batch_form"])
     timed = {tuple(d["shape"]) for d in scan_shapes + mesh_scan_shapes}
     layer_scan_shapes = []
     for cell, n in (("skew", "windows"), ("churn", "batches")):
@@ -5682,9 +6511,11 @@ def main() -> int:
            if tuple(shape) not in timed}
     timed |= set(new)
     layer_scan_shapes += time_scan_shapes_apart(new, "mesh node")
-    # phase 15: the booted node's and the dense node's window shapes
+    # phases 15 and 16: the booted nodes' and the dense node's window
+    # shapes
     new = {}
-    for f in (boot["a"]["flood"], boot["c"]["csr"], boot["c"]["dense"]):
+    for f in (boot["a"]["flood"], boot["c"]["csr"], boot["c"]["dense"],
+              apps["a"]["flood"], apps["b"]):
         for shape, cnt in f["scan_shapes"].items():
             if tuple(shape) not in timed:
                 new[tuple(shape)] = max(new.get(tuple(shape), 0),
@@ -5737,15 +6568,20 @@ def main() -> int:
             out[f"boot 15c mesh {mode}"] = \
                 boot["c"]["mesh"][mode]["launches"][name]
         out["boot 15d host-only"] = boot["d"]["launches"][name]
+        # phase 16: the apps-on flood (16a) and the retained stream (16b)
+        out["apps 16a"] = apps["a"]["flood"]["launches"][name]
+        out["apps 16b"] = apps["b"]["launches"][name]
         return out
 
     def per_window(name):
-        """Phase 15's launches a window: 15a and 15c's floods and mesh
-        drives."""
+        """Phases 15 and 16's launches a window: 15a and 15c's floods and
+        mesh drives, 16a's flood and 16b's retained stream."""
         out = {"boot 15a": boot["a"]["flood"]}
         for mode in ("csr", "dense"):
             out[f"boot 15c {mode}"] = boot["c"][mode]
             out[f"boot 15c mesh {mode}"] = boot["c"]["mesh"][mode]
+        out["apps 16a"] = apps["a"]["flood"]
+        out["apps 16b"] = apps["b"]
         return {k: round(f["launches"][name] / max(1, f["windows"]), 3)
                 for k, f in out.items()}
 
@@ -5796,7 +6632,7 @@ def main() -> int:
                                   if k != "scan_shapes"},
                     "mesh_sharded": mesh_node["a"],
                     "capture": mesh_node["capture"],
-                    "boot": _boot_out(boot)}))
+                    "boot": _boot_out(boot), "apps": _boot_out(apps)}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -5860,4 +6696,8 @@ if __name__ == "__main__":
         sys.exit(trace_cost_main())
     if len(sys.argv) == 2 and sys.argv[1] == "--boot":
         sys.exit(boot_main())
+    if len(sys.argv) == 2 and sys.argv[1] == "--warm-stress":
+        sys.exit(apps_main(warm_stress=True))
+    if len(sys.argv) == 2 and sys.argv[1] == "--apps":
+        sys.exit(apps_main())
     sys.exit(main())

@@ -2,11 +2,12 @@
 
 Parity: emqx_config.erl (get/put with zone- and listener-scoped lookups,
 emqx_config.erl:63-100) + the mqtt/zone portions of emqx_schema.erl. The
-port's copy of ``emqx_tpu/broker/config.py``, cut to the sections its
-channel, connection, listener, node, logger, OS monitor and congestion
-alarm read, with the HOCON file boot (``Config.load_file``, the
-``emqx_override.conf`` beside the file) and the runtime-update handlers
-(``register_handler``, ``update``) that persist through
+port's copy of ``emqx_tpu/broker/config.py``: the same ``DEFAULTS`` tree
+(every root section, the feature apps' and those of layers the port does
+not have yet among them, so ``to_dict`` and what ``update`` persists
+equal the reference's), with the HOCON file boot (``Config.load_file``,
+the ``emqx_override.conf`` beside the file) and the runtime-update
+handlers (``register_handler``, ``update``) that persist through
 ``emqx_tpu_torch.utils.hocon.dumps``.
 """
 
@@ -54,17 +55,16 @@ DEFAULTS: dict = {
         "sys_heartbeat_interval": 30,
         "shared_subscription_strategy": "round_robin",
         "shared_dispatch_ack_enabled": False,
+        "route_batch_clean": True,
         # None = the built-in 256 (device_engine.resolve_rebuild_threshold)
         "rebuild_threshold": None,
         "device_min_batch": 4,
-        # None = on (broker/connection.resolve_columnar_ingress); false
-        # restores the per-packet PUBLISH ingress path exactly —
-        # parser.feed, per-packet handle_in, one accept loop, no
-        # `ingress` telemetry section
-        "columnar_ingress": None,
-        # SO_REUSEPORT acceptor lanes per TCP listener (None = min(4,
-        # cpus); must be >= 1; columnar_ingress false forces 1)
-        "ingress_lanes": None,
+        # None = min(4, cpus) (broker/deliver.resolve_deliver_lanes); 0
+        # is the inline delivery loop
+        "deliver_lanes": None,
+        # max outstanding delivery plans before the batcher's consumer
+        # blocks (backpressure up through _inflight to submit/enqueue)
+        "deliver_lane_depth": 8,
         # fault-domain supervision (broker/supervise.py): fault
         # injection points, circuit breakers and the degradation ladder,
         # the window journal and the stage watchdogs. None = on
@@ -73,10 +73,56 @@ DEFAULTS: dict = {
         # consecutive faults before a stage's circuit breaker opens
         # (None = 3, supervise.resolve_breaker_threshold)
         "supervise_threshold": None,
+        # the flight recorder (broker/trace.py; None = on)
+        "trace": None,
+        # per-message span sampling 1-in-N (None = 256; 0 disables
+        # message spans, window spans stay on)
+        "trace_sample": None,
+        # flight-recorder ring capacity, in spans
+        "trace_ring": 4096,
+        # the HBM ledger (broker/hbm_ledger.py; None = on)
+        "hbm_ledger": None,
+        # None = on (broker/connection.resolve_columnar_ingress); false
+        # restores the per-packet PUBLISH ingress path exactly —
+        # parser.feed, per-packet handle_in, one accept loop, no
+        # `ingress` telemetry section
+        "columnar_ingress": None,
+        # SO_REUSEPORT acceptor lanes per TCP listener (None = min(4,
+        # cpus); must be >= 1; columnar_ingress false forces 1)
+        "ingress_lanes": None,
+        # the latency observatory (broker/latency.py; None = on)
+        "latency_observatory": None,
+        # end-to-end objective in ms for the ingress->routed p99 (None =
+        # 2.0; must be > 0)
+        "slo_route_p99_ms": None,
+        # the overload governor (broker/overload.py; None = on)
+        "overload": None,
+        # the mesh's device exchange (parallel/serving.py; None = on)
+        "device_exchange": None,
+        # stale-pin threshold in windows (None = 64; must be > 0)
+        "pin_warn_windows": None,
+        "perf": {"trie_compaction": True},
     },
     "zones": {},                 # zone name -> {mqtt: {...}} overrides
     "listeners": {},             # name -> {type,bind,zone,...}
+    "authn": {"enable": False, "chain": []},
     "authz": {"no_match": "allow", "deny_action": "ignore", "sources": []},
+    "retainer": {
+        "enable": True, "max_retained_messages": 0,
+        "max_payload_size": 1024 * 1024, "msg_expiry_interval": 0,
+        "msg_clear_interval": 0,
+    },
+    "delayed": {"enable": True, "max_delayed_messages": 0},
+    "rewrite": [],               # [{action,source,re,dest}]
+    "topic_metrics": [],         # topic filters to meter
+    "event_message": {e: False for e in (
+        "client_connected", "client_disconnected", "session_subscribed",
+        "session_unsubscribed", "message_delivered", "message_acked",
+        "message_dropped")},
+    "flapping_detect": {
+        "enable": False, "max_count": 15, "window_time": 60,
+        "ban_time": 300,
+    },
     "force_shutdown": {"max_mqueue_len": 10000, "max_awaiting_rel": 0},
     "conn_congestion": {"enable_alarm": False,
                         "min_alarm_sustain_duration": 60},
@@ -90,6 +136,9 @@ DEFAULTS: dict = {
     "log": {"enable": False, "level": "warning", "formatter": "text"},
     "sysmon": {"os": {"sysmem_high_watermark": 0.7,
                       "procmem_high_watermark": 0.05}},
+    "rule_engine": {"rules": []},
+    "cluster": {"name": "emqx_tpu", "discovery": "manual", "nodes": []},
+    "rpc": {"mode": "async", "tcp_client_num": 4},
 }
 
 

@@ -220,6 +220,29 @@ def _device_lock(dev: torch.device) -> threading.RLock:
     with _DEVICE_LOCKS_GUARD:
         return _DEVICE_LOCKS.setdefault(str(dev), threading.RLock())
 
+
+# torch.cuda.Stream draws from a pool of 32 streams per priority level and
+# hands each out again every 32 draws: a capture stream drawn at the
+# engines' priority (0) was, every 32nd capture, an engine's serving or
+# warm stream. Another thread's work on it could then land inside the
+# capture (such as the host allocator's event records on a pinned block's
+# streams when the block is freed), and from then on every pin_memory
+# raised "CUDA error: invalid argument" (``chip_smoke.py --warm-stress``).
+# Captures run on a stream of a level nothing else here draws from.
+_CAPTURE_PRIORITY = -3
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(dev: torch.device):
+    """The stream every graph capture on `dev` runs on, under the device
+    lock."""
+    with _DEVICE_LOCKS_GUARD:
+        s = _CAPTURE_STREAMS.get(str(dev))
+        if s is None:
+            s = _CAPTURE_STREAMS[str(dev)] = torch.cuda.Stream(
+                dev, priority=_CAPTURE_PRIORITY)
+        return s
+
 # delta-overlay row classes: pow2 classes keep the program shapes stable
 # while the overlay grows; past the top class the oldest _OVERLAY_MAX
 # delta filters keep their rows and the rest serve host-side until the
@@ -1717,11 +1740,15 @@ class DeviceRouteEngine:
         `inputs`, `cursors` and overlay `delta` as a CUDA graph for the
         serving dispatches. A failed capture raises."""
         graph = torch.cuda.CUDAGraph()
-        # a stream of its own (a failed capture leaves its stream
-        # unusable), and the capture API rather than torch.cuda.graph,
-        # whose entry also synchronizes the card and empties the memory
-        # caches under the serving stream's feet
-        stream = torch.cuda.Stream(self.device)
+        # a stream no other work is enqueued on (_capture_stream), and
+        # the capture API rather than torch.cuda.graph, whose entry also
+        # synchronizes the card and empties the memory caches under the
+        # serving stream's feet
+        stream = _capture_stream(self.device)
+        if stream.cuda_stream in (self._stream.cuda_stream,
+                                  self._warm_stream.cuda_stream):
+            raise RuntimeError("the capture stream is the engine's own: "
+                               "the card has one stream priority level")
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with D.recording_launches() as launches, torch.cuda.stream(stream):
             graph.capture_begin(capture_error_mode="thread_local")

@@ -3,8 +3,9 @@
 Parity: reference `#message` record (apps/emqx/include/emqx.hrl:55-73),
 `emqx_message.erl` constructors/flag ops, and `emqx_guid.erl` (timestamp +
 node + sequence GUIDs, base62-renderable). The port's copy of
-``emqx_tpu/broker/message.py`` without the cluster wire form and the REST
-map.
+``emqx_tpu/broker/message.py``, with the REST map (``to_map``) and the
+wire form (``to_wire`` / ``from_wire``) the retainer's disc journal
+writes.
 """
 
 from __future__ import annotations
@@ -30,6 +31,13 @@ def base62_encode(n: int) -> str:
         n, r = divmod(n, 62)
         out.append(_BASE62[r])
     return "".join(reversed(out))
+
+
+def base62_decode(s: str) -> int:
+    n = 0
+    for ch in s:
+        n = n * 62 + _BASE62.index(ch)
+    return n
 
 
 class GuidGen:
@@ -153,6 +161,38 @@ class Message:
                        from_=self.from_, flags=dict(self.flags),
                        headers=dict(self.headers), id=self.id, ts=self.ts,
                        extra=dict(self.extra))
+
+    def to_map(self) -> dict:
+        """For the REST API and the event columns."""
+        return {
+            "id": base62_encode(self.id), "topic": self.topic,
+            "qos": self.qos, "from": self.from_,
+            "payload": self.payload, "flags": dict(self.flags),
+            "timestamp": self.ts, "retain": self.retain,
+        }
+
+    def to_wire(self) -> dict:
+        """Full-fidelity encoding (the retainer's disc journal; the
+        reference forwards it between nodes). Header values that do not
+        serialize (live objects planted by local hooks) are dropped."""
+        def safe(v):
+            return isinstance(v, (str, int, float, bool, bytes, type(None))) \
+                or (isinstance(v, (list, tuple)) and all(safe(x) for x in v)) \
+                or (isinstance(v, dict)
+                    and all(isinstance(k, str) and safe(x)
+                            for k, x in v.items()))
+        return {"topic": self.topic, "payload": self.payload,
+                "qos": self.qos, "from": self.from_,
+                "flags": dict(self.flags),
+                "headers": {k: v for k, v in self.headers.items()
+                            if safe(v)},
+                "msgid": self.id, "ts": self.ts}
+
+    @staticmethod
+    def from_wire(d: dict) -> "Message":
+        return Message(topic=d["topic"], payload=d["payload"], qos=d["qos"],
+                       from_=d["from"], flags=dict(d["flags"]),
+                       headers=dict(d["headers"]), id=d["msgid"], ts=d["ts"])
 
 
 def make(from_: str, qos: int, topic: str, payload: bytes,

@@ -24,9 +24,14 @@ but allocates nothing there.
 HOCON file (``Config.load_file``, with the ``emqx_override.conf`` beside
 it on top) and ``start_listeners`` starts every listener under ``listeners``:
 ``tcp`` and ``ssl`` (``broker/connection.Listener``), ``ws`` and ``wss``
-(``broker/ws.WsListener``); a TLS type needs its ``ssl`` block. The
-layers the reference also boots from the file (apps, gateways, the
-dashboard and the QUIC listener) are not part of the port.
+(``broker/ws.WsListener``); a TLS type needs its ``ssl`` block.
+``start_apps`` boots the feature apps the file declares
+(``apps/boot.start_apps``: the retainer and delayed publish, on by
+default, rewrite, topic metrics, event messages and flapping detection)
+and ``start_dashboard`` the ``/api/v5`` REST surface with the web UI
+(``dashboard.listeners.http``); ``sweep`` ticks every registered app
+after the governor's poll. Gateways and the QUIC listener are ROADMAP.md
+Queue A item 20(d): a file that enables one raises.
 
 Config keys read under ``broker.``, with the reference's names and
 defaults: ``batch_window_us`` (200), ``max_publish_batch`` (1024),
@@ -58,7 +63,7 @@ back, on either engine) and ``device_route`` (on); under ``alarm.``,
 from __future__ import annotations
 
 import asyncio
-from typing import Optional
+from typing import Any, Optional
 
 from emqx_tpu_torch.broker.alarm import AlarmManager
 from emqx_tpu_torch.broker.banned import Banned
@@ -257,6 +262,8 @@ class Node:
         self.stats.register_stats_fun(self.cm.stats_fun)
         self.listeners: list = []
         self._timer_task: Optional[asyncio.Task] = None
+        self._apps: list = []
+        self.dashboard_server = None
 
     # ---- config-file boot (emqx_machine_app load_config_files +
     #      emqx_listeners:start; node.py:283-330) ----
@@ -301,17 +308,63 @@ class Node:
             self.listeners.append(lst)
         return self.listeners
 
+    async def start_dashboard(self):
+        """Boot the management REST API and the web dashboard from the
+        ``dashboard`` section (the reference's emqx_dashboard http
+        listener, default port 18083). Opt-in: nothing without the
+        section, and ``dashboard.enable = false`` turns it off. The
+        ``/api/v5`` surface and the single-file UI share one server;
+        everything but the UI page and ``/api/v5/login`` sits behind the
+        admin's token or basic auth."""
+        dc = self.config.get("dashboard") or {}
+        if not dc or dc.get("enable") is False:
+            return None
+        from emqx_tpu_torch.apps.dashboard import DashboardAdmin, register_api
+        from emqx_tpu_torch.mgmt import Mgmt, make_api
+        lc = (dc.get("listeners") or {}).get("http") or {}
+        admin = DashboardAdmin(self)
+        mgmt = Mgmt(self)
+        srv = make_api(self, mgmt, host=str(lc.get("bind", "127.0.0.1")),
+                       port=int(lc.get("port", 18083)))
+        srv.auth_check = admin.auth_check
+        register_api(srv, self, admin, mgmt)
+        await srv.start()
+        self.dashboard_server = srv
+        return srv
+
+    async def start_apps(self) -> list:
+        """Boot every feature app the config declares (see
+        ``apps/boot.py``)."""
+        from emqx_tpu_torch.apps.boot import start_apps
+        return await start_apps(self)
+
+    async def start_gateways(self) -> list:
+        """Protocol gateways (the reference boots each enabled block of
+        the ``gateway`` section) are ROADMAP.md Queue A item 20(d): none
+        without an enabled block, and an enabled one raises."""
+        for name, conf in (self.config.get("gateway") or {}).items():
+            if isinstance(conf, dict) and conf.get("enable") is not False:
+                raise ValueError(
+                    f"gateway {name!r}: protocol gateways are not part of "
+                    f"emqx_tpu_torch yet (ROADMAP.md Queue A item 20(d))")
+        return []
+
     async def stop_listeners(self) -> None:
         for lst in self.listeners:
             await lst.stop()
         self.listeners.clear()
+        if self.dashboard_server is not None:
+            await self.dashboard_server.stop()
+            self.dashboard_server = None
 
     # ---- periodic housekeeping (node.py:403-440) ----
     def sweep(self) -> None:
         """One housekeeping pass: session expiry, ban expiry, alarm
         history, the OS watermarks, the overload governor's poll, the
-        stats sample. Callable directly (the tests and a CPU drive poll
-        the governor this way)."""
+        stats sample, then every app's tick (after the poll: the
+        retainer's drain of deferred replays sees the flags of a
+        recovery on the same pass). Callable directly (the tests and a
+        CPU drive poll the governor this way)."""
         self.cm.sweep_expired_sessions()
         self.banned.tick()
         self.alarms.tick()
@@ -319,6 +372,10 @@ class Node:
         if self.overload_governor is not None:
             self.overload_governor.poll()
         self.stats.sample()
+        for app in self._apps:
+            tick = getattr(app, "tick", None)
+            if tick is not None:
+                tick()
 
     async def _housekeeping(self, interval: float) -> None:
         while True:
@@ -372,3 +429,16 @@ class Node:
         if self.publish_batcher is not None:
             return self.publish_batcher.enqueue(msg)
         return False
+
+    # ---- feature apps (node.py:478-488) ----
+    def register_app(self, app: Any) -> Any:
+        """Attach a feature app (retainer, delayed, ...); ``sweep`` ticks
+        it."""
+        self._apps.append(app)
+        return app
+
+    def get_app(self, cls) -> Optional[Any]:
+        for a in self._apps:
+            if isinstance(a, cls):
+                return a
+        return None

@@ -28,8 +28,9 @@ cheapest first; recovery unwinds them in reverse::
     overload   shrink_dispatch     batcher dispatch_depth → 1 (the
                                    batcher reads it live: the next
                                    window admits at depth 1)
-               defer_retained      the flag arms; nothing reads it until
-                                   the port has the retainer
+               defer_retained      retained replays to new subscribers
+                                   parked (apps/retainer.py), replayed
+                                   on the first sweep after recovery
                pause_connects      extra acceptor lanes stop accepting;
                                    new CONNECTs answered with the v5
                                    reason 0x97 (quota exceeded)

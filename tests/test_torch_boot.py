@@ -227,7 +227,9 @@ def test_config_and_schema_equal_reference(tmp_path, certs):
     j, t = JConfig.load_file(path), TConfig.load_file(path)
     for sec in ("mqtt", "listeners", "zones", "log", "sysmon",
                 "conn_congestion", "force_shutdown", "alarm",
-                "rate_limit", "authz"):
+                "rate_limit", "authz", "authn", "retainer", "delayed",
+                "rewrite", "topic_metrics", "event_message",
+                "flapping_detect", "rule_engine", "cluster", "rpc"):
         assert t.get(sec) == j.get(sec), sec
     for key in ("sys_msg_interval", "sys_heartbeat_interval",
                 "shared_subscription_strategy", "device_route",
@@ -235,6 +237,46 @@ def test_config_and_schema_equal_reference(tmp_path, certs):
         assert t.get("broker", key) == j.get("broker", key), key
     assert t.get("mqtt", "idle_timeout") == 15
     assert t.get("broker", "sys_msg_interval") == 60
+
+
+def test_config_defaults_equal_reference():
+    """The port's DEFAULTS tree is the reference's: every root section
+    (the feature apps' and the layers' still to port among them) and
+    every broker key, so an empty Config's to_dict is equal."""
+    from emqx_tpu.broker.config import Config as JConfig
+    from emqx_tpu_torch.broker.config import Config as TConfig
+    assert TConfig().to_dict() == JConfig().to_dict()
+    assert TConfig().get("retainer") == {
+        "enable": True, "max_retained_messages": 0,
+        "max_payload_size": 1048576, "msg_expiry_interval": 0,
+        "msg_clear_interval": 0}
+
+
+def test_config_file_and_update_equal_reference(tmp_path, certs):
+    """Config.load_file of phase 15's boot file (etc/emqx.conf with
+    chip_smoke's override beside it) gives equal trees; a runtime update
+    of a feature app's key gives the same tree and persists the same
+    override file."""
+    import shutil
+
+    from emqx_tpu.broker.config import Config as JConfig
+    from emqx_tpu_torch.broker.config import Config as TConfig
+    out = []
+    for cls, sub in ((JConfig, "j"), (TConfig, "t")):
+        d = tmp_path / sub
+        d.mkdir()
+        shutil.copy(cs.BOOT_CONF, d / "emqx.conf")
+        (d / "emqx_override.conf").write_text(cs.boot_override(certs))
+        conf = cls.load_file(str(d / "emqx.conf"))
+        before = conf.to_dict()
+        conf.update(("retainer", "max_retained_messages"), 10)
+        conf.update(("delayed", "enable"), False)
+        again = cls.load_file(str(d / "emqx.conf"))
+        out.append((before, conf.to_dict(), again.to_dict(),
+                    (d / "emqx_override.conf").read_text()))
+    assert out[1] == out[0]
+    assert out[1][1]["retainer"]["max_retained_messages"] == 10
+    assert out[1][2] == out[1][1]
 
 
 def test_tls_rejections_and_peer_cert(tmp_path, certs):

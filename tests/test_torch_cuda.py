@@ -336,6 +336,19 @@ def test_cached_and_delta_graphs_replay_exactly(cuda):
     assert kinds == [(True, False), (True, True), (False, True)]
 
 
+def test_capture_stream_is_no_engine_stream(cuda):
+    """Graph captures run on a stream that no engine's serving or warm
+    stream is, however many streams the engines draw: the pool of
+    torch.cuda.Stream hands each of its streams out again every 32
+    draws, and a capture on a stream another thread used made every
+    later pin_memory raise (``chip_smoke.py --warm-stress``)."""
+    from emqx_tpu_torch.broker.device_engine import _capture_stream
+    cap = _capture_stream(cuda)
+    assert _capture_stream(cuda) is cap
+    drawn = {torch.cuda.Stream(cuda).cuda_stream for _ in range(96)}
+    assert cap.cuda_stream not in drawn
+
+
 def test_overlay_copied_in_flight_keeps_the_window_s_version(cuda):
     """Window 1 replays the overlay class's graph; a subscription changes
     the overlay and window 2 replays the same graph with the new version

@@ -49,6 +49,16 @@ MODULES = [
     "emqx_tpu_torch.utils.logger", "emqx_tpu_torch.utils.tls",
     "emqx_tpu_torch.broker.banned", "emqx_tpu_torch.broker.monitor",
     "emqx_tpu_torch.broker.congestion", "emqx_tpu_torch.broker.ws",
+    "emqx_tpu_torch.version", "emqx_tpu_torch.broker.persistence",
+    "emqx_tpu_torch.apps", "emqx_tpu_torch.apps.retainer",
+    "emqx_tpu_torch.apps.delayed", "emqx_tpu_torch.apps.rewrite",
+    "emqx_tpu_torch.apps.topic_metrics",
+    "emqx_tpu_torch.apps.event_message", "emqx_tpu_torch.apps.boot",
+    "emqx_tpu_torch.apps.sys", "emqx_tpu_torch.apps.tracer",
+    "emqx_tpu_torch.apps.dashboard", "emqx_tpu_torch.mgmt",
+    "emqx_tpu_torch.mgmt.httpd", "emqx_tpu_torch.mgmt.mgmt",
+    "emqx_tpu_torch.mgmt.apps", "emqx_tpu_torch.mgmt.api",
+    "emqx_tpu_torch.mgmt.cli",
     "chip_smoke",
 ]
 
