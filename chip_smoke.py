@@ -34,7 +34,7 @@ Phases:
    kernel at the same grid (the launch floor), torch.cumsum and the
    wrapper call;
 5. the kernels JSON line, the card line, and the result line last
-   (after phases 6 to 16);
+   (after phases 6 to 17);
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
    every hop count at the mesh phase's [E, 3] block and at a ragged
    [1001, 3] block (aligned and unaligned), and across two cards with
@@ -273,6 +273,36 @@ Phases:
    payloads one per snapshot section, the CLI (status, trace device
    start/stop) and a flapping client refused 0x8A then admitted once its
    ban expired and sweep ran.
+17. the cluster (emqx_tpu_torch/cluster, bench.py:1003-1163's config 5
+   and tools/chaos_cluster.py). 17a: two nodes of one process on the
+   card joined over loopback rpc with 1 s heartbeats, phase 8's
+   population over TCP with subscriber connection c on node c % 2 (every
+   shared group has a member on each node): the route sync (entries
+   taken from the peer a second, wall seconds) and 100 single adds'
+   p50 / p99 until visible on the peer; each node's snapshot must hold
+   all 99,856 filters and one remote member per group; 16,000 PUBLISHes
+   (cut from 32,000 for time) from 4 TCP publishers on each node, every
+   4th QoS 1: every message once across the cluster (a shared one to one
+   member of its group), in order per publisher and topic; msgs/s,
+   client p50 / p99, and per node the device share, forwards sent and
+   received, messages.routed.device.remote_shared (> 0) and kernel 1 and
+   2 launches a window (> 0). 17b: emqx_tpu_torch/chaos_cluster.py over
+   three ``python -m emqx_tpu_torch.run_node`` processes on the card,
+   two kill cycles under a QoS 1 flood (invariants 1-6, bounds x2): each
+   cycle's re-homed CONNECT seconds, PUBACK gap and seconds to 3 running
+   nodes. 17c: a node with phase 8's population as persistent sessions
+   and 16b's 100,000 retained messages: save_snapshot (seconds, bytes),
+   1,000 route adds and retained sets in the write-ahead log, a fresh
+   node's load_snapshot (seconds, the router's device tables), its
+   sessions back, its engine snapshot built; a 4,000-message flood must
+   deliver what the original node delivered (its first window launching
+   kernel 1) and a late c5r/# subscriber must replay all 101,000. 17d: a
+   multichip node and a single-chip node joined in process, phase 8's
+   population split over them, 4,000 messages through the mesh node:
+   every message once, order per topic, remote picks forwarded; the
+   exchange serves no clustered window (the reference precludes it), so
+   kernel 3 is read in the class warm under the cluster and in windows
+   after the node leaves it.
 
 Every node of phases 8-12 runs supervised, as the default node does, and
 must end its phase with no supervised fault, replay, stall or trip (the
@@ -303,7 +333,8 @@ overwritten): every ``route_step#<trace id>`` range must name a trace
 the ring holds a dispatch span under.
 
 ``python3 chip_smoke.py --boot`` builds the kernels and runs phase 15
-alone; ``python3 chip_smoke.py --apps`` phase 16.
+alone; ``python3 chip_smoke.py --apps`` phase 16;
+``python3 chip_smoke.py --cluster`` phase 17.
 ``python3 chip_smoke.py --warm-stress`` runs 16a, then 16b's stream
 beside a loop of the engine's class warms: the reproducer of a fixed
 fault (a graph capture on a stream serving used, after which every
@@ -1277,31 +1308,27 @@ def _time_dispatches(eng) -> None:
     eng.dispatch = timed_dispatch
 
 
-async def _subscribe_population(port: int, n_filters: int, n_sub: int):
+async def _subscribe_population(port, n_filters: int, n_sub: int):
     """bench.py:1219-1243: each subscriber connection takes its own plain
     filters and shared groups, plus the second membership of the previous
     connection's groups (2 members per group on different sockets), in
     SUBSCRIBE packets of E2E_SUB_CHUNK filters. Every connection is made
     before the first SUBSCRIBE: the subscriptions can hold the loop long
-    enough for a polled governor to pause CONNECTs."""
+    enough for a polled governor to pause CONNECTs. A list of ports
+    spreads the connections over nodes, connection c on port c % len."""
     from emqx_tpu_torch.client import Client
     from emqx_tpu_torch.mqtt import packet as P
     ids, nums = e2e_grid(n_filters)
+    ports = list(port) if isinstance(port, (list, tuple)) else [port]
     subs, n_shared, n_entries = [], 0, 0
     for c in range(n_sub):
-        subs.append(Client(port=port, clientid=f"esub{c}"))
+        subs.append(Client(port=ports[c % len(ports)], clientid=f"esub{c}"))
         await subs[-1].connect()
-    for c, cl in enumerate(subs):
-        batch = []
-        for cc, second in ((c, False), ((c - 1) % n_sub, True)):
-            for i in range(cc, ids, n_sub):
-                for n in range(nums):
-                    f = f"device/d{i}/+/n{n}/#"
-                    if e2e_shared(i, n, nums):
-                        n_shared += not second
-                        batch.append((f"$share/bg/{f}", P.SubOpts(qos=1)))
-                    elif not second:
-                        batch.append((f, P.SubOpts(qos=0)))
+    batches = [[] for _ in range(n_sub)]
+    for c, f, qos, second in _population(ids, nums, n_sub):
+        n_shared += qos == 1 and not second
+        batches[c].append((f, P.SubOpts(qos=qos)))
+    for c, (cl, batch) in enumerate(zip(subs, batches)):
         for k in range(0, len(batch), E2E_SUB_CHUNK):
             ack = await cl.subscribe(batch[k:k + E2E_SUB_CHUNK], timeout=60)
             if any(rc >= 0x80 for rc in ack.reason_codes):
@@ -1357,7 +1384,7 @@ def flood_pairs(seed: int, p: int, per_pub: int, ids: int,
 async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
                  seed: int, replays: bool = False,
                  per_topic: bool = False, groups=None,
-                 retain_every: int = 0) -> dict:
+                 retain_every: int = 0, others=()) -> dict:
     """bench.py:1283-1366: every publisher floods its share of `total`
     messages to device/d{i}/x/n{n}/t (each matches exactly one filter),
     every 4th at QoS 1 with pipelined PUBACKs; drainers record every
@@ -1372,7 +1399,11 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
     ({label: publisher indices}, e.g. by transport): each group's
     delivered msgs/s (its messages over the time to its last delivery)
     and client p50 / p99 as ``by_group``. ``retain_every``: every
-    such k-th message of a publisher carries the retain flag."""
+    such k-th message of a publisher carries the retain flag. ``others``:
+    the other nodes of a cluster the clients are spread over; their
+    engines must not fail either, and their sessions' queues count for
+    the order's per-QoS key (the counters read are `node`'s, the fault
+    counters every node's)."""
     import asyncio
     import struct
 
@@ -1417,11 +1448,13 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
 
     m = node.metrics
     stages = ("prepare", "dispatch", "card", "readback", "consume")
-    # a device failure raises on the card; these stay 0 or the flood
-    # left the kernels without saying so
+    # a device failure raises on the card; these stay 0 on every node or
+    # the flood left the kernels without saying so
     faults = ("routing.device.dispatch_failed",
               "routing.device.rebuild_failed",
               "routing.device.host_fallback")
+    faults0 = [{k: nd.metrics.val(k) for k in faults}
+               for nd in (node, *others)]
     before = {k: m.val(k) for k in (
         "messages.routed.device", "routing.device.batches",
         "routing.device.windows", "routing.device.bypassed",
@@ -1463,17 +1496,23 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
     sent = per_pub * n_pub
     q1_sent = n_pub * len(range(0, per_pub, 4))
     failed = getattr(node.device_engine, "failed", None)
+    for o in others:
+        failed = failed or getattr(o.device_engine, "failed", None)
+    fdelta = {k: sum(nd.metrics.val(k) - f0[k]
+                     for nd, f0 in zip((node, *others), faults0))
+              for k in faults}
     if failed is not None or any(
-            delta[k] for k in faults
+            fdelta[k] for k in faults
             if not (replays and k == "routing.device.dispatch_failed")):
         raise AssertionError(
-            f"the device path failed during the flood: "
-            f"{ {k: delta[k] for k in faults} }, engine {failed!r}")
+            f"the device path failed during the flood: {fdelta}, "
+            f"engine {failed!r}")
 
     seen = np.zeros((n_pub, per_pub), np.int64)
     wrong_conn = 0
     queued = any(getattr(ch.session, "enqueue_count", 0)
-                 for _cid, ch in node.cm.all_channels()
+                 for nd in (node, *others)
+                 for _cid, ch in nd.cm.all_channels()
                  if getattr(ch, "session", None) is not None)
     for c, rows in enumerate(got):
         last = {}
@@ -2682,23 +2721,30 @@ class _Sink:
         return True
 
 
-def _populate(node, ids: int, nums: int, n_sub: int) -> list:
-    """bench.py:1212-1243's population through broker.subscribe, in the
-    order phase 8's connections subscribe it: n_sub sessions, each with
-    its plain filters and shared groups plus the second membership of
-    the previous session's groups."""
-    b = node.broker
-    sinks = [_Sink() for _ in range(n_sub)]
-    sids = [b.register(s, f"esub{c}") for c, s in enumerate(sinks)]
+def _population(ids: int, nums: int, n_sub: int):
+    """bench.py:1212-1243's population in the order phase 8's connections
+    subscribe it: (session, filter, QoS, second membership) for n_sub
+    sessions, each with its plain filters (QoS 0) and shared groups (QoS
+    1, in 2-member $share/bg groups), plus the second membership of the
+    previous session's groups."""
     for c in range(n_sub):
         for cc, second in ((c, False), ((c - 1) % n_sub, True)):
             for i in range(cc, ids, n_sub):
                 for n in range(nums):
                     f = f"device/d{i}/+/n{n}/#"
                     if e2e_shared(i, n, nums):
-                        b.subscribe(sids[c], f"$share/bg/{f}", {"qos": 1})
+                        yield c, f"$share/bg/{f}", 1, second
                     elif not second:
-                        b.subscribe(sids[c], f, {"qos": 0})
+                        yield c, f, 0, second
+
+
+def _populate(node, ids: int, nums: int, n_sub: int) -> list:
+    """``_population`` through broker.subscribe, one sink a session."""
+    b = node.broker
+    sinks = [_Sink() for _ in range(n_sub)]
+    sids = [b.register(s, f"esub{c}") for c, s in enumerate(sinks)]
+    for c, f, qos, _second in _population(ids, nums, n_sub):
+        b.subscribe(sids[c], f, {"qos": qos})
     return sinks
 
 
@@ -5768,12 +5814,11 @@ async def _apps_retained_stream(node, late: dict, retained: int) -> dict:
 
 
 async def _apps_stored_reading(node, ports) -> dict:
-    """16b's reading of an open fault (ROADMAP Queue C): with the
-    retained messages stored, each 1 s sweep's expiry scan
-    (``Retainer.tick``, the reference's) and the full collections its
-    allocations set off add their time to the governor's loop-lag probe;
-    past 0.25 s the booted node climbs to overload and refuses CONNECTs
-    while they are kept. APPS_HOLD_S of the
+    """16b's reading with the retained messages stored: each 1 s sweep's
+    expiry scan (``Retainer.tick``) returns at once while no stored entry
+    carries an expiry, where the reference's scan built a list of every
+    entry and its full collections, read by the governor's loop-lag
+    probe, took the booted node to overload (ROADMAP Queue C). APPS_HOLD_S of the
     node's own sweeps, then one CONNECT: each sweep's seconds and each
     full collection's, the highest grade seen, the grade and loop lag
     after, the CONNACK (None: the acceptor lane closed the socket) and
@@ -6333,7 +6378,8 @@ def apps_phase(dev, card: str, batch_form_15a=None) -> dict:
         f"(loop lag {x['loop_lag_ms']} ms, connects paused "
         f"{x['connects_paused']}); a new CONNECT answered {x['connack']}; "
         f"CONNECTs refused {x['connects_rejected']}, accepts closed "
-        f"{x['accepts_paused']} so far (the open fault, ROADMAP Queue C)")
+        f"{x['accepts_paused']} so far (the retained sweep returns at "
+        f"once while no entry expires; ROADMAP Queue C); {card}")
     log(f"phase 16b: a window: shape_match "
         f"{_shape_rates(b['fold_shapes'], b['windows'])}, prefix_sum "
         f"{_shape_rates(b['scan_shapes'], b['windows'])}")
@@ -6382,6 +6428,772 @@ def apps_main(warm_stress: bool = False) -> int:
         return 0
     apps = apps_phase(torch.device("cuda"), card)
     log(json.dumps({"apps": _boot_out(apps)}))
+    log(card)
+    return 0
+
+
+# ---------------------------------------------------------------------
+# Phase 17: the cluster on the card
+# ---------------------------------------------------------------------
+CL_MSGS = 16_000                     # 17a's flood (bench's 32,000, cut)
+CL_PUBS_PER_NODE = 4
+CL_HEARTBEAT_S = 1.0                 # bench.py:1031-1044's beats
+CL_SINGLE_ADDS = 100                 # bench.py:1084-1110
+CL_CHAOS_CYCLES = 2
+CL_CHAOS_LAX = 2.0                   # tools/chaos_cluster.py's bounds x2
+CL_RETAINED = APPS_RETAINED          # 17c: 16b's 100,000 retained
+CL_WAL_OPS = 1_000                   # 17c: route adds and retained sets
+CL_RESTORE_MSGS = 4_000              # 17c's floods
+CL_MESH_MSGS = 4_000                 # 17d: 15c's mesh twin's
+CL_TIMEOUT_S = 120.0
+
+
+def _per_node_launches(eng) -> dict:
+    """Count the kernel launches each engine's serving dispatches make
+    (both engines of an in-process cluster share one card and one
+    process-wide counter; their dispatches run one at a time on the
+    loop, under the device lock)."""
+    from emqx_tpu_torch import device as D
+    got = {k: 0 for k in D.LAUNCHES}
+    dispatch = eng.dispatch
+
+    def counted(h):
+        before = dict(D.LAUNCHES)
+        try:
+            return dispatch(h)
+        finally:
+            for k, v in D.LAUNCHES.items():
+                got[k] += v - before[k]
+    eng.dispatch = counted
+    return got
+
+
+def _count_forwards(cn) -> dict:
+    """The forwards a cluster node receives, by kind (the reference counts
+    only the ones it sends, ``messages.forward``)."""
+    got = {"dispatch": 0, "shared": 0}
+    for fn, key in (("broker.dispatch_fwd", "dispatch"),
+                    ("shared.deliver_fwd", "shared")):
+        handler = cn.rpc.handlers[fn]
+
+        async def counted(*a, _h=handler, _k=key):
+            got[_k] += 1
+            return await _h(*a)
+        cn.rpc.handlers[fn] = counted
+    return got
+
+
+CL_NODE_COUNTERS = ("messages.routed.device",
+                    "messages.routed.device.remote_shared",
+                    "messages.forward", "routing.device.windows",
+                    "routing.device.messages", "routing.host.messages",
+                    "routing.device.bypassed")
+
+
+async def _cluster_pair(dev, n_filters: int, n_sub: int, total: int,
+                        seed: int, pin_device: bool) -> dict:
+    """17a: two nodes of one process on the card, joined over loopback
+    rpc with 1 s heartbeats (bench.py:1031-1044); phase 8's population
+    with subscriber connection c on node c % 2 (every group has a member
+    on each node); the route sync read as bench.py:1048-1110 reads it;
+    the warm-up on each node; `total` PUBLISHes from CL_PUBS_PER_NODE
+    publishers on each node, every 4th QoS 1, held to exactly once and
+    per-topic order across the cluster (``_flood``)."""
+    import asyncio
+
+    from emqx_tpu_torch.broker.connection import Listener
+    from emqx_tpu_torch.broker.node import Node
+    from emqx_tpu_torch.client import Client
+    from emqx_tpu_torch.cluster import ClusterNode
+    from emqx_tpu_torch.cluster.cluster import T_ROUTE, T_SHARED
+    nodes, cns, clients = [], [], []
+    out: dict = {}
+    try:
+        for k in range(2):
+            node = Node(device=dev, name=f"cl{k}@127.0.0.1")
+            lst = Listener(node, bind="127.0.0.1", port=0)
+            await lst.start()
+            node.listeners.append(lst)
+            cn = ClusterNode(node, port=0, heartbeat_s=CL_HEARTBEAT_S)
+            await cn.start()
+            if pin_device:
+                node.publish_batcher._device_worth_it = lambda: True
+            nodes.append(node)
+            cns.append(cn)
+        await cns[1].join(*cns[0].address)
+        ports = [n.listeners[0].port for n in nodes]
+        fwd = [_count_forwards(cn) for cn in cns]
+        launches = [_per_node_launches(n.device_engine) for n in nodes]
+
+        # the population over TCP, both nodes; the sync: every node's
+        # replicated tables hold every route and every shared member
+        base = [cn.store.table(T_ROUTE).count()
+                + cn.store.table(T_SHARED).count() for cn in cns]
+        t0 = time.perf_counter()
+        subs, ids, nums, n_shared, n_entries = \
+            await _subscribe_population(ports, n_filters, n_sub)
+        clients += subs
+        t_sub = time.perf_counter() - t0
+        n_plain = ids * nums - n_shared
+        want = n_plain + 2 * n_shared
+        deadline = time.perf_counter() + CL_TIMEOUT_S
+        while time.perf_counter() < deadline:
+            if all(cn.store.table(T_ROUTE).count()
+                   + cn.store.table(T_SHARED).count() - b >= want
+                   for cn, b in zip(cns, base)):
+                break
+            await asyncio.sleep(0.05)
+        t_sync = time.perf_counter() - t0
+        # entries each node took from its peer (its own are local applies)
+        synced = 2 * want - n_entries
+        tables = [{"routes": cn.store.table(T_ROUTE).count(),
+                   "shared": cn.store.table(T_SHARED).count(),
+                   "trie": len(n.router.wildcards) + len(n.router.exact)}
+                  for cn, n in zip(cns, nodes)]
+        if any(t["trie"] != ids * nums for t in tables):
+            raise AssertionError(f"phase 17a: the route sync did not "
+                                 f"converge in {CL_TIMEOUT_S} s: {tables}")
+        out["sync"] = {"entries": want, "from_peer": synced,
+                       "subscribe_s": t_sub, "wall_s": t_sync,
+                       "per_s": synced / t_sync, "tables": tables}
+
+        # single adds on node 0, each until visible on node 1
+        class _Drop:
+            def deliver(self, tf, msg):
+                return True
+        b0 = nodes[0].broker
+        sid = b0.register(_Drop(), "cl-lat")
+        tab1 = cns[1].store.table(T_ROUTE)
+        lats, lost = [], 0
+        for i in range(CL_SINGLE_ADDS):
+            f = f"cl-lat/{i}/+"
+            t1 = time.perf_counter()
+            b0.subscribe(sid, f)
+            await cns[0].flush()
+            lim = t1 + 5.0
+            while not tab1.lookup(f):
+                if time.perf_counter() > lim:
+                    lost += 1
+                    break
+                await asyncio.sleep(0)
+            else:
+                lats.append(time.perf_counter() - t1)
+        lat_ms = np.sort(np.array(lats)) * 1e3
+        out["single_add"] = {
+            "adds": CL_SINGLE_ADDS, "lost": lost,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99))}
+        for i in range(CL_SINGLE_ADDS):
+            b0.unsubscribe(sid, f"cl-lat/{i}/+")
+
+        pubs = []
+        for p in range(2 * CL_PUBS_PER_NODE):
+            cl = Client(port=ports[p % 2], clientid=f"cpub{p}")
+            await cl.connect()
+            pubs.append(cl)
+        clients += pubs
+        t0 = time.perf_counter()
+        for k, node in enumerate(nodes):
+            await _warm_up(node, pubs[k], subs, nums)
+        out["warm_up_s"] = time.perf_counter() - t0
+        snap = []
+        for node in nodes:
+            b = node.device_engine._built
+            remote = list(b.remote_members)
+            snap.append({"filters": len(b.fid_filter),
+                         "remote_members": len(remote),
+                         "remote_origins": sorted({o for o, _s in remote}),
+                         "backend": b.backend})
+        out["snapshots"] = snap
+        if any(s["filters"] != ids * nums or s["remote_members"] != n_shared
+               for s in snap):
+            raise AssertionError(f"phase 17a: a snapshot lacks filters or "
+                                 f"remote members: {snap}")
+        gc.collect()
+        gc.freeze()
+        try:
+            c0 = [{k: n.metrics.val(k) for k in CL_NODE_COUNTERS}
+                  for n in nodes]
+            f0 = [dict(f) for f in fwd]
+            l0 = [dict(x) for x in launches]
+            f = await _flood(nodes[0], subs, pubs, ids, nums, total, seed,
+                             per_topic=True, others=nodes[1:])
+            await asyncio.sleep(0.2)
+        finally:
+            gc.unfreeze()
+        per_node = []
+        for k, node in enumerate(nodes):
+            d = {c: node.metrics.val(c) - v for c, v in c0[k].items()}
+            lk = {n: launches[k][n] - l0[k][n] for n in launches[k]}
+            wins = max(1, d["routing.device.windows"])
+            per_node.append({
+                "name": node.name,
+                "device_share": d["routing.device.messages"] / max(
+                    1, d["routing.device.messages"]
+                    + d["routing.host.messages"]),
+                "windows": d["routing.device.windows"],
+                "bypassed": d["routing.device.bypassed"],
+                "forwards_sent": d["messages.forward"],
+                "forwards_received": {x: fwd[k][x] - f0[k][x]
+                                      for x in fwd[k]},
+                "remote_shared": d["messages.routed.device.remote_shared"],
+                "launches": lk,
+                "launches_per_window": {n: lk[n] / wins for n in lk}})
+        out["flood"] = {k: v for k, v in f.items() if k != "got"}
+        out["nodes"] = per_node
+        out.update(filters=ids * nums, shared_filters=n_shared,
+                   subscriptions=n_entries)
+        for p in per_node:
+            if p["device_share"] < E2E_MIN_DEVICE_SHARE:
+                raise AssertionError(f"phase 17a: {p['name']} routed "
+                                     f"{p['device_share']:.3f} of its "
+                                     f"messages on the device (at least "
+                                     f"{E2E_MIN_DEVICE_SHARE}): {p}")
+            if p["remote_shared"] <= 0:
+                raise AssertionError(f"phase 17a: {p['name']} picked no "
+                                     f"remote member on the device: {p}")
+            if dev.type == "cuda" and (p["launches"]["shape_match"] <= 0
+                                       or p["launches"]["prefix_sum"] <= 0):
+                raise AssertionError(f"phase 17a: {p['name']} launched no "
+                                     f"kernel 1 or 2: {p['launches']}")
+        return out
+    finally:
+        for cl in clients:
+            try:
+                await cl.disconnect()
+            except Exception:  # noqa: BLE001 — teardown
+                pass
+        for cn in cns:
+            await cn.stop()
+        for node in nodes:
+            await node.stop_listeners()
+            if node.publish_batcher is not None:
+                await node.publish_batcher.stop()
+                node.publish_batcher.close()
+
+
+def _populate_sessions(node, ids: int, nums: int, n_sub: int):
+    """``_populate`` with a persistent session per sink holding the same
+    subscriptions in the same order (what a parked client leaves in the
+    node): (sinks, sids, sessions)."""
+    from emqx_tpu_torch.broker.session import Session, SessionConf
+    b = node.broker
+    sinks = [_Sink() for _ in range(n_sub)]
+    sids = [b.register(s, f"esub{c}") for c, s in enumerate(sinks)]
+    sessions = [Session(f"esub{c}", SessionConf(
+        session_expiry_interval=3600)) for c in range(n_sub)]
+    for c, f, qos, _second in _population(ids, nums, n_sub):
+        b.subscribe(sids[c], f, {"qos": qos})
+        sessions[c].subscribe(f, {"qos": qos})
+    return sinks, sids, sessions
+
+
+def _restore_flood(eng, topics: list, first: dict, B: int = 1024) -> list:
+    """route_batch of B-message windows (the batcher's max_batch); `first`
+    gets the launches of the first window (the counts set to 0 just
+    before it)."""
+    from emqx_tpu_torch import device as D
+    from emqx_tpu_torch.broker.message import make
+    counts = []
+    D.reset_launches()
+    for k in range(0, len(topics), B):
+        got = eng.route_batch([make(f"p{(k + j) % 8}", 0, t, b"%d" % (k + j))
+                               for j, t in enumerate(topics[k:k + B])])
+        if got is None:
+            raise AssertionError("a restore flood's window was declined")
+        counts += got
+        if k == 0:
+            first.update(D.LAUNCHES)
+    return counts
+
+
+async def _restore(dev, n_filters: int, n_sub: int, total: int,
+                   retained: int, wal_ops: int, seed: int) -> dict:
+    """17c: a node with phase 8's population (persistent sessions) and
+    `retained` retained messages (16b's c5r/{i % 64}/k{i}) snapshots; then
+    `wal_ops` route adds and retained sets go to the write-ahead log; a
+    fresh node loads the snapshot and replays the log, its clients come
+    back over TCP with clean_start false (taking their restored sessions
+    over), and the same flood must reach them as it reached the original
+    node's sessions; a late c5r/# subscriber replays
+    every retained message."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from emqx_tpu_torch.apps.delayed import DelayedPublish
+    from emqx_tpu_torch.apps.retainer import Retainer
+    from emqx_tpu_torch.broker.connection import Listener
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.broker.node import Node
+    from emqx_tpu_torch.broker.persistence import (Persistence,
+                                                   attach_retainer_journal)
+    from emqx_tpu_torch.client import Client
+
+    def app_node(name):
+        node = Node(device=dev, name=name)
+        node.register_app(Retainer(node).load())
+        node.register_app(DelayedPublish(node).load())
+        return node
+
+    ids, nums = e2e_grid(n_filters)
+    r = np.random.RandomState(seed)
+    topics = [f"device/d{i}/x/n{k}/t" for i, k in zip(
+        r.randint(0, ids, total), r.randint(0, nums, total))]
+    tmp = tempfile.mkdtemp(prefix="emqx_tpu_torch-17c-")
+    out: dict = {}
+    nodes, clients = [], []
+    try:
+        node = app_node("cl-orig@127.0.0.1")
+        nodes.append(node)
+        sinks, sids, sessions = _populate_sessions(node, ids, nums, n_sub)
+        eng = node.device_engine
+        eng.rebuild()
+        first0: dict = {}
+        counts0 = _restore_flood(eng, topics, first0)
+        want = _take(sinks)
+        for i in range(retained):
+            node.broker.publish(make("c5", 0, f"c5r/{i % 64}/k{i}",
+                                     b"retained-%d" % i,
+                                     flags={"retain": True}))
+            if i % 4096 == 4095:
+                await asyncio.sleep(0)
+        # the clients go: their sessions park, their subscriptions stay
+        for c, (sid, sess) in enumerate(zip(sids, sessions)):
+            sess.parked_sid = sid
+            node.cm.park_session(f"esub{c}", sess)
+        pers = Persistence(node, tmp)
+        attach_retainer_journal(node)
+        t0 = time.perf_counter()
+        path = pers.save_snapshot()
+        out["save_s"] = time.perf_counter() - t0
+        out["snapshot_bytes"] = os.path.getsize(path)
+        # after the snapshot: the write-ahead log
+        wal_sid = node.broker.register(_Sink(), "wal-sink")
+        t0 = time.perf_counter()
+        for i in range(wal_ops):
+            f = f"wal/r{i}/+"
+            node.broker.subscribe(wal_sid, f)
+            pers.journal("route_add", topic=f)
+            node.broker.publish(make("c5", 0, f"c5r/{i % 64}/k{retained + i}",
+                                     b"retained-%d" % (retained + i),
+                                     flags={"retain": True}))
+        out["wal_s"] = time.perf_counter() - t0
+        out["wal_entries"] = pers.wal.count()
+        routes = node.router.topics()
+        node.publish_batcher.close()
+        eng.close() if hasattr(eng, "close") else None
+
+        # the restart
+        node2 = app_node("cl-orig@127.0.0.1")
+        nodes.append(node2)
+        rebuild = node2.router.rebuild
+        rb = [0.0]
+
+        def timed_rebuild():
+            t = time.perf_counter()
+            rebuild()
+            rb[0] += time.perf_counter() - t
+        node2.router.rebuild = timed_rebuild
+        t0 = time.perf_counter()
+        loaded = Persistence(node2, tmp).load_snapshot()
+        out["load_s"] = time.perf_counter() - t0
+        out["router_rebuild_s"] = rb[0]
+        del node2.router.rebuild
+        ret2 = node2.get_app(Retainer)
+        out["restored"] = {"routes": len(node2.router.topics()),
+                           "retained": ret2.retained_count(),
+                           "sessions": node2.cm.parked_count()}
+        if not loaded or node2.router.topics() != routes \
+                or ret2.retained_count() != retained + wal_ops \
+                or node2.cm.parked_count() != n_sub:
+            raise AssertionError(f"phase 17c: the restored state differs: "
+                                 f"{out['restored']}, {len(routes)} routes "
+                                 f"before")
+        # the clients come back: a CONNECT with clean_start false each,
+        # which takes its parked session over and re-installs its routes
+        # under a new sid (Channel's resume through cm.open_session)
+        lst = Listener(node2, bind="127.0.0.1", port=0)
+        await lst.start()
+        node2.listeners.append(lst)
+        t0 = time.perf_counter()
+        resumed = []
+        for c in range(n_sub):
+            cl = Client(port=lst.port, clientid=f"esub{c}",
+                        clean_start=False)
+            ack = await cl.connect(timeout=CL_TIMEOUT_S)
+            clients.append(cl)
+            resumed.append(cl)
+            if not ack.session_present:
+                raise AssertionError(f"phase 17c: esub{c} found no "
+                                     f"restored session")
+        out["resume_s"] = time.perf_counter() - t0
+        if node2.cm.parked_count():
+            raise AssertionError(f"phase 17c: {node2.cm.parked_count()} "
+                                 f"restored sessions were not taken over")
+        eng2 = node2.device_engine
+        t0 = time.perf_counter()
+        eng2.rebuild()
+        out["engine_build_s"] = time.perf_counter() - t0
+        first: dict = {}
+        counts1 = _restore_flood(eng2, topics, first)
+        n_want = [len(w) for w in want]
+        got = [[] for _ in range(n_sub)]
+        t_end = time.perf_counter() + CL_TIMEOUT_S
+        while any(len(g) < n for g, n in zip(got, n_want)) \
+                and time.perf_counter() < t_end:
+            await asyncio.sleep(0.01)
+            for g, cl in zip(got, resumed):
+                while not cl.messages.empty():
+                    g.append(cl.messages.get_nowait())
+        await asyncio.sleep(0.2)         # a duplicate would land by now
+        for g, cl in zip(got, resumed):
+            while not cl.messages.empty():
+                g.append(cl.messages.get_nowait())
+        out["first_window_launches"] = first
+        out["flood"] = {"msgs": total, "delivered": int(sum(counts1)),
+                        "original_delivered": int(sum(counts0)),
+                        "received": sum(map(len, got))}
+        diff = sum([m.payload for m in g] != [pl for pl, _f in w]
+                   or any(m.topic != topics[int(m.payload)] for m in g)
+                   for g, w in zip(got, want))
+        if diff or counts1 != counts0:
+            raise AssertionError(f"phase 17c: the resumed sessions received "
+                                 f"otherwise than the original's ({diff} "
+                                 f"sessions differ)")
+        if dev.type == "cuda" and first.get("shape_match", 0) <= 0:
+            raise AssertionError(f"phase 17c: the restored node's first "
+                                 f"window launched no kernel 1: {first}")
+        # a late subscriber replays every retained message
+        cl = Client(port=lst.port, clientid="c5-late")
+        await cl.connect()
+        t0 = time.perf_counter()
+        await cl.subscribe("c5r/#", qos=0, timeout=60)
+        n_all, flags = 0, True
+        t_end = time.perf_counter() + CL_TIMEOUT_S
+        while n_all < retained + wal_ops and time.perf_counter() < t_end:
+            try:
+                msg = await cl.recv(timeout=5)
+            except asyncio.TimeoutError:
+                break
+            n_all += 1
+            flags = flags and bool(msg.retain)
+        replay_s = time.perf_counter() - t0
+        await cl.disconnect()
+        out["replay"] = {"replayed": n_all, "want": retained + wal_ops,
+                         "wall_s": replay_s, "per_s": n_all / replay_s,
+                         "retain_flag": flags}
+        if n_all != retained + wal_ops or not flags:
+            raise AssertionError(f"phase 17c: the late subscriber replayed "
+                                 f"{n_all} of {retained + wal_ops}")
+        return out
+    finally:
+        for cl in clients:
+            try:
+                await cl.disconnect()
+            except Exception:  # noqa: BLE001 — teardown
+                pass
+        for node in nodes:
+            await node.stop_listeners()
+            if node.publish_batcher is not None:
+                node.publish_batcher.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+async def _mesh_under_cluster(dev, n_filters: int, n_sub: int, total: int,
+                              seed: int) -> dict:
+    """17d: a ``multichip.enable`` node and a single-chip node of one
+    process joined in a cluster, phase 8's population split over them
+    (session c on node c % 2, every group a member on each), `total`
+    messages through the mesh node's route_batch (15c's mesh twin):
+    every message once, order per topic at every session, remote picks
+    forwarded. The exchange serves no clustered window (the reference
+    precludes it, ``emqx_tpu/parallel/serving.py:1371``): kernel 3 runs
+    in the exchange class warm under the cluster, and serves again once
+    the node leaves."""
+    import asyncio
+
+    from emqx_tpu_torch import device as D
+    from emqx_tpu_torch.broker.config import Config
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.broker.node import Node
+    from emqx_tpu_torch.cluster import ClusterNode
+    ids, nums = e2e_grid(n_filters)
+    conf = Config()
+    conf.update(("broker", "multichip"), {
+        "enable": True, "devices": MN_DEVICES, "dp": MN_DP}, persist=False)
+    mesh = Node(conf, device=dev, name="clm@127.0.0.1")
+    single = Node(device=dev, name="cls@127.0.0.1")
+    nodes = (mesh, single)
+    # every class warm's launches (recorded, serving no traffic), the
+    # background warm thread's too
+    warm_calls: list = []
+    warm_one = mesh.device_engine._warm_one
+
+    def counted_warm(Bp):
+        calls = warm_one(Bp)
+        warm_calls.extend(calls)
+        return calls
+    mesh.device_engine._warm_one = counted_warm
+    cns = []
+    out: dict = {}
+    try:
+        for node in nodes:
+            cn = ClusterNode(node, port=0, heartbeat_s=CL_HEARTBEAT_S)
+            await cn.start()
+            cns.append(cn)
+        await cns[1].join(*cns[0].address)
+        sinks = [_Sink() for _ in range(n_sub)]
+        sids = [nodes[c % 2].broker.register(s, f"esub{c}")
+                for c, s in enumerate(sinks)]
+        n_shared = 0
+        for k, (c, f, qos, second) in enumerate(
+                _population(ids, nums, n_sub)):
+            nodes[c % 2].broker.subscribe(sids[c], f, {"qos": qos})
+            n_shared += qos == 1 and not second
+            if k % 4096 == 4095:
+                await asyncio.sleep(0)
+        for cn in cns:
+            await cn.flush()
+        # the replication converged: both nodes' tries hold every filter
+        # and the mesh node's table every shared member
+        shared_tab = cns[0].store.table("shared")
+        for _ in range(int(CL_TIMEOUT_S / 0.05)):
+            if len(mesh.router.wildcards) >= ids * nums \
+                    and shared_tab.count() >= 2 * n_shared:
+                break
+            await asyncio.sleep(0.05)
+        eng, m = mesh.device_engine, mesh.metrics
+        t0 = time.time()
+        eng.route_batch([make("w", 0, "warmup/none/t", b"")], wait=True)
+        Bp = eng.n_dp
+        while Bp <= eng.max_batch:
+            eng._warm_one(Bp)
+            Bp *= 2
+        eng.warm_exchange(eng.max_batch)
+        t = eng._warm_thread
+        if t is not None:
+            t.join()
+        out["warm_s"] = time.time() - t0
+        out["warm_ring_rotate"] = sum(1 for name, _s in warm_calls
+                                      if name == "ring_rotate")
+        out["remote_members"] = sum(len(b.remote_members)
+                                    for b in eng._builts)
+        if out["remote_members"] != n_shared:
+            raise AssertionError(f"phase 17d: the mesh snapshot holds "
+                                 f"{out['remote_members']} remote members "
+                                 f"of {n_shared}")
+        r = np.random.RandomState(seed)
+        pairs = list(zip(r.randint(0, ids, total), r.randint(0, nums, total)))
+        keys = ("pipeline.exchange.windows",
+                "pipeline.exchange.fallback.precluded",
+                "messages.routed.device.remote_shared",
+                "messages.forward")
+        c0 = {k: m.val(k) for k in keys}
+        D.reset_launches()
+        B = eng.max_batch
+        t0 = time.perf_counter()
+        for k in range(0, total, B):
+            eng.route_batch(
+                [make(f"p{(k + j) % 8}", 0, f"device/d{i}/x/n{n}/t",
+                      b"%d" % (k + j))
+                 for j, (i, n) in enumerate(pairs[k:k + B])], wait=True)
+            await asyncio.sleep(0)
+        for cn in cns:
+            await cn.flush()
+        deadline = time.perf_counter() + CL_TIMEOUT_S
+        while sum(len(s.got) for s in sinks) < total \
+                and time.perf_counter() < deadline:
+            await asyncio.sleep(0.02)
+        dt = time.perf_counter() - t0
+        await asyncio.sleep(0.3)
+        launches = dict(D.LAUNCHES)
+        d = {k: m.val(k) - v for k, v in c0.items()}
+        seen = np.zeros(total, np.int64)
+        wrong = 0
+        for c, s in enumerate(sinks):
+            last = {}
+            for payload, _f in s.got:
+                j = int(payload)
+                seen[j] += 1
+                i, n = pairs[j]
+                own = i % n_sub
+                ok = {own, (own + 1) % n_sub} if e2e_shared(i, n, nums) \
+                    else {own}
+                wrong += c not in ok
+                if last.get((i, n), -1) >= j:
+                    raise AssertionError(f"phase 17d: esub{c} got topic "
+                                         f"({i}, {n}) out of order")
+                last[(i, n)] = j
+        if (seen != 1).any() or wrong:
+            raise AssertionError(
+                f"phase 17d: {int((seen == 0).sum())} lost, "
+                f"{int((seen > 1).sum())} duplicated, {wrong} misrouted "
+                f"of {total}")
+        out.update({
+            "msgs": total, "per_sec": total / dt,
+            "windows": -(-total // B), "launches": launches,
+            "exchange_windows": d["pipeline.exchange.windows"],
+            "precluded": d["pipeline.exchange.fallback.precluded"],
+            "remote_shared": d["messages.routed.device.remote_shared"],
+            "forwards_sent": d["messages.forward"]})
+        if d["messages.routed.device.remote_shared"] <= 0:
+            raise AssertionError(f"phase 17d: no remote pick: {out}")
+        if eng.failed is not None:
+            raise AssertionError(f"phase 17d: the server failed: "
+                                 f"{eng.failed!r}")
+        # out of the cluster, the exchange serves the mesh node's windows
+        # again (the snapshot still names the departed members: the host
+        # picks for them)
+        await cns[0].stop()
+        cns.pop(0)
+        _warm_mesh_exchange(eng, make, lambda n: [
+            f"device/d{i}/x/n{k}/t" for i, k in zip(
+                r.randint(0, ids, n), r.randint(0, nums, n))], B, m)
+        e0 = m.val("pipeline.exchange.windows")
+        D.reset_launches()
+        for _ in range(4):
+            eng.route_batch([make("p", 0, f"device/d{i}/x/n{n}/t", b"x")
+                             for i, n in zip(r.randint(0, ids, B),
+                                             r.randint(0, nums, B))],
+                            wait=True)
+        out["standalone"] = {"windows": 4,
+                             "exchange_windows":
+                             m.val("pipeline.exchange.windows") - e0,
+                             "launches": dict(D.LAUNCHES)}
+        if dev.type == "cuda" and (out["warm_ring_rotate"] <= 0 or
+                                   out["standalone"]["launches"]
+                                   ["ring_rotate"] <= 0):
+            raise AssertionError(f"phase 17d: kernel 3 was not launched: "
+                                 f"{out}")
+        return out
+    finally:
+        for cn in cns:
+            await cn.stop()
+        for node in nodes:
+            if node.publish_batcher is not None:
+                node.publish_batcher.close()
+            close = getattr(node.device_engine, "close", None)
+            if close is not None:
+                close()
+
+
+def cluster_drive(dev, n_filters: int = E2E_FILTERS,
+                  n_sub: int = E2E_SUB_CONNS, total: int = CL_MSGS,
+                  restore_total: int = CL_RESTORE_MSGS,
+                  retained: int = CL_RETAINED, wal_ops: int = CL_WAL_OPS,
+                  mesh_total: int = CL_MESH_MSGS,
+                  cycles: int = CL_CHAOS_CYCLES, seed: int = SEED,
+                  pin_device: bool = False) -> dict:
+    """Phase 17: 17a the two-node cluster (``_cluster_pair``), 17b the
+    chaos drive over three ``python -m emqx_tpu_torch.run_node``
+    processes (``emqx_tpu_torch.chaos_cluster``, kill cycles), 17c
+    checkpoint and resume (``_restore``), 17d the mesh node under a
+    cluster (``_mesh_under_cluster``). ``pin_device`` pins 17a's choosers
+    to the device (a CPU rehearsal; never in the measured run)."""
+    import asyncio
+
+    from emqx_tpu_torch import chaos_cluster
+    out = {}
+    t0 = time.time()
+    out["a"] = asyncio.run(_cluster_pair(dev, n_filters, n_sub, total,
+                                         seed, pin_device))
+    out["a"]["phase_s"] = time.time() - t0
+    t0 = time.time()
+    out["b"] = {"cycles": chaos_cluster.run(
+        cycles, lax=CL_CHAOS_LAX, device=dev.type), "lax": CL_CHAOS_LAX}
+    out["b"]["phase_s"] = time.time() - t0
+    t0 = time.time()
+    out["c"] = asyncio.run(_restore(dev, n_filters, n_sub, restore_total,
+                                    retained, wal_ops, seed))
+    out["c"]["phase_s"] = time.time() - t0
+    t0 = time.time()
+    out["d"] = asyncio.run(_mesh_under_cluster(dev, n_filters, n_sub,
+                                               mesh_total, seed))
+    out["d"]["phase_s"] = time.time() - t0
+    return out
+
+
+def cluster_phase(dev, card: str) -> dict:
+    """Phase 17 with its lines, each beside the card line."""
+    t0 = time.time()
+    c = cluster_drive(dev)
+    a = c["a"]
+    s = a["sync"]
+    log(f"phase 17a: {a['filters']} filters ({a['shared_filters']} shared "
+        f"in 2-member groups, one member on each node), "
+        f"{a['subscriptions']} subscriptions over TCP on 2 nodes; route "
+        f"sync {s['from_peer']} entries from the peer in {s['wall_s']:.2f} "
+        f"s ({s['per_s']:.0f} routes/s; subscribe {s['subscribe_s']:.2f} "
+        f"s); single add p50 {a['single_add']['p50_ms']:.2f} ms, p99 "
+        f"{a['single_add']['p99_ms']:.2f} ms ({a['single_add']['lost']} "
+        f"lost of {a['single_add']['adds']}); {card}")
+    for snap, p in zip(a["snapshots"], a["nodes"]):
+        log(f"phase 17a: {p['name']}: snapshot {snap['filters']} filters, "
+            f"{snap['remote_members']} remote members "
+            f"({snap['backend']}); flood device share "
+            f"{p['device_share']:.4f}, {p['windows']} windows, forwards "
+            f"sent {p['forwards_sent']}, received "
+            f"{p['forwards_received']}, remote_shared "
+            f"{p['remote_shared']}; launches a window "
+            f"{ {k: round(v, 3) for k, v in p['launches_per_window'].items()} }"
+            f"; {card}")
+    f = a["flood"]
+    log(f"phase 17a: {f['sent']} PUBLISHes from {2 * CL_PUBS_PER_NODE} "
+        f"publishers (4 a node), every one delivered once, order per topic "
+        f"held: {f['per_sec']} msgs/s, client p50 {f['lat_p50_ms']:.1f} ms, "
+        f"p99 {f['lat_p99_ms']:.1f} ms; {card}")
+    for cyc in c["b"]["cycles"]:
+        log(f"phase 17b: cycle {cyc['cycle']} kill -9 {cyc['victim']}: "
+            f"re-homed CONNECT {cyc['connect_s']:.3f} s, PUBACK gap "
+            f"{cyc['puback_gap_s']:.3f} s, 3 nodes running again after "
+            f"{cyc['to_3_running_s']:.2f} s; invariants 1-6 held (bounds "
+            f"x{c['b']['lax']}); {card}")
+    r = c["c"]
+    log(f"phase 17c: save_snapshot {r['save_s']:.2f} s, "
+        f"{r['snapshot_bytes']} bytes; {r['wal_entries']} WAL entries in "
+        f"{r['wal_s']:.2f} s; load_snapshot {r['load_s']:.2f} s (the "
+        f"router's device tables {r['router_rebuild_s']:.2f} s), engine "
+        f"snapshot {r['engine_build_s']:.2f} s; restored {r['restored']}; "
+        f"{r['restored']['sessions']} sessions taken over by clean_start "
+        f"false CONNECTs in {r['resume_s']:.2f} s; "
+        f"{r['flood']['received']} messages received equal the original "
+        f"sessions' deliveries; first "
+        f"window launches {r['first_window_launches']}; replay "
+        f"{r['replay']['replayed']} retained in {r['replay']['wall_s']:.2f} "
+        f"s ({r['replay']['per_s']:.0f} msgs/s); {card}")
+    d = c["d"]
+    log(f"phase 17d: mesh node under a cluster: {d['msgs']} messages in "
+        f"{d['windows']} windows, {d['per_sec']:.0f} msgs/s, "
+        f"{d['remote_members']} remote members, remote_shared "
+        f"{d['remote_shared']}, forwards {d['forwards_sent']}, order per "
+        f"topic held; exchange windows {d['exchange_windows']} "
+        f"(precluded {d['precluded']}), launches {d['launches']}; kernel 3 "
+        f"in the class warm {d['warm_ring_rotate']}; out of the cluster "
+        f"{d['standalone']['exchange_windows']} of "
+        f"{d['standalone']['windows']} exchange windows, launches "
+        f"{d['standalone']['launches']}; {card}")
+    log(f"phase 17: {time.time() - t0:.1f} s (17a {a['phase_s']:.1f}, 17b "
+        f"{c['b']['phase_s']:.1f}, 17c {r['phase_s']:.1f}, 17d "
+        f"{d['phase_s']:.1f}); {card}")
+    return c
+
+
+def cluster_main() -> int:
+    """``--cluster``: build the kernels and run phase 17 alone on a card,
+    then print its results as one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from emqx_tpu_torch import native
+    from emqx_tpu_torch.ops.build import build
+    card = card_line()
+    log(build().strip())
+    if not native.available():
+        raise AssertionError("the host native library did not build")
+    c = cluster_phase(torch.device("cuda"), card)
+    log(json.dumps({"cluster": _boot_out(c)}))
     log(card)
     return 0
 
@@ -6480,6 +7292,8 @@ def main() -> int:
     boot = boot_phase(dev, card)
     torch.cuda.empty_cache()
     apps = apps_phase(dev, card, boot["a"]["flood"]["batch_form"])
+    torch.cuda.empty_cache()
+    cluster = cluster_phase(dev, card)
     timed = {tuple(d["shape"]) for d in scan_shapes + mesh_scan_shapes}
     layer_scan_shapes = []
     for cell, n in (("skew", "windows"), ("churn", "batches")):
@@ -6571,19 +7385,37 @@ def main() -> int:
         # phase 16: the apps-on flood (16a) and the retained stream (16b)
         out["apps 16a"] = apps["a"]["flood"]["launches"][name]
         out["apps 16b"] = apps["b"]["launches"][name]
+        # phase 17: each node's flood dispatches (17a), the restored
+        # node's flood (17c, its first window apart), the clustered mesh
+        # node's windows and the windows after it left (17d)
+        for p in cluster["a"]["nodes"]:
+            out[f"cluster 17a {p['name']}"] = p["launches"][name]
+        out["cluster 17c first window"] = \
+            cluster["c"]["first_window_launches"].get(name, 0)
+        out["cluster 17d clustered"] = cluster["d"]["launches"][name]
+        out["cluster 17d standalone"] = \
+            cluster["d"]["standalone"]["launches"][name]
         return out
 
     def per_window(name):
-        """Phases 15 and 16's launches a window: 15a and 15c's floods and
-        mesh drives, 16a's flood and 16b's retained stream."""
+        """Phases 15-17's launches a window: 15a and 15c's floods and
+        mesh drives, 16a's flood and 16b's retained stream, each 17a
+        node's dispatches and 17d's clustered mesh windows."""
         out = {"boot 15a": boot["a"]["flood"]}
         for mode in ("csr", "dense"):
             out[f"boot 15c {mode}"] = boot["c"][mode]
             out[f"boot 15c mesh {mode}"] = boot["c"]["mesh"][mode]
         out["apps 16a"] = apps["a"]["flood"]
         out["apps 16b"] = apps["b"]
-        return {k: round(f["launches"][name] / max(1, f["windows"]), 3)
-                for k, f in out.items()}
+        per = {k: round(f["launches"][name] / max(1, f["windows"]), 3)
+               for k, f in out.items()}
+        for p in cluster["a"]["nodes"]:
+            per[f"cluster 17a {p['name']}"] = \
+                round(p["launches_per_window"][name], 3)
+        d = cluster["d"]
+        per["cluster 17d clustered"] = round(
+            d["launches"][name] / max(1, d["windows"]), 3)
+        return per
 
     kernels = [
         {"name": "shape_match", "route": "cuda",
@@ -6632,7 +7464,8 @@ def main() -> int:
                                   if k != "scan_shapes"},
                     "mesh_sharded": mesh_node["a"],
                     "capture": mesh_node["capture"],
-                    "boot": _boot_out(boot), "apps": _boot_out(apps)}))
+                    "boot": _boot_out(boot), "apps": _boot_out(apps),
+                    "cluster": _boot_out(cluster)}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -6700,4 +7533,6 @@ if __name__ == "__main__":
         sys.exit(apps_main(warm_stress=True))
     if len(sys.argv) == 2 and sys.argv[1] == "--apps":
         sys.exit(apps_main())
+    if len(sys.argv) == 2 and sys.argv[1] == "--cluster":
+        sys.exit(cluster_main())
     sys.exit(main())

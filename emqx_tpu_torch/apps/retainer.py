@@ -137,6 +137,11 @@ class RetainerStorage:
         """-> iterable of (topic, Message, expire_at)."""
         raise NotImplementedError
 
+    def expired(self, now: int) -> list[str]:
+        """Topics whose expiry is past `now`, in store order."""
+        return [t for t, _m, exp in self.items()
+                if exp is not None and now > exp]
+
     def clear(self) -> int:
         raise NotImplementedError
 
@@ -148,22 +153,42 @@ class RetainerStorage:
 
 
 class RamStorage(RetainerStorage):
-    """In-memory backend (the reference's ram_copies default)."""
+    """In-memory backend (the reference's ram_copies default).
+
+    `_n_expiring` counts the entries that carry an expiry, so the sweep's
+    `expired` returns at once while none does: the reference lists every
+    entry on each sweep, and with 100,000 stored messages that never
+    expire, those lists' full collections read as loop lag to the
+    overload governor."""
 
     def __init__(self):
         self._store: dict[str, tuple[Message, Optional[int]]] = {}
         self._index = TopicIndex()
+        self._n_expiring = 0
 
     def insert(self, topic, msg, expire_at):
-        if topic not in self._store:
+        old = self._store.get(topic)
+        if old is None:
             self._index.insert(topic)
+        elif old[1] is not None:
+            self._n_expiring -= 1
         self._store[topic] = (msg, expire_at)
+        if expire_at is not None:
+            self._n_expiring += 1
 
     def delete(self, topic):
-        if self._store.pop(topic, None) is None:
+        old = self._store.pop(topic, None)
+        if old is None:
             return False
         self._index.delete(topic)
+        if old[1] is not None:
+            self._n_expiring -= 1
         return True
+
+    def expired(self, now):
+        if not self._n_expiring:
+            return []
+        return super().expired(now)
 
     def get(self, topic):
         return self._store.get(topic)
@@ -178,6 +203,7 @@ class RamStorage(RetainerStorage):
         n = len(self._store)
         self._store.clear()
         self._index = TopicIndex()
+        self._n_expiring = 0
         return n
 
     def __len__(self):
@@ -427,9 +453,7 @@ class Retainer:
         return len(gone)
 
     def clean_expired(self) -> int:
-        now = now_ms()
-        stale = [t for t, _m, exp in self.storage.items()
-                 if exp is not None and now > exp]
+        stale = self.storage.expired(now_ms())
         for t in stale:
             self.delete(t)
         return len(stale)

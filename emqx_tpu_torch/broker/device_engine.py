@@ -480,9 +480,24 @@ def _next_pow2(x: int) -> int:
     return 1 << max(2, (x - 1).bit_length())
 
 
+# device member ids at/above this are remote refs: they index the built
+# snapshot's remote_members list instead of a local session row (int32-safe;
+# local sids are small dense ints)
+_REMOTE_SID_BASE = 1 << 30
+
+
 def capture_shared(broker, f: str) -> dict:
-    """Per-filter shared-group capture for a device snapshot: the local
-    SharedGroup members with their subopts, and each group's cursor.
+    """Per-filter shared-group capture for a device snapshot (the
+    single-chip engine and the mesh's ShardedRouteServer).
+
+    Standalone: the local SharedGroup members with their subopts, and each
+    group's cursor. Clustered: the cluster-wide membership
+    (`cluster._members`, the sorted (origin, sid) view the host pick
+    uses), local members with their subopts and remote members as
+    ((origin, sid), None) refs that the build turns into device sids of
+    `_REMOTE_SID_BASE` and above. Groups known only through replication
+    are captured too, so every device-supported strategy picks on the
+    device wherever the members live.
 
     For the `sticky` strategy the returned cursor is the sticky member's
     INDEX in the members list (establishing affinity on the first capture
@@ -490,19 +505,50 @@ def capture_shared(broker, f: str) -> dict:
     affinity pointer and never advances it. Establishing affinity is the
     one write this otherwise read-only capture performs, and it is
     idempotent: it only runs when no live member holds affinity and always
-    picks members[0] of the insertion-ordered members dict."""
+    picks members[0] of the insertion-ordered members dict standalone, or
+    refs[0] of the sorted cluster view clustered."""
+    cluster = broker.cluster
     sticky_mode = broker.shared_strategy == "sticky"
+    local = broker.shared.get(f) or {}
+    if cluster is None:
+        out = {}
+        for g, grp in local.items():
+            if not grp.members:
+                continue
+            members = list(grp.members.items())
+            cursor = grp.cursor
+            if sticky_mode:
+                if grp.sticky not in grp.members:
+                    grp.sticky = members[0][0]   # establish affinity
+                cursor = next(i for i, (sid, _) in enumerate(members)
+                              if sid == grp.sticky)
+            out[g] = (members, cursor)
+        return out
+    names = set(local) | cluster._groups_by_real.get(f, set())
+    me = cluster.rpc.node
     out = {}
-    for g, grp in (broker.shared.get(f) or {}).items():
-        if not grp.members:
+    for g in sorted(names):
+        grp = local.get(g)
+        members = []
+        refs = []                      # (origin, sid) per kept member
+        for origin, sid in cluster._members(broker, f, g):
+            if origin == me:
+                opts = grp.members.get(sid) if grp else None
+                if opts is not None:
+                    members.append((sid, opts))
+                    refs.append((origin, sid))
+            else:
+                members.append(((origin, sid), None))
+                refs.append((origin, sid))
+        if not members:
             continue
-        members = list(grp.members.items())
-        cursor = grp.cursor
+        cursor = grp.cursor if grp else 0
         if sticky_mode:
-            if grp.sticky not in grp.members:
-                grp.sticky = members[0][0]   # establish affinity
-            cursor = next(i for i, (sid, _) in enumerate(members)
-                          if sid == grp.sticky)
+            want = cluster._shared_sticky.get((f, g))
+            if want not in refs:
+                want = refs[0]         # establish cluster-wide affinity
+                cluster._shared_sticky[(f, g)] = want
+            cursor = refs.index(want)
         out[g] = (members, cursor)
     return out
 
@@ -562,8 +608,9 @@ class _Built:
     """One compiled snapshot (host-side indexes of the device tables)."""
 
     __slots__ = ("fid_of", "fid_filter", "seg_len", "slot_of", "slot_key",
-                 "n_slots", "backend", "seg_np", "fid_shared", "fid_rich",
-                 "sid", "match_width", "sig", "cover")
+                 "n_slots", "backend", "remote_members", "seg_np",
+                 "fid_shared", "fid_rich", "sid", "match_width", "sig",
+                 "cover")
 
     def __init__(self):
         self.fid_of: dict[str, int] = {}
@@ -572,6 +619,9 @@ class _Built:
         self.slot_of: dict[tuple, int] = {}       # (filter, group) -> slot
         self.slot_key: list[tuple] = []           # slot -> (filter, group)
         self.n_slots = 0
+        # remote shared members: device sid _REMOTE_SID_BASE+i -> (origin,
+        # remote_sid); consume forwards picks for these over rpc
+        self.remote_members: list[tuple] = []
         self.backend = "trie"
         # snapshot identity: the match-cache key space
         self.sid = next(_snapshot_ids)
@@ -714,6 +764,9 @@ class DeviceRouteEngine:
         self._delta_fid_of: dict[str, int] = {}
         self._next_delta_fid = 0
         self._enc_cache: dict[str, list] = {}  # filter -> interned words
+        # per-filter cluster shared-group union, invalidated on membership
+        # change (avoids per-message set unions on the consume path)
+        self._cluster_groups_cache: dict[str, tuple] = {}
 
         # class readiness: the BATCHER routes a batch to the device only
         # when its (W, Bp) class is warm for the current snapshot
@@ -957,6 +1010,7 @@ class DeviceRouteEngine:
         if self._journal is not None:
             self._journal.append(("member", real, group))
         self._touched.add(real)
+        self._cluster_groups_cache.pop(real, None)
         if self._built is None:
             return
         if group is None:
@@ -1278,6 +1332,13 @@ class DeviceRouteEngine:
                 b.slot_key.append((f, g))
                 members = []
                 for sid, opts in members_raw:
+                    if isinstance(sid, tuple):
+                        # remote member ref: reserve a device sid that
+                        # indexes remote_members; opts live on its node
+                        dev_sid = _REMOTE_SID_BASE + len(b.remote_members)
+                        b.remote_members.append(sid)
+                        members.append((dev_sid, 0))
+                        continue
                     if _is_rich(opts):
                         rich.add(f)
                     members.append((sid, _pack_opts(opts)))
@@ -1502,6 +1563,7 @@ class DeviceRouteEngine:
         self.node.metrics.inc("routing.device.rebuilds")
 
     def _reset_deltas(self) -> None:
+        self._cluster_groups_cache = {}
         self.dirty_filters = set()
         self._dirty_ver += 1
         self._hostside_memo = None
@@ -1958,12 +2020,18 @@ class DeviceRouteEngine:
 
     # ---- the serving path ----------------------------------------------
     def device_shared_active(self) -> bool:
-        """Device picks serve every device-supported strategy."""
+        """Device picks serve every device-supported strategy, clustered
+        or standalone: the snapshot holds the cluster-wide membership with
+        remote members as forwardable refs."""
         return self.broker.shared_strategy in STRATEGIES
 
     def _host_shared_dispatch(self, f: str, gname: str, msg) -> bool:
-        """One group's host-side dispatch: the local strategy pick."""
+        """One group's host-side dispatch: cluster-wide pick under a
+        cluster, local strategy pick standalone."""
         broker = self.broker
+        if broker.cluster is not None:
+            return broker.cluster._dispatch_one_group(broker, f, gname,
+                                                      msg)
         g = broker.shared.get(f, {}).get(gname)
         return bool(g and g.members
                     and broker._shared_pick_deliver(gname, f, g, msg))
@@ -3161,11 +3229,13 @@ class DeviceRouteEngine:
                             plan=None):
         """Vectorized consume for provably-clean messages. Returns a list
         with per-message delivery counts, or None where the slow path
-        must run. Clean requires, globally: no delta filters beyond the
-        fused overlay (`pending`), no post-snapshot shared groups; per
-        message: no too-long/overflow, no dirty/rich matched filter, no
-        overlay match, no shared involvement."""
-        if pending or self.new_slots_by_filter:
+        must run. Clean requires, globally: standalone node (no cluster
+        forward / cluster group sweep), no delta filters beyond the fused
+        overlay (`pending`), no post-snapshot shared groups; per message:
+        no too-long/overflow, no dirty/rich matched filter, no overlay
+        match, no shared involvement."""
+        if (self.broker.cluster is not None or pending
+                or self.new_slots_by_filter):
             return [None] * len(msgs)
         B = len(msgs)
         mask = m_k[:B] >= 0
@@ -3188,7 +3258,8 @@ class DeviceRouteEngine:
         clean-message proof and the same vectorized delivery walk, with
         the 2-D plane gathers replaced by flat payload gathers at each
         message's family base offsets."""
-        if pending or self.new_slots_by_filter:
+        if (self.broker.cluster is not None or pending
+                or self.new_slots_by_filter):
             return [None] * len(msgs)
         B = len(msgs)
         cm = c3_k[:B, 0].astype(np.int64)
@@ -3502,7 +3573,25 @@ class DeviceRouteEngine:
                 sid = sr_row[k]
                 if sid < 0:
                     continue
-                if broker._deliver(
+                if sid >= _REMOTE_SID_BASE:
+                    # device picked a remote member: directed forward,
+                    # the host path's cross-node dispatch with the pick
+                    # already done on device
+                    cluster = broker.cluster
+                    if cluster is not None:
+                        origin, rsid = \
+                            b.remote_members[sid - _REMOTE_SID_BASE]
+                        cluster._spawn_fwd(
+                            origin, "shared.deliver_fwd",
+                            [f, gname, rsid, msg.to_wire()],
+                            key=msg.topic)
+                        n += 1
+                        metrics.inc("messages.routed.device")
+                        metrics.inc("messages.routed.device.remote_shared")
+                    elif self._host_shared_dispatch(f, gname, msg):
+                        # cluster torn down since the build: host decides
+                        n += 1
+                elif broker._deliver(
                         sid, f, msg,
                         dict(OPT_TABLE[so_row[k] & 0x3F], share=gname)):
                     n += 1
@@ -3519,6 +3608,7 @@ class DeviceRouteEngine:
                     if (gone or broker.shared_dispatch_ack) and \
                             self._host_shared_dispatch(f, gname, msg):
                         n += 1
+            cluster = broker.cluster
             for f in matched:
                 # groups created after the snapshot on matched filters
                 for gname in self.new_slots_by_filter.get(f, ()):
@@ -3534,9 +3624,27 @@ class DeviceRouteEngine:
                             handled.add((f, gname))
                             if self._host_shared_dispatch(f, gname, msg):
                                 n += 1
+                if cluster is not None:
+                    # groups excluded from the snapshot (remote members)
+                    # and remote-only groups known via replication;
+                    # cached per filter — membership changes invalidate
+                    groups = self._cluster_groups_cache.get(f)
+                    if groups is None:
+                        groups = tuple(
+                            set(broker.shared.get(f, ()))
+                            | cluster._groups_by_real.get(f, set()))
+                        self._cluster_groups_cache[f] = groups
+                    for gname in groups:
+                        if (f, gname) in handled:
+                            continue
+                        handled.add((f, gname))
+                        if self._host_shared_dispatch(f, gname, msg):
+                            n += 1
         else:
             n += broker._dispatch_shared(msg, matched)
 
+        if broker.cluster:
+            n += broker.cluster.forward(msg, matched)
         if n == 0 and not msg.is_sys:
             metrics.inc("messages.dropped")
             metrics.inc("messages.dropped.no_subscribers")

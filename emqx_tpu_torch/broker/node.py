@@ -323,8 +323,10 @@ class Node:
         from emqx_tpu_torch.mgmt import Mgmt, make_api
         lc = (dc.get("listeners") or {}).get("http") or {}
         admin = DashboardAdmin(self)
-        mgmt = Mgmt(self)
-        srv = make_api(self, mgmt, host=str(lc.get("bind", "127.0.0.1")),
+        cluster = getattr(self.broker, "cluster", None)
+        mgmt = Mgmt(self, cluster)
+        srv = make_api(self, mgmt, cluster=cluster,
+                       host=str(lc.get("bind", "127.0.0.1")),
                        port=int(lc.get("port", 18083)))
         srv.auth_check = admin.auth_check
         register_api(srv, self, admin, mgmt)

@@ -5,9 +5,10 @@ subscriber tables :96-109) + emqx_shared_sub.erl (group strategies :62-67,
 pick :239-268). Host-side engine over the Router; the device fused path
 (models.router_engine.route_step) serves the bulk micro-batch pipeline,
 while this engine is the authoritative per-message semantics. The port's
-copy of ``emqx_tpu/broker/pubsub.py`` for a standalone node, with the
-latency observatory's hook on the batcher-less host path
-(``latency_obs``); the cluster forwarding is not part of the port.
+copy of ``emqx_tpu/broker/pubsub.py``, with the latency observatory's hook
+on the batcher-less host path (``latency_obs``) and the cluster hooks
+(``cluster``: route and shared-member replication, cross-node forwarding,
+cluster-wide shared dispatch).
 
 Subscribers are registered as deliver callbacks keyed by an integer
 subscriber id (the "session row" of the device tables); the reference's
@@ -76,6 +77,9 @@ class Broker:
         self.shared_strategy = shared_strategy
         self.shared_dispatch_ack = shared_dispatch_ack
 
+        # set by cluster.ClusterNode when this broker joins a cluster:
+        # replicates routes/shared-members and forwards cross-node
+        self.cluster = None
         # set by DeviceRouteEngine: membership-churn listener for the
         # compiled device snapshot
         self.device_engine = None
@@ -125,6 +129,8 @@ class Broker:
             g.members[sid] = opts
             if len(g.members) == 1:
                 self.router.add_route(real)
+            if self.cluster:
+                self.cluster.shared_join(real, group, sid)
             if self.device_engine:
                 self.device_engine.note_member_change(real, group)
         else:
@@ -132,6 +138,8 @@ class Broker:
             fsubs[sid] = opts
             if len(fsubs) == 1:
                 self.router.add_route(real)
+                if self.cluster:
+                    self.cluster.local_route_add(real)
             if self.device_engine:
                 self.device_engine.note_member_change(real, None)
 
@@ -146,6 +154,8 @@ class Broker:
             del g.members[sid]
             if g.sticky == sid:
                 g.sticky = None
+            if self.cluster:
+                self.cluster.shared_leave(real, group, sid)
             if self.device_engine:
                 self.device_engine.note_member_change(real, group)
             if not g.members:
@@ -153,7 +163,7 @@ class Broker:
                 if not groups:
                     del self.shared[real]
                 if not self._has_any_sub(real):
-                    self.router.delete_route(real)
+                    self._route_del(real)
             return True
         fsubs = self.subs.get(real)
         if not fsubs or sid not in fsubs:
@@ -162,10 +172,19 @@ class Broker:
         if not fsubs:
             del self.subs[real]
             if not self._has_any_sub(real):
-                self.router.delete_route(real)
+                self._route_del(real)
         if self.device_engine:
             self.device_engine.note_member_change(real, None)
         return True
+
+    def _route_del(self, real: str) -> None:
+        """Remove the local route; under a cluster the filter stays in the
+        local trie while any remote node still routes it (the reference's
+        per-node #route rows — emqx_router.erl:77-86)."""
+        if self.cluster:
+            self.cluster.local_route_del(real)
+        else:
+            self.router.delete_route(real)
 
     def _has_any_sub(self, real: str) -> bool:
         if self.subs.get(real):
@@ -266,6 +285,8 @@ class Broker:
         for f in filters:
             n += self.dispatch(f, msg)
         n += self._dispatch_shared(msg, filters)
+        if self.cluster:
+            n += self.cluster.forward(msg, filters)
         if n == 0 and not msg.is_sys:
             self.metrics.inc("messages.dropped")
             self.metrics.inc("messages.dropped.no_subscribers")
@@ -295,6 +316,8 @@ class Broker:
 
     # ---- shared dispatch (emqx_shared_sub:dispatch :120-135) ----
     def _dispatch_shared(self, msg: Message, filters: list[str]) -> int:
+        if self.cluster:
+            return self.cluster.dispatch_shared(self, msg, filters)
         n = 0
         for real in filters:
             for group, g in list(self.shared.get(real, {}).items()):

@@ -1,9 +1,9 @@
-"""Management: REST API + CLI for one node.
+"""Management: REST API + CLI, node-local or fanned out over a cluster.
 
 Parity: apps/emqx_management — emqx_mgmt.erl (facade), emqx_mgmt_http/
 emqx_mgmt_api_*.erl (REST over minirest), emqx_mgmt_cli.erl (emqx_ctl
 commands), emqx_mgmt_auth.erl (app id/secret credentials). The port's
-copy of ``emqx_tpu/mgmt`` without the cluster fan-out.
+copy of ``emqx_tpu/mgmt``.
 """
 
 from emqx_tpu_torch.mgmt.api import make_api

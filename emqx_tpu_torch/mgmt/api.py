@@ -5,8 +5,7 @@ clients (list/lookup/kick/subscriptions), subscriptions, routes, publish,
 mqtt subscribe/unsubscribe, banned, alarms, rules (+rule test), listeners,
 apps, cluster, and the pipeline's recorder, observatory, governor and
 HBM ledger. Mounted under /api/v5 (the reference 5.0-dev surface). The
-port's copy of ``emqx_tpu/mgmt/api.py`` for one node (``/cluster`` names
-this node alone).
+port's copy of ``emqx_tpu/mgmt/api.py``.
 """
 
 from __future__ import annotations
@@ -18,9 +17,10 @@ from emqx_tpu_torch.mgmt.httpd import ApiError, HttpServer, paginate
 from emqx_tpu_torch.mgmt.mgmt import Mgmt
 
 
-def make_api(node, mgmt: Optional[Mgmt] = None, app_auth=None,
-             host: str = "127.0.0.1", port: int = 0) -> HttpServer:
-    mgmt = mgmt or Mgmt(node)
+def make_api(node, mgmt: Optional[Mgmt] = None, cluster=None,
+             app_auth=None, host: str = "127.0.0.1",
+             port: int = 0) -> HttpServer:
+    mgmt = mgmt or Mgmt(node, cluster)
     auth_check = app_auth.is_authorized if app_auth is not None else None
     srv = HttpServer(host, port, auth_check=auth_check)
     P = "/api/v5"
@@ -328,7 +328,9 @@ def make_api(node, mgmt: Optional[Mgmt] = None, app_auth=None,
 
     # ---- cluster ----
     async def cluster_info(_req):
-        return {"nodes": [node.name], "self": node.name}
+        if cluster is None:
+            return {"nodes": [node.name], "self": node.name}
+        return cluster.info()
     route("GET", "/cluster", cluster_info)
 
     return srv

@@ -5,11 +5,10 @@ status, broker [stats|metrics], cluster join/leave/force-leave/status,
 clients list/show/kick, routes list/show, subscriptions
 list/show/add/del, plugins, vm, listeners, mgmt (API apps), banned, rules,
 trace. Commands are async; output is returned as text (and printed by the
-`emqx_ctl` entry point). The port's copy of ``emqx_tpu/mgmt/cli.py`` for
-one node: ``cluster`` answers that the node is not clustered (the cluster
-is ROADMAP.md Queue A item 20(c)), ``rules`` that no rule engine is
-loaded and ``plugins`` lists none (item 20(d)); ``trace device`` drives
-the engine's torch.profiler trace of the card.
+`emqx_ctl` entry point). The port's copy of ``emqx_tpu/mgmt/cli.py``:
+``rules`` answers that no rule engine is loaded and ``plugins`` lists none
+(ROADMAP.md Queue A item 20(d)); ``trace device`` drives the engine's
+torch.profiler trace of the card.
 """
 
 from __future__ import annotations
@@ -22,9 +21,11 @@ Command = Callable[..., Awaitable[str]]
 
 
 class Cli:
-    def __init__(self, node, mgmt: Optional[Mgmt] = None, app_auth=None):
+    def __init__(self, node, mgmt: Optional[Mgmt] = None, cluster=None,
+                 app_auth=None):
         self.node = node
-        self.mgmt = mgmt or Mgmt(node)
+        self.cluster = cluster
+        self.mgmt = mgmt or Mgmt(node, cluster)
         self.app_auth = app_auth
         self._commands: dict[str, tuple[Command, str]] = {}
         self._register_builtins()
@@ -143,7 +144,26 @@ class Cli:
     async def _cluster(self, args) -> str:
         if not args:
             raise _Usage()
-        return "node is not running in cluster mode"
+        if self.cluster is None:
+            return "node is not running in cluster mode"
+        if args[0] == "status":
+            info = self.cluster.info()
+            return "\n".join(
+                [f"Cluster status: {len(info['members'])} node(s)"] +
+                [f"  {n}: {m['status']}"
+                 for n, m in sorted(info["members"].items())])
+        if args[0] == "join" and len(args) == 2:
+            host, _, port = args[1].partition(":")
+            await self.cluster.join(host, int(port or 5370))
+            return f"Join the cluster successfully.\n" \
+                   f"Cluster status: {self.cluster.info()['members']}"
+        if args[0] == "leave" and len(args) == 1:
+            await self.cluster.leave()
+            return "Leave the cluster successfully."
+        if args[0] == "force-leave" and len(args) == 2:
+            await self.cluster.membership.force_leave(args[1])
+            return f"Remove the node from cluster successfully: {args[1]}"
+        raise _Usage()
 
     async def _clients(self, args) -> str:
         if args and args[0] == "list":

@@ -44,9 +44,16 @@ live on the mesh's first device.
 
 Delivery records are (msg, sid, gfid | packed_opt << 24) triples; a
 session's records come in (source shard asc, msg asc, row asc) order on
-either path — the order the reference's consume delivers in. The
-reference's cluster branches (remote shared members, forwarding) are not
-part of the port.
+either path — the order the reference's consume delivers in.
+
+Under a cluster, normal-route forwarding works as the single-chip
+consume's (``cluster.forward`` on the matched set), and each shard's
+shared slots hold the cluster-wide membership
+(``device_engine.capture_shared``), remote members as sids of
+``_REMOTE_SID_BASE`` and above that the consume turns into directed
+``shared.deliver_fwd`` calls: the pick is made on the mesh. As in the
+reference, a clustered node's windows never take the exchange or the
+lanes' clean rows: every message goes through the per-message consume.
 """
 
 from __future__ import annotations
@@ -63,7 +70,8 @@ import torch
 
 from emqx_tpu_torch import device as D
 from emqx_tpu_torch.broker.deliver import DEFERRED, OPT_TABLE, LaneCounts
-from emqx_tpu_torch.broker.device_engine import (DeviceRouteEngine,
+from emqx_tpu_torch.broker.device_engine import (_REMOTE_SID_BASE,
+                                                 DeviceRouteEngine,
                                                  _device_lock, _is_rich,
                                                  _pack_opts, capture_shared,
                                                  resolve_compact_readback)
@@ -747,7 +755,7 @@ class _ShardBuilt:
 
     __slots__ = ("fid_of", "fid_filter", "seg_len", "slot_key", "rich",
                  "host_extra", "seg_np", "fid_slow", "cover_roots",
-                 "cover_covered")
+                 "cover_covered", "remote_members")
 
     def __init__(self):
         self.fid_of: dict[str, int] = {}
@@ -760,6 +768,8 @@ class _ShardBuilt:
         self.fid_slow = np.zeros(0, bool)    # rich OR slotted fids
         self.cover_roots = 0
         self.cover_covered = 0
+        # device sid _REMOTE_SID_BASE+i -> (origin, remote sid)
+        self.remote_members: list[tuple] = []
 
 
 class _Handle:
@@ -1001,10 +1011,18 @@ class ShardedRouteServer(_MeshCore):
                 opts.append(_pack_opts(o))
             starts.append(len(rows))
             for g in sorted(shared_cap.get(f, {})):
-                members, cursor = shared_cap[f][g]
+                members_raw, cursor = shared_cap[f][g]
                 b.slot_key.append((f, g))
-                slots.append((fid, g, [(sid, _pack_opts(o))
-                                       for sid, o in members]))
+                members = []
+                for sid, o in members_raw:
+                    if isinstance(sid, tuple):
+                        # remote member ref -> reserved-range device sid
+                        dev_sid = _REMOTE_SID_BASE + len(b.remote_members)
+                        b.remote_members.append(sid)
+                        members.append((dev_sid, 0))
+                    else:
+                        members.append((sid, _pack_opts(o)))
+                slots.append((fid, g, members))
                 cursors.append(cursor)
         b.fid_filter = dev_f
         c = ShardCapture(dev_f, words, lens, np.asarray(starts, np.int64),
@@ -1546,7 +1564,8 @@ class ShardedRouteServer(_MeshCore):
         if not h.exch_fits:
             metrics.inc("pipeline.exchange.fallback.gfid_space")
             return False
-        if self.broker.shared_strategy not in STRATEGIES \
+        if self.broker.cluster is not None \
+                or self.broker.shared_strategy not in STRATEGIES \
                 or any(b.host_extra for b in h.built):
             metrics.inc("pipeline.exchange.fallback.precluded")
             return False
@@ -1681,7 +1700,8 @@ class ShardedRouteServer(_MeshCore):
         snapshot swap, a build in flight, a non-device strategy or
         too-deep filters mean the snapshot's clean masks can no longer be
         trusted."""
-        return not (self.dirty_shards or builts is not self._builts
+        return not (self.broker.cluster is not None or self.dirty_shards
+                    or builts is not self._builts
                     or self._rebuilding()
                     or self.broker.shared_strategy not in STRATEGIES
                     or any(b.host_extra for b in builts))
@@ -2020,6 +2040,8 @@ class ShardedRouteServer(_MeshCore):
         plain fan-out row, else None (the ordered per-message consume
         serves it)."""
         broker = self.broker
+        if broker.cluster is not None:
+            return None
         decoded = []
         for r in range(self.n_route):
             b = builts[r]
@@ -2072,7 +2094,12 @@ class ShardedRouteServer(_MeshCore):
         return broker._route(msg, broker.router.match(msg.topic))
 
     def _host_shared_dispatch(self, f: str, gname: str, msg) -> bool:
+        """One group's host-side dispatch: cluster-wide pick under a
+        cluster, local strategy pick standalone."""
         broker = self.broker
+        if broker.cluster is not None:
+            return broker.cluster._dispatch_one_group(broker, f, gname,
+                                                      msg)
         g = broker.shared.get(f, {}).get(gname)
         return bool(g and g.members
                     and broker._shared_pick_deliver(gname, f, g, msg))
@@ -2081,10 +2108,12 @@ class ShardedRouteServer(_MeshCore):
         """The per-message consume (reference :1876): fan-out rows per
         matched filter (rich filters through the host dict), too-deep
         filters matched on the host, the device's shared picks with the
-        staleness guard, and the sweep of live groups the pinned snapshot
-        has no slot for."""
+        staleness guard, remote picks forwarded to their node, the sweep
+        of live groups the pinned snapshot has no slot for, and the
+        cluster forward."""
         broker = self.broker
         metrics = self.node.metrics
+        cluster = broker.cluster
         dev_shared = broker.shared_strategy in STRATEGIES
         n = 0
         matched: list = []
@@ -2124,6 +2153,22 @@ class ShardedRouteServer(_MeshCore):
                 sid = int(prow[k])
                 if sid < 0:
                     continue
+                if sid >= _REMOTE_SID_BASE:
+                    # device picked a remote member: directed forward,
+                    # the pick already made on the mesh
+                    if cluster is not None:
+                        origin, rsid = \
+                            b.remote_members[sid - _REMOTE_SID_BASE]
+                        cluster._spawn_fwd(
+                            origin, "shared.deliver_fwd",
+                            [f, gname, rsid, msg.to_wire()],
+                            key=msg.topic)
+                        n += 1
+                        metrics.inc("messages.routed.device")
+                        metrics.inc("messages.routed.device.remote_shared")
+                    elif self._host_shared_dispatch(f, gname, msg):
+                        n += 1   # cluster torn down since the build
+                    continue
                 # the pick was made against the handle's pinned shard: a
                 # member that left, or a shard re-dirtied since, re-picks
                 # on the host against live membership
@@ -2147,12 +2192,17 @@ class ShardedRouteServer(_MeshCore):
             # snapshot (subscribed after prepare, or on a too-deep
             # filter) dispatch on the host
             for f in matched:
-                for gname in list(broker.shared.get(f, ())):
+                names = set(broker.shared.get(f, ()))
+                if cluster is not None:
+                    names |= cluster._groups_by_real.get(f, set())
+                for gname in names:
                     if (f, gname) in handled:
                         continue
                     handled.add((f, gname))
                     if self._host_shared_dispatch(f, gname, msg):
                         n += 1
+        if cluster:
+            n += cluster.forward(msg, matched)
         if n == 0 and not msg.is_sys:
             metrics.inc("messages.dropped")
             metrics.inc("messages.dropped.no_subscribers")

@@ -1188,3 +1188,95 @@ def test_chip_smoke_warm_stress_on_cpu():
     assert "b" not in r and "d" not in r
     assert w["warms"] > 0 and w["classes"]
     assert w["stream"]["retained_count"] >= 2000
+
+
+# ---------------------------------------------------------------------
+# The retained sweep: no scan while no entry carries an expiry
+# ---------------------------------------------------------------------
+def _sweep_script(pkg, monkeypatch, storage, seed):
+    """Random retains (no expiry, or 1-5 s), overwrites that give a stored
+    topic an expiry or take it away, deletes, and a sweep every 0.7 s of a
+    scripted clock: the topics each sweep cleans, in order."""
+    clock = [1_000_000]
+    monkeypatch.setattr(pkg.ret, "now_ms", lambda: clock[0])
+    node = pkg.node()
+    ret = pkg.ret.Retainer(node, storage=pkg.ret.make_storage(storage)) \
+        .load()
+    cleaned: list = []
+    delete = ret.delete
+
+    def logged(topic):
+        cleaned.append(topic)
+        return delete(topic)
+    ret.delete = logged
+    r = np.random.RandomState(seed)
+    ticks = []
+    for step in range(40):
+        for _ in range(20):
+            exp = (None, 1, 2, 5)[r.randint(0, 4)]
+            props = {"properties": {"message_expiry_interval": exp}} \
+                if exp else {}
+            m = retained(pkg, f"s/{r.randint(0, 60)}", b"%d" % step,
+                         headers=props)
+            m.ts = clock[0]
+            ret._insert(m)
+        if step % 7 == 3:
+            ret.delete(f"s/{r.randint(0, 60)}")
+        clock[0] += 700
+        n0 = len(cleaned)
+        ret.tick()
+        ticks.append(cleaned[n0:])
+    left = sorted(t for t, _m, _e in ret.storage.items())
+    ret.storage.close()
+    return ticks, left
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("kind", ["ram", "disc"])
+def test_retained_sweep_cleans_what_the_reference_cleans(
+        monkeypatch, tmp_path, kind, seed):
+    out = []
+    for pkg in PKGS:
+        storage = "ram" if kind == "ram" else {
+            "type": "disc", "dir": str(tmp_path / pkg.name)}
+        out.append(_sweep_script(pkg, monkeypatch, storage, seed))
+    assert out[1] == out[0]
+    assert any(out[0][0])                 # the script does expire entries
+    if kind == "disc":
+        # the journals' delete records, in order
+        dels = [[json.loads(x)["topic"] for x in
+                 (tmp_path / p.name / "retained.jsonl").read_text()
+                 .splitlines() if '"op": "del"' in x] for p in PKGS]
+        assert dels[1] == dels[0]
+
+
+def test_retained_sweep_reads_no_entry_that_never_expires():
+    """With 100,000 stored messages and no expiry among them, a sweep
+    neither walks the store nor allocates per entry."""
+    import tracemalloc
+    node = PORT.node()
+    ret = tretainer.Retainer(node).load()
+    msg = retained(PORT, "c5r/0/k0")
+    for i in range(100_000):
+        ret.storage.insert(f"c5r/{i % 64}/k{i}", msg, None)
+
+    def walked():
+        raise AssertionError("the sweep walked every entry")
+    ret.storage.items = walked
+    tracemalloc.start()
+    try:
+        ret.tick()
+        _cur, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    assert peak < 64 << 10, peak
+    assert ret.retained_count() == 100_000
+    # one expiring entry: the sweep scans the store, and cleans it when due
+    del ret.storage.items
+    old = retained(PORT, "c5r/x", headers={
+        "properties": {"message_expiry_interval": 1}})
+    old.ts = tmessage.now_ms() - 5_000
+    ret._insert(old)
+    ret.tick()
+    assert ret.retained_count() == 100_000
+    assert ret.storage.get("c5r/x") is None

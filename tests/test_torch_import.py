@@ -58,7 +58,12 @@ MODULES = [
     "emqx_tpu_torch.apps.dashboard", "emqx_tpu_torch.mgmt",
     "emqx_tpu_torch.mgmt.httpd", "emqx_tpu_torch.mgmt.mgmt",
     "emqx_tpu_torch.mgmt.apps", "emqx_tpu_torch.mgmt.api",
-    "emqx_tpu_torch.mgmt.cli",
+    "emqx_tpu_torch.mgmt.cli", "emqx_tpu_torch.utils.aio",
+    "emqx_tpu_torch.utils.http", "emqx_tpu_torch.utils.replayq",
+    "emqx_tpu_torch.cluster", "emqx_tpu_torch.cluster.rpc",
+    "emqx_tpu_torch.cluster.membership", "emqx_tpu_torch.cluster.store",
+    "emqx_tpu_torch.cluster.cluster", "emqx_tpu_torch.cluster.discovery",
+    "emqx_tpu_torch.run_node", "emqx_tpu_torch.chaos_cluster",
     "chip_smoke",
 ]
 

@@ -15,6 +15,7 @@ among its commands) are covered too.
 import asyncio
 import base64
 import json
+import re
 
 import pytest
 import torch
@@ -23,6 +24,7 @@ from emqx_tpu.apps.dashboard import DashboardAdmin as JAdmin
 from emqx_tpu.apps.dashboard import register_api as jregister
 from emqx_tpu.broker.connection import Listener as JListener
 from emqx_tpu.broker.node import Node as JNode
+from emqx_tpu.cluster import ClusterNode as JClusterNode
 from emqx_tpu.mgmt import Cli as JCli
 from emqx_tpu.mgmt import make_api as jmake_api
 from emqx_tpu.mgmt.apps import AppAuth as JAppAuth
@@ -32,6 +34,7 @@ from emqx_tpu_torch.apps.dashboard import register_api as tregister
 from emqx_tpu_torch.broker.connection import Listener as TListener
 from emqx_tpu_torch.broker.node import Node as TNode
 from emqx_tpu_torch.client import Client
+from emqx_tpu_torch.cluster import ClusterNode as TClusterNode
 from emqx_tpu_torch.mgmt import Cli as TCli
 from emqx_tpu_torch.mgmt import make_api as tmake_api
 from emqx_tpu_torch.mgmt import cli as tcli
@@ -694,3 +697,122 @@ def test_start_dashboard_from_config_equals_reference(tmp_path):
                  TNode.from_config_file(str(off), device="cpu",
                                         name=NAME)):
         assert run(node.start_dashboard()) is None
+
+
+# ---------------------------------------------------------------------
+# A cluster: the fan-out, /cluster and the CLI's cluster commands
+# ---------------------------------------------------------------------
+CLUSTER_PATHS = ("/api/v5/cluster", "/api/v5/nodes", "/api/v5/brokers",
+                 "/api/v5/clients", "/api/v5/subscriptions",
+                 "/api/v5/routes", "/api/v5/metrics",
+                 "/api/v5/metrics?aggregate=true", "/api/v5/stats",
+                 "/api/v5/nodes/n1@127.0.0.1",
+                 "/api/v5/clients/remote-c")
+
+
+def _strip_ports(x):
+    """Cluster answers without the ephemeral rpc ports."""
+    if isinstance(x, dict):
+        return {k: _strip_ports(v) for k, v in x.items()
+                if k not in ("address", "addr")}
+    if isinstance(x, (list, tuple)):
+        return [_strip_ports(v) for v in x]
+    return x
+
+
+def _counters(x):
+    """Counter maps cut to the keys both packages have: the port's device
+    engine adds its pipeline gauges."""
+    if isinstance(x, dict):
+        return {k: _counters(v) for k, v in x.items()
+                if not k.startswith("pipeline.")}
+    if isinstance(x, (list, tuple)):
+        return [_counters(v) for v in x]
+    return x
+
+
+async def _cluster_stack(Node, Cluster, make_api, Cli, conf):
+    nodes, clusters = [], []
+    for i in range(2):
+        node = Node(f"n{i}@127.0.0.1")
+        cn = Cluster(node, port=0, heartbeat_s=0.05)
+        await cn.start()
+        nodes.append(node)
+        clusters.append(cn)
+    await clusters[1].join(*clusters[0].address)
+    api = make_api(nodes[0], cluster=clusters[0], port=0)
+    from_api1 = make_api(nodes[1], cluster=clusters[1], port=0)
+    await api.start()
+    await from_api1.start()
+    try:
+        nodes[1].cm.register_channel("remote-c", object(),
+                                     {"username": "ru"})
+        b1 = nodes[1].broker
+        b1.subscribe(b1.register(type("S", (), {
+            "deliver": lambda self, f, m: True})(), "remote-c"),
+            "fan/+", {"qos": 1})
+        for cn in clusters:
+            await cn.flush()
+        await asyncio.sleep(0.15)
+        out = [_counters(_strip_ports(await http(api.port, "GET", p)))
+               for p in CLUSTER_PATHS]
+        cli = Cli(nodes[0], cluster=clusters[0])
+        out.append(await cli.run(["cluster", "status"]))
+        out.append(await cli.run(["cluster"]))
+        joined = await cli.run(["cluster", "join",
+                                "%s:%d" % clusters[1].address])
+        out.append(re.sub(r"\d{4,5}\]", "PORT]", joined))
+        out.append(await Cli(nodes[1], cluster=clusters[1]).run(
+            ["cluster", "leave"]))
+        await asyncio.sleep(0.1)
+        out.append(await cli.run(["cluster", "status"]))
+        out.append(await cli.run(["cluster", "force-leave", "ghost@x"]))
+        out.append(await cli.run(["cluster", "status"]))
+        out.append(await Cli(nodes[1]).run(["cluster", "status"]))
+        return out
+    finally:
+        await api.stop()
+        await from_api1.stop()
+        for cn in clusters:
+            await cn.stop()
+
+
+def test_cluster_fanout_and_cli_equal_reference():
+    """Two clustered nodes each: the REST fan-out (nodes, brokers,
+    clients, subscriptions, counters), /cluster and the routes from the
+    replicated table, then the CLI's cluster status, force-leave, join
+    and leave, equal on both packages."""
+    want = run(_cluster_stack(
+        lambda n: JNode(use_device=False, name=n), JClusterNode,
+        jmake_api, JCli, None))
+    got = run(_cluster_stack(
+        lambda n: TNode(device="cpu", name=n), TClusterNode, tmake_api,
+        TCli, None))
+    assert norm(got) == norm(want)
+    assert want[0][1]["routes"] == 1 and want[-1] == \
+        "node is not running in cluster mode"
+    assert any(c["clientid"] == "remote-c" and c["node"] == "n1@127.0.0.1"
+               for c in want[3][1]["data"])
+
+
+def test_start_dashboard_passes_the_cluster():
+    """``Node.start_dashboard`` hands ``broker.cluster`` to the API: its
+    /cluster answers the cluster view."""
+    async def go():
+        node = TNode({"dashboard": {"listeners": {"http": {"port": 0}}}},
+                     device="cpu", name=NAME)
+        cn = TClusterNode(node, port=0, heartbeat_s=0.05)
+        await cn.start()
+        srv = await node.start_dashboard()
+        try:
+            st, tok = await http(srv.port, "POST", "/api/v5/login",
+                                 {"username": "admin",
+                                  "password": "public"})
+            return await http(srv.port, "GET", "/api/v5/cluster",
+                              bearer=tok["token"])
+        finally:
+            await node.stop_listeners()
+            await cn.stop()
+    st, body = run(go())
+    assert st == 200 and body["node"] == NAME
+    assert body["members"][NAME]["status"] == "running"
