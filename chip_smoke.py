@@ -34,7 +34,8 @@ Phases:
    kernel at the same grid (the launch floor), torch.cumsum and the
    wrapper call;
 5. the kernels JSON line, the card line, and the result line last
-   (after phases 6 to 17);
+   (after phases 6 to 18); every phase prints its wall seconds as it
+   ends ("phase N: S s wall"), and the whole run's line lists them;
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
    every hop count at the mesh phase's [E, 3] block and at a ragged
    [1001, 3] block (aligned and unaligned), and across two cards with
@@ -96,7 +97,8 @@ Phases:
    with dedup, cache and overlay off, and a host-path node. 9a, the skew
    traffic of tools/skew_bench.py:82-105 (90% of the lanes on 16 hot
    topics): a warm-up until every class it wants is captured, then
-   passes of 48 fused windows of 8 x 1024 through prepare_window →
+   passes of 24 fused windows of 8 x 1024 (48 before phase 18 took the
+   time) through prepare_window →
    dispatch → materialize → finish_sub with two windows in flight, A and
    B alternating by pass; every pass's deliveries, shared picks and
    device cursors must be equal on A and B and the host path's counts
@@ -104,7 +106,8 @@ Phases:
    windows must be cached windows, its cache must hit and no cached class
    may be cold. 9b, the churn traffic of tools/churn_bench.py:80-160: a
    sink session subscribes 4 fresh filters churn/{seq}/+ between
-   batches (64 live at most), route_batch of 512 with 25% of the lanes to
+   batches (64 live at most), 24 route_batch of 512 a pass (48 before
+   phase 18) with 25% of the lanes to
    the fresh filters' topics; per batch A, B and the host path must give
    equal counts and per-session deliveries, every fresh-filter lane
    delivered; in the timed pass A routes no delta filter on the host and
@@ -303,12 +306,43 @@ Phases:
    exchange serves no clustered window (the reference precludes it), so
    kernel 3 is read in the class warm under the cluster and in windows
    after the node leaves it.
+18. the secured node: phase 15's files plus, in the override, the
+   dashboard on 127.0.0.1 port 0, the authn chain (built_in_database by
+   username with sha256 and a prefix salt, JWT HS256, SCRAM sha256), the
+   file ACL (subscribe device/# and rules/#; publish device/# but not
+   device/+/forbidden/#; no_match deny; the cache on) and two rules
+   (r_q1: SELECT clientid, topic, qos FROM "device/#" WHERE qos = 1,
+   republished to rules/q1/${clientid} at QoS 1; r_conn: the
+   client_connected event, republished to rules/conn/${clientid});
+   Node.from_config_file on the card, start_listeners, start_apps,
+   start_dashboard, start_timers(1.0). 18a: a rules/# subscriber first,
+   8 v5 publishers (2 by JWT), one client by the SCRAM AUTH exchange and
+   its re-authentication, phase 8's population subscribed by 16 logged-in
+   connections, the warm-up, then 16,000 PUBLISHes (cut from 32,000 for
+   time) with 100 denied QoS 1 PUBLISHes to device/d{i}/forbidden/...
+   mixed in: every allowed message once and in order, at least 0.9 on
+   the device, kernels 1 and 2 launched (one shape_match a window), two
+   engine windows held against the plain path; r_q1 must read
+   sql.matched 16,000, sql.passed and actions.success 4,000, rules/#
+   must receive exactly the 4,000 republishes and one rules/conn/<id> for
+   each CONNECT after it subscribed, and the republishes must be routed
+   once each on the host; msgs/s, client p50 / p99, the fold's
+   batch_form beside 15a's and 16a's, the authn and authz counters and
+   the cache's hits. 18b: a wrong password refused 0x86 (v5) and 4
+   (v3.1.1), a JWT with a bad signature and a SCRAM CONNECT with a wrong
+   password 0x87, a SUBSCRIBE outside the ACL 0x87 and not in the
+   router, every denied PUBLISH answered PUBACK 0x87, none routed or
+   delivered; the SCRAM CONNECT's seconds. 18c: /api/v5/rules over the
+   dashboard listener: create, list, get, update, a refused update,
+   rule_test, delete; the rule made there fires on the next window of 64
+   QoS 1 PUBLISHes.
 
 Every node of phases 8-12 runs supervised, as the default node does, and
 must end its phase with no supervised fault, replay, stall or trip (the
 supervisor hides no device fault on the paths that pass). Phase 8 adds
 its depth-2 lanes flood with the supervisor detached (what ``supervise:
-false`` builds) in three rounds against the supervised one, the order
+false`` builds) in two rounds against the supervised one (three before
+phase 18 took the time), the order
 rotated, and prints both msgs/s by median and the live ``supervise``
 telemetry section, and times each supervision hook on the live
 supervisor (host us a fault-free window, against the flood's wall time a
@@ -334,7 +368,8 @@ the ring holds a dispatch span under.
 
 ``python3 chip_smoke.py --boot`` builds the kernels and runs phase 15
 alone; ``python3 chip_smoke.py --apps`` phase 16;
-``python3 chip_smoke.py --cluster`` phase 17.
+``python3 chip_smoke.py --cluster`` phase 17;
+``python3 chip_smoke.py --secure`` phase 18.
 ``python3 chip_smoke.py --warm-stress`` runs 16a, then 16b's stream
 beside a loop of the engine's class warms: the reproducer of a fixed
 fault (a graph capture on a stream serving used, after which every
@@ -1244,14 +1279,13 @@ E2E_RUNS = (("d2", 2, True, "on", True), ("d1", 1, True, "on", True),
             ("d2-untraced", 2, True, "off", True))
 # phase 8's supervision rounds: the depth-2 lanes flood with the node's
 # supervisor detached (what ``supervise: false`` builds) against the same
-# flood supervised, in three rounds with the order rotated (round 1 is
-# "d2" and the first unsupervised flood), run after "d2"
+# flood supervised, in two rounds with the order rotated (round 1 is
+# "d2" and the first unsupervised flood), run after "d2" (three rounds
+# before phase 18: the third is cut for time)
 E2E_SUPERVISE_RUNS = (
     ("d2-unsupervised-1", 2, True, "on", False),
     ("d2-unsupervised-2", 2, True, "on", False),
-    ("d2-supervised-2", 2, True, "on", True),
-    ("d2-supervised-3", 2, True, "on", True),
-    ("d2-unsupervised-3", 2, True, "on", False))
+    ("d2-supervised-2", 2, True, "on", True))
 # the --trace-cost floods: the four layer settings at depth 2 with the
 # lanes, in TRACE_ROUNDS rounds, each round's order rotated by one
 TRACE_LAYERS = ("on", "off", "quiet", "obs")
@@ -1308,21 +1342,25 @@ def _time_dispatches(eng) -> None:
     eng.dispatch = timed_dispatch
 
 
-async def _subscribe_population(port, n_filters: int, n_sub: int):
+async def _subscribe_population(port, n_filters: int, n_sub: int,
+                                login=None):
     """bench.py:1219-1243: each subscriber connection takes its own plain
     filters and shared groups, plus the second membership of the previous
     connection's groups (2 members per group on different sockets), in
     SUBSCRIBE packets of E2E_SUB_CHUNK filters. Every connection is made
     before the first SUBSCRIBE: the subscriptions can hold the loop long
     enough for a polled governor to pause CONNECTs. A list of ports
-    spreads the connections over nodes, connection c on port c % len."""
+    spreads the connections over nodes, connection c on port c % len.
+    ``login(c)``: connection c's CONNECT credentials (username,
+    password)."""
     from emqx_tpu_torch.client import Client
     from emqx_tpu_torch.mqtt import packet as P
     ids, nums = e2e_grid(n_filters)
     ports = list(port) if isinstance(port, (list, tuple)) else [port]
     subs, n_shared, n_entries = [], 0, 0
     for c in range(n_sub):
-        subs.append(Client(port=ports[c % len(ports)], clientid=f"esub{c}"))
+        subs.append(Client(port=ports[c % len(ports)], clientid=f"esub{c}",
+                           **(login(c) if login else {})))
         await subs[-1].connect()
     batches = [[] for _ in range(n_sub)]
     for c, f, qos, second in _population(ids, nums, n_sub):
@@ -1384,7 +1422,8 @@ def flood_pairs(seed: int, p: int, per_pub: int, ids: int,
 async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
                  seed: int, replays: bool = False,
                  per_topic: bool = False, groups=None,
-                 retain_every: int = 0, others=()) -> dict:
+                 retain_every: int = 0, others=(),
+                 forbidden: int = 0) -> dict:
     """bench.py:1283-1366: every publisher floods its share of `total`
     messages to device/d{i}/x/n{n}/t (each matches exactly one filter),
     every 4th at QoS 1 with pipelined PUBACKs; drainers record every
@@ -1403,7 +1442,10 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
     the other nodes of a cluster the clients are spread over; their
     engines must not fail either, and their sessions' queues count for
     the order's per-QoS key (the counters read are `node`'s, the fault
-    counters every node's)."""
+    counters every node's). ``forbidden``: that many more QoS 1
+    PUBLISHes to device/d{i}/forbidden/... (an ACL denies them), spread
+    evenly over the publishers' streams; their PUBACK reason codes are
+    returned as ``forbidden_rcs``."""
     import asyncio
     import struct
 
@@ -1426,10 +1468,20 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
             last_seen[p] = now
             got[c].append((p, s, i, n, m.qos))
 
+    n_fb = [forbidden // n_pub + (p < forbidden % n_pub)
+            for p in range(n_pub)]
+    fb_acks = []
+
     async def flood(p, cl):
         acks = []
+        fb_at = {(j + 1) * per_pub // (n_fb[p] + 1): j
+                 for j in range(n_fb[p])}
         for k, (i, n) in enumerate(flood_pairs(seed, p, per_pub, ids,
                                                nums)):
+            if k in fb_at:
+                fb_acks.append(cl.publish_start(
+                    f"device/d{i}/forbidden/p{p}/{fb_at[k]}", b"denied",
+                    qos=1))
             fut = cl.publish_start(
                 f"device/d{i}/x/n{n}/t",
                 struct.pack(fmt, time.perf_counter(), p, k, i, n),
@@ -1482,6 +1534,8 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
     t0_perf = time.perf_counter()
     try:
         await asyncio.gather(*[flood(p, cl) for p, cl in enumerate(pubs)])
+        fb_rcs = [a.reason_code for a in await asyncio.wait_for(
+            asyncio.gather(*fb_acks), 60)]
         deadline = time.time() + 120
         while sum(map(len, got)) < per_pub * n_pub \
                 and time.time() < deadline:
@@ -1580,6 +1634,7 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
             "lat_p99_ms": float(np.percentile(lat_ms, 99)),
             "route_lat": pb.lat_percentiles() if pb is not None else None,
             "launches": launches, "order_per_qos": queued,
+            "forbidden_rcs": fb_rcs,
             "dev_msg_us": (getattr(pb, "_dev_msg_s", 0) or 0) * 1e6,
             "host_msg_us": (getattr(pb, "_host_msg_s", 0) or 0) * 1e6,
             "samples_us": {k: _spread(q) for k, q in samples.items()},
@@ -2694,13 +2749,13 @@ def trace_cost_main() -> int:
 # ---- phase 9: the reference's default routing layers ----------------------
 
 L_W, L_B = 8, 1024           # the served fused class (8, 1024)
-L_WINDOWS = 48               # windows per pass
+L_WINDOWS = 24               # windows per pass (48 before phase 18)
 L_PASSES = 3                 # untimed passes before the timed one: 2
 L_HOT = 16                   # tools/skew_bench.py: 90% on 16 hot topics
 L_HOT_SHARE = 0.9
 L_WARM_WINDOWS = 24          # cap on the warm-up windows
 C_BATCH = 512                # tools/churn_bench.py: route_batch of 512
-C_BATCHES = 48               # batches per pass
+C_BATCHES = 24               # batches per pass (48 before phase 18)
 C_FRESH = 4                  # fresh subscriptions per batch
 C_LIVE = 64                  # live fresh filters at most
 C_SHARE = 0.25               # lanes to the fresh filters' topics
@@ -5175,7 +5230,8 @@ def hist_window(h, counts0: list) -> dict:
 
 async def _boot_flood(node, subs, pubs, ids, nums, total, seed, groups=None,
                       min_share=E2E_MIN_DEVICE_SHARE, where="",
-                      device=True, retain_every: int = 0) -> dict:
+                      device=True, retain_every: int = 0,
+                      forbidden: int = 0) -> dict:
     """One flood through a booted node (``_flood``) with the readback
     counters, kernel 2's launches by shape and the batch_form stage (the
     message.publish hook fold) read around it; on a device node it
@@ -5186,7 +5242,8 @@ async def _boot_flood(node, subs, pubs, ids, nums, total, seed, groups=None,
     bf = node.pipeline_telemetry._stage_hist("batch_form")
     bf0 = list(bf.counts)
     f = await _flood(node, subs, pubs, ids, nums, total, seed,
-                     groups=groups, retain_every=retain_every)
+                     groups=groups, retain_every=retain_every,
+                     forbidden=forbidden)
     f["batch_form"] = hist_window(bf, bf0)
     f["readback"] = {k: m.val(k) - v for k, v in r0.items()}
     f["scan_shapes"] = dict(D.LAUNCH_SHAPES["prefix_sum"])
@@ -5213,12 +5270,13 @@ async def _boot_flood(node, subs, pubs, ids, nums, total, seed, groups=None,
     return f
 
 
-async def _boot_conn(node, certs, ports, tr, clientid):
-    """CONNECT (v5) over transport `tr`; the CONNACK reason code."""
+async def _boot_conn(node, certs, ports, tr, clientid, **kw):
+    """CONNECT (v5 unless `kw` says otherwise) over transport `tr`; the
+    CONNACK reason code."""
     from emqx_tpu_torch.client import MqttError
     from emqx_tpu_torch.mqtt import constants as C
-    cl = _boot_client(ports, tr, certs, clientid=clientid,
-                      proto_ver=C.MQTT_V5)
+    kw.setdefault("proto_ver", C.MQTT_V5)
+    cl = _boot_client(ports, tr, certs, clientid=clientid, **kw)
     try:
         await cl.connect()
     except MqttError:
@@ -7198,6 +7256,446 @@ def cluster_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------
+# Phase 18: the secured node (authn, authz, the rule engine)
+# ---------------------------------------------------------------------
+SEC_MSGS = 16_000                    # 18a's flood (bench's 32,000, cut)
+SEC_FORBIDDEN = 100                  # 18a: QoS 1 PUBLISHes the ACL denies
+SEC_JWT_PUBS = 2                     # publishers that log in with a JWT
+SEC_JWT_SECRET = "chip-smoke-phase-18-hs256"
+SEC_SCRAM = ("scram-user", "scram-pencil")
+SEC_API_MSGS = 64                    # 18c: QoS 1 PUBLISHes after the API's
+                                     # rule was made
+SEC_TIMEOUT_S = 60.0
+SEC_CHAIN = [
+    {"mechanism": "password_based", "backend": "built_in_database",
+     "user_id_type": "username", "algorithm": "sha256",
+     "salt_position": "prefix"},
+    {"mechanism": "jwt", "algorithm": "HS256", "secret": SEC_JWT_SECRET},
+    {"mechanism": "scram", "algorithm": "sha256"}]
+SEC_AUTHZ = {"no_match": "deny", "cache": {"enable": True}, "sources": [
+    {"type": "file", "rules": [
+        {"permit": "allow", "action": "subscribe",
+         "topics": ["device/#", "rules/#"]},
+        {"permit": "deny", "action": "publish",
+         "topics": ["device/+/forbidden/#"]},
+        {"permit": "allow", "action": "publish", "topics": ["device/#"]}]}]}
+# r_q1 republishes at QoS 1: the governor may shed QoS 0 on a booted
+# node, which would break the exact count
+SEC_RULES = [
+    {"id": "r_q1",
+     "sql": 'SELECT clientid, topic, qos FROM "device/#" WHERE qos = 1',
+     "actions": [{"name": "republish", "params": {
+         "target_topic": "rules/q1/${clientid}", "target_qos": 1}}]},
+    {"id": "r_conn", "sql": 'SELECT clientid FROM "$events/client_connected"',
+     "actions": [{"name": "republish", "params": {
+         "target_topic": "rules/conn/${clientid}"}}]}]
+SEC_API_RULE = {"id": "r_api",
+                "sql": 'SELECT topic FROM "device/#" WHERE qos = 1',
+                "actions": [{"name": "do_nothing", "params": {}}]}
+SEC_COUNTERS = ("client.authenticate", "client.auth.success",
+                "client.auth.failure", "client.authorize",
+                "client.authorize.cache_hit", "messages.publish",
+                "routing.host.messages", "packets.publish.error")
+
+
+def secure_override(certs: dict) -> str:
+    """Phase 15's override plus the dashboard on 127.0.0.1 port 0, the
+    authn chain (built-in users, JWT, SCRAM), the file ACL with no_match
+    deny and the two rules."""
+    return boot_override(certs) + (
+        'dashboard { listeners { http { bind = "127.0.0.1", port = 0 } } }\n'
+        f"authn {{ enable = true, chain = {json.dumps(SEC_CHAIN)} }}\n"
+        f"authz = {json.dumps(SEC_AUTHZ)}\n"
+        f"rule_engine {{ rules = {json.dumps(SEC_RULES)} }}\n")
+
+
+def _sec_password(user: str) -> bytes:
+    return f"pw-{user}".encode()
+
+
+def _jwt_token(claims: dict, secret: str) -> bytes:
+    """An HS256 JWT of `claims` (the MQTT password of a JWT login)."""
+    import base64
+    import hashlib
+    import hmac
+
+    def b64(b):
+        return base64.urlsafe_b64encode(b).rstrip(b"=").decode()
+    head = b64(json.dumps({"alg": "HS256", "typ": "JWT"}).encode())
+    body = b64(json.dumps(claims).encode())
+    sig = b64(hmac.new(secret.encode(), f"{head}.{body}".encode(),
+                       hashlib.sha256).digest())
+    return f"{head}.{body}.{sig}".encode()
+
+
+async def _recv_count(cl, n: int, limit: float = SEC_TIMEOUT_S) -> list:
+    """Messages a client receives until it has `n`, then until it is idle
+    for 0.5 s (a message past `n` would land by then)."""
+    import asyncio
+    got, t_end = [], time.perf_counter() + limit
+    while len(got) < n and time.perf_counter() < t_end:
+        try:
+            got.append(await cl.recv(timeout=1.0))
+        except asyncio.TimeoutError:
+            pass
+    return got + await _recv_all(cl)
+
+
+async def _secure_logins(node, ports: dict, n_pub: int) -> tuple:
+    """18's logins: the rules/# subscriber first (r_conn republishes every
+    later CONNECT to it), the publishers (built-in users, the last
+    SEC_JWT_PUBS by JWT), the SCRAM client by the AUTH exchange and its
+    re-authentication; then 18b's refused CONNECTs and SUBSCRIBE.
+    Returns (rsub, publishers, the SCRAM client, the clientids connected
+    after rsub subscribed, numbers)."""
+    from emqx_tpu_torch.client import Client, MqttError
+    from emqx_tpu_torch.mqtt import constants as C
+    from emqx_tpu_torch.mqtt import packet as P
+    out = {}
+    port = ports["tcp"]
+    rsub = Client(port=port, clientid="rsub", username="rsub",
+                  password=_sec_password("rsub"), proto_ver=C.MQTT_V5)
+    await rsub.connect()
+    # QoS 0 subscriptions: the republishes arrive without queueing behind
+    # rsub's inflight window; device/+/forbidden/# would receive any
+    # denied PUBLISH that got through
+    ack = await rsub.subscribe([("rules/#", P.SubOpts(qos=0)),
+                                ("device/+/forbidden/#", P.SubOpts(qos=0))])
+    if list(ack.reason_codes) != [0, 0]:
+        raise AssertionError(f"phase 18: rsub SUBACK {ack.reason_codes}")
+    connected, pubs = [], []
+    for p in range(n_pub):
+        cid = f"spub{p}"
+        pw = (_jwt_token({"sub": cid, "exp": int(time.time()) + 3600},
+                         SEC_JWT_SECRET)
+              if p >= n_pub - SEC_JWT_PUBS else _sec_password(cid))
+        cl = Client(port=port, clientid=cid, username=cid, password=pw,
+                    proto_ver=C.MQTT_V5)
+        await cl.connect()
+        pubs.append(cl)
+        connected.append(cid)
+    t0 = time.perf_counter()
+    sc = Client(port=port, clientid="scram0", proto_ver=C.MQTT_V5)
+    sc.enable_scram(*SEC_SCRAM)
+    ack = await sc.connect()
+    out["scram_connect_s"] = time.perf_counter() - t0
+    connected.append("scram0")
+    if ack.reason_code != 0 or not sc.scram_server_ok:
+        raise AssertionError(f"phase 18: SCRAM CONNACK {ack.reason_code}, "
+                             f"server signature {sc.scram_server_ok}")
+    out["scram_method"] = (ack.properties or {}).get(
+        "authentication_method")
+    t0 = time.perf_counter()
+    if await sc.reauthenticate(*SEC_SCRAM) is not True:
+        raise AssertionError("phase 18: the SCRAM re-authentication failed")
+    out["scram_reauth_s"] = time.perf_counter() - t0
+    # 18b: refused CONNECTs and a SUBSCRIBE outside the ACL
+    bad_jwt = _jwt_token({"sub": "x", "exp": int(time.time()) + 3600},
+                         "not-the-secret")
+    refused = {
+        "bad_password_v5": await _boot_conn(
+            node, None, ports, "tcp", "x1", username="spub0",
+            password=b"wrong"),
+        "bad_password_v311": await _boot_conn(
+            node, None, ports, "tcp", "x2", username="spub0",
+            password=b"wrong", proto_ver=C.MQTT_V4),
+        "jwt_bad_signature": await _boot_conn(
+            node, None, ports, "tcp", "x3", username="jwt-x",
+            password=bad_jwt)}
+    bad = Client(port=port, clientid="x4", proto_ver=C.MQTT_V5)
+    bad.enable_scram(SEC_SCRAM[0], "wrong")
+    try:
+        await bad.connect()
+    except MqttError:
+        pass
+    refused["scram_bad_password"] = bad.connack.reason_code \
+        if bad.connack is not None else None
+    await bad.close()
+    want = {"bad_password_v5": C.RC_BAD_USER_NAME_OR_PASSWORD,
+            "bad_password_v311": 4, "jwt_bad_signature":
+            C.RC_NOT_AUTHORIZED, "scram_bad_password": C.RC_NOT_AUTHORIZED}
+    out["refused"] = refused
+    if refused != want:
+        raise AssertionError(f"phase 18b: CONNACKs {refused}, want {want}")
+    ack = await sc.subscribe("secret/#", qos=1)
+    out["suback_outside_acl"] = list(ack.reason_codes)
+    out["outside_in_router"] = node.router.has_route("secret/#")
+    if out["suback_outside_acl"] != [C.RC_NOT_AUTHORIZED] \
+            or out["outside_in_router"]:
+        raise AssertionError(f"phase 18b: SUBACK {ack.reason_codes}, in "
+                             f"the router {out['outside_in_router']}")
+    return rsub, pubs, sc, connected, out
+
+
+async def _secure_api(node, srv, pubs, nums: int) -> dict:
+    """18c: the /api/v5/rules surface over the dashboard listener (login,
+    create, list, get, update, a refused update, rule_test, delete); the
+    rule made there fires on the next window of QoS 1 PUBLISHes."""
+    import asyncio
+    st, body = await _http(srv.port, "POST", "/api/v5/login",
+                           {"username": "admin", "password": "public"})
+    if st != 200:
+        raise AssertionError(f"phase 18c: login answered {st}")
+    tok = body["token"]
+
+    async def api(method, path, body=None):
+        return await _http(srv.port, method, "/api/v5" + path, body,
+                           bearer=tok)
+    out = {}
+    st, r = await api("POST", "/rules", SEC_API_RULE)
+    out["create"] = st
+    st, lst = await api("GET", "/rules")
+    out["list"] = (st, [x["id"] for x in lst])
+    st, r = await api("GET", "/rules/r_api")
+    out["get"] = (st, r["sql"])
+    st, r = await api("PUT", "/rules/r_api", {"description": "phase 18c"})
+    out["update"] = (st, r["description"])
+    st, r = await api("PUT", "/rules/r_api", {"sql": "SELECT"})
+    out["bad_update"] = (st, r["code"])
+    st, r = await api("POST", "/rule_test", {
+        "sql": SEC_RULES[0]["sql"], "context": {
+            "clientid": "c0", "topic": "device/d0/x/n0/t", "qos": 1}})
+    out["rule_test"] = (st, r["outputs"])
+    want = {"create": 201, "list": (200, ["r_api", "r_conn", "r_q1"]),
+            "get": (200, SEC_API_RULE["sql"]),
+            "update": (200, "phase 18c"), "bad_update": (400, "BAD_SQL"),
+            "rule_test": (200, [{"clientid": "c0",
+                                 "topic": "device/d0/x/n0/t", "qos": 1}])}
+    if out != want:
+        raise AssertionError(f"phase 18c: {out}, want {want}")
+    acks = [pubs[0].publish_start(f"device/d0/x/n{k % nums}/t", b"api",
+                                  qos=1) for k in range(SEC_API_MSGS)]
+    await asyncio.wait_for(asyncio.gather(*acks), SEC_TIMEOUT_S)
+    st, r = await api("GET", "/rules/r_api")
+    out["fired"] = {k: r["metrics"].get(k, 0) for k in (
+        "sql.matched", "sql.passed", "actions.success")}
+    if set(out["fired"].values()) != {SEC_API_MSGS}:
+        raise AssertionError(f"phase 18c: the API's rule read "
+                             f"{out['fired']} after {SEC_API_MSGS} QoS 1 "
+                             f"PUBLISHes")
+    out["delete"] = (await api("DELETE", "/rules/r_api"))[0]
+    out["get_after"] = (await api("GET", "/rules/r_api"))[0]
+    if (out["delete"], out["get_after"]) != (204, 404):
+        raise AssertionError(f"phase 18c: delete {out['delete']}, then GET "
+                             f"{out['get_after']}")
+    return out
+
+
+def secure_drive(dev, n_filters: int = E2E_FILTERS,
+                 n_sub: int = E2E_SUB_CONNS, n_pub: int = E2E_PUB_CONNS,
+                 total: int = SEC_MSGS, forbidden: int = SEC_FORBIDDEN,
+                 window=(8, 1024), pin_device: bool = False) -> dict:
+    """Phase 18: the shipped file booted under ``secure_override``
+    (``Node.from_config_file`` on `dev`, ``start_listeners``,
+    ``start_apps``: the retainer, delayed, the rule engine, the authn
+    chain and the authz sources; ``start_dashboard``,
+    ``start_timers(1.0)``). 18a: every client logs in (built-in users,
+    JWT, SCRAM), phase 8's population subscribes, a flood with
+    `forbidden` denied QoS 1 PUBLISHes mixed in; 18b the refusals; 18c
+    the rules API. ``pin_device`` pins the chooser (a CPU rehearsal
+    only). Raises on any failed check."""
+    import asyncio
+    import collections
+    import shutil
+    import tempfile
+
+    from emqx_tpu_torch.apps.authn import AuthnChain
+    from emqx_tpu_torch.broker.node import Node
+    from emqx_tpu_torch.utils.tls import generate_self_signed
+    tmp = tempfile.mkdtemp(prefix="emqx-secure-")
+
+    async def run():
+        out = {}
+        certs = generate_self_signed(os.path.join(tmp, "certs"),
+                                     cn="localhost")
+        path = os.path.join(tmp, "emqx.conf")
+        shutil.copy(BOOT_CONF, path)
+        with open(os.path.join(tmp, "emqx_override.conf"), "w") as fh:
+            fh.write(secure_override(certs))
+        node = Node.from_config_file(path, device=dev)
+        m = node.metrics
+        clients = []
+        try:
+            t0 = time.time()
+            await node.start_listeners()
+            apps = await node.start_apps()
+            srv = await node.start_dashboard()
+            node.start_timers(1.0)
+            ports = _boot_ports(node)
+            out["apps"] = [type(a).__name__ for a in apps]
+            want_apps = ["Retainer", "DelayedPublish", "RuleEngine",
+                         "AuthnChain", "Authz"]
+            if out["apps"] != want_apps or srv is None:
+                raise AssertionError(f"phase 18: started {out['apps']}, "
+                                     f"dashboard {srv}")
+            db, _jwt, scram = node.get_app(AuthnChain).authenticators
+            for user in ["rsub"] + [f"esub{c}" for c in range(n_sub)] + [
+                    f"spub{p}" for p in range(n_pub - SEC_JWT_PUBS)]:
+                db.add_user(user, _sec_password(user).decode())
+            scram.add_user(*SEC_SCRAM)
+            out["enhanced_authn"] = sorted(node.enhanced_authn)
+            rsub, pubs, sc, connected, b = await _secure_logins(
+                node, ports, n_pub)
+            clients += [rsub, *pubs, sc]
+            subs, ids, nums, n_shared, n_entries = \
+                await _subscribe_population(
+                    ports["tcp"], n_filters, n_sub,
+                    login=lambda c: {"username": f"esub{c}",
+                                     "password": _sec_password(f"esub{c}")})
+            clients += subs
+            connected += [f"esub{c}" for c in range(n_sub)]
+            if pin_device:
+                node.publish_batcher._device_worth_it = lambda: True
+            a = {"filters": ids * nums, "shared_filters": n_shared,
+                 "subscriptions": n_entries, "publishers": n_pub,
+                 "jwt_publishers": SEC_JWT_PUBS,
+                 "setup_s": time.time() - t0,
+                 "hooks": {h: len(node.hooks.lookup(h)) for h in (
+                     "message.publish", "client.authenticate",
+                     "client.authorize", "client.connected")}}
+            log(f"phase 18a: logged in and subscribed in "
+                f"{a['setup_s']:.1f} s")
+            t0 = time.time()
+            await _warm_up(node, pubs[0], subs, nums)
+            a["warm_up_s"] = time.time() - t0
+            a["governor_wait_s"] = await _below_overload(node)
+            r_q1 = node.rule_engine.get_rule("r_q1").metrics
+            q0 = dict(r_q1.counters)
+            c0 = {k: m.val(k) for k in SEC_COUNTERS}
+            gc.collect()
+            gc.freeze()
+            f = await _boot_flood(node, subs, pubs, ids, nums, total,
+                                  SEED + 18, where="phase 18a",
+                                  forbidden=forbidden)
+            f.pop("got")
+            a["flood"] = f
+            a["counters"] = {k: m.val(k) - v for k, v in c0.items()}
+            a["r_q1"] = {k: v - q0.get(k, 0)
+                         for k, v in r_q1.counters.items()}
+            q1 = f["q1_sent"]
+            want_q1 = {"sql.matched": f["sent"], "sql.passed": q1,
+                       "sql.failed": f["sent"] - q1,
+                       "sql.failed.no_result": f["sent"] - q1,
+                       "actions.success": q1}
+            if a["r_q1"] != want_q1:
+                raise AssertionError(f"phase 18a: r_q1 read {a['r_q1']}, "
+                                     f"want {want_q1}")
+            # the known answer at rules/#: every QoS 1 flood message once,
+            # under its publisher's clientid, and one rules/conn/<id> for
+            # each CONNECT after rsub subscribed; no denied PUBLISH
+            per_pub = total // n_pub
+            want_rules = collections.Counter(
+                {f"rules/q1/spub{p}": len(range(0, per_pub, 4))
+                 for p in range(n_pub)})
+            want_rules.update(f"rules/conn/{cid}" for cid in connected)
+            got = await _recv_count(rsub, sum(want_rules.values()))
+            a["rules_received"] = len(got)
+            a["rules_want"] = sum(want_rules.values())
+            if collections.Counter(x.topic for x in got) != want_rules:
+                extra = collections.Counter(x.topic for x in got)
+                extra.subtract(want_rules)
+                raise AssertionError(
+                    f"phase 18a: rules/# received {len(got)}, want "
+                    f"{a['rules_want']}; off by "
+                    f"{ {k: v for k, v in extra.items() if v} }")
+            a["forbidden"] = collections.Counter(f["forbidden_rcs"])
+            if f["forbidden_rcs"] != [0x87] * forbidden:
+                raise AssertionError(f"phase 18b: PUBACKs of the denied "
+                                     f"PUBLISHes {a['forbidden']}")
+            # each republish is routed once on the host (publish_soon ->
+            # publish_async), apart from the flood's own messages
+            a["republish_host_routes"] = \
+                a["counters"]["messages.publish"] - f["sent"]
+            if a["republish_host_routes"] != q1:
+                raise AssertionError(
+                    f"phase 18a: {a['republish_host_routes']} republishes "
+                    f"routed for {q1} QoS 1 messages")
+            a["window_err"] = e2e_window_check(node, ids, nums, SEED + 19,
+                                               *window)
+            a["supervise"] = check_supervised(node, "phase 18a")
+            out["a"], out["b"] = a, b
+            out["c"] = await _secure_api(node, srv, pubs, nums)
+            out["counters"] = {k: m.val(k) for k in SEC_COUNTERS}
+        finally:
+            gc.unfreeze()
+            await _boot_stop(node, clients)
+        return out
+
+    try:
+        return asyncio.run(run())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def secure_phase(dev, card: str, f15a=None, f16a=None) -> dict:
+    """Phase 18 on the card; prints its lines (15a's and 16a's flood
+    numbers of the same call beside 18a's)."""
+    t0 = time.time()
+    r = secure_drive(dev)
+    a, b, c = r["a"], r["b"], r["c"]
+    f = a["flood"]
+    log(f"phase 18a: booted etc/emqx.conf with apps {r['apps']} (enhanced "
+        f"authn {r['enhanced_authn']}); {a['filters']} filters "
+        f"({a['shared_filters']} shared) subscribed over TCP by logged-in "
+        f"clients, setup {a['setup_s']:.1f} s, warm-up "
+        f"{a['warm_up_s']:.1f} s; hooks {a['hooks']}")
+    log(f"phase 18a: {f['sent']} PUBLISHes from {a['publishers']} TCP "
+        f"publishers ({a['jwt_publishers']} by JWT; every 4th QoS 1) and "
+        f"{len(f['forbidden_rcs'])} denied QoS 1 PUBLISHes, authz and both "
+        f"rules in force: {f['per_sec']} msgs/s, every allowed message "
+        f"once and in order; client p50 {f['lat_p50_ms']:.1f} / p99 "
+        f"{f['lat_p99_ms']:.1f} ms; device share {f['device_share']:.4f} "
+        f"over {f['windows']} windows ({f['batches']} batches); {card}")
+    for label, g in (("15a", f15a), ("16a", f16a)):
+        if g is not None:
+            log(f"phase 18a: beside phase {label} in this run: "
+                f"{g['per_sec']} msgs/s, batch_form {g['batch_form']}")
+    log(f"phase 18a: batch_form (the fold, r_q1's SQL a message) p50 / p99 "
+        f"{f['batch_form']['p50_us']} / {f['batch_form']['p99_us']} us over "
+        f"{f['batch_form']['count']} batches")
+    log(f"phase 18a: r_q1 {a['r_q1']}; rules/# received "
+        f"{a['rules_received']} (the known answer {a['rules_want']}); "
+        f"republishes routed on the host {a['republish_host_routes']}, the "
+        f"flood's host-routed messages "
+        f"{a['counters']['routing.host.messages']}")
+    log(f"phase 18a: counters over the flood {a['counters']}")
+    log(f"phase 18a: launches {f['launches']}; a window: shape_match "
+        f"{_shape_rates(f['fold_shapes'], f['windows'])}, prefix_sum "
+        f"{_shape_rates(f['scan_shapes'], f['windows'])}; two engine "
+        f"windows == plain path (max |diff| {a['window_err']})")
+    log(f"phase 18b: refused CONNACKs {b['refused']}; SUBACK outside the "
+        f"ACL {b['suback_outside_acl']} (in the router: "
+        f"{b['outside_in_router']}); denied PUBLISHes' PUBACKs "
+        f"{dict(a['forbidden'])}, none routed or delivered; SCRAM "
+        f"({b['scram_method']}) CONNECT {b['scram_connect_s']:.4f} s, "
+        f"re-authentication {b['scram_reauth_s']:.4f} s")
+    log(f"phase 18c: /api/v5/rules {c}")
+    log(f"phase 18: counters over the phase {r['counters']}")
+    r["seconds"] = time.time() - t0
+    log(f"phase 18: {r['seconds']:.1f} s; {card}")
+    return r
+
+
+def secure_main() -> int:
+    """``--secure``: build the kernels and run phase 18 alone on a card,
+    then print its results as one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from emqx_tpu_torch import native
+    from emqx_tpu_torch.ops.build import build
+    card = card_line()
+    log(build().strip())
+    if not native.available():
+        raise AssertionError("the host native library did not build")
+    r = secure_phase(torch.device("cuda"), card)
+    log(json.dumps({"secure": _boot_out(r)}))
+    log(card)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7212,6 +7710,16 @@ def main() -> int:
     log(card)
 
     dev = torch.device("cuda")
+    phase_s = {}
+    t_phase = [time.time()]
+
+    def wall(name: str) -> None:
+        """The wall seconds of the phase that just ended."""
+        now = time.time()
+        phase_s[name] = round(now - t_phase[0], 1)
+        t_phase[0] = now
+        log(f"phase {name}: {phase_s[name]} s wall")
+    wall("1")
     t0 = time.time()
     out = build(ptxas_info=True)
     log(out.strip())
@@ -7226,9 +7734,11 @@ def main() -> int:
     log(f"phase 2: host library {native.library_path().name} "
         f"({native.SOURCE.name}, {' '.join(native.CXX_FLAGS)}) ready in "
         f"{time.time() - t0:.1f} s")
+    wall("2")
 
     err_scan = check_prefix_sum(dev)
     err_fold = pattern_check(dev)
+    wall("3")
     b = bench_engine(dev, SUBS, BATCH, WINDOW, SEED)
     torch.cuda.synchronize()
     st = b["eng"].tables.shapes
@@ -7274,26 +7784,41 @@ def main() -> int:
         "timed_windows": TIMED_WINDOWS, "topic_matches_per_s": r["mps"],
         "window_p50_ms": r["p50"], "window_p99_ms": r["p99"],
         "window_max_ms": float(r["lat_ms"].max()),
-        "route_call_s": r["t_route"], "card": card}
+        "route_call_s": r["t_route"], "card": card, "phase_s": phase_s}
     del b, r
     torch.cuda.empty_cache()
+    wall("4")
     ring, mesh, mesh_scan_shapes = mesh_phase(dev)
     torch.cuda.empty_cache()
+    wall("6-7")
     e2e = e2e_phase(dev, card)
     torch.cuda.empty_cache()
+    wall("8")
     layers = layers_phase(dev, card)
     torch.cuda.empty_cache()
+    wall("9")
     cover = cover_phase(dev, card)
+    wall("10")
     ingress = ingress_phase(card)
+    wall("11")
     overload = overload_phase(card)
+    wall("12")
     chaos = chaos_phase(card, e2e["chaos"]["probe_launches"])
+    wall("13")
     mesh_node = mesh_node_phase(dev, card)
     torch.cuda.empty_cache()
+    wall("14")
     boot = boot_phase(dev, card)
     torch.cuda.empty_cache()
+    wall("15")
     apps = apps_phase(dev, card, boot["a"]["flood"]["batch_form"])
     torch.cuda.empty_cache()
+    wall("16")
     cluster = cluster_phase(dev, card)
+    torch.cuda.empty_cache()
+    wall("17")
+    secure = secure_phase(dev, card, boot["a"]["flood"], apps["a"]["flood"])
+    wall("18")
     timed = {tuple(d["shape"]) for d in scan_shapes + mesh_scan_shapes}
     layer_scan_shapes = []
     for cell, n in (("skew", "windows"), ("churn", "batches")):
@@ -7325,11 +7850,11 @@ def main() -> int:
            if tuple(shape) not in timed}
     timed |= set(new)
     layer_scan_shapes += time_scan_shapes_apart(new, "mesh node")
-    # phases 15 and 16: the booted nodes' and the dense node's window
+    # phases 15, 16 and 18: the booted nodes' and the dense node's window
     # shapes
     new = {}
     for f in (boot["a"]["flood"], boot["c"]["csr"], boot["c"]["dense"],
-              apps["a"]["flood"], apps["b"]):
+              apps["a"]["flood"], apps["b"], secure["a"]["flood"]):
         for shape, cnt in f["scan_shapes"].items():
             if tuple(shape) not in timed:
                 new[tuple(shape)] = max(new.get(tuple(shape), 0),
@@ -7345,9 +7870,11 @@ def main() -> int:
         if sum(c["A"]["launches"][name] for c in cover.values()) == 0:
             raise AssertionError(f"phase 10: {name} was not launched on "
                                  f"the covered path")
+    wall("5 (kernel 2's timed shapes)")
     peak = max(_RUN_PEAK[0], torch.cuda.max_memory_allocated())
     log(f"peak device memory {peak / 1e9:.2f} "
-        f"GB; whole run {time.time() - t_all:.1f} s")
+        f"GB; whole run {time.time() - t_all:.1f} s; wall seconds by phase "
+        f"{json.dumps(phase_s)}")
 
     def by_path(name):
         """The kernel's launches on every path this script drives, each
@@ -7395,18 +7922,22 @@ def main() -> int:
         out["cluster 17d clustered"] = cluster["d"]["launches"][name]
         out["cluster 17d standalone"] = \
             cluster["d"]["standalone"]["launches"][name]
+        # phase 18: the secured node's flood (18a)
+        out["secure 18a"] = secure["a"]["flood"]["launches"][name]
         return out
 
     def per_window(name):
-        """Phases 15-17's launches a window: 15a and 15c's floods and
+        """Phases 15-18's launches a window: 15a and 15c's floods and
         mesh drives, 16a's flood and 16b's retained stream, each 17a
-        node's dispatches and 17d's clustered mesh windows."""
+        node's dispatches, 17d's clustered mesh windows and 18a's
+        flood."""
         out = {"boot 15a": boot["a"]["flood"]}
         for mode in ("csr", "dense"):
             out[f"boot 15c {mode}"] = boot["c"][mode]
             out[f"boot 15c mesh {mode}"] = boot["c"]["mesh"][mode]
         out["apps 16a"] = apps["a"]["flood"]
         out["apps 16b"] = apps["b"]
+        out["secure 18a"] = secure["a"]["flood"]
         per = {k: round(f["launches"][name] / max(1, f["windows"]), 3)
                for k, f in out.items()}
         for p in cluster["a"]["nodes"]:
@@ -7425,7 +7956,8 @@ def main() -> int:
          "launches_by_path": by_path("shape_match"),
          "launches_per_window_boot": per_window("shape_match"),
          "max_abs_err": max(err_fold, e2e["window_err"], layers_err,
-                            e2e["chaos"]["held_err"]),
+                            e2e["chaos"]["held_err"],
+                            secure["a"]["window_err"]),
          **{k: sm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")}},
         {"name": "prefix_sum", "route": "cuda",
@@ -7435,7 +7967,8 @@ def main() -> int:
          "launches_by_path": by_path("prefix_sum"),
          "launches_per_window_boot": per_window("prefix_sum"),
          "max_abs_err": max(err_scan, e2e["window_err"], layers_err,
-                            e2e["chaos"]["held_err"], mesh_node["err"]),
+                            e2e["chaos"]["held_err"], mesh_node["err"],
+                            secure["a"]["window_err"]),
          **{k: ps[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
          "shapes": scan_shapes + mesh_scan_shapes + layer_scan_shapes},
@@ -7465,7 +7998,8 @@ def main() -> int:
                     "mesh_sharded": mesh_node["a"],
                     "capture": mesh_node["capture"],
                     "boot": _boot_out(boot), "apps": _boot_out(apps),
-                    "cluster": _boot_out(cluster)}))
+                    "cluster": _boot_out(cluster),
+                    "secure": _boot_out(secure)}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -7535,4 +8069,6 @@ if __name__ == "__main__":
         sys.exit(apps_main())
     if len(sys.argv) == 2 and sys.argv[1] == "--cluster":
         sys.exit(cluster_main())
+    if len(sys.argv) == 2 and sys.argv[1] == "--secure":
+        sys.exit(secure_main())
     sys.exit(main())

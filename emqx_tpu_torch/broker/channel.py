@@ -17,9 +17,12 @@ PUBLISH does not hold the read loop until it is routed — every PUBLISH of
 one socket read enters the batcher, and the acknowledgements follow in
 receive order (``flush_acks``), as the burst hand-off acks them; awaiting
 each QoS 1 PUBLISH in turn kept a publisher to one message in the batcher
-per QoS 1 PUBLISH and the batches too small for the device. Not part of
-the port: the MQTT5 enhanced-authentication (SCRAM) exchange — no method
-is registered, so a CONNECT naming one is refused. A TLS listener's client
+per QoS 1 PUBLISH and the batches too small for the device. The MQTT5
+enhanced-authentication exchange (a CONNECT naming an
+``authentication_method``, AUTH 0x18 to continue, AUTH 0x19 to
+re-authenticate) runs through the authenticators the authn chain
+registers in ``node.enhanced_authn`` (``apps/authn_db.ScramAuthenticator``);
+a method none serves is refused with 0x8C. A TLS listener's client
 certificate (``conninfo["peercert"]``) names the username or clientid under
 the zone's ``peer_cert_as_username`` / ``peer_cert_as_clientid``. On a node
 without a batcher (``device_route: false``) a burst's rows take the host
@@ -143,6 +146,8 @@ class Channel:
         # class, packet id), (None, packet, None) for a ready one, or
         # (None, None, (rc, detail)) for a DISCONNECT queued behind them
         self._acks: deque = deque()
+        self._enh: Optional[dict] = None     # enhanced-auth exchange state
+        self._enh_connack_props: Optional[dict] = None
 
     # ================= inbound dispatch =================
     async def handle_in(self, pkt: P.Packet) -> None:
@@ -151,6 +156,10 @@ class Channel:
         if isinstance(pkt, P.Connect):
             m.inc_recv("connect")
             await self._handle_connect(pkt)
+        elif isinstance(pkt, P.Auth) and self._enh is not None:
+            # mid-exchange AUTH is legal while still CONNECTING
+            m.inc_recv("auth")
+            await self._handle_auth(pkt)
         elif self.conn_state != CONN_CONNECTED:
             raise ProtocolError(C.RC_PROTOCOL_ERROR,
                                 f"{name} before CONNECT")
@@ -183,7 +192,7 @@ class Channel:
             self._handle_disconnect(pkt)
         elif isinstance(pkt, P.Auth):
             m.inc_recv("auth")
-            self._handle_auth(pkt)
+            await self._handle_auth(pkt)
         else:
             raise ProtocolError(C.RC_PROTOCOL_ERROR, f"unexpected {name}")
 
@@ -275,12 +284,28 @@ class Channel:
         if banned is not None and banned.check(self.clientinfo):
             return self._connack_error(C.RC_BANNED)
 
-        # --- enhanced authentication (MQTT5 AUTH exchange): no method is
-        #     registered in the port, so naming one is refused the way
-        #     emqx_channel refuses an unknown authentication_method
-        if pkt.proto_ver == C.MQTT_V5 \
-                and props.get("authentication_method") is not None:
-            return self._connack_error(C.RC_BAD_AUTHENTICATION_METHOD)
+        # --- enhanced authentication (MQTT5 AUTH exchange, emqx_channel
+        #     enhanced_auth/authenticate: the authentication_method CONNECT
+        #     property switches to a SASL-style challenge flow)
+        auth_method = (props.get("authentication_method")
+                       if pkt.proto_ver == C.MQTT_V5 else None)
+        if auth_method is not None:
+            enh = getattr(self.node, "enhanced_authn", {}).get(auth_method)
+            if enh is None:
+                return self._connack_error(C.RC_BAD_AUTHENTICATION_METHOD)
+            data = props.get("authentication_data", b"")
+            try:
+                challenge, st = enh.begin_enhanced_auth(data)
+            except Exception:  # noqa: BLE001 (ScramError and malformed)
+                self.node.metrics.inc("packets.connack.auth_error")
+                return self._connack_error(C.RC_NOT_AUTHORIZED)
+            self._enh = {"method": auth_method, "auth": enh, "state": st,
+                         "pkt": pkt, "expiry": expiry, "reauth": False}
+            self._send([P.Auth(
+                reason_code=C.RC_CONTINUE_AUTHENTICATION,
+                properties={"authentication_method": auth_method,
+                            "authentication_data": challenge})])
+            return
 
         # --- authenticate (hooks chain; default allow)
         self.node.metrics.inc("client.authenticate")
@@ -395,6 +420,9 @@ class Channel:
                 ack_props["server_keep_alive"] = server_ka
             if self._assigned_clientid:
                 ack_props["assigned_client_identifier"] = clientid
+            if self._enh_connack_props:
+                ack_props.update(self._enh_connack_props)
+                self._enh_connack_props = None
         self.node.metrics.inc("client.connack")
         self.node.hooks.run("client.connack",
                             (self.clientinfo, C.RC_SUCCESS))
@@ -406,13 +434,58 @@ class Channel:
             self._send_replay(session.replay())
 
     # ================= AUTH (MQTT5 enhanced authentication) =============
-    def _handle_auth(self, pkt: P.Auth) -> None:
-        """AUTH from a connected client (emqx_channel handle_in AUTH): with
-        no enhanced-authentication method registered, a re-authentication
-        (RC 0x19) names a bad method and any other AUTH is unexpected."""
-        if pkt.reason_code == C.RC_RE_AUTHENTICATE:
-            return self._disconnect_now(C.RC_BAD_AUTHENTICATION_METHOD)
-        raise ProtocolError(C.RC_PROTOCOL_ERROR, "unexpected AUTH")
+    async def _handle_auth(self, pkt: P.Auth) -> None:
+        """Continue/complete a SASL exchange (emqx_channel handle_in AUTH:
+        RC 0x18 continue, 0x19 re-authenticate from a connected client)."""
+        props = pkt.properties or {}
+        method = props.get("authentication_method")
+        if pkt.reason_code == C.RC_RE_AUTHENTICATE and \
+                self.conn_state == CONN_CONNECTED and self._enh is None:
+            enh = getattr(self.node, "enhanced_authn", {}).get(method)
+            if enh is None:
+                return self._disconnect_now(C.RC_BAD_AUTHENTICATION_METHOD)
+            try:
+                challenge, st = enh.begin_enhanced_auth(
+                    props.get("authentication_data", b""))
+            except Exception:  # noqa: BLE001
+                return self._disconnect_now(C.RC_NOT_AUTHORIZED)
+            self._enh = {"method": method, "auth": enh, "state": st,
+                         "pkt": None, "expiry": 0, "reauth": True}
+            return self._send([P.Auth(
+                reason_code=C.RC_CONTINUE_AUTHENTICATION,
+                properties={"authentication_method": method,
+                            "authentication_data": challenge})])
+        if self._enh is None or \
+                pkt.reason_code != C.RC_CONTINUE_AUTHENTICATION:
+            raise ProtocolError(C.RC_PROTOCOL_ERROR, "unexpected AUTH")
+        if method is not None and method != self._enh["method"]:
+            raise ProtocolError(C.RC_BAD_AUTHENTICATION_METHOD,
+                                "AUTH method changed mid-exchange")
+        enh, st = self._enh["auth"], self._enh["state"]
+        try:
+            server_final, extra = enh.continue_enhanced_auth(
+                props.get("authentication_data", b""), st)
+        except Exception:  # noqa: BLE001 (ScramError: bad proof)
+            self.node.metrics.inc("client.auth.failure")
+            reauth = self._enh["reauth"]
+            self._enh = None
+            if reauth:
+                return self._disconnect_now(C.RC_NOT_AUTHORIZED)
+            return self._connack_error(C.RC_NOT_AUTHORIZED)
+        self.node.metrics.inc("client.auth.success")
+        state = self._enh
+        self._enh = None
+        auth_props = {"authentication_method": state["method"],
+                      "authentication_data": server_final}
+        if state["reauth"]:
+            return self._send([P.Auth(reason_code=C.RC_SUCCESS,
+                                      properties=auth_props)])
+        self.clientinfo.update(
+            {k: v for k, v in extra.items()
+             if k in ("is_superuser", "username", "acl")})
+        self._enh_connack_props = auth_props
+        await self._continue_connect(state["pkt"], state["expiry"])
+
 
     def _connack_error(self, rc: int) -> None:
         self.node.metrics.inc("packets.connack.error")

@@ -7,8 +7,8 @@ the egress MQTT bridge.
 
 The port's copy of ``emqx_tpu/client.py``, over TCP, TLS (``ssl``) or a
 transport of the caller's (``conn_factory``, e.g. WebSocket through
-``broker.ws.open_ws_connection``). The SCRAM enhanced-authentication
-exchange is not part of the port.
+``broker.ws.open_ws_connection``), with the SCRAM enhanced-authentication
+exchange (``enable_scram``, ``reauthenticate``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Optional
 from emqx_tpu_torch.mqtt import constants as C
 from emqx_tpu_torch.mqtt import packet as P
 from emqx_tpu_torch.mqtt.frame import FrameParser, serialize
+from emqx_tpu_torch.utils.scram import ScramClient
 from emqx_tpu_torch.utils.tls import make_client_context
 
 
@@ -69,6 +70,36 @@ class Client:
         # unboundedly (asyncio never blocks a bare write())
         self.qos0_drain_every = 64
         self._q0_undrained = 0
+        self._scram = None
+        self._scram_mech = ""
+        self.scram_server_ok: Optional[bool] = None
+        self._reauth_fut: Optional[asyncio.Future] = None
+
+    def enable_scram(self, username: str, password: str,
+                     algorithm: str = "sha256") -> None:
+        """MQTT5 enhanced authentication: carry SCRAM client-first in
+        CONNECT and answer the broker's AUTH challenge."""
+        self._scram = ScramClient(username, password, algorithm)
+        self._scram_mech = "SCRAM-SHA-" + \
+            ("1" if algorithm == "sha1" else algorithm[3:])
+        self.conn_props = dict(self.conn_props or {})
+        self.conn_props["authentication_method"] = self._scram_mech
+        self.conn_props["authentication_data"] = self._scram.first().encode()
+
+    async def reauthenticate(self, username: str, password: str,
+                             algorithm: str = "sha256",
+                             timeout: float = 5.0) -> bool:
+        """AUTH rc=0x19 re-authentication exchange; True on success."""
+        self._scram = ScramClient(username, password, algorithm)
+        self._scram_mech = "SCRAM-SHA-" + \
+            ("1" if algorithm == "sha1" else algorithm[3:])
+        self._reauth_fut = asyncio.get_event_loop().create_future()
+        self._send(P.Auth(
+            reason_code=C.RC_RE_AUTHENTICATE,
+            properties={"authentication_method": self._scram_mech,
+                        "authentication_data":
+                            self._scram.first().encode()}))
+        return await asyncio.wait_for(self._reauth_fut, timeout)
 
     def _alloc(self) -> int:
         self._next_pid = (self._next_pid % C.MAX_PACKET_ID) + 1
@@ -126,8 +157,29 @@ class Client:
 
     def _handle(self, pkt: P.Packet) -> None:
         if isinstance(pkt, P.Connack):
+            if self._scram is not None and pkt.reason_code == 0:
+                data = (pkt.properties or {}).get("authentication_data")
+                self.scram_server_ok = bool(data) and \
+                    self._scram.verify_server(bytes(data).decode())
             if not self._connack_fut.done():
                 self._connack_fut.set_result(pkt)
+        elif isinstance(pkt, P.Auth):
+            props = pkt.properties or {}
+            if pkt.reason_code == C.RC_CONTINUE_AUTHENTICATION and \
+                    self._scram is not None:
+                data = bytes(props.get("authentication_data", b""))
+                final = self._scram.final(data.decode())
+                self._send(P.Auth(
+                    reason_code=C.RC_CONTINUE_AUTHENTICATION,
+                    properties={"authentication_method": self._scram_mech,
+                                "authentication_data": final.encode()}))
+            elif pkt.reason_code == 0 and self._reauth_fut is not None:
+                data = props.get("authentication_data")
+                ok = bool(data) and \
+                    self._scram.verify_server(bytes(data).decode())
+                if not self._reauth_fut.done():
+                    self._reauth_fut.set_result(ok)
+                self._reauth_fut = None
         elif isinstance(pkt, P.Publish):
             if pkt.qos == 1 and self.auto_ack:
                 self._send(P.Puback(packet_id=pkt.packet_id))

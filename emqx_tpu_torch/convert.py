@@ -10,6 +10,10 @@ does the same for the trie backend's ``TrieTables`` + ``SubTable``, and
 axis (``parallel.sharded.stack_tables``). Subscription-covering state
 (``ops.cover.CoverTables`` on a table's ``cover`` field) rides along
 through ``cover_from_numpy``.
+
+Access control carries state too: ``load_auth_records`` fills the port's
+built-in user store and SCRAM credential store from the reference's
+records, given as plain dicts, with their salts and hashes unchanged.
 """
 
 from __future__ import annotations
@@ -97,3 +101,32 @@ def tables_from_numpy(shapes, subs, device=None) -> ShapeRouterTables:
                                             dev))
     sub = SubTable(*[up(getattr(subs, k)) for k in SubTable._fields])
     return ShapeRouterTables(shapes=st, subs=sub)
+
+
+def load_auth_records(builtin=None, users=None, scram=None,
+                      credentials=None) -> None:
+    """Fill the port's authentication stores from the reference's records.
+
+    ``users`` maps a user id to ``{"password_hash", "salt",
+    "is_superuser"}`` (a ``BuiltinDB``'s records) and is copied into
+    ``builtin`` (an ``apps.authn.BuiltinDB``); ``credentials`` maps a
+    username to a SCRAM credential (``stored_key``, ``server_key``,
+    ``salt``, ``iteration_count``, ``algorithm``, ``is_superuser``, as
+    ``utils.scram.make_credentials`` and ``ScramAuthenticator.add_user``
+    make it) and is copied into ``scram`` (an
+    ``apps.authn_db.ScramAuthenticator``). The salts and hashes are taken
+    as they are, so both packages accept and refuse the same passwords.
+    """
+    for uid, rec in (users or {}).items():
+        builtin._users[uid] = {"password_hash": str(rec["password_hash"]),
+                               "salt": str(rec.get("salt", "")),
+                               "is_superuser": bool(rec.get("is_superuser",
+                                                            False))}
+    for name, cred in (credentials or {}).items():
+        scram._users[name] = {
+            "stored_key": bytes(cred["stored_key"]),
+            "server_key": bytes(cred["server_key"]),
+            "salt": bytes(cred["salt"]),
+            "iteration_count": int(cred["iteration_count"]),
+            "algorithm": cred.get("algorithm", scram.algorithm),
+            "is_superuser": bool(cred.get("is_superuser", False))}

@@ -15,6 +15,7 @@ from typing import Optional
 
 from emqx_tpu_torch.mgmt.httpd import ApiError, HttpServer, paginate
 from emqx_tpu_torch.mgmt.mgmt import Mgmt
+from emqx_tpu_torch.rules.sqlparser import parse_sql
 
 
 def make_api(node, mgmt: Optional[Mgmt] = None, cluster=None,
@@ -275,22 +276,82 @@ def make_api(node, mgmt: Optional[Mgmt] = None, cluster=None,
         return {"cleared": node.alarms.delete_all_deactivated()}
     route("DELETE", "/alarms/deactivated", alarms_clear)
 
-    # ---- rules (emqx_rule_engine_api): the rule engine is ROADMAP.md
-    #      Queue A item 20(d). Each endpoint answers as the reference's
-    #      does with no engine loaded: 404, except the two that read
-    #      their body first and report the missing engine as a 400 ----
-    async def no_engine(_req):
-        raise ApiError(404, "SERVICE_UNAVAILABLE", "rule engine not loaded")
+    # ---- rules (emqx_rule_engine_api) ----
+    def _engine():
+        eng = getattr(node, "rule_engine", None)
+        if eng is None:
+            raise ApiError(404, "SERVICE_UNAVAILABLE",
+                           "rule engine not loaded")
+        return eng
 
-    async def no_engine_sql(req):
-        req.json()
-        raise ApiError(400, "BAD_SQL", "rule engine not loaded")
-    route("GET", "/rules", no_engine)
-    route("POST", "/rules", no_engine_sql)
-    route("GET", "/rules/:id", no_engine)
-    route("PUT", "/rules/:id", no_engine)
-    route("DELETE", "/rules/:id", no_engine)
-    route("POST", "/rule_test", no_engine_sql)
+    async def rules_list(_req):
+        return [r.to_map() for r in _engine().list_rules()]
+    route("GET", "/rules", rules_list)
+
+    async def rules_create(req):
+        body = req.json() or {}
+        try:
+            rule = _engine().create_rule(
+                body["sql"], body.get("actions", []),
+                rule_id=body.get("id"),
+                enabled=body.get("enabled", True),
+                description=body.get("description", ""))
+        except Exception as e:  # noqa: BLE001 — SQL errors are 400s
+            raise ApiError(400, "BAD_SQL", str(e))
+        return 201, rule.to_map()
+    route("POST", "/rules", rules_create)
+
+    async def rule_get(req):
+        r = _engine().get_rule(req.params["id"])
+        if r is None:
+            raise ApiError(404, "RULE_NOT_FOUND")
+        return r.to_map()
+    route("GET", "/rules/:id", rule_get)
+
+    async def rule_update(req):
+        eng = _engine()
+        r = eng.get_rule(req.params["id"])
+        if r is None:
+            raise ApiError(404, "RULE_NOT_FOUND")
+        body = req.json() or {}
+        if "sql" in body or "actions" in body or "description" in body:
+            # validate EVERYTHING before touching the existing rule so a
+            # bad update can never destroy a working rule
+            try:
+                parse_sql(body.get("sql", r.sql))
+            except Exception as e:  # noqa: BLE001
+                raise ApiError(400, "BAD_SQL", str(e))
+            actions = body.get("actions", r.actions)
+            if not (isinstance(actions, list) and
+                    all(isinstance(a, dict) and "name" in a
+                        for a in actions)):
+                raise ApiError(400, "BAD_REQUEST",
+                               "actions must be a list of {name, params}")
+            enabled = r.enabled
+            eng.delete_rule(r.id)
+            r = eng.create_rule(body.get("sql", r.sql), actions,
+                                rule_id=req.params["id"], enabled=enabled,
+                                description=body.get("description",
+                                                     r.description))
+        if "enabled" in body:   # applied last: validation already passed
+            eng.enable_rule(r.id, bool(body["enabled"]))
+        return r.to_map()
+    route("PUT", "/rules/:id", rule_update)
+
+    async def rule_delete(req):
+        if not _engine().delete_rule(req.params["id"]):
+            raise ApiError(404, "RULE_NOT_FOUND")
+        return 204, b""
+    route("DELETE", "/rules/:id", rule_delete)
+
+    async def rule_test(req):
+        body = req.json() or {}
+        try:
+            out = _engine().test_sql(body["sql"], body.get("context", {}))
+        except Exception as e:  # noqa: BLE001
+            raise ApiError(400, "BAD_SQL", str(e))
+        return {"outputs": out}
+    route("POST", "/rule_test", rule_test)
 
     # ---- listeners ----
     async def listeners(_req):

@@ -6,9 +6,8 @@ clients list/show/kick, routes list/show, subscriptions
 list/show/add/del, plugins, vm, listeners, mgmt (API apps), banned, rules,
 trace. Commands are async; output is returned as text (and printed by the
 `emqx_ctl` entry point). The port's copy of ``emqx_tpu/mgmt/cli.py``:
-``rules`` answers that no rule engine is loaded and ``plugins`` lists none
-(ROADMAP.md Queue A item 20(d)); ``trace device`` drives the engine's
-torch.profiler trace of the card.
+``plugins`` lists none (ROADMAP.md Queue A item 20(d)); ``trace device``
+drives the engine's torch.profiler trace of the card.
 """
 
 from __future__ import annotations
@@ -252,8 +251,20 @@ class Cli:
                 else "Not Found."
         raise _Usage()
 
-    async def _rules(self, _args) -> str:
-        return "rule engine not loaded"
+    async def _rules(self, args) -> str:
+        eng = getattr(self.node, "rule_engine", None)
+        if eng is None:
+            return "rule engine not loaded"
+        if args and args[0] == "list":
+            return "\n".join(
+                f"Rule({r.id}, enabled={r.enabled}): {r.sql}"
+                for r in eng.list_rules()) or "(none)"
+        if len(args) == 2 and args[0] == "show":
+            r = eng.get_rule(args[1])
+            return str(r.to_map()) if r else "Not Found."
+        if len(args) == 2 and args[0] == "delete":
+            return "ok" if eng.delete_rule(args[1]) else "Not Found."
+        raise _Usage()
 
     async def _mgmt(self, args) -> str:
         if self.app_auth is None:

@@ -7,8 +7,9 @@ store's topic index under seeded random topics and filters, the retainer
 journal written by one package and read by the other, retain handling
 over TCP), delayed publish under a scripted clock, the rewrite rules,
 topic metrics, event messages, flapping bans, the overload governor's
-``defer_retained`` parking and drain, the boot from a config file (and
-the port's refusals of the layers it does not have yet), and a flood
+``defer_retained`` parking and drain, the boot from a config file (the
+rule engine and the access-control chains included, and the port's
+refusals of the layers it does not have yet), and a flood
 through booted nodes with the apps on, with the delivery lanes and with
 the inline loop. Inputs are the reference's ``tests/test_apps_modules.py``
 and the app cases of ``tests/test_persistence_apps.py``.
@@ -778,32 +779,67 @@ def test_start_apps_equal_reference(conf):
     assert got == want
 
 
-REFUSED = {
+BOOTS = {
     "rule_engine_rules": {"rule_engine": {"rules": [
-        {"id": "r1", "sql": 'SELECT * FROM "t/#"', "actions": []}]}},
+        {"id": "r1", "sql": 'SELECT * FROM "t/#"', "actions": []},
+        {"id": "r2", "sql": 'SELECT * FROM "$events/client_connected"',
+         "actions": [], "enable": False}]}},
     "rule_engine_enable": {"rule_engine": {"enable": True}},
     "authn_enable": {"authn": {"enable": True}},
     "authz_sources": {"authz": {"sources": [{"type": "client_acl"}]}},
     "authz_deny": {"authz": {"no_match": "deny"}},
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOOTS))
+def test_start_apps_boots_access_control_and_rules(case):
+    """Each block that boots the rule engine, the authn chain or the authz
+    chain boots the same apps, in the same order, holding the same hooks,
+    in both packages."""
+    def script(pkg):
+        node = pkg.node(BOOTS[case])
+        apps = run(node.start_apps())
+        hooks = {h: [cb.tag for cb in node.hooks.lookup(h)] for h in (
+            "message.publish", "client.connected", "client.disconnected",
+            "client.authenticate", "client.authorize")}
+        eng = getattr(node, "rule_engine", None)
+        return ([type(a).__name__ for a in apps], hooks,
+                [type(a).__name__ for a in node._apps],
+                sorted(getattr(node, "enhanced_authn", {})),
+                eng and [(r.id, r.enabled) for r in eng.list_rules()])
+    want, got = both(script)
+    assert got == want
+
+
+REFUSED = {
     "exhook_servers": {"exhook": {"servers": [
         {"name": "s1", "url": "http://127.0.0.1:9"}]}},
+    **{f"authn_{b}": {"authn": {"enable": True, "chain": [
+        {"mechanism": "password_based", "backend": "built_in_database"},
+        {"mechanism": "password_based", "backend": b,
+         "server": "127.0.0.1:9", "query": "SELECT 1"}]}}
+       for b in ("ldap", "mysql", "postgresql", "mongodb", "redis")},
+    **{f"authz_{t}": {"authz": {"sources": [
+        {"type": "client_acl"},
+        {"type": t, "server": "127.0.0.1:9", "query": "SELECT 1"}]}}
+       for t in ("mysql", "postgresql", "redis", "mongodb")},
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_start_apps_refuses_what_the_port_lacks(case):
-    """Each block that boots a layer of item 20(d) in the reference (the
-    rule engine, the authn and authz chains, exhook) raises in the port
-    and boots nothing; the reference boots it (exhook aside: it would
-    dial its server)."""
-    conf = REFUSED[case]
+    """Each block that boots a layer of item 20(d) the port does not have
+    yet (exhook, the database arms of authn and authz) raises in the port
+    and boots nothing, not even the apps before it; the reference would
+    dial a server for each."""
+    conf = dict(REFUSED[case], rule_engine={"enable": True},
+                retainer={"enable": True})
     node = PORT.node(conf)
     with pytest.raises(ValueError, match=r"20\(d\)"):
         run(node.start_apps())
     assert node._apps == [] and not node.hooks.lookup("message.publish")
-    if case != "exhook_servers":
-        ref = REF.node(conf)
-        assert run(ref.start_apps())
+    assert getattr(node, "rule_engine", None) is None
+    assert not node.hooks.lookup("client.authenticate")
 
 
 def test_shipped_file_boots_apps_and_no_gateway(tmp_path):

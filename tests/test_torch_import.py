@@ -64,6 +64,13 @@ MODULES = [
     "emqx_tpu_torch.cluster.membership", "emqx_tpu_torch.cluster.store",
     "emqx_tpu_torch.cluster.cluster", "emqx_tpu_torch.cluster.discovery",
     "emqx_tpu_torch.run_node", "emqx_tpu_torch.chaos_cluster",
+    "emqx_tpu_torch.utils.passwd", "emqx_tpu_torch.utils.scram",
+    "emqx_tpu_torch.apps.authn", "emqx_tpu_torch.apps.authn_db",
+    "emqx_tpu_torch.apps.authz", "emqx_tpu_torch.rules",
+    "emqx_tpu_torch.rules.maps", "emqx_tpu_torch.rules.funcs",
+    "emqx_tpu_torch.rules.sqlparser", "emqx_tpu_torch.rules.runtime",
+    "emqx_tpu_torch.rules.events", "emqx_tpu_torch.rules.metrics",
+    "emqx_tpu_torch.rules.actions", "emqx_tpu_torch.rules.registry",
     "chip_smoke",
 ]
 

@@ -5,9 +5,8 @@ listener, and the same requests (the inputs of the reference's
 ``tests/test_mgmt.py`` and the dashboard cases of
 ``tests/test_persistence_apps.py``) must get equal status codes and
 bodies, per-process values aside (uptime, datetime, load, tokens, ports,
-connection clocks). The reference stacks load no rule engine: the port
-has none yet, and its ``/rules`` endpoints answer as the reference's do
-without one. The five ``/pipeline`` endpoints, ``start_dashboard`` from
+connection clocks). The ``/rules`` endpoints and the CLI's ``rules``
+command answer alike without a rule engine and with one loaded. The five ``/pipeline`` endpoints, ``start_dashboard`` from
 a config file and the CLI (``trace device`` on the port's CPU engine
 among its commands) are covered too.
 """
@@ -29,6 +28,7 @@ from emqx_tpu.mgmt import Cli as JCli
 from emqx_tpu.mgmt import make_api as jmake_api
 from emqx_tpu.mgmt.apps import AppAuth as JAppAuth
 from emqx_tpu.mgmt.httpd import HttpServer as JHttpServer
+from emqx_tpu.rules import registry as jregistry
 from emqx_tpu_torch.apps.dashboard import DashboardAdmin as TAdmin
 from emqx_tpu_torch.apps.dashboard import register_api as tregister
 from emqx_tpu_torch.broker.connection import Listener as TListener
@@ -40,6 +40,7 @@ from emqx_tpu_torch.mgmt import make_api as tmake_api
 from emqx_tpu_torch.mgmt import cli as tcli
 from emqx_tpu_torch.mgmt.apps import AppAuth as TAppAuth
 from emqx_tpu_torch.mgmt.httpd import HttpServer as THttpServer
+from emqx_tpu_torch.rules import registry as tregistry
 
 torch.set_num_threads(1)
 
@@ -90,11 +91,11 @@ async def http(port, method, path, body=None, auth=None, bearer=None,
 
 REF = dict(name="ref", Listener=JListener, make_api=jmake_api, Cli=JCli,
            AppAuth=JAppAuth, Admin=JAdmin, register=jregister,
-           HttpServer=JHttpServer,
+           HttpServer=JHttpServer, rules=jregistry,
            node=lambda: JNode(use_device=False, name=NAME))
 PORT = dict(name="port", Listener=TListener, make_api=tmake_api, Cli=TCli,
             AppAuth=TAppAuth, Admin=TAdmin, register=tregister,
-            HttpServer=THttpServer,
+            HttpServer=THttpServer, rules=tregistry,
             node=lambda: TNode({"broker": {"device_route": False}},
                                device="cpu", name=NAME))
 PKGS = (REF, PORT)
@@ -295,6 +296,88 @@ def test_rules_answer_without_an_engine():
     got = norm(run(_stack(PORT, _rules_without_engine)))
     assert [st for st, _b in got] == [404, 400, 404, 404, 404, 400]
     assert all(b["message"] == "rule engine not loaded" for _st, b in got)
+
+
+async def _rules_with_engine(node, lst, api, cli):
+    """The rule endpoints and the CLI with an engine loaded: create (with
+    and without an id, a duplicate, bad SQL), list, get, update (validated
+    before the rule is replaced), rule_test, a rule firing on a PUBLISH
+    over TCP, delete."""
+    port = api.port
+    rule = {"id": "r1", "sql": 'SELECT clientid, topic FROM "t/#" '
+                               'WHERE topic = \'t/1\'',
+            "actions": [{"name": "republish", "params": {
+                "target_topic": "re/${clientid}"}}], "description": "d"}
+    out = [await http(port, "GET", "/api/v5/rules"),
+           await http(port, "POST", "/api/v5/rules", rule),
+           await http(port, "POST", "/api/v5/rules", rule),
+           await http(port, "POST", "/api/v5/rules",
+                      {"sql": 'SELECT * FROM "n/#"', "actions": []}),
+           await http(port, "POST", "/api/v5/rules", {"sql": "SELECT"}),
+           await http(port, "POST", "/api/v5/rules", {"actions": []}),
+           await http(port, "GET", "/api/v5/rules"),
+           await http(port, "GET", "/api/v5/rules/r1"),
+           await http(port, "GET", "/api/v5/rules/nope"),
+           await http(port, "PUT", "/api/v5/rules/r1", {"sql": "SELECT x"}),
+           await http(port, "PUT", "/api/v5/rules/r1",
+                      {"actions": [{"params": {}}]}),
+           await http(port, "PUT", "/api/v5/rules/r1", {"actions": "x"}),
+           await http(port, "GET", "/api/v5/rules/r1"),
+           await http(port, "PUT", "/api/v5/rules/nope", {"enabled": True}),
+           await http(port, "POST", "/api/v5/rule_test",
+                      {"sql": 'SELECT payload.x as x FROM "t/#"',
+                       "context": {"payload": '{"x": 3}'}}),
+           await http(port, "POST", "/api/v5/rule_test", {"sql": "nope"})]
+    sub = Client(port=lst.port, clientid="re-sub")
+    await sub.connect()
+    await sub.subscribe("re/#", qos=0)
+    pub = Client(port=lst.port, clientid="re-pub")
+    await pub.connect()
+    for t in ("t/1", "t/2", "t/1"):
+        await pub.publish(t, b"x", qos=1)
+    got = [(await sub.recv(timeout=5)).topic for _ in range(2)]
+    out.append(got)
+    out.append(await http(port, "GET", "/api/v5/rules/r1"))
+    out.append(await http(port, "PUT", "/api/v5/rules/r1",
+                          {"sql": 'SELECT clientid FROM "t/#"',
+                           "description": "all", "enabled": False}))
+    await pub.publish("t/3", b"x", qos=1)
+    out.append(await http(port, "GET", "/api/v5/rules/r1"))
+    out.append(await http(port, "PUT", "/api/v5/rules/r1", {"enabled": True}))
+    await pub.publish("t/4", b"x", qos=1)
+    out.append((await sub.recv(timeout=5)).topic)
+    for args in (["rules", "list"], ["rules", "show", "r1"],
+                 ["rules", "show", "nope"], ["rules", "delete", "nope"],
+                 ["rules", "bogus"]):
+        out.append(await cli.run(args))
+    out += [await http(port, "DELETE", "/api/v5/rules/r1"),
+            await http(port, "DELETE", "/api/v5/rules/r1"),
+            await cli.run(["rules", "delete", "rule:abcdef12"]),
+            await http(port, "GET", "/api/v5/rules")]
+    await sub.disconnect()
+    await pub.disconnect()
+    return out
+
+
+def test_rules_answer_with_an_engine_equal_reference(monkeypatch):
+    """With a RuleEngine loaded on each stack (the rule id uuid and the
+    clocks fixed), every rule endpoint and CLI command answers alike,
+    and a rule made over the API fires on the next PUBLISH."""
+    import uuid
+    for pkg in PKGS:
+        monkeypatch.setattr(pkg["rules"].uuid, "uuid4",
+                            lambda: uuid.UUID(int=0xabcdef12 << 96))
+        monkeypatch.setattr(pkg["rules"].time, "time", lambda: 1.7e9)
+
+    def engine_stack(pkg):
+        async def script(node, lst, api, cli):
+            pkg["rules"].RuleEngine(node).load()
+            return await _rules_with_engine(node, lst, api, cli)
+        return norm(run(_stack(pkg, script)))
+    want, got = [engine_stack(pkg) for pkg in PKGS]
+    assert got == want
+    assert want[1][0] == 201 and want[-1] == (200, [])
+    assert want[16] == ["re/re-pub", "re/re-pub"]
 
 
 def test_basic_auth_and_app_crud_equal_reference():
