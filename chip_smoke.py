@@ -336,6 +336,33 @@ Phases:
    dashboard listener: create, list, get, update, a refused update,
    rule_test, delete; the rule made there fires on the next window of 64
    QoS 1 PUBLISHes.
+19. the database-backed node: phase 15's files plus, in the override,
+   the authn chain MySQL (caching_sha2), PostgreSQL (SCRAM), LDAP (a
+   service bind, a search, the user's bind), the authz sources Redis
+   (HGETALL mqtt_acl:%u) then PostgreSQL (no_match deny, the cache on)
+   and r_up (SELECT * FROM "device/#" WHERE qos = 1 -> data_to_up); the
+   servers are tests/test_torch_fake_db.py's in this process, every user
+   stored as a salted sha256 hash. start_apps creates their resources on
+   node.resources; the script adds up, an mqtt resource on a second,
+   host-only node of the port. 19a: 8 publishers log in by PostgreSQL,
+   phase 8's population subscribes through 16 MySQL logins (superusers:
+   authz skips their filters), the warm-up, then 16,000 PUBLISHes with
+   100 denied QoS 1 PUBLISHes mixed in (no ACL row allows them): every
+   allowed message once and in order, at least 0.9 on the device,
+   kernels 1 and 2 launched, two engine windows held against the plain
+   path, every denied PUBLISH answered 0x87, and the remote must receive
+   each of the 4,000 QoS 1 messages once through data_to_up. 19b: an
+   MqttBridgeWorker forwards bridge/# under edge/ to the remote and takes
+   its cmd/# in under from-cloud/: 2,000 QoS 1 PUBLISHes forwarded, the
+   remote's listener stopped, 1,000 more held in the bridge's disk queue,
+   the listener restarted on the same port, all 3,000 at the remote once
+   and in publish order; 100 remote cmd/# messages reach a local
+   subscriber under the mountpoint. 19c: an LDAP login accepted and a
+   wrong LDAP password refused (0x86), a wrong MySQL password refused
+   (0x86); stop_listeners leaves no resource and every server sees every
+   connection closed. The servers' query counts must equal the known
+   answers: one authn query a CONNECT in chain order, one Redis query an
+   authz cache miss, one PostgreSQL ACL query a denied topic.
 
 Every node of phases 8-12 runs supervised, as the default node does, and
 must end its phase with no supervised fault, replay, stall or trip (the
@@ -369,7 +396,8 @@ the ring holds a dispatch span under.
 ``python3 chip_smoke.py --boot`` builds the kernels and runs phase 15
 alone; ``python3 chip_smoke.py --apps`` phase 16;
 ``python3 chip_smoke.py --cluster`` phase 17;
-``python3 chip_smoke.py --secure`` phase 18.
+``python3 chip_smoke.py --secure`` phase 18;
+``python3 chip_smoke.py --db`` phase 19.
 ``python3 chip_smoke.py --warm-stress`` runs 16a, then 16b's stream
 beside a loop of the engine's class warms: the reproducer of a fixed
 fault (a graph capture on a stream serving used, after which every
@@ -839,24 +867,29 @@ def time_scan_shapes(dev, shapes: dict, where: str) -> list:
     return out
 
 
-def time_scan_shapes_apart(shapes: dict, where: str) -> list:
-    """time_scan_shapes in a process of its own (this script with
-    ``--scan-shapes``), its lines passed through. Late in a long run the
-    profiler of this process lost kernel records at a small scan shape —
-    191 of 200 entries, three tries in a row (PERF.md), where a
-    fresh process counts 200 of 200 at the same shape — so the shapes
-    phase 9 adds are profiled in a fresh process, with the same check."""
-    if not shapes:
+def time_scan_shapes_apart(groups: list) -> list:
+    """time_scan_shapes at each (where, shapes) group in one process of
+    its own (this script with ``--scan-shapes``), its lines passed
+    through. Late in a long run the profiler of this process lost kernel
+    records at a small scan shape — 191 of 200 entries, three tries in a
+    row (PERF.md), where a fresh process counts 200 of 200 at the same
+    shape — so the shapes the later phases add are profiled in a fresh
+    process, with the same check; one process for all of them (a fresh
+    process a group cost its start-up each time)."""
+    groups = [(where, shapes) for where, shapes in groups if shapes]
+    if not groups:
         return []
-    arg = json.dumps({"where": where, "shapes": [
-        [list(k), v] for k, v in shapes.items()]})
+    arg = json.dumps({"groups": [
+        {"where": where, "shapes": [[list(k), v] for k, v in shapes.items()]}
+        for where, shapes in groups]})
     out = subprocess.run([sys.executable, __file__, "--scan-shapes", arg],
                          capture_output=True, text=True, timeout=600)
     for line in out.stdout.splitlines()[:-1]:
         log(line)
     if out.returncode != 0:
-        raise AssertionError(f"kernel 2 timing at {where}'s shapes failed:"
-                             f"\n{out.stdout[-2000:]}{out.stderr[-4000:]}")
+        raise AssertionError(
+            f"kernel 2 timing at {[w for w, _s in groups]}'s shapes failed:"
+            f"\n{out.stdout[-2000:]}{out.stderr[-4000:]}")
     return json.loads(out.stdout.splitlines()[-1])
 
 
@@ -1238,7 +1271,7 @@ def mesh_phase(dev) -> tuple:
     # in a process of its own, as phase 9's: late in this long run the
     # profiler lost records at a mesh shape (196 of 200 at [2, 4, 4], three
     # tries in a row, PERF.md)
-    scan_shapes = time_scan_shapes_apart(r["shapes"], "mesh")
+    scan_shapes = time_scan_shapes_apart([("mesh", r["shapes"])])
     kernel = {"name": "ring_rotate", "route": "cuda",
               "source": "emqx_tpu_torch/csrc/ring_rotate.cu",
               "replaces": "emqx_tpu/ops/pallas_exchange.py:98",
@@ -7696,6 +7729,562 @@ def secure_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------
+# Phase 19: the database-backed node (the DB arms of authn and authz, a
+# data_to_* rule action, the MQTT bridge)
+# ---------------------------------------------------------------------
+DB_MSGS = 16_000                     # 19a's flood (bench's 32,000, cut)
+DB_FORBIDDEN = 100                   # 19a: QoS 1 PUBLISHes the ACL denies
+DB_BRIDGE_UP = 2_000                 # 19b: forwarded with the remote up
+DB_BRIDGE_DOWN = 1_000               # 19b: queued while it is down
+DB_BRIDGE_IN = 100                   # 19b: the remote's cmd/# PUBLISHes
+DB_TIMEOUT_S = 60.0
+DB_LDAP_USER = ("lduser", "ld-pencil")
+DB_LDAP_DN = "uid=lduser,ou=people,dc=emqx"
+DB_SECRETS = {"mysql": "mysql-pw", "pgsql": "pg-pw", "redis": "redis-pw",
+              "ldap": "svc-pw"}
+DB_COUNTERS = ("client.authenticate", "client.auth.success",
+               "client.auth.failure", "client.authorize",
+               "client.authorize.cache_hit", "messages.publish",
+               "packets.publish.error")
+
+
+def _db_salt(user: str) -> str:
+    return f"salt-{zlib.crc32(user.encode()):08x}"
+
+
+def _fake_db():
+    """``tests/test_torch_fake_db.py`` loaded from its path (an installed
+    package named ``tests`` may shadow the repo's directory)."""
+    import importlib.util
+    name = "chip_smoke_fake_db"
+    mod = sys.modules.get(name)
+    if mod is None:
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "test_torch_fake_db.py")
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return mod
+
+
+def _db_fakes():
+    """Phase 19's database servers (``tests/test_torch_fake_db.py``, in
+    this process): MySQL (caching_sha2, the fast path) and PostgreSQL
+    (SCRAM-SHA-256) hold the users, Redis the ACL (PostgreSQL's ACL
+    table is empty), LDAP one directory user. Each user's row holds a
+    salted sha256 hash."""
+    import re
+
+    from emqx_tpu_torch.utils import passwd as PW
+    fake = _fake_db()
+    FakeLdap, FakeMysql = fake.FakeLdap, fake.FakeMysql
+    FakePgsql, FakeRedis = fake.FakePgsql, fake.FakeRedis
+    users = {"mysql": {}, "pgsql": {}}
+
+    def row(user: str, superuser: bool) -> list:
+        salt = _db_salt(user)
+        return [PW.hash_password("sha256", _sec_password(user), salt,
+                                 "prefix"), salt, "1" if superuser else "0"]
+
+    def add_user(db: str, user: str, superuser: bool = False) -> None:
+        users[db][user] = row(user, superuser)
+
+    cols = ["password_hash", "salt", "is_superuser"]
+
+    def mysql_handler(sql, params=None):
+        hit = users["mysql"].get(params[0]) if params else None
+        return cols, [hit] if hit else []
+
+    def pg_handler(sql):
+        # the ACL table holds no row: what Redis leaves open is denied
+        if "mqtt_acl" in sql:
+            return ["permission", "action", "topic"], []
+        m = re.search(r"username = '([^']*)'", sql)
+        hit = users["pgsql"].get(m.group(1) if m else "")
+        return cols, [hit] if hit else []
+    mysql = FakeMysql(username="mqtt", password=DB_SECRETS["mysql"],
+                      handler=mysql_handler, plugin="caching_sha2_password",
+                      sha2_cached=True)
+    pg = FakePgsql(username="postgres", password=DB_SECRETS["pgsql"],
+                   auth="scram", handler=pg_handler)
+    redis = FakeRedis(password=DB_SECRETS["redis"])
+    ldap = FakeLdap(
+        binds={"": "", "cn=svc,dc=emqx": DB_SECRETS["ldap"],
+               DB_LDAP_DN: DB_LDAP_USER[1]},
+        entries=[{"dn": DB_LDAP_DN, "uid": [DB_LDAP_USER[0]]}])
+    return {"mysql": mysql, "pgsql": pg, "redis": redis, "ldap": ldap,
+            "add_user": add_user}
+
+
+def db_override(certs: dict, fakes: dict) -> str:
+    """Phase 15's override plus the authn chain (MySQL, PostgreSQL, LDAP),
+    the authz sources (Redis, PostgreSQL; no_match deny, the cache on)
+    and r_up, whose action data_to_up names the resource the script
+    creates."""
+    def at(kind: str) -> dict:
+        return {"host": "127.0.0.1", "port": fakes[kind].port}
+    user_q = ("SELECT password_hash, salt, is_superuser FROM mqtt_user "
+              "WHERE username = ${mqtt-username} LIMIT 1")
+    chain = [
+        dict(at("mysql"), mechanism="password_based", backend="mysql",
+             username="mqtt", password=DB_SECRETS["mysql"], database="mqtt",
+             query=user_q, algorithm="sha256", salt_position="prefix",
+             pool_size=8),
+        dict(at("pgsql"), mechanism="password_based", backend="postgresql",
+             username="postgres", password=DB_SECRETS["pgsql"],
+             database="mqtt", query=user_q, algorithm="sha256",
+             salt_position="prefix", pool_size=8),
+        {"mechanism": "password_based", "backend": "ldap",
+         "server": f"127.0.0.1:{fakes['ldap'].port}",
+         "base_dn": "ou=people,dc=emqx", "filter": "(uid=${mqtt-username})",
+         "bind_dn": "cn=svc,dc=emqx", "bind_password": DB_SECRETS["ldap"]}]
+    authz = {"no_match": "deny", "cache": {"enable": True}, "sources": [
+        dict(at("redis"), type="redis", password=DB_SECRETS["redis"],
+             cmd="HGETALL mqtt_acl:%u", pool_size=8),
+        dict(at("pgsql"), type="postgresql", username="postgres",
+             password=DB_SECRETS["pgsql"], database="mqtt", pool_size=8,
+             query="SELECT permission, action, topic FROM mqtt_acl "
+                   "WHERE username = '%u'")]}
+    rules = [{"id": "r_up", "sql": 'SELECT * FROM "device/#" WHERE qos = 1',
+              "actions": [{"name": "data_to_up", "params": {
+                  "target_topic": "up/${clientid}", "payload_tmpl": "${id}",
+                  "qos": 1}}]}]
+    return boot_override(certs) + (
+        f"authn {{ enable = true, chain = {json.dumps(chain)} }}\n"
+        f"authz = {json.dumps(authz)}\n"
+        f"rule_engine {{ rules = {json.dumps(rules)} }}\n")
+
+
+class _RemoteSink:
+    """An in-process subscriber of the remote node: (topic, payload)."""
+
+    def __init__(self):
+        self.got: list = []
+
+    def deliver(self, topic_filter, msg) -> bool:
+        self.got.append((msg.topic, bytes(msg.payload)))
+        return True
+
+
+async def _until(cond, limit: float = DB_TIMEOUT_S) -> float:
+    """Poll `cond` every 10 ms; the seconds it took. Raises past
+    `limit`."""
+    import asyncio
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > limit:
+            raise AssertionError(f"not met within {limit} s")
+        await asyncio.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+async def _db_bridge(node, remote, rport: int, pub, bsub, tmp: str) -> dict:
+    """19b: an MqttBridgeWorker forwards bridge/# under edge/ to the
+    remote and takes its cmd/# in under from-cloud/; the remote's
+    listener stops mid-stream and comes back on the same port."""
+    import asyncio
+    import struct
+
+    from emqx_tpu_torch import device as D
+    from emqx_tpu_torch.broker.connection import Listener
+    from emqx_tpu_torch.broker.message import make
+    from emqx_tpu_torch.resources import MqttBridgeWorker
+    out = {}
+    edge = _RemoteSink()
+    remote.broker.subscribe(remote.broker.register(edge, "cloud-edge"),
+                            "edge/#", {"qos": 1})
+    bridge = MqttBridgeWorker(node, "edge", {
+        "host": "127.0.0.1", "port": rport, "clientid": "bridge-edge",
+        "forwards": ["bridge/#"], "forward_mountpoint": "edge/",
+        "subscriptions": [{"topic": "cmd/#", "qos": 1}],
+        "receive_mountpoint": "from-cloud/",
+        "queue_dir": os.path.join(tmp, "bridge-q"),
+        "reconnect_interval": 0.2})
+    await bridge.start()
+    try:
+        await _until(lambda: bridge.state == "connected")
+        D.reset_launches()
+        r0 = node.metrics.val("messages.routed.device")
+
+        async def send(lo: int, hi: int) -> None:
+            acks = []
+            for k in range(lo, hi):
+                acks.append(pub.publish_start(
+                    f"bridge/d{k % 64}/t", struct.pack("<I", k), qos=1))
+                if len(acks) >= 256:
+                    await asyncio.wait_for(asyncio.gather(*acks),
+                                           DB_TIMEOUT_S)
+                    acks.clear()
+            await asyncio.wait_for(asyncio.gather(*acks), DB_TIMEOUT_S)
+        t0 = time.perf_counter()
+        await send(0, DB_BRIDGE_UP)
+        await _until(lambda: len(edge.got) >= DB_BRIDGE_UP
+                     and bridge.queue.is_empty())
+        out["up_s"] = time.perf_counter() - t0
+        # the outage: the remote's listener stops (its connections with
+        # it); the next forwards wait in the bridge's disk queue
+        rlst = remote.listeners[0]
+        await rlst.stop()
+        remote.listeners.clear()
+        await send(DB_BRIDGE_UP, DB_BRIDGE_UP + DB_BRIDGE_DOWN)
+        await _until(lambda: bridge.queue.count() >= DB_BRIDGE_DOWN)
+        out["queued_in_outage"] = bridge.queue.count()
+        out["remote_during_outage"] = len(edge.got)
+        lst = Listener(remote, bind="127.0.0.1", port=rport)
+        await lst.start()
+        remote.listeners.append(lst)
+        t0 = time.perf_counter()
+        total = DB_BRIDGE_UP + DB_BRIDGE_DOWN
+        await _until(lambda: len(edge.got) >= total
+                     and bridge.queue.is_empty())
+        out["replay_s"] = time.perf_counter() - t0
+        await asyncio.sleep(0.2)         # a duplicate would land by now
+        seqs = [struct.unpack("<I", p)[0] for _t, p in edge.got]
+        out["remote_got"] = len(seqs)
+        out["in_order_once"] = seqs == list(range(total))
+        out["topics_ok"] = all(t == f"edge/bridge/d{s % 64}/t"
+                               for (t, _p), s in zip(edge.got, seqs))
+        if out["queued_in_outage"] != DB_BRIDGE_DOWN \
+                or out["remote_during_outage"] != DB_BRIDGE_UP \
+                or not out["in_order_once"] or not out["topics_ok"]:
+            raise AssertionError(f"phase 19b: the bridge's forward {out}")
+        out["launches"] = dict(D.LAUNCHES)
+        out["device_routed"] = node.metrics.val("messages.routed.device") \
+            - r0
+        # ingress: the remote's cmd/# reaches bsub under from-cloud/
+        await _until(lambda: bridge.state == "connected")
+        for k in range(DB_BRIDGE_IN):
+            remote.broker.publish(make("cloud", 1, f"cmd/{k % 8}/c",
+                                       b"%d" % k))
+        got = await _recv_count(bsub, DB_BRIDGE_IN)
+        out["ingress"] = len(got)
+        if sorted(int(m.payload) for m in got) != list(range(DB_BRIDGE_IN)) \
+                or any(not m.topic.startswith("from-cloud/cmd/")
+                       for m in got):
+            raise AssertionError(f"phase 19b: bsub got {len(got)} of the "
+                                 f"remote's {DB_BRIDGE_IN} cmd/# messages")
+        out["info"] = bridge.info()
+    finally:
+        await bridge.stop()
+    return out
+
+
+def db_drive(dev, n_filters: int = E2E_FILTERS,
+             n_sub: int = E2E_SUB_CONNS, n_pub: int = E2E_PUB_CONNS,
+             total: int = DB_MSGS, forbidden: int = DB_FORBIDDEN,
+             window=(8, 1024), pin_device: bool = False) -> dict:
+    """Phase 19: the shipped file booted under ``db_override`` on `dev`
+    with its database servers in this process: ``start_apps`` creates the
+    MySQL, PostgreSQL, Redis and PostgreSQL-ACL resources on
+    ``node.resources``; the script adds ``up``, an mqtt resource on a
+    second port node (host-only, ``device_route`` false) that r_up's
+    ``data_to_up`` publishes to. 19a: phase 8's population subscribes
+    through 16 MySQL logins (superusers: authz skips their filters), 8
+    publishers log in by PostgreSQL and flood with `forbidden` QoS 1
+    PUBLISHes mixed in that the ACL denies (the Redis source has no rule
+    for them, the PostgreSQL source none either, no_match deny); 19b the
+    bridge; 19c LDAP logins, a wrong MySQL password, and
+    ``stop_listeners`` closing every resource. ``pin_device`` pins the
+    chooser (a CPU rehearsal only). Raises on any failed check."""
+    import asyncio
+    import collections
+    import shutil
+    import tempfile
+
+    from emqx_tpu_torch.broker.connection import Listener
+    from emqx_tpu_torch.broker.node import Node
+    from emqx_tpu_torch.client import Client
+    from emqx_tpu_torch.mqtt import constants as C
+    from emqx_tpu_torch.resources.resource import MqttResource
+    from emqx_tpu_torch.utils.tls import generate_self_signed
+    tmp = tempfile.mkdtemp(prefix="emqx-db-")
+
+    async def run():
+        out = {}
+        fakes = _db_fakes()
+        servers = [fakes[k] for k in ("mysql", "pgsql", "redis", "ldap")]
+        for s in servers:
+            await s.start()
+        subs_u = [f"esub{c}" for c in range(n_sub)]
+        pubs_u = [f"spub{p}" for p in range(n_pub)]
+        for u in subs_u:
+            fakes["add_user"]("mysql", u, superuser=True)
+        fakes["add_user"]("mysql", "bsub")
+        for u in pubs_u:
+            fakes["add_user"]("pgsql", u)
+        redis = fakes["redis"]
+        for u in pubs_u:
+            redis.hashes[f"mqtt_acl:{u}"] = {"device/+/x/#": "publish",
+                                            "bridge/#": "publish"}
+        redis.hashes["mqtt_acl:bsub"] = {"from-cloud/#": "subscribe"}
+        certs = generate_self_signed(os.path.join(tmp, "certs"),
+                                     cn="localhost")
+        path = os.path.join(tmp, "emqx.conf")
+        shutil.copy(BOOT_CONF, path)
+        with open(os.path.join(tmp, "emqx_override.conf"), "w") as fh:
+            fh.write(db_override(certs, fakes))
+        remote = Node({"broker": {"device_route": False}}, device=dev)
+        rlst = Listener(remote, bind="127.0.0.1", port=0)
+        await rlst.start()
+        remote.listeners.append(rlst)
+        rport = rlst.port
+        ups = _RemoteSink()
+        remote.broker.subscribe(remote.broker.register(ups, "cloud-up"),
+                                "up/#", {"qos": 1})
+        node = Node.from_config_file(path, device=dev)
+        m = node.metrics
+        c_all = {k: m.val(k) for k in DB_COUNTERS}
+        clients, stopped = [], False
+        try:
+            t0 = time.time()
+            await node.start_listeners()
+            apps = await node.start_apps()
+            node.start_timers(1.0)
+            ports = _boot_ports(node)
+            out["apps"] = [type(a).__name__ for a in apps]
+            want_apps = ["Retainer", "DelayedPublish", "RuleEngine",
+                         "AuthnChain", "Authz"]
+            if out["apps"] != want_apps:
+                raise AssertionError(f"phase 19: started {out['apps']}")
+            up = await node.resources.create("up", "mqtt", {
+                "host": "127.0.0.1", "port": rport, "clientid": "edge-up"})
+            if not isinstance(up, MqttResource) or up.status != "connected":
+                raise AssertionError(f"phase 19: the up resource {up.info()}")
+            out["resources"] = node.resources.list()
+            if any(r["status"] != "connected" for r in out["resources"]):
+                raise AssertionError(f"phase 19: resources {out['resources']}")
+            connects = collections.Counter()    # who logged in by which db
+            pubs = []
+            for u in pubs_u:
+                cl = Client(port=ports["tcp"], clientid=u, username=u,
+                            password=_sec_password(u), proto_ver=C.MQTT_V5)
+                await cl.connect()
+                pubs.append(cl)
+                connects["pgsql"] += 1
+            clients += pubs
+            bsub = Client(port=ports["tcp"], clientid="bsub",
+                          username="bsub", password=_sec_password("bsub"),
+                          proto_ver=C.MQTT_V5)
+            await bsub.connect()
+            clients.append(bsub)
+            connects["mysql"] += 1
+            ack = await bsub.subscribe("from-cloud/#", qos=1)
+            if list(ack.reason_codes) != [1]:
+                raise AssertionError(f"phase 19: bsub SUBACK "
+                                     f"{ack.reason_codes}")
+            subs, ids, nums, n_shared, n_entries = \
+                await _subscribe_population(
+                    ports["tcp"], n_filters, n_sub,
+                    login=lambda c: {"username": f"esub{c}",
+                                     "password": _sec_password(f"esub{c}")})
+            clients += subs
+            connects["mysql"] += n_sub
+            if pin_device:
+                node.publish_batcher._device_worth_it = lambda: True
+            a = {"filters": ids * nums, "shared_filters": n_shared,
+                 "subscriptions": n_entries, "publishers": n_pub,
+                 "setup_s": time.time() - t0}
+            log(f"phase 19a: logged in and subscribed in "
+                f"{a['setup_s']:.1f} s")
+            t0 = time.time()
+            await _warm_up(node, pubs[0], subs, nums)
+            a["warm_up_s"] = time.time() - t0
+            a["governor_wait_s"] = await _below_overload(node)
+            ups.got.clear()
+            c0 = {k: m.val(k) for k in DB_COUNTERS}
+            gc.collect()
+            gc.freeze()
+            f = await _boot_flood(node, subs, pubs, ids, nums, total,
+                                  SEED + 20, where="phase 19a",
+                                  forbidden=forbidden)
+            f.pop("got")
+            a["flood"] = f
+            a["counters"] = {k: m.val(k) - v for k, v in c0.items()}
+            # the known answer at the remote: every QoS 1 flood message
+            # once, by r_up's data_to_up (its own task a message, so in
+            # no particular order), under its publisher's clientid
+            q1 = f["q1_sent"]
+            per_pub = total // n_pub
+            await _until(lambda: len(ups.got) >= q1)
+            await asyncio.sleep(0.2)
+            a["remote_got"] = len(ups.got)
+            a["remote_distinct"] = len({p for _t, p in ups.got})
+            want_up = collections.Counter(
+                {f"up/spub{p}": len(range(0, per_pub, 4))
+                 for p in range(n_pub)})
+            if collections.Counter(t for t, _p in ups.got) != want_up \
+                    or a["remote_distinct"] != q1:
+                raise AssertionError(
+                    f"phase 19a: the remote got {a['remote_got']} "
+                    f"({a['remote_distinct']} distinct) of {q1}")
+            r_up = node.rule_engine.get_rule("r_up").metrics.counters
+            a["r_up"] = {k: r_up.get(k, 0) for k in (
+                "sql.matched", "sql.passed", "actions.success")}
+            if a["r_up"]["sql.passed"] != q1 \
+                    or a["r_up"]["actions.success"] != q1:
+                raise AssertionError(f"phase 19a: r_up read {a['r_up']}, "
+                                     f"want {q1} QoS 1 messages passed "
+                                     f"and sent")
+            a["forbidden"] = collections.Counter(f["forbidden_rcs"])
+            if f["forbidden_rcs"] != [0x87] * forbidden:
+                raise AssertionError(f"phase 19a: PUBACKs of the denied "
+                                     f"PUBLISHes {a['forbidden']}")
+            a["window_err"] = e2e_window_check(node, ids, nums, SEED + 21,
+                                               *window)
+            a["supervise"] = check_supervised(node, "phase 19a")
+            out["a"] = a
+            t0 = time.time()
+            out["b"] = await _db_bridge(node, remote, rport, pubs[0], bsub,
+                                        tmp)
+            out["b"]["seconds"] = time.time() - t0
+            # 19c: LDAP logins and a wrong MySQL password
+            out["c"] = {"governor_wait_s": await _below_overload(node)}
+            ld, ldpw = DB_LDAP_USER
+            c = {"ldap_ok": await _boot_conn(
+                     node, None, ports, "tcp", "ld1", username=ld,
+                     password=ldpw.encode()),
+                 "ldap_wrong": await _boot_conn(
+                     node, None, ports, "tcp", "ld2", username=ld,
+                     password=b"wrong"),
+                 "mysql_wrong": await _boot_conn(
+                     node, None, ports, "tcp", "mw", username="esub0",
+                     password=b"wrong")}
+            connects["ldap"] += 2
+            connects["mysql"] += 1
+            want = {"ldap_ok": 0, "ldap_wrong": C.RC_BAD_USER_NAME_OR_PASSWORD,
+                    "mysql_wrong": C.RC_BAD_USER_NAME_OR_PASSWORD}
+            if c != want:
+                raise AssertionError(f"phase 19c: CONNACKs {c}, want {want}")
+            out["c"]["connacks"] = c
+            await _boot_stop(node, clients)
+            stopped = True
+            out["c"]["resources_after_stop"] = len(node.resources.instances)
+            for s in servers:
+                await _until(lambda s=s: s.closed >= s.opened, 10.0)
+            out["c"]["connections"] = {
+                k: (fakes[k].opened, fakes[k].closed)
+                for k in ("mysql", "pgsql", "redis", "ldap")}
+            if out["c"]["resources_after_stop"] or any(
+                    o != cl for o, cl in out["c"]["connections"].values()):
+                raise AssertionError(f"phase 19c: after stop_listeners "
+                                     f"{out['c']}")
+            # the databases' query counts beside the known answers: one
+            # authn query per CONNECT in chain order, one Redis query per
+            # authz cache miss, a PostgreSQL ACL query per miss Redis left
+            # open (the denied topics), two LDAP sessions a directory login
+            cnt = {k: m.val(k) - v for k, v in c_all.items()}
+            n_conn = sum(connects.values())
+            pg = fakes["pgsql"].queries
+            misses = cnt["client.authorize"] - cnt["client.authorize.cache_hit"]
+            q = {"mysql_authn": len(fakes["mysql"].prepared),
+                 "pgsql_authn": sum("mqtt_user" in s for s in pg),
+                 "ldap_sessions": fakes["ldap"].opened,
+                 "redis_acl": sum(1 for x in redis.commands
+                                  if x[0].upper() == b"HGETALL"),
+                 "pgsql_acl": sum("mqtt_acl" in s for s in pg)}
+            want_q = {"mysql_authn": n_conn,
+                      "pgsql_authn": connects["pgsql"] + connects["ldap"],
+                      "ldap_sessions": 2 * connects["ldap"],
+                      "redis_acl": misses, "pgsql_acl": forbidden}
+            out["queries"] = {"got": q, "want": want_q,
+                              "connects": dict(connects),
+                              "authz_misses": misses}
+            if q != want_q or cnt["client.authenticate"] != n_conn:
+                raise AssertionError(f"phase 19: database queries {q}, "
+                                     f"want {want_q}; authenticate "
+                                     f"{cnt['client.authenticate']} for "
+                                     f"{n_conn} CONNECTs")
+            out["counters"] = cnt
+        finally:
+            gc.unfreeze()
+            if not stopped:
+                await _boot_stop(node, clients)
+            await remote.stop_listeners()
+            for s in servers:
+                await s.stop()
+        return out
+
+    try:
+        return asyncio.run(run())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def db_phase(dev, card: str, f18a=None) -> dict:
+    """Phase 19 on the card; prints its lines (18a's flood of the same
+    call beside 19a's)."""
+    t0 = time.time()
+    r = db_drive(dev)
+    a, b, c = r["a"], r["b"], r["c"]
+    f = a["flood"]
+    log(f"phase 19a: booted etc/emqx.conf with apps {r['apps']}; resources "
+        f"{[(x['id'], x['type'], x['status']) for x in r['resources']]}; "
+        f"{a['filters']} filters ({a['shared_filters']} shared) subscribed "
+        f"over TCP by 16 MySQL logins, setup {a['setup_s']:.1f} s, warm-up "
+        f"{a['warm_up_s']:.1f} s")
+    log(f"phase 19a: {f['sent']} PUBLISHes from {a['publishers']} TCP "
+        f"publishers logged in by PostgreSQL (every 4th QoS 1) and "
+        f"{len(f['forbidden_rcs'])} denied QoS 1 PUBLISHes, the Redis and "
+        f"PostgreSQL ACL and r_up in force: {f['per_sec']} msgs/s, every "
+        f"allowed message once and in order; client p50 "
+        f"{f['lat_p50_ms']:.1f} / p99 {f['lat_p99_ms']:.1f} ms; device "
+        f"share {f['device_share']:.4f} over {f['windows']} windows "
+        f"({f['batches']} batches); {card}")
+    if f18a is not None:
+        log(f"phase 19a: beside phase 18a in this run: {f18a['per_sec']} "
+            f"msgs/s, batch_form {f18a['batch_form']}")
+    log(f"phase 19a: batch_form p50 / p99 {f['batch_form']['p50_us']} / "
+        f"{f['batch_form']['p99_us']} us over {f['batch_form']['count']} "
+        f"batches; r_up {a['r_up']}; the remote got {a['remote_got']} "
+        f"({a['remote_distinct']} distinct ids; the known answer "
+        f"{f['q1_sent']}); denied PUBLISHes' PUBACKs {dict(a['forbidden'])}")
+    log(f"phase 19a: launches {f['launches']}; a window: shape_match "
+        f"{_shape_rates(f['fold_shapes'], f['windows'])}, prefix_sum "
+        f"{_shape_rates(f['scan_shapes'], f['windows'])}; two engine "
+        f"windows == plain path (max |diff| {a['window_err']})")
+    log(f"phase 19a: counters over the flood {a['counters']}")
+    log(f"phase 19b: the bridge forwarded {DB_BRIDGE_UP} in "
+        f"{b['up_s']:.2f} s, queued {b['queued_in_outage']} with the "
+        f"remote's listener down (the remote held {b['remote_during_outage']}"
+        f"), replayed in {b['replay_s']:.2f} s: the remote got "
+        f"{b['remote_got']}, once and in publish order {b['in_order_once']}; "
+        f"{b['device_routed']} routed by the device, launches "
+        f"{b['launches']}; ingress {b['ingress']} of {DB_BRIDGE_IN} under "
+        f"from-cloud/")
+    log(f"phase 19c: CONNACKs {c['connacks']}; after stop_listeners "
+        f"{c['resources_after_stop']} resources, connections (opened, "
+        f"closed) {c['connections']}")
+    log(f"phase 19: database queries {r['queries']['got']} (the known "
+        f"answers {r['queries']['want']}; CONNECTs by database "
+        f"{r['queries']['connects']}, authz cache misses "
+        f"{r['queries']['authz_misses']})")
+    log(f"phase 19: counters over the phase {r['counters']}")
+    r["seconds"] = time.time() - t0
+    log(f"phase 19: {r['seconds']:.1f} s; {card}")
+    return r
+
+
+def db_main() -> int:
+    """``--db``: build the kernels and run phase 19 alone on a card, then
+    print its results as one JSON line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from emqx_tpu_torch import native
+    from emqx_tpu_torch.ops.build import build
+    card = card_line()
+    log(build().strip())
+    if not native.available():
+        raise AssertionError("the host native library did not build")
+    r = db_phase(torch.device("cuda"), card)
+    log(json.dumps({"db": _boot_out(r)}))
+    log(card)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7819,19 +8408,22 @@ def main() -> int:
     wall("17")
     secure = secure_phase(dev, card, boot["a"]["flood"], apps["a"]["flood"])
     wall("18")
+    db = db_phase(dev, card, secure["a"]["flood"])
+    torch.cuda.empty_cache()
+    wall("19")
     timed = {tuple(d["shape"]) for d in scan_shapes + mesh_scan_shapes}
-    layer_scan_shapes = []
+    groups = []           # (where, {shape: launches a window}), new shapes
     for cell, n in (("skew", "windows"), ("churn", "batches")):
         c = layers[cell]
         new = {shape: cnt / c[n] for shape, cnt in c["scan_shapes"].items()
                if shape not in timed}
         timed |= set(new)
-        layer_scan_shapes += time_scan_shapes_apart(new, f"layers {cell}")
+        groups.append((f"layers {cell}", new))
     for n, c in cover.items():
         new = {shape: cnt for shape, cnt in c["A"]["scan_shapes"].items()
                if shape not in timed}
         timed |= set(new)
-        layer_scan_shapes += time_scan_shapes_apart(new, f"cover {n} A")
+        groups.append((f"cover {n} A", new))
     for where, runs, n in (("ingress", ingress, "device_windows"),
                            ("overload", overload, None)):
         new = {}
@@ -7842,25 +8434,27 @@ def main() -> int:
                     new[tuple(shape)] = max(new.get(tuple(shape), 0),
                                             cnt / max(1, wins))
         timed |= set(new)
-        layer_scan_shapes += time_scan_shapes_apart(new, where)
+        groups.append((where, new))
     # phase 14b: the mesh node's window shapes, launches a window
     wins = max(1, mesh_node["b"]["flood"]["batches"])
     new = {tuple(shape): cnt / wins
            for shape, cnt in mesh_node["b"]["scan_shapes"].items()
            if tuple(shape) not in timed}
     timed |= set(new)
-    layer_scan_shapes += time_scan_shapes_apart(new, "mesh node")
-    # phases 15, 16 and 18: the booted nodes' and the dense node's window
-    # shapes
+    groups.append(("mesh node", new))
+    # phases 15, 16, 18 and 19: the booted nodes' and the dense node's
+    # window shapes
     new = {}
     for f in (boot["a"]["flood"], boot["c"]["csr"], boot["c"]["dense"],
-              apps["a"]["flood"], apps["b"], secure["a"]["flood"]):
+              apps["a"]["flood"], apps["b"], secure["a"]["flood"],
+              db["a"]["flood"]):
         for shape, cnt in f["scan_shapes"].items():
             if tuple(shape) not in timed:
                 new[tuple(shape)] = max(new.get(tuple(shape), 0),
                                         cnt / max(1, f["windows"]))
     timed |= set(new)
-    layer_scan_shapes += time_scan_shapes_apart(new, "boot")
+    groups.append(("boot", new))
+    layer_scan_shapes = time_scan_shapes_apart(groups)
     layers_err = max(layers["churn"]["hold_skew_err"],
                      layers["churn"]["hold_err"],
                      *(c["hold_err"] for c in cover.values()),
@@ -7924,13 +8518,17 @@ def main() -> int:
             cluster["d"]["standalone"]["launches"][name]
         # phase 18: the secured node's flood (18a)
         out["secure 18a"] = secure["a"]["flood"]["launches"][name]
+        # phase 19: the database-backed node's flood (19a) and the
+        # bridge's forwards (19b)
+        out["db 19a"] = db["a"]["flood"]["launches"][name]
+        out["db 19b"] = db["b"]["launches"][name]
         return out
 
     def per_window(name):
-        """Phases 15-18's launches a window: 15a and 15c's floods and
+        """Phases 15-19's launches a window: 15a and 15c's floods and
         mesh drives, 16a's flood and 16b's retained stream, each 17a
-        node's dispatches, 17d's clustered mesh windows and 18a's
-        flood."""
+        node's dispatches, 17d's clustered mesh windows, 18a's and 19a's
+        floods."""
         out = {"boot 15a": boot["a"]["flood"]}
         for mode in ("csr", "dense"):
             out[f"boot 15c {mode}"] = boot["c"][mode]
@@ -7938,6 +8536,7 @@ def main() -> int:
         out["apps 16a"] = apps["a"]["flood"]
         out["apps 16b"] = apps["b"]
         out["secure 18a"] = secure["a"]["flood"]
+        out["db 19a"] = db["a"]["flood"]
         per = {k: round(f["launches"][name] / max(1, f["windows"]), 3)
                for k, f in out.items()}
         for p in cluster["a"]["nodes"]:
@@ -7957,7 +8556,8 @@ def main() -> int:
          "launches_per_window_boot": per_window("shape_match"),
          "max_abs_err": max(err_fold, e2e["window_err"], layers_err,
                             e2e["chaos"]["held_err"],
-                            secure["a"]["window_err"]),
+                            secure["a"]["window_err"],
+                            db["a"]["window_err"]),
          **{k: sm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")}},
         {"name": "prefix_sum", "route": "cuda",
@@ -7968,7 +8568,8 @@ def main() -> int:
          "launches_per_window_boot": per_window("prefix_sum"),
          "max_abs_err": max(err_scan, e2e["window_err"], layers_err,
                             e2e["chaos"]["held_err"], mesh_node["err"],
-                            secure["a"]["window_err"]),
+                            secure["a"]["window_err"],
+                            db["a"]["window_err"]),
          **{k: ps[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms")},
          "shapes": scan_shapes + mesh_scan_shapes + layer_scan_shapes},
@@ -7999,7 +8600,7 @@ def main() -> int:
                     "capture": mesh_node["capture"],
                     "boot": _boot_out(boot), "apps": _boot_out(apps),
                     "cluster": _boot_out(cluster),
-                    "secure": _boot_out(secure)}))
+                    "secure": _boot_out(secure), "db": _boot_out(db)}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -8039,15 +8640,16 @@ def boot_main() -> int:
 
 
 def scan_shapes_main(arg: str) -> int:
-    """``--scan-shapes``: time_scan_shapes at the given shapes on a card,
-    the per-shape lines and then one JSON line of the results."""
+    """``--scan-shapes``: time_scan_shapes at each group's shapes on a
+    card, the per-shape lines and then one JSON line of the results."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    a = json.loads(arg)
-    shapes = {tuple(k): v for k, v in a["shapes"]}
-    out = time_scan_shapes(torch.device("cuda"), shapes, a["where"])
+    out = []
+    for g in json.loads(arg)["groups"]:
+        shapes = {tuple(k): v for k, v in g["shapes"]}
+        out += time_scan_shapes(torch.device("cuda"), shapes, g["where"])
     print(json.dumps(out), flush=True)
     return 0
 
@@ -8071,4 +8673,6 @@ if __name__ == "__main__":
         sys.exit(cluster_main())
     if len(sys.argv) == 2 and sys.argv[1] == "--secure":
         sys.exit(secure_main())
+    if len(sys.argv) == 2 and sys.argv[1] == "--db":
+        sys.exit(db_main())
     sys.exit(main())

@@ -24,6 +24,8 @@ Config surface (all optional; nothing configured = nothing booted):
       { mechanism = jwt, secret = "..." }
       { mechanism = scram, algorithm = sha256 }
       { mechanism = password_based, backend = http, url = "..." }
+      { mechanism = password_based, backend = mysql,
+        server = "127.0.0.1:3306", database = mqtt, query = "SELECT ..." }
     ]
   }
   authz {
@@ -32,14 +34,21 @@ Config surface (all optional; nothing configured = nothing booted):
       { type = file, rules = [ { permit=allow, who=all, action=all } ] }
       { type = client_acl }
       { type = http, url = "..." }
+      { type = mysql, server = ..., query = "SELECT ..." }
     ]
   }
 
-The database arms (an authn ``backend`` of ldap, mysql, postgresql,
-mongodb or redis; an authz ``type`` of mysql, postgresql, redis or
-mongodb) and exhook (``exhook.servers``) are ROADMAP.md Queue A item
-20(d): a file that asks for one raises ``ValueError`` naming it before
-anything boots, so a node never starts without a layer its file asks for.
+A database arm (an authn ``backend`` of mysql, postgresql, mongodb or
+redis; an authz ``type`` of mysql, postgresql, redis or mongodb) creates
+its resource on ``node.resources`` (``resources/db.py``) as the reference
+does, defects included: a ``mongodb`` arm asks for the resource type
+``mongodb``, which nothing registers, so its boot raises; a ``redis``
+authn backend builds the PostgreSQL authenticator over the Redis
+resource, whose queries then fail and answer ``ignore``. An unreachable
+server leaves its resource ``disconnected`` and boots all the same.
+Exhook (``exhook.servers``) is ROADMAP.md Queue A item 20(d): a file that
+asks for it raises ``ValueError`` naming it before anything boots, so a
+node never starts without a layer its file asks for.
 """
 
 from __future__ import annotations
@@ -49,50 +58,45 @@ from typing import Any
 
 from emqx_tpu_torch.apps.authn import (AuthnChain, BuiltinDB,
                                        HTTPAuthenticator, JWTAuthenticator)
-from emqx_tpu_torch.apps.authn_db import ScramAuthenticator
+from emqx_tpu_torch.apps.authn_db import (LdapAuthenticator,
+                                          MongoAuthenticator,
+                                          MysqlAuthenticator,
+                                          PgsqlAuthenticator,
+                                          ScramAuthenticator)
 from emqx_tpu_torch.apps.authz import (Authz, ClientAclSource, FileSource,
                                        HTTPSource)
+from emqx_tpu_torch.apps.authz_db import (MongoSource, MysqlSource,
+                                          PgsqlSource, RedisSource)
 from emqx_tpu_torch.apps.delayed import DelayedPublish
 from emqx_tpu_torch.apps.event_message import EventMessage
 from emqx_tpu_torch.apps.retainer import Retainer
 from emqx_tpu_torch.apps.rewrite import TopicRewrite
 from emqx_tpu_torch.apps.topic_metrics import TopicMetrics
 from emqx_tpu_torch.broker.banned import FlappingDetect
+from emqx_tpu_torch.resources import db as _db  # noqa: F401 — DB types
+from emqx_tpu_torch.resources.resource import ResourceManager
 from emqx_tpu_torch.rules import RuleEngine
 from emqx_tpu_torch.utils.hocon import loads
-
-AUTHN_DB_BACKENDS = ("ldap", "mysql", "postgresql", "mongodb", "redis")
-AUTHZ_DB_TYPES = ("mysql", "postgresql", "redis", "mongodb")
-
-
-def _not_ported(block: str, what: str) -> ValueError:
-    return ValueError(
-        f"{block}: {what} is not part of emqx_tpu_torch yet (ROADMAP.md "
-        f"Queue A item 20(d))")
 
 
 def _refuse_missing_layers(cfg) -> None:
     """Raise for a block that asks for a layer the port does not have,
-    under exactly the triggers that boot it in the reference."""
-    ac = cfg.get("authn") or {}
-    if ac.get("enable", False):
-        for i, a in enumerate(ac.get("chain") or []):
-            backend = a.get("backend", "built_in_database")
-            if a.get("mechanism", "password_based") == "password_based" \
-                    and backend in AUTHN_DB_BACKENDS:
-                raise _not_ported(f"authn authenticator #{i}",
-                                  f"the {backend} backend")
-    az = cfg.get("authz") or {}
-    if az.get("sources") or az.get("no_match") == "deny":
-        for i, s in enumerate(az.get("sources") or []):
-            if s.get("type", "file") in AUTHZ_DB_TYPES:
-                raise _not_ported(f"authz source #{i}",
-                                  f"the {s['type']} source")
+    under exactly the trigger that boots it in the reference."""
     if (cfg.get("exhook") or {}).get("servers"):
-        raise _not_ported("exhook", "exhook")
+        raise ValueError(
+            "exhook: exhook is not part of emqx_tpu_torch yet (ROADMAP.md "
+            "Queue A item 20(d))")
 
 
-def _build_authenticator(i: int, a: dict) -> Any:
+async def _db_resource(node, rid: str, rtype: str, conf: dict):
+    """DB-backed authn/authz arms share the typed resource pool."""
+    mgr = getattr(node, "resources", None)
+    if mgr is None:
+        mgr = ResourceManager(node)   # registers itself as node.resources
+    return await mgr.create(rid, rtype, conf)
+
+
+async def _build_authenticator(node, i: int, a: dict) -> Any:
     mech = a.get("mechanism", "password_based")
     if mech == "jwt":
         return JWTAuthenticator(
@@ -117,11 +121,34 @@ def _build_authenticator(i: int, a: dict) -> Any:
             url=a["url"], method=a.get("method", "post"),
             body=a.get("body"), headers=a.get("headers"),
             timeout=float(a.get("timeout", 5)))
+    if backend == "ldap":
+        host, _, port = str(a.get("server", "127.0.0.1:389")).partition(":")
+        return LdapAuthenticator(
+            host=host, port=int(port or 389),
+            base_dn=a.get("base_dn", ""),
+            filter_tmpl=a.get("filter", "(uid=${mqtt-username})"),
+            bind_dn=a.get("bind_dn"),
+            bind_password=a.get("bind_password", ""))
+    if backend in ("mysql", "postgresql", "mongodb", "redis"):
+        rtype = {"postgresql": "pgsql"}.get(backend, backend)
+        res = await _db_resource(node, f"authn_{i}_{backend}", rtype,
+                                 dict(a))
+        if backend == "mongodb":
+            return MongoAuthenticator(
+                res, collection=a.get("collection", "mqtt_user"),
+                selector=a.get("selector"),
+                algorithm=a.get("algorithm", "sha256"),
+                salt_position=a.get("salt_position", "prefix"))
+        cls = (MysqlAuthenticator if backend == "mysql"
+               else PgsqlAuthenticator)
+        return cls(res, query=a["query"],
+                   algorithm=a.get("algorithm", "sha256"),
+                   salt_position=a.get("salt_position", "prefix"))
     raise ValueError(f"authn authenticator #{i}: unknown backend "
                      f"{backend!r}")
 
 
-def _build_authz_source(i: int, s: dict) -> Any:
+async def _build_authz_source(node, i: int, s: dict) -> Any:
     stype = s.get("type", "file")
     if stype == "file":
         rules = s.get("rules")
@@ -137,6 +164,17 @@ def _build_authz_source(i: int, s: dict) -> Any:
         return HTTPSource(url=s["url"], method=s.get("method", "post"),
                           body=s.get("body"), headers=s.get("headers"),
                           timeout=float(s.get("timeout", 5)))
+    if stype in ("mysql", "postgresql", "redis", "mongodb"):
+        rtype = {"postgresql": "pgsql"}.get(stype, stype)
+        res = await _db_resource(node, f"authz_{i}_{stype}", rtype, dict(s))
+        if stype == "redis":
+            return RedisSource(res, cmd=s.get("cmd", "HGETALL mqtt_acl:%u"))
+        if stype == "mongodb":
+            return MongoSource(res,
+                               collection=s.get("collection", "mqtt_acl"),
+                               selector=s.get("selector"))
+        cls = MysqlSource if stype == "mysql" else PgsqlSource
+        return cls(res, query=s["query"])
     raise ValueError(f"authz source #{i}: unknown type {stype!r}")
 
 
@@ -179,14 +217,14 @@ async def start_apps(node) -> list:
 
     ac = cfg.get("authn") or {}
     if ac.get("enable", False):
-        auths = [_build_authenticator(i, a)
+        auths = [await _build_authenticator(node, i, a)
                  for i, a in enumerate(ac.get("chain") or [])]
         started.append(node.register_app(
             AuthnChain(node, auths, enable=True).load()))
 
     az = cfg.get("authz") or {}
     if az.get("sources") or az.get("no_match") == "deny":
-        sources = [_build_authz_source(i, s)
+        sources = [await _build_authz_source(node, i, s)
                    for i, s in enumerate(az.get("sources") or [])]
         started.append(node.register_app(
             Authz(node, sources,

@@ -299,6 +299,9 @@ class DeliveryView:
             "timestamp": self.ts, "retain": self.retain,
         }
 
+    def to_wire(self) -> dict:
+        return self.copy().to_wire()
+
     def __repr__(self):
         return (f"DeliveryView(topic={self.topic!r}, qos={self.qos}, "
                 f"from_={self.from_!r})")

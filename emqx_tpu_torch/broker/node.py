@@ -358,6 +358,13 @@ class Node:
         if self.dashboard_server is not None:
             await self.dashboard_server.stop()
             self.dashboard_server = None
+        # resources created by the config boot (DB-backed authn/authz):
+        # close their pools + health loop or their sockets outlive the node
+        mgr = getattr(self, "resources", None)
+        if mgr is not None:
+            mgr.stop_health_checks()
+            for rid in list(mgr.instances):
+                await mgr.remove(rid)
 
     # ---- periodic housekeeping (node.py:403-440) ----
     def sweep(self) -> None:

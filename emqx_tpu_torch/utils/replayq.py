@@ -2,7 +2,12 @@
 
 A copy of ``emqx_tpu/utils/replayq.py`` (the port imports nothing from
 ``emqx_tpu``): the same segment files, so a queue written by either
-package reads in the other.
+package reads in the other. One departure: a pop that reaches the end of
+the segment being written keeps its place in that segment, where the
+reference's moves to the next one, so that an ack deleted the segment
+with every item appended to it after the pop (the MQTT bridge appends
+while it drains: those forwards were lost and the queue's count never
+reached 0 again).
 
 Parity: the replayq dep used by emqx_bridge_mqtt
 (emqx_bridge_worker.erl:142-143,211-217) — messages appended to segment
@@ -141,9 +146,12 @@ class ReplayQ:
             take = seg_items[off:off + (n - len(items))]
             items.extend(take)
             off += len(take)
-            if off >= len(seg_items):
-                seg += 1
-                off = 0
+            if off < len(seg_items) or seg == self._wseg:
+                # the write segment keeps its reader offset: an item
+                # appended between this pop and its ack lands after it
+                break
+            seg += 1
+            off = 0
         if not items:
             return [], None
         return items, (seg, off, len(items))

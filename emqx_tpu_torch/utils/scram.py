@@ -11,10 +11,9 @@ Credential storage is the standard server-side tuple
 (stored_key, server_key, salt, iteration_count) — the plaintext password
 never persists, matching the scram_user_credentail record.
 
-The port's copy of ``emqx_tpu/utils/scram.py``. Its one consumer in the
-port so far is the MQTT5 enhanced-auth authenticator
-(``apps/authn_db.ScramAuthenticator``); the database connectors that also
-use it in the reference are not ported yet.
+The port's copy of ``emqx_tpu/utils/scram.py``, with the same three
+consumers there (``apps/authn_db.ScramAuthenticator``,
+``connectors/pgsql.py``, ``connectors/mongo.py``).
 """
 
 from __future__ import annotations

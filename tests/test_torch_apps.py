@@ -8,8 +8,8 @@ journal written by one package and read by the other, retain handling
 over TCP), delayed publish under a scripted clock, the rewrite rules,
 topic metrics, event messages, flapping bans, the overload governor's
 ``defer_retained`` parking and drain, the boot from a config file (the
-rule engine and the access-control chains included, and the port's
-refusals of the layers it does not have yet), and a flood
+rule engine, the access-control chains and their database arms
+included, and the port's refusal of exhook), and a flood
 through booted nodes with the apps on, with the delivery lanes and with
 the inline loop. Inputs are the reference's ``tests/test_apps_modules.py``
 and the app cases of ``tests/test_persistence_apps.py``.
@@ -814,24 +814,14 @@ def test_start_apps_boots_access_control_and_rules(case):
 REFUSED = {
     "exhook_servers": {"exhook": {"servers": [
         {"name": "s1", "url": "http://127.0.0.1:9"}]}},
-    **{f"authn_{b}": {"authn": {"enable": True, "chain": [
-        {"mechanism": "password_based", "backend": "built_in_database"},
-        {"mechanism": "password_based", "backend": b,
-         "server": "127.0.0.1:9", "query": "SELECT 1"}]}}
-       for b in ("ldap", "mysql", "postgresql", "mongodb", "redis")},
-    **{f"authz_{t}": {"authz": {"sources": [
-        {"type": "client_acl"},
-        {"type": t, "server": "127.0.0.1:9", "query": "SELECT 1"}]}}
-       for t in ("mysql", "postgresql", "redis", "mongodb")},
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_start_apps_refuses_what_the_port_lacks(case):
-    """Each block that boots a layer of item 20(d) the port does not have
-    yet (exhook, the database arms of authn and authz) raises in the port
-    and boots nothing, not even the apps before it; the reference would
-    dial a server for each."""
+    """A block that boots a layer of item 20(d) the port does not have
+    yet (exhook) raises in the port and boots nothing, not even the apps
+    before it; the reference would dial its server."""
     conf = dict(REFUSED[case], rule_engine={"enable": True},
                 retainer={"enable": True})
     node = PORT.node(conf)
@@ -840,6 +830,72 @@ def test_start_apps_refuses_what_the_port_lacks(case):
     assert node._apps == [] and not node.hooks.lookup("message.publish")
     assert getattr(node, "rule_engine", None) is None
     assert not node.hooks.lookup("client.authenticate")
+
+
+DB_ARMS = {
+    **{f"authn_{b}": ("authn", b) for b in (
+        "ldap", "mysql", "postgresql", "mongodb", "redis")},
+    **{f"authz_{t}": ("authz", t) for t in (
+        "mysql", "postgresql", "redis", "mongodb")},
+}
+
+
+def _db_arm_conf(block: str, kind: str, port: int) -> dict:
+    arm = {"server": f"127.0.0.1:{port}", "host": "127.0.0.1",
+           "port": port, "query": "SELECT 1"}
+    if block == "authn":
+        return {"authn": {"enable": True, "chain": [
+            {"mechanism": "password_based", "backend": "built_in_database"},
+            dict(arm, mechanism="password_based", backend=kind)]}}
+    return {"authz": {"sources": [{"type": "client_acl"},
+                                  dict(arm, type=kind)]}}
+
+
+@pytest.mark.parametrize("case", sorted(DB_ARMS))
+def test_start_apps_boots_the_db_arms_alike(case):
+    """Each database arm of authn and authz boots in both packages
+    against a fake server of its kind (``tests/test_torch_fake_db.py``;
+    none for ``mongodb``): the same apps, the same hooks, the same
+    authenticator or source classes and the same resources on
+    ``node.resources``, or for ``mongodb`` the same ``ValueError`` after
+    the same apps. ``stop_listeners`` removes every resource and the
+    server sees every connection closed."""
+    from tests import test_torch_fake_db as fakes
+    block, kind = DB_ARMS[case]
+    make = {"ldap": fakes.FakeLdap, "mysql": fakes.FakeMysql,
+            "postgresql": lambda: fakes.FakePgsql(auth="trust"),
+            "redis": fakes.FakeRedis, "mongodb": fakes.FakeMongo}[kind]
+
+    async def go(pkg):
+        srv = await make().start()
+        conf = dict(_db_arm_conf(block, kind, srv.port),
+                    rule_engine={"enable": True}, retainer={"enable": True})
+        node = pkg.node(conf)
+        try:
+            apps = await node.start_apps()
+            booted = [type(a).__name__ for a in apps]
+        except ValueError as e:
+            booted = ("ValueError", str(e))
+        hooks = {h: [cb.tag for cb in node.hooks.lookup(h)] for h in (
+            "message.publish", "client.authenticate", "client.authorize")}
+        arms = [[type(x).__name__ for x in
+                 getattr(a, "authenticators", getattr(a, "sources", []))]
+                for a in node._apps]
+        mgr = getattr(node, "resources", None)
+        res = mgr and mgr.list()
+        await node.stop_listeners()
+        left = mgr and dict(mgr.instances)
+        await fakes._closed(srv)
+        await srv.stop()
+        return (booted, [type(a).__name__ for a in node._apps], hooks, arms,
+                res, left, srv.opened == srv.closed)
+    want, got = both(lambda pkg: run(go(pkg)))
+    assert got == want
+    if kind == "mongodb":
+        assert got[0] == ("ValueError", "unknown resource type mongodb")
+    else:
+        assert got[0][-1] == ("AuthnChain" if block == "authn" else "Authz")
+    assert not got[5] and got[6]
 
 
 def test_shipped_file_boots_apps_and_no_gateway(tmp_path):

@@ -18,6 +18,7 @@ import logging
 import os
 import shutil
 import ssl
+import time
 import types
 
 import pytest
@@ -534,21 +535,43 @@ def test_ws_connection_keeps_its_timer_with_congestion_on():
     from emqx_tpu_torch.broker.ws import WsListener as TWs
     conf = {"conn_congestion": {"enable_alarm": True}}
 
-    async def go(node, cls):
+    async def go(node, cls, done):
         lst = cls(node, bind="127.0.0.1", port=0)
         await lst.start()
         cl = Client(conn_factory=lambda: open_ws_connection(
             "127.0.0.1", lst.port), clientid="w")
         try:
             await cl.connect()
-            await asyncio.sleep(1.3)
+            # a bounded wait for the first congestion check (1 s timer),
+            # not a fixed sleep that a loaded host can outrun
+            t_end = time.monotonic() + 10.0
+            while not done(node) and time.monotonic() < t_end:
+                await asyncio.sleep(0.05)
             return node.metrics.val("supervise.task_errors")
         finally:
             await cl.disconnect()
             await lst.stop()
-    assert run(go(JNode(conf, use_device=False), JWs)) == 1
-    assert run(go(TNode(dict(conf, broker={"device_route": False}),
-                        device="cpu"), TWs)) == 0
+
+    def ref_done(node):         # the reference's timer task died
+        return node.metrics.val("supervise.task_errors") >= 1
+
+    checks = []
+    orig = tcongestion.Congestion.check
+
+    def counted(self, *a, **kw):
+        checks.append(1)
+        return orig(self, *a, **kw)
+
+    def port_done(node):        # the port's timer ran a congestion check
+        return len(checks) >= 1
+    assert run(go(JNode(conf, use_device=False), JWs, ref_done)) == 1
+    tcongestion.Congestion.check = counted
+    try:
+        assert run(go(TNode(dict(conf, broker={"device_route": False}),
+                            device="cpu"), TWs, port_done)) == 0
+    finally:
+        tcongestion.Congestion.check = orig
+    assert checks
 
 
 def test_logger_handler_count_fixed(tmp_path, certs):

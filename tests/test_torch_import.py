@@ -1,5 +1,6 @@
-"""The port stands alone: every emqx_tpu_torch module (and chip_smoke.py)
-imports with jax and emqx_tpu made unimportable, and the entry points
+"""The port stands alone: every emqx_tpu_torch module (and chip_smoke.py,
+and the fake database servers it boots) imports with jax and emqx_tpu
+made unimportable, and the entry points
 refuse to run without CUDA unless the caller asks for the CPU."""
 
 import os
@@ -71,6 +72,13 @@ MODULES = [
     "emqx_tpu_torch.rules.sqlparser", "emqx_tpu_torch.rules.runtime",
     "emqx_tpu_torch.rules.events", "emqx_tpu_torch.rules.metrics",
     "emqx_tpu_torch.rules.actions", "emqx_tpu_torch.rules.registry",
+    "emqx_tpu_torch.utils.bson", "emqx_tpu_torch.connectors",
+    "emqx_tpu_torch.connectors.pool", "emqx_tpu_torch.connectors.redis",
+    "emqx_tpu_torch.connectors.mysql", "emqx_tpu_torch.connectors.pgsql",
+    "emqx_tpu_torch.connectors.mongo", "emqx_tpu_torch.connectors.ldap",
+    "emqx_tpu_torch.resources", "emqx_tpu_torch.resources.resource",
+    "emqx_tpu_torch.resources.db", "emqx_tpu_torch.resources.bridge_mqtt",
+    "emqx_tpu_torch.apps.authz_db", "tests.test_torch_fake_db",
     "chip_smoke",
 ]
 
