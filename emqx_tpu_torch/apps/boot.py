@@ -13,6 +13,7 @@ Config surface (all optional; nothing configured = nothing booted):
   delayed  { enable = true }
   rewrite = [ { action = publish, source = "x/#", re = "...", dest = "y/#" } ]
   rule_engine { rules = [ { id = r1, sql = "SELECT ...", actions = [...] } ] }
+  exhook   { servers = [ { name = s1, url = "http://..." } ] }
   event_message { client_connected = true, ... }
   topic_metrics = [ "t/#" ]
   flapping_detect { enable = true, max_count = 15, ... }
@@ -46,9 +47,9 @@ does, defects included: a ``mongodb`` arm asks for the resource type
 authn backend builds the PostgreSQL authenticator over the Redis
 resource, whose queries then fail and answer ``ignore``. An unreachable
 server leaves its resource ``disconnected`` and boots all the same.
-Exhook (``exhook.servers``) is ROADMAP.md Queue A item 20(d): a file that
-asks for it raises ``ValueError`` naming it before anything boots, so a
-node never starts without a layer its file asks for.
+An ``exhook`` block with ``servers`` loads ``apps/exhook.Exhook``, which
+handshakes with every server before the node serves; that module needs
+``grpc`` and is imported only when the block asks for it.
 """
 
 from __future__ import annotations
@@ -77,15 +78,6 @@ from emqx_tpu_torch.resources import db as _db  # noqa: F401 — DB types
 from emqx_tpu_torch.resources.resource import ResourceManager
 from emqx_tpu_torch.rules import RuleEngine
 from emqx_tpu_torch.utils.hocon import loads
-
-
-def _refuse_missing_layers(cfg) -> None:
-    """Raise for a block that asks for a layer the port does not have,
-    under exactly the trigger that boots it in the reference."""
-    if (cfg.get("exhook") or {}).get("servers"):
-        raise ValueError(
-            "exhook: exhook is not part of emqx_tpu_torch yet (ROADMAP.md "
-            "Queue A item 20(d))")
 
 
 async def _db_resource(node, rid: str, rtype: str, conf: dict):
@@ -182,7 +174,6 @@ async def start_apps(node) -> list:
     """Boot every feature app the node's config declares; returns the
     started instances (also registered on the node)."""
     cfg = node.config
-    _refuse_missing_layers(cfg)
     started: list = []
 
     if (cfg.get("retainer") or {}).get("enable", False):
@@ -231,5 +222,14 @@ async def start_apps(node) -> list:
                   no_match=az.get("no_match", "allow"),
                   cache_enable=az.get("cache", {}).get(
                       "enable", True)).load()))
+
+    ex = cfg.get("exhook") or {}
+    if ex.get("servers"):
+        # grpc is imported with the block that needs it, never at the
+        # top: a host without grpc still boots every other app
+        from emqx_tpu_torch.apps.exhook import Exhook
+        exh = Exhook(node)
+        await exh.load()
+        started.append(node.register_app(exh))
 
     return started

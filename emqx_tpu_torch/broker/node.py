@@ -30,8 +30,11 @@ it on top) and ``start_listeners`` starts every listener under ``listeners``:
 default, rewrite, topic metrics, event messages and flapping detection)
 and ``start_dashboard`` the ``/api/v5`` REST surface with the web UI
 (``dashboard.listeners.http``); ``sweep`` ticks every registered app
-after the governor's poll. Gateways and the QUIC listener are ROADMAP.md
-Queue A item 20(d): a file that enables one raises.
+after the governor's poll. ``start_gateways`` boots each enabled block
+of the ``gateway`` section (``gateway/registry.GatewayRegistry``: stomp,
+mqttsn, coap, lwm2m, and exproto where ``grpc`` imports) and
+``stop_listeners`` stops them with the listeners. The QUIC listener is
+ROADMAP.md Queue A item 20(d): a file that enables one raises.
 
 Config keys read under ``broker.``, with the reference's names and
 defaults: ``batch_window_us`` (200), ``max_publish_batch`` (1024),
@@ -341,20 +344,32 @@ class Node:
         return await start_apps(self)
 
     async def start_gateways(self) -> list:
-        """Protocol gateways (the reference boots each enabled block of
-        the ``gateway`` section) are ROADMAP.md Queue A item 20(d): none
-        without an enabled block, and an enabled one raises."""
+        """Boot protocol gateways from the ``gateway`` config section
+        (emqx_gateway.erl loads gateway.stomp/mqttsn/coap/lwm2m/exproto
+        blocks the same way). Each block: enable (default true) + the
+        gateway's own options (bind/port/...)."""
+        from emqx_tpu_torch.gateway.registry import GatewayRegistry
+        reg = getattr(self, "gateway_registry", None)
+        if reg is None:
+            reg = GatewayRegistry.with_builtins(self)
+        started = []
         for name, conf in (self.config.get("gateway") or {}).items():
-            if isinstance(conf, dict) and conf.get("enable") is not False:
-                raise ValueError(
-                    f"gateway {name!r}: protocol gateways are not part of "
-                    f"emqx_tpu_torch yet (ROADMAP.md Queue A item 20(d))")
-        return []
+            if not isinstance(conf, dict) or conf.get("enable") is False:
+                continue
+            started.append(await reg.load(name, conf))
+        return started
+
+    async def stop_gateways(self) -> None:
+        reg = getattr(self, "gateway_registry", None)
+        if reg is not None:
+            for name in list(reg._instances):
+                await reg.unload(name)
 
     async def stop_listeners(self) -> None:
         for lst in self.listeners:
             await lst.stop()
         self.listeners.clear()
+        await self.stop_gateways()
         if self.dashboard_server is not None:
             await self.dashboard_server.stop()
             self.dashboard_server = None

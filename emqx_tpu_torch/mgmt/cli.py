@@ -5,9 +5,8 @@ status, broker [stats|metrics], cluster join/leave/force-leave/status,
 clients list/show/kick, routes list/show, subscriptions
 list/show/add/del, plugins, vm, listeners, mgmt (API apps), banned, rules,
 trace. Commands are async; output is returned as text (and printed by the
-`emqx_ctl` entry point). The port's copy of ``emqx_tpu/mgmt/cli.py``:
-``plugins`` lists none (ROADMAP.md Queue A item 20(d)); ``trace device``
-drives the engine's torch.profiler trace of the card.
+`emqx_ctl` entry point). The port's copy of ``emqx_tpu/mgmt/cli.py``;
+``trace device`` drives the engine's torch.profiler trace of the card.
 """
 
 from __future__ import annotations
@@ -212,7 +211,12 @@ class Cli:
         raise _Usage()
 
     async def _plugins(self, _args) -> str:
-        return "(none)"
+        plugins = getattr(self.node, "plugins", None)
+        if plugins is None:
+            return "(none)"
+        return "\n".join(
+            f"Plugin({p['name']}, enabled={p['enabled']})"
+            for p in plugins.list()) or "(none)"
 
     async def _listeners(self, _args) -> str:
         out = []

@@ -9,7 +9,8 @@ over TCP), delayed publish under a scripted clock, the rewrite rules,
 topic metrics, event messages, flapping bans, the overload governor's
 ``defer_retained`` parking and drain, the boot from a config file (the
 rule engine, the access-control chains and their database arms
-included, and the port's refusal of exhook), and a flood
+included, exhook against an in-process provider, and the gateway
+section), and a flood
 through booted nodes with the apps on, with the delivery lanes and with
 the inline loop. Inputs are the reference's ``tests/test_apps_modules.py``
 and the app cases of ``tests/test_persistence_apps.py``.
@@ -813,23 +814,49 @@ def test_start_apps_boots_access_control_and_rules(case):
 
 REFUSED = {
     "exhook_servers": {"exhook": {"servers": [
-        {"name": "s1", "url": "http://127.0.0.1:9"}]}},
+        {"name": "s1", "url": "http://127.0.0.1:{port}",
+         "failed_action": "ignore"}]}},
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_start_apps_refuses_what_the_port_lacks(case):
-    """A block that boots a layer of item 20(d) the port does not have
-    yet (exhook) raises in the port and boots nothing, not even the apps
-    before it; the reference would dial its server."""
-    conf = dict(REFUSED[case], rule_engine={"enable": True},
-                retainer={"enable": True})
-    node = PORT.node(conf)
-    with pytest.raises(ValueError, match=r"20\(d\)"):
-        run(node.start_apps())
-    assert node._apps == [] and not node.hooks.lookup("message.publish")
-    assert getattr(node, "rule_engine", None) is None
-    assert not node.hooks.lookup("client.authenticate")
+    """The block the port refused before it had exhook (``exhook.servers``)
+    now boots alike: against an in-process HookProvider each package
+    handshakes before the apps after it, registers the wanted hooks and
+    starts the same apps; the provider then sees the same calls."""
+    from tests.test_torch_ext import Provider
+
+    def script(pkg):
+        prov = Provider([("message.publish", ["b/#"]),
+                         ("client.connected", [])])
+        server, port = prov.make_server()
+        try:
+            ex = json.loads(json.dumps(REFUSED[case]).replace(
+                "{port}", str(port)))
+            conf = dict(ex, rule_engine={"enable": True},
+                        retainer={"enable": True})
+            node = pkg.node(conf)
+
+            async def go():
+                apps = await node.start_apps()
+                hooks = {h: [cb.tag for cb in node.hooks.lookup(h)]
+                         for h in ("message.publish", "client.connected")}
+                await node.broker.publish_async(pkg.msg.make(
+                    "p", 0, "b/1", b"x"))
+                servers = [dict(x, url=x["url"].replace(str(port), "<p>"))
+                           for x in node.exhook.list_servers()]
+                await node.exhook.unload()
+                return ([type(a).__name__ for a in apps], hooks, servers,
+                        node.exhook, prov.names())
+            return run(go())
+        finally:
+            server.stop(grace=0.1)
+    want, got = both(script)
+    assert got == want
+    assert want[0] == ["Retainer", "DelayedPublish", "RuleEngine", "Exhook"]
+    assert "exhook:s1" in want[1]["message.publish"]
+    assert want[4] == ["loaded", "publish", "unloaded"]
 
 
 DB_ARMS = {
@@ -901,7 +928,8 @@ def test_start_apps_boots_the_db_arms_alike(case):
 def test_shipped_file_boots_apps_and_no_gateway(tmp_path):
     """etc/emqx.conf (authn off, authz no_match allow) refuses nothing:
     both packages boot the retainer and delayed publish from it, and
-    start no gateway; an enabled gateway block raises in the port."""
+    start no gateway; an enabled gateway block boots the same gateway in
+    both, a disabled one none, and ``stop_listeners`` stops it."""
     import shutil
     path = tmp_path / "emqx.conf"
     shutil.copy(cs.BOOT_CONF, path)
@@ -913,11 +941,28 @@ def test_shipped_file_boots_apps_and_no_gateway(tmp_path):
         out.append(([type(a).__name__ for a in run(n.start_apps())],
                     run(n.start_gateways())))
     assert out[0] == out[1] == (["Retainer", "DelayedPublish"], [])
-    node = PORT.node({"gateway": {"stomp": {"bind": "127.0.0.1"}}})
-    with pytest.raises(ValueError, match=r"20\(d\)"):
-        run(node.start_gateways())
-    off = PORT.node({"gateway": {"stomp": {"enable": False}}})
-    assert run(off.start_gateways()) == []
+
+    def script(pkg):
+        async def go():
+            res = []
+            for conf in ({"gateway": {"stomp": {"bind": "127.0.0.1",
+                                                "port": 0}}},
+                         {"gateway": {"stomp": {"enable": False}}}):
+                node = pkg.node(conf)
+                gws = await node.start_gateways()
+                listed = [{k: v for k, v in d.items() if k != "listener"}
+                          for d in node.gateway_registry.list()]
+                await node.stop_listeners()
+                res.append(([type(g).__name__ for g in gws], listed,
+                             node.gateway_registry.list()))
+            return res
+        return run(go())
+    want, got = both(script)
+    assert got == want
+    assert want == [(["StompGateway"], [{"name": "stomp",
+                                         "status": "running",
+                                         "current_connections": 0}], []),
+                    ([], [], [])]
 
 
 # ---------------------------------------------------------------------

@@ -78,9 +78,26 @@ MODULES = [
     "emqx_tpu_torch.connectors.mongo", "emqx_tpu_torch.connectors.ldap",
     "emqx_tpu_torch.resources", "emqx_tpu_torch.resources.resource",
     "emqx_tpu_torch.resources.db", "emqx_tpu_torch.resources.bridge_mqtt",
-    "emqx_tpu_torch.apps.authz_db", "tests.test_torch_fake_db",
+    "emqx_tpu_torch.apps.authz_db", "emqx_tpu_torch.utils.wirecodec",
+    "emqx_tpu_torch.utils.psk", "emqx_tpu_torch.apps.plugins",
+    "emqx_tpu_torch.apps.prometheus", "emqx_tpu_torch.apps.statsd",
+    "emqx_tpu_torch.apps.telemetry", "emqx_tpu_torch.apps.protos",
+    "emqx_tpu_torch.apps.protos.exhook_pb2", "emqx_tpu_torch.apps.exhook",
+    "emqx_tpu_torch.gateway", "emqx_tpu_torch.gateway.ctx",
+    "emqx_tpu_torch.gateway.registry", "emqx_tpu_torch.gateway.mqttsn",
+    "emqx_tpu_torch.gateway.stomp", "emqx_tpu_torch.gateway.coap",
+    "emqx_tpu_torch.gateway.lwm2m_objects", "emqx_tpu_torch.gateway.lwm2m",
+    "emqx_tpu_torch.gateway.protos",
+    "emqx_tpu_torch.gateway.protos.exproto_pb2",
+    "emqx_tpu_torch.gateway.exproto", "tests.test_torch_fake_db",
     "chip_smoke",
 ]
+# the modules that need grpc and protobuf: a host without them (the card's
+# has neither) still imports every other module
+NEEDS_GRPC = {"emqx_tpu_torch.apps.protos.exhook_pb2",
+              "emqx_tpu_torch.apps.exhook",
+              "emqx_tpu_torch.gateway.protos.exproto_pb2",
+              "emqx_tpu_torch.gateway.exproto"}
 
 
 def test_every_module_imports_without_jax():
@@ -99,6 +116,69 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_the_port_boots_without_grpc_or_protobuf():
+    """With grpc and google.protobuf unimportable as well as jax and
+    emqx_tpu, every module but the four that need them imports, the
+    gateway registry registers the four gateways that need no grpc (an
+    exproto block then raises the reference's unknown type), and a node
+    boots its apps and a STOMP gateway."""
+    code = (
+        "import asyncio, importlib, sys\n"
+        "for m in ('jax', 'emqx_tpu', 'grpc', 'google.protobuf'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {sorted(set(MODULES) - NEEDS_GRPC)!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"for m in {sorted(NEEDS_GRPC)!r}:\n"
+        "    try:\n"
+        "        importlib.import_module(m)\n"
+        "        raise AssertionError(m)\n"
+        "    except ImportError:\n"
+        "        pass\n"
+        "from emqx_tpu_torch.broker.node import Node\n"
+        "from emqx_tpu_torch.gateway.registry import GatewayRegistry\n"
+        "node = Node({'broker': {'device_route': False}, 'gateway': "
+        "{'stomp': {'port': 0}}}, device='cpu')\n"
+        "reg = GatewayRegistry.with_builtins(node)\n"
+        "assert sorted(reg._types) == ['coap', 'lwm2m', 'mqttsn', "
+        "'stomp'], reg._types\n"
+        "async def go():\n"
+        "    apps = await node.start_apps()\n"
+        "    gws = await node.start_gateways()\n"
+        "    try:\n"
+        "        await reg.load('exproto', {})\n"
+        "    except ValueError as e:\n"
+        "        err = str(e)\n"
+        "    await node.stop_listeners()\n"
+        "    return ([type(a).__name__ for a in apps],\n"
+        "            [type(g).__name__ for g in gws], err, reg.list())\n"
+        "out = asyncio.run(go())\n"
+        "assert out == (['Retainer', 'DelayedPublish'], ['StompGateway'],\n"
+        "               'unknown gateway type exproto', []), out\n"
+        "bad = [m for m in sys.modules if sys.modules[m] is not None\n"
+        "       and m.startswith(('grpc', 'google.protobuf', 'jax.',\n"
+        "                         'emqx_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_protos_are_the_references_bytes():
+    """The two generated protobuf modules and their .proto sources are
+    byte-identical to the reference's: both packages register the same
+    descriptors in protobuf's one default pool and speak the same wire."""
+    for rel in ("apps/protos/exhook.proto", "apps/protos/exhook_pb2.py",
+                "gateway/protos/exproto.proto",
+                "gateway/protos/exproto_pb2.py"):
+        with open(os.path.join(REPO, "emqx_tpu", rel), "rb") as f:
+            ref = f.read()
+        with open(os.path.join(REPO, "emqx_tpu_torch", rel), "rb") as f:
+            assert f.read() == ref, rel
 
 
 def test_columnar_ingress_loads_only_the_ports_library():

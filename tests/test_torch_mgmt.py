@@ -605,15 +605,52 @@ async def _cli_trace(node, lst, api, cli):
     return out, lines
 
 
+async def _cli_plugins(node, lst, api, cli):
+    """``plugins list`` before a ``Plugins`` app, with a loaded plugin and
+    a disabled one, and after the loaded one's unload (which runs its
+    ``unload``)."""
+    import importlib
+    import sys
+    import types
+    pkg = type(node).__module__.split(".")[0]
+    plugins_mod = importlib.import_module(f"{pkg}.apps.plugins")
+    calls = []
+    mod = types.ModuleType("cli_fake_plugin")
+
+    def load(_node, conf):
+        calls.append(("load", conf))
+        return types.SimpleNamespace(
+            unload=lambda: calls.append(("unload",)))
+    mod.load = load
+    sys.modules["cli_fake_plugin"] = mod
+    try:
+        out = [await cli.run(["plugins", "list"])]
+        plugins = plugins_mod.Plugins(node, {"load": [
+            {"name": "p1", "module": "cli_fake_plugin", "config": {"a": 1}},
+            {"name": "p2", "module": "cli_fake_plugin", "enabled": False}]})
+        out += [plugins.load_all(), await cli.run(["plugins", "list"]),
+                plugins.unload("p1"), await cli.run(["plugins", "list"]),
+                calls]
+    finally:
+        del sys.modules["cli_fake_plugin"]
+    return out
+
+
 CLI_CASES = {f.__name__[1:]: f for f in (
     _cli_status_broker, _cli_clients_routes_subs, _cli_banned_rules_usage,
-    _cli_trace)}
+    _cli_trace, _cli_plugins)}
 
 
 @pytest.mark.parametrize("case", sorted(CLI_CASES))
 def test_cli_equals_reference(case):
     want, got = both(CLI_CASES[case])
     assert got == want
+    if case == "cli_plugins":
+        assert want == ["(none)", 1, "Plugin(p1, enabled=True)\n"
+                        "Plugin(p2, enabled=False)", True,
+                        "Plugin(p1, enabled=False)\n"
+                        "Plugin(p2, enabled=False)",
+                        [("load", {"a": 1}), ("unload",)]]
 
 
 def test_cli_device_trace_on_the_ports_engine(tmp_path):
