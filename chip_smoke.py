@@ -34,8 +34,10 @@ Phases:
    kernel at the same grid (the launch floor), torch.cumsum and the
    wrapper call;
 5. the kernels JSON line, the card line, and the result line last
-   (after phases 6 to 18); every phase prints its wall seconds as it
-   ends ("phase N: S s wall"), and the whole run's line lists them;
+   (after phases 6 to 20, with kernel 2 timed at the shapes phases 9-20
+   added, in a process of its own); every phase prints its start and
+   deadline as it starts and its wall seconds as it ends ("phase N: S s
+   wall"), and the whole run's line lists them;
 6. kernel 3, ring_rotate, against its plain version on the card, exact:
    every hop count at the mesh phase's [E, 3] block and at a ragged
    [1001, 3] block (aligned and unaligned), and across two cards with
@@ -98,8 +100,8 @@ Phases:
    with dedup, cache and overlay off, and a host-path node. 9a, the skew
    traffic of tools/skew_bench.py:82-105 (90% of the lanes on 16 hot
    topics): a warm-up until every class it wants is captured, then
-   passes of 24 fused windows of 8 x 1024 (48 before phase 18 took the
-   time) through prepare_window →
+   passes of 8 fused windows of 8 x 1024 (48 before phase 18 took the
+   time, 24 before phase 20, 16 before QUIC) through prepare_window →
    dispatch → materialize → finish_sub with two windows in flight, A and
    B alternating by pass; every pass's deliveries, shared picks and
    device cursors must be equal on A and B and the host path's counts
@@ -107,7 +109,7 @@ Phases:
    windows must be cached windows, its cache must hit and no cached class
    may be cold. 9b, the churn traffic of tools/churn_bench.py:80-160: a
    sink session subscribes 4 fresh filters churn/{seq}/+ between
-   batches (64 live at most), 24 route_batch of 512 a pass (48 before
+   batches (64 live at most), 8 route_batch of 512 a pass (48 before
    phase 18) with 25% of the lanes to
    the fresh filters' topics; per batch A, B and the host path must give
    equal counts and per-session deliveries, every fresh-filter lane
@@ -119,10 +121,10 @@ Phases:
 10. subscription covering, as tools/cover_bench.py:53-175 drives it: nodes
    A (covering on) and B (off), dedup off, fan-out cap 4, slot cap 2, one
    session subscribed to every filter of cover_heavy_filters(n, 0.6) for
-   n = 10,000 (the bench's default) and 100,000 (phase 8's scale); 32
+   n = 10,000 (the bench's default) and 100,000 (phase 8's scale); 16
    batches of 1,024 topics drawn uniformly from concretize(filter) go
-   through prepare → dispatch → materialize (a warm pass, then the best
-   of two timed passes, A's launch counters set to 0 around them):
+   through prepare → dispatch → materialize (a warm pass, then one timed
+   pass, A's launch counters set to 0 around them):
    topic-matches/s and window p50/p99 of A and B, the backend each
    built, the cover state, detection and build seconds, graph classes,
    capture seconds and the capture's peak device memory. Every covered
@@ -132,20 +134,22 @@ Phases:
    the next window (a graph replay where A is on the shape tables) must
    deliver it as B does;
 11. columnar PUBLISH ingress, as tools/ingress_bench.py:52-215 drives it:
-   64 and 256 connections, each writing 400 pre-serialized QoS 0
+   64 and 256 connections, each writing 200 pre-serialized QoS 0
    PUBLISHes of 64 bytes over 16 topics at once, one subscriber holding 1
    of them, each (connections, columnar on / off) in a process of its own
-   (``--ingress``) after a warm pass, the chooser held on the device:
+   (``--ingress``, the four started together, each run alone) after a
+   warm pass, the chooser held on the device:
    msgs/s, the stage decomposition, the ``ingress`` section, the device
    share and kernel 2's launches by shape. Each run must deliver the
-   known count (25 a publisher) in publisher order with at least 0.9 on
+   known count (13 a publisher) in publisher order with at least 0.9 on
    the device, and hold one window of its flood's topics against the
    plain path; the columnar run must take the burst path (bursts > 0) on
    the host native library (not its Python mirrors), and the per-packet
    run must have no ``ingress`` section;
 12. the overload governor, as tools/overload_bench.py:1-60 drives it:
    twin nodes, the governor on and off, each in a process of its own
-   (``--overload``), the chooser held on the device: 16 connections
+   (``--overload``, started while phase 11 runs), the chooser held on
+   the device: 16 connections
    writing pre-serialized QoS 0 PUBLISHes with every 16th row at QoS 1,
    8 topics, 64-byte payloads, the governor polled every 0.05 s (the
    bench's ladder tuning), a 500 ms objective. A warm pass measures the
@@ -171,7 +175,8 @@ Phases:
    a trip within the faulted window, stalls for hangs at dispatch and
    materialize, replays for raising kinds there, rung 0 again, the
    journal and the HBM ledger's pins at 0) and held equal to the same
-   cell on the port's CPU node. 13b runs inside phase 8, on its node: one
+   cell on the port's CPU node (run meanwhile in four processes of their
+   own). 13b runs inside phase 8, on its node: one
    more flood at depth 1 with a readback hang and three dispatch faults
    armed mid-flood at the node's threshold (3); every message delivered
    once and in order, the hang a stall, every faulted window replayed,
@@ -186,15 +191,17 @@ Phases:
    RuntimeError does.
 14. the mesh serving under Node (``broker.multichip``: the port's
    ShardedRouteServer, dp=2 x route=4 shards on the card). 14a:
-   tools/sharded_bench.py's drive at its size (SHARDED_r05.json): 99,856
-   filters dev/d{i}/+/n{n}/#, max_batch 128, the exchange class warmed
+   tools/sharded_bench.py's drive at a quarter of its size
+   (SHARDED_r05.json's 99,856): 24,964 filters dev/d{i}/+/n{n}/#,
+   max_batch 128, the exchange class warmed
    on flood-shaped traffic, 40 oracle-checked batches through the
    pipelined dispatch (one delivery each message), a window held
    against the plain path (the step, the exchange and the CSR
-   compaction, exact), 10 x 32 subscribes served as single-shard updates,
+   compaction, exact), 2 x 32 subscribes served as single-shard updates,
    and a shared-slot burst that outgrows its class: windows route on the
    host (counted) while the background full build runs, none lost. 14b:
-   phase 8's population and 16,000 PUBLISHes over TCP through a
+   a quarter of phase 8's population and 8,000 PUBLISHes over TCP
+   through a
    multichip node at the reference's max_batch 256 (the chooser held on
    the mesh): every message once, in publisher order per topic at every
    session (the mesh delivers a window by source shard, as the
@@ -205,43 +212,55 @@ Phases:
    fault armed mid-flood on the same node trips the breaker, replays on
    the host and returns to rung 0 (seconds printed), and a real failure
    in a small mesh node's step raises and fails the server. Then the
-   single-chip engine's incremental capture at phase 8's population:
+   single-chip engine's incremental capture at a quarter of phase 8's
+   population (three pairs):
    the capture seconds of the full build against the incremental one
    after 512 churned filters, the two captures equal, the next window
    exact against the plain path.
 15. the default node booted from the repo's etc/emqx.conf, as the
    reference's README boots it: the file copied unchanged to a temp dir
    with a runtime-override file beside it (the shipped tcp and ws
-   listeners moved to 127.0.0.1 port 0, the commented ssl_default
-   listener added with certificates made by
+   listeners moved to 127.0.0.1 port 0, the commented ssl_default and
+   quic_default listeners added with certificates made by
    utils.tls.generate_self_signed, the congestion alarm on with a 1 s
    sustain, a 5 s latency objective), Config.load_file, then
    Node.from_config_file on the card, start_listeners and
    start_timers. 15a: phase 8's population
-   subscribed over TCP, the warm-up, then 16,000 PUBLISHes from 4 TCP, 2
-   TLS and 2 WebSocket publishers (every 4th at QoS 1): every message
+   subscribed over TCP, 2 of the 16 connections over QUIC, the warm-up,
+   then 16,000 PUBLISHes from 4 TCP, 2 TLS, 2 WebSocket and 2 QUIC
+   publishers (every 4th at QoS 1): every message
    once and in order (as phase 8), at least 0.9 on the device, kernels 1
    and 2 launched (one shape_match a window); msgs/s overall and by
    transport (delivered: a transport's messages over the time to their
    last delivery), client p50 / p99, the columnar burst share by
-   transport and the launches a window by shape. 15b on that node: a
+   transport and the launches a window by shape; per QUIC connection,
+   client and listener side, over the flood: cwnd, ssthresh, halvings,
+   retransmits, datagrams sent, received and dropped by the socket, and
+   the bytes left blocked. 15b on that node: a
    banned clientid refused with CONNACK 0x8A over each transport and
    admitted once its ban expired and sweep ran; OsMon's readings and the
    alarms it raised (printed, not failed on); a subscriber that stops
    reading during a 5,000-message QoS 0 burst of 8 KB raises
    conn_congestion/<clientid>/<user> and connection.congested, and the
-   alarm clears once it reads again. 15c: 16,000 PUBLISHes through that
+   alarm clears once it reads again. 15c: 4,000 PUBLISHes through that
    node (CSR readback) and through a compact_readback: false node booted
    from the same files: every plain subscription's deliveries equal per
    session, no compact window and no cold compact class on the dense
    node; readback bytes a message and windows by mode, msgs/s and kernel
    2's launches a window by shape both ways; then a multichip node with
-   compact_readback false and its CSR twin, phase 8's population in
-   process, 4,000 messages in the same windows through both: every
-   session's deliveries equal. 15d: a device_route: false node with the
-   same population and 16,000 PUBLISHes: every message once and in
-   order, no kernel launched, torch.cuda.memory_allocated unchanged by
-   the node; its msgs/s is the host baseline.
+   compact_readback false and its CSR twin, a quarter of phase 8's
+   population in process, 2,000 messages in the same windows through
+   both: every session's deliveries equal. 15d: a device_route: false
+   node with a quarter of the population and 8,000 PUBLISHes: every
+   message once and in order, no kernel launched,
+   torch.cuda.memory_allocated unchanged by the node; its msgs/s is the
+   host baseline. 15e on the booted node's quic listener: the TLS
+   engine's refusals (an untrusted CA, a hostname mismatch, no common
+   ALPN), each leaving no connection; a Retry round trip; 20 QoS 1
+   PUBLISHes through a connection that drops every 3rd datagram both
+   ways, delivered once and in order; a silent client's connection
+   reaped once idle; then stop_listeners must close the UDP socket,
+   every QUIC connection and every MQTT task it had.
 16. the feature apps and the management API, as the reference's README
    boots them: phase 15's files plus, in the override, the dashboard on
    127.0.0.1 port 0, one rewrite rule (rw/src/# to rw/dst/$1, no flood
@@ -249,8 +268,9 @@ Phases:
    device/+/x/n0/#, and flapping detection (5 disconnects in 10 s ban for
    2 s); Node.from_config_file on the card, start_listeners, start_apps
    (the shipped retainer and delayed publish, rewrite, topic metrics,
-   flapping), start_dashboard and start_timers(1.0). 16a: phase 8's
-   population over 16 TCP connections, the warm-up, 16,000 PUBLISHes
+   flapping), start_dashboard and start_timers(1.0). 16a: a quarter of
+   phase 8's population over 16 TCP connections, the warm-up, 8,000
+   PUBLISHes
    from 8 TCP publishers (every 4th QoS 1, every 8th retained), the
    message.publish hook fold live in every window: every message once
    and in order, at least 0.9 on the device, kernels 1 and 2 launched,
@@ -258,17 +278,17 @@ Phases:
    each topic-metrics filter's in and out counts equal to the messages
    sent to it; msgs/s, client p50 / p99, the burst share, the fold's
    batch_form stage p50 / p99 beside 15a's, and the launches a window by
-   shape. 16b (bench.py's run_config5 replay, CONFIG5_10M.json's
-   100,000 retained): one TCP publisher sends 100,000 retained QoS 0
+   shape. 16b (bench.py's run_config5 replay, half CONFIG5_10M.json's
+   100,000 retained): one TCP publisher sends 50,000 retained QoS 0
    PUBLISHes c5r/{i % 64}/k{i} through the node (a QoS 1 PUBLISH acked
-   every 4,096 paces it); a c5r/0/+ subscriber replays exactly 1,563, a
-   retain-handling-2 one none and a late c5r/# one all 100,000, each
+   every 4,096 paces it); a c5r/0/+ subscriber replays exactly 782, a
+   retain-handling-2 one none and a late c5r/# one all 50,000, each
    with the retain flag; publish and replay msgs/s, and a sweep's
    seconds with them stored and after they are cleaned. 16c, run
    between 16b's stream and its replays: the governor's readings
    scripted into overload park a c5r/2/# subscriber's replay
    (defer_retained, counted once); back to normal, the sweep that
-   unwinds defer_retained replays its 1,563 (and leaves the governor
+   unwinds defer_retained replays its 782 (and leaves the governor
    at normal for 16b's replays). 16d: login, the five
    /api/v5/pipeline endpoints (trace with windows, perfetto JSON, the
    ledger's share of the card's allocated bytes at most 1), a REST
@@ -279,31 +299,32 @@ Phases:
    ban expired and sweep ran.
 17. the cluster (emqx_tpu_torch/cluster, bench.py:1003-1163's config 5
    and tools/chaos_cluster.py). 17a: two nodes of one process on the
-   card joined over loopback rpc with 1 s heartbeats, phase 8's
-   population halved (49,729 filters, cut for time) over TCP with
+   card joined over loopback rpc with 1 s heartbeats, a quarter of
+   phase 8's population (24,964 filters, cut for time) over TCP with
    subscriber connection c on node c % 2 (every shared group has a
    member on each node): the route sync (entries taken from the peer a
    second, wall seconds) and 100 single adds' p50 / p99 until visible
    on the peer; each node's snapshot must hold every filter and one
-   remote member per group; 16,000 PUBLISHes
+   remote member per group; 8,000 PUBLISHes
    (cut from 32,000 for time) from 4 TCP publishers on each node, every
    4th QoS 1: every message once across the cluster (a shared one to one
    member of its group), in order per publisher and topic; msgs/s,
    client p50 / p99, and per node the device share, forwards sent and
    received, messages.routed.device.remote_shared (> 0) and kernel 1 and
    2 launches a window (> 0). 17b: emqx_tpu_torch/chaos_cluster.py over
-   three ``python -m emqx_tpu_torch.run_node`` processes on the card,
-   one kill cycle under a QoS 1 flood (invariants 1-6, bounds x2): each
+   three ``python -m emqx_tpu_torch.run_node`` processes on the card
+   (started one after another while 17a runs), one kill cycle under a QoS 1 flood (invariants 1-6, bounds x2): each
    cycle's re-homed CONNECT seconds, PUBACK gap and seconds to 3 running
    nodes. 17c: a node with 17a's population as persistent sessions and
-   half of 16b's retained messages (50,000): save_snapshot (seconds, bytes),
+   half of 16b's retained messages (25,000): save_snapshot (seconds,
+   bytes),
    1,000 route adds and retained sets in the write-ahead log, a fresh
    node's load_snapshot (seconds, the router's device tables), its
-   sessions back, its engine snapshot built; a 4,000-message flood must
+   sessions back, its engine snapshot built; a 2,000-message flood must
    deliver what the original node delivered (its first window launching
-   kernel 1) and a late c5r/# subscriber must replay all 51,000. 17d: a
+   kernel 1) and a late c5r/# subscriber must replay all 26,000. 17d: a
    multichip node and a single-chip node joined in process, 17a's
-   population split over them, 4,000 messages through the mesh node:
+   population split over them, 2,000 messages through the mesh node:
    every message once, order per topic, remote picks forwarded; the
    exchange serves no clustered window (the reference precludes it), so
    kernel 3 is read in the class warm under the cluster and in windows
@@ -319,14 +340,14 @@ Phases:
    Node.from_config_file on the card, start_listeners, start_apps,
    start_dashboard, start_timers(1.0). 18a: a rules/# subscriber first,
    8 v5 publishers (2 by JWT), one client by the SCRAM AUTH exchange and
-   its re-authentication, phase 8's population subscribed by 16 logged-in
-   connections, the warm-up, then 16,000 PUBLISHes (cut from 32,000 for
-   time) with 100 denied QoS 1 PUBLISHes to device/d{i}/forbidden/...
+   its re-authentication, a quarter of phase 8's population subscribed
+   by 16 logged-in connections, the warm-up, then 8,000 PUBLISHes (cut
+   from 32,000 for time) with 100 denied QoS 1 PUBLISHes to device/d{i}/forbidden/...
    mixed in: every allowed message once and in order, at least 0.9 on
    the device, kernels 1 and 2 launched (one shape_match a window), two
    engine windows held against the plain path; r_q1 must read
-   sql.matched 16,000, sql.passed and actions.success 4,000, rules/#
-   must receive exactly the 4,000 republishes and one rules/conn/<id> for
+   sql.matched 8,000, sql.passed and actions.success 2,000, rules/#
+   must receive exactly the 2,000 republishes and one rules/conn/<id> for
    each CONNECT after it subscribed, and the republishes must be routed
    once each on the host; msgs/s, client p50 / p99, the fold's
    batch_form beside 15a's and 16a's, the authn and authz counters and
@@ -347,18 +368,19 @@ Phases:
    stored as a salted sha256 hash. start_apps creates their resources on
    node.resources; the script adds up, an mqtt resource on a second,
    host-only node of the port. 19a: 8 publishers log in by PostgreSQL,
-   phase 8's population subscribes through 16 MySQL logins (superusers:
-   authz skips their filters), the warm-up, then 16,000 PUBLISHes with
+   a quarter of phase 8's population subscribes through 16 MySQL logins
+   (superusers: authz skips their filters), the warm-up, then 8,000
+   PUBLISHes with
    100 denied QoS 1 PUBLISHes mixed in (no ACL row allows them): every
    allowed message once and in order, at least 0.9 on the device,
    kernels 1 and 2 launched, two engine windows held against the plain
    path, every denied PUBLISH answered 0x87, and the remote must receive
-   each of the 4,000 QoS 1 messages once through data_to_up. 19b: an
+   each of the 2,000 QoS 1 messages once through data_to_up. 19b: an
    MqttBridgeWorker forwards bridge/# under edge/ to the remote and takes
-   its cmd/# in under from-cloud/: 2,000 QoS 1 PUBLISHes forwarded, the
-   remote's listener stopped, 1,000 more held in the bridge's disk queue,
-   the listener restarted on the same port, all 3,000 at the remote once
-   and in publish order; 100 remote cmd/# messages reach a local
+   its cmd/# in under from-cloud/: 1,000 QoS 1 PUBLISHes forwarded, the
+   remote's listener stopped, 500 more held in the bridge's disk queue,
+   the listener restarted on the same port, all 1,500 at the remote once
+   and in publish order; 50 remote cmd/# messages reach a local
    subscriber under the mountpoint. 19c: an LDAP login accepted and a
    wrong LDAP password refused (0x86), a wrong MySQL password refused
    (0x86); stop_listeners leaves no resource and every server sees every
@@ -373,7 +395,8 @@ Phases:
    app and a telemetry reporter aimed at receivers in this process, one
    plugin loaded from a module file. 20a: 8 STOMP subscribers, 4 MQTT-SN
    (QoS 0) and 2 CoAP observers, each on device/d{j}/x/# for its own j,
-   beside phase 8's population; 16,000 PUBLISHes from 8 publishers: every
+   beside a quarter of phase 8's population; 8,000 PUBLISHes from 8
+   publishers: every
    MQTT delivery once and in order, at least 0.9 of the messages on the
    device, kernels 1 and 2 launched, two engine windows held against the
    plain path, each gateway client's count equal to its known answer and
@@ -425,12 +448,22 @@ trace with a recorder whose ring holds the whole flood (nothing may be
 overwritten): every ``route_step#<trace id>`` range must name a trace
 the ring holds a dispatch span under.
 
+Every phase runs under a deadline: as it starts, the run prints
+"phase N: start at T s, deadline in D s" and re-arms
+``faulthandler.dump_traceback_later(D, exit=True)``, D = min(2 x the
+phase's ceiling in PHASE_CEILING_S, RUN_DEADLINE_S (950 s) less the
+seconds gone). A phase that stalls past it ends the run with exit code
+1: every thread's stack on stderr, the main thread's last, its outer
+frames naming the phase's function, and no result line. The ceilings
+add up to at most 700 s on one H100 (PERF.md §5).
+
 ``python3 chip_smoke.py --boot`` builds the kernels and runs phase 15
 alone; ``python3 chip_smoke.py --apps`` phase 16;
 ``python3 chip_smoke.py --cluster`` phase 17;
 ``python3 chip_smoke.py --secure`` phase 18;
 ``python3 chip_smoke.py --db`` phase 19;
-``python3 chip_smoke.py --ext`` phase 20.
+``python3 chip_smoke.py --ext`` phase 20; each arms its phase's
+deadline once the kernels are built.
 ``python3 chip_smoke.py --warm-stress`` runs 16a, then 16b's stream
 beside a loop of the engine's class warms: the reproducer of a fixed
 fault (a graph capture on a stream serving used, after which every
@@ -487,6 +520,32 @@ ALU_OPS_PER_S = 67e12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# each phase's ceiling in wall seconds on one H100 80GB HBM3 at 700 W (the
+# whole run from a cold build/ within 700 s); a phase's deadline is twice
+# its ceiling, and no deadline lies past RUN_DEADLINE_S into the run
+PHASE_CEILING_S = {"1-3": 15, "4": 55, "6-7": 50, "8": 45, "9": 30,
+                   "10": 25, "11": 40, "12": 30, "13": 35, "14": 40,
+                   "15": 90, "16": 30, "17": 55, "18": 20, "19": 30,
+                   "20": 25, "5": 28}
+RUN_DEADLINE_S = 950.0
+
+
+def arm_deadline(phase: str, t_run: float, say: bool = True) -> float:
+    """Re-arm the watchdog for `phase` of a run that began at `t_run`:
+    past min(2 x its ceiling, RUN_DEADLINE_S less the seconds gone)
+    faulthandler writes every thread's stack to stderr (the main thread's
+    last, its outer frames name the phase's function) and ends the
+    process with exit code 1, whatever the phase is doing. Prints
+    "phase N: start at T s" unless `say` is false; the deadline in s."""
+    import faulthandler
+    gone = time.time() - t_run
+    t = max(1.0, min(2.0 * PHASE_CEILING_S[phase], RUN_DEADLINE_S - gone))
+    if say:
+        log(f"phase {phase}: start at {gone:.1f} s, deadline in {t:.0f} s")
+    faulthandler.dump_traceback_later(t, exit=True, file=sys.__stderr__)
+    return t
 
 
 def card_line() -> str:
@@ -900,10 +959,49 @@ def time_scan_shapes(dev, shapes: dict, where: str) -> list:
     return out
 
 
-def time_scan_shapes_apart(groups: list) -> list:
+class _Child:
+    """This script in a process of its own (``flag``: ``--ingress``,
+    ``--overload`` or ``--scan-shapes``), started ahead of its turn: it
+    loads torch, CUDA, the kernels and the broker, then waits for its
+    JSON argument on stdin (``run``). Each configuration still runs alone
+    in a fresh process; only its start-up overlaps what runs before it.
+    A child whose parent is gone reads end-of-file and exits unrun."""
+
+    def __init__(self, flag: str):
+        self.flag = flag
+        self.proc = subprocess.Popen(
+            [sys.executable, __file__, flag], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def run(self, arg: str, timeout: float) -> tuple:
+        """(exit code, stdout, stderr) of its run with `arg`."""
+        try:
+            out, err = self.proc.communicate(arg + "\n", timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            _out, err = self.proc.communicate()
+            raise AssertionError(f"{self.flag} {arg}: no result within "
+                                 f"{timeout} s: {err[-2000:]}") from None
+        return self.proc.returncode, out, err
+
+
+def _child_ready() -> None:
+    """A waiting child's start-up: a CUDA context, the kernels and the
+    host library loaded, the broker imported."""
+    import torch
+
+    import emqx_tpu_torch.broker.node  # noqa: F401
+    from emqx_tpu_torch import native
+    from emqx_tpu_torch.ops.build import build
+    torch.zeros(1, device="cuda")
+    build()
+    native.available()
+
+
+def time_scan_shapes_apart(groups: list, child=None) -> list:
     """time_scan_shapes at each (where, shapes) group in one process of
-    its own (this script with ``--scan-shapes``), its lines passed
-    through. Late in a long run the profiler of this process lost kernel
+    its own (this script with ``--scan-shapes``, `child` where one was
+    started ahead), its lines passed through. Late in a long run the profiler of this process lost kernel
     records at a small scan shape — 191 of 200 entries, three tries in a
     row (PERF.md), where a fresh process counts 200 of 200 at the same
     shape — so the shapes the later phases add are profiled in a fresh
@@ -915,15 +1013,14 @@ def time_scan_shapes_apart(groups: list) -> list:
     arg = json.dumps({"groups": [
         {"where": where, "shapes": [[list(k), v] for k, v in shapes.items()]}
         for where, shapes in groups]})
-    out = subprocess.run([sys.executable, __file__, "--scan-shapes", arg],
-                         capture_output=True, text=True, timeout=600)
-    for line in out.stdout.splitlines()[:-1]:
+    rc, out, err = (child or _Child("--scan-shapes")).run(arg, 600)
+    for line in out.splitlines()[:-1]:
         log(line)
-    if out.returncode != 0:
+    if rc != 0:
         raise AssertionError(
             f"kernel 2 timing at {[w for w, _s in groups]}'s shapes failed:"
-            f"\n{out.stdout[-2000:]}{out.stderr[-4000:]}")
-    return json.loads(out.stdout.splitlines()[-1])
+            f"\n{out[-2000:]}{err[-4000:]}")
+    return json.loads(out.splitlines()[-1])
 
 
 def time_kernels(b: dict, n_entries) -> tuple:
@@ -1250,6 +1347,7 @@ def mesh_phase(dev) -> tuple:
     """Phases 6 and 7; returns (ring_rotate's kernel entry, the mesh
     summary, kernel 2's per-shape timings on the mesh window)."""
     import torch
+    kid = _Child("--scan-shapes")     # loads while the mesh builds
     m = mesh_engine(dev, MESH_SUBS, MESH_BATCH, SEED)
     eng = m["eng"]
     torch.cuda.synchronize()
@@ -1304,7 +1402,7 @@ def mesh_phase(dev) -> tuple:
     # in a process of its own, as phase 9's: late in this long run the
     # profiler lost records at a mesh shape (196 of 200 at [2, 4, 4], three
     # tries in a row, PERF.md)
-    scan_shapes = time_scan_shapes_apart([("mesh", r["shapes"])])
+    scan_shapes = time_scan_shapes_apart([("mesh", r["shapes"])], kid)
     kernel = {"name": "ring_rotate", "route": "cuda",
               "source": "emqx_tpu_torch/csrc/ring_rotate.cu",
               "replaces": "emqx_tpu/ops/pallas_exchange.py:98",
@@ -1333,6 +1431,10 @@ E2E_FILTERS = 100_000      # bench.py run_e2e(100_000, 16, 8, 32_000 // 8)
 E2E_SUB_CONNS = 16
 E2E_PUB_CONNS = 8
 E2E_MSGS = 16_000          # the bench's 32,000, cut for time before phase 20
+# the population of the phases that are not a main path (14, 15d, 15c's
+# mesh leg, 16, 18, 19, 20): a quarter of phase 8's (all of it before
+# QUIC), so the run fits its 700 s
+PART_FILTERS = E2E_FILTERS // 4
 E2E_SUB_CHUNK = 512        # filters per SUBSCRIBE packet
 E2E_MIN_DEVICE_SHARE = 0.9
 # (label, dispatch depth, delivery lanes on, observability layers,
@@ -1406,7 +1508,7 @@ def _time_dispatches(eng) -> None:
 
 
 async def _subscribe_population(port, n_filters: int, n_sub: int,
-                                login=None):
+                                login=None, make=None):
     """bench.py:1219-1243: each subscriber connection takes its own plain
     filters and shared groups, plus the second membership of the previous
     connection's groups (2 members per group on different sockets), in
@@ -1415,13 +1517,21 @@ async def _subscribe_population(port, n_filters: int, n_sub: int,
     enough for a polled governor to pause CONNECTs. A list of ports
     spreads the connections over nodes, connection c on port c % len.
     ``login(c)``: connection c's CONNECT credentials (username,
-    password)."""
+    password). ``make(c, clientid)``: connection c's Client where it is
+    not a TCP one (None: TCP), connected under a deadline."""
+    import asyncio
+
     from emqx_tpu_torch.client import Client
     from emqx_tpu_torch.mqtt import packet as P
     ids, nums = e2e_grid(n_filters)
     ports = list(port) if isinstance(port, (list, tuple)) else [port]
     subs, n_shared, n_entries = [], 0, 0
     for c in range(n_sub):
+        cl = make(c, f"esub{c}") if make else None
+        if cl is not None:
+            subs.append(cl)
+            await asyncio.wait_for(cl.connect(), 60)
+            continue
         subs.append(Client(port=ports[c % len(ports)], clientid=f"esub{c}",
                            **(login(c) if login else {})))
         await subs[-1].connect()
@@ -1535,6 +1645,19 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
             for p in range(n_pub)]
     fb_acks = []
 
+    async def acked(p, cl, acks):
+        """Publisher p's PUBACKs, 60 s at most; past that, how many are
+        owed and, for a QUIC client, its connection's state."""
+        done, owed = await asyncio.wait(acks, timeout=60)
+        if owed:
+            quic = getattr(cl, "quic", None)
+            raise AssertionError(
+                f"publisher {p} ({cl.clientid}): {len(owed)} of "
+                f"{len(acks)} PUBACKs owed after 60 s"
+                + (f"; QUIC {json.dumps(quic_state(quic))}" if quic else ""))
+        for a in done:
+            a.result()              # a PUBACK that failed fails the flood
+
     async def flood(p, cl):
         acks = []
         fb_at = {(j + 1) * per_pub // (n_fb[p] + 1): j
@@ -1553,13 +1676,14 @@ async def _flood(node, subs, pubs, ids: int, nums: int, total: int,
             if fut is not None:
                 acks.append(fut)
             if len(acks) >= 256:
-                await asyncio.wait_for(asyncio.gather(*acks), 60)
+                await acked(p, cl, acks)
                 acks.clear()
             if cl.needs_drain:
                 await cl.drain()
             if k % 64 == 63:
                 await asyncio.sleep(0)
-        await asyncio.wait_for(asyncio.gather(*acks), 60)
+        if acks:
+            await acked(p, cl, acks)
 
     m = node.metrics
     stages = ("prepare", "dispatch", "card", "readback", "consume")
@@ -2186,8 +2310,11 @@ def e2e_window_check(node, ids: int, nums: int, seed: int, batches: int,
 
 # phase 13b: one fault cycle in phase 8's flood. The materialize hang
 # fires on the (a+1)-th readback, the three dispatch faults on the
-# (b+1)-th to (b+3)-th dispatches, at the node's threshold (3)
-CHAOS_AFTER = (4, 10)
+# (b+1)-th to (b+3)-th dispatches, at the node's threshold (3). The
+# 16,000-message flood dispatches ~16 windows: b = 8 leaves ~5 after the
+# faults, so the rung is back at 0 before the last of them (with b = 10
+# one window or none followed the recovery on one H100)
+CHAOS_AFTER = (4, 8)
 CHAOS_HANG_S = 1.0
 # the chaos tuning in this flood: a breaker cycle short enough to recover
 # inside it, and a fixed watchdog deadline (multiplier 0) under the hang
@@ -2812,15 +2939,16 @@ def trace_cost_main() -> int:
 # ---- phase 9: the reference's default routing layers ----------------------
 
 L_W, L_B = 8, 1024           # the served fused class (8, 1024)
-L_WINDOWS = 16               # windows per pass (48 before phase 18, 24
-                             # before phase 20)
-L_PASSES = 3                 # untimed passes before the timed one: 2
+L_WINDOWS = 8                # windows per pass (48 before phase 18, 24
+                             # before phase 20, 16 before QUIC)
+L_PASSES = 2                 # untimed passes before the timed one: 1
+                             # (2 before QUIC)
 L_HOT = 16                   # tools/skew_bench.py: 90% on 16 hot topics
 L_HOT_SHARE = 0.9
 L_WARM_WINDOWS = 24          # cap on the warm-up windows
 C_BATCH = 512                # tools/churn_bench.py: route_batch of 512
-C_BATCHES = 16               # batches per pass (48 before phase 18, 24
-                             # before phase 20)
+C_BATCHES = 8                # batches per pass (48 before phase 18, 24
+                             # before phase 20, 16 before QUIC)
 C_FRESH = 4                  # fresh subscriptions per batch
 C_LIVE = 64                  # live fresh filters at most
 C_SHARE = 0.25               # lanes to the fresh filters' topics
@@ -3295,8 +3423,9 @@ def layers_phase(dev, card: str) -> dict:
 COVER_CELLS = (10_000, 100_000)
 COVER_RATIO = 0.6
 COVER_B = 1024
-COVER_BATCHES = 32
-COVER_PASSES = 2           # timed passes after the warm pass; the best
+COVER_BATCHES = 16         # 32 before QUIC
+COVER_PASSES = 1           # timed passes after the warm pass (2 before
+                           # QUIC); the best
 COVER_CONF = {"topic_dedup": False, "device_fanout_cap": 4,
               "device_slot_cap": 2}
 
@@ -3601,7 +3730,7 @@ def cover_phase(dev, card: str) -> dict:
 # tools/ingress_bench.py:52-215: connections x 400 pre-serialized QoS 0
 # PUBLISHes of 64 bytes over 16 topics; the subscriber holds 1 of them
 I_CONNS = (64, 256)
-I_MSGS = 400
+I_MSGS = 200               # a connection's flood (400 before QUIC)
 I_TOPICS = 16
 I_PAYLOAD = 64
 I_SUB_TOPICS = 1
@@ -3852,21 +3981,21 @@ def check_ingress_pair(on: dict, off: dict) -> None:
 
 def ingress_phase(card: str) -> dict:
     """Phase 11 on the card, each configuration in a process of its own
-    (no configuration inherits another's collector state or graphs)."""
+    (no configuration inherits another's collector state or graphs), all
+    of them started at once and run one after another."""
     t0 = time.time()
     rows = {}
+    kids = {(c, col): _Child("--ingress") for c in I_CONNS
+            for col in (False, True)}
     for conns in I_CONNS:
         for columnar in (False, True):
             arg = json.dumps({"conns": conns, "columnar": columnar})
-            sp = subprocess.run([sys.executable, __file__, "--ingress", arg],
-                                capture_output=True, text=True,
-                                timeout=I_ONE_TIMEOUT_S)
-            lines = [ln for ln in sp.stdout.splitlines()
-                     if ln.startswith("{")]
-            if sp.returncode != 0 or not lines:
+            rc, out, err = kids[(conns, columnar)].run(arg, I_ONE_TIMEOUT_S)
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            if rc != 0 or not lines:
                 raise AssertionError(
                     f"phase 11 {conns} columnar {columnar}: the child "
-                    f"failed, rc {sp.returncode}: {sp.stderr[-2000:]}")
+                    f"failed, rc {rc}: {err[-2000:]}")
             r = rows[(conns, columnar)] = json.loads(lines[-1])
             stage_ms = {k: v["sum_ms"] for k, v in r["stages"].items()}
             log(f"phase 11 {conns} connections, columnar "
@@ -3895,17 +4024,6 @@ def ingress_phase(card: str) -> dict:
             for (c, col), r in rows.items()}
 
 
-def ingress_main(arg: str) -> int:
-    """``--ingress``: one phase-11 configuration on the card; its JSON
-    line last."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    a = json.loads(arg)
-    print(json.dumps(ingress_one("cuda", a["conns"], a["columnar"])),
-          flush=True)
-    return 0
 
 
 # ---- phase 12: the overload governor -------------------------------------
@@ -4289,23 +4407,22 @@ def check_overload_pair(on: dict, off: dict, cuda: bool) -> None:
                              f"{on['overload']}")
 
 
-def overload_phase(card: str) -> dict:
+def overload_phase(card: str, kids=None) -> dict:
     """Phase 12 on the card: the governed twin first (its warm pass sets
     the paced rate), then the ungoverned one at the same rate, each in a
-    process of its own."""
+    process of its own (`kids`: the two, started ahead)."""
     t0 = time.time()
     rows = {}
     rate = None
-    for governor in (True, False):
+    kids = kids or [_Child("--overload"), _Child("--overload")]
+    for governor, kid in zip((True, False), kids):
         arg = json.dumps({"governor": governor, "rate": rate})
-        sp = subprocess.run([sys.executable, __file__, "--overload", arg],
-                            capture_output=True, text=True,
-                            timeout=O_ONE_TIMEOUT_S)
-        lines = [ln for ln in sp.stdout.splitlines() if ln.startswith("{")]
-        if sp.returncode != 0 or not lines:
+        rc, out, err = kid.run(arg, O_ONE_TIMEOUT_S)
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if rc != 0 or not lines:
             raise AssertionError(
                 f"phase 12 governor {governor}: the child failed, rc "
-                f"{sp.returncode}: {sp.stderr[-2000:]}")
+                f"{rc}: {err[-2000:]}")
         r = rows[governor] = json.loads(lines[-1])
         rate = r["rate"]
         log(f"phase 12 governor {'on' if governor else 'off'}: warm pass "
@@ -4344,19 +4461,29 @@ def overload_phase(card: str) -> dict:
     return {"on": rows[True], "off": rows[False]}
 
 
-def overload_main(arg: str) -> int:
-    """``--overload``: one phase-12 twin on the card; its JSON line last."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    a = json.loads(arg)
-    print(json.dumps(overload_one("cuda", a["governor"], a["rate"])),
-          flush=True)
-    return 0
 
 
 # ---- phase 13: chaos on the card ------------------------------------------
+
+# phase 13a on a card: the CPU node's cells run in these processes beside
+# the card's, which run in this one
+CHAOS_CPU_WORKERS = 4
+
+
+def _cpu_worker() -> None:
+    import torch
+    torch.set_num_threads(1)
+
+
+def _cpu_twin(delta: bool) -> dict:
+    from emqx_tpu_torch import chaos as C
+    return C.run_twin(delta=delta, device="cpu")
+
+
+def _cpu_case(point: str, kind: str) -> dict:
+    from emqx_tpu_torch import chaos as C
+    return C.run_case(point, kind, device="cpu")
+
 
 def chaos_matrix(dev) -> dict:
     """Phase 13a: the 24 cells of ``emqx_tpu_torch.chaos`` (every pipeline
@@ -4364,16 +4491,46 @@ def chaos_matrix(dev) -> dict:
     on a node on `dev`, with the bench's tuning (threshold 1, cooldown
     0.05 s, watchdog floor 0.1 s, multiplier 0), each graded by the
     chaos oracle against the fault-free twin on `dev`, and its scheduled
-    deliveries held equal to the same cell's on the port's CPU node. The
-    launch counters are set to 0 before the matrix and read after it.
-    Returns the cells' numbers; raises on any violation."""
+    deliveries held equal to the same cell's on the port's CPU node (on a
+    card, the CPU cells run in CHAOS_CPU_WORKERS processes of their own
+    meanwhile). The launch counters are set to 0 before the matrix and
+    read after it. Returns the cells' numbers; raises on any
+    violation."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    # the run's heap so far frozen: the collection after each cell scans
+    # only what the cells made
+    gc.collect()
+    gc.freeze()
+    pool = cf.ProcessPoolExecutor(
+        CHAOS_CPU_WORKERS, mp_context=mp.get_context("spawn"),
+        initializer=_cpu_worker) if dev.type == "cuda" else None
+    try:
+        return _chaos_cells(dev, pool)
+    finally:
+        gc.unfreeze()
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
+
+
+def _chaos_cells(dev, pool) -> dict:
+    """chaos_matrix's cells; the CPU node's run in `pool` when given."""
     import torch
 
     from emqx_tpu_torch import chaos as C
     from emqx_tpu_torch import device as D
     from emqx_tpu_torch.broker.supervise import FAULT_KINDS
+
+    def on_cpu(fn, *a):
+        return pool.submit(fn, *a) if pool else fn(*a)
+
+    def got(x):
+        return x.result() if pool else x
+    cpu_twins = {d: on_cpu(_cpu_twin, d) for d in (False, True)}
+    cpu_cases = {(point, kind): on_cpu(_cpu_case, point, kind)
+                 for point in C.MATRIX_POINTS for kind in FAULT_KINDS}
     twins = {d: C.run_twin(delta=d, device=dev) for d in (False, True)}
-    cpu_twins = {d: C.run_twin(delta=d, device="cpu") for d in (False, True)}
+    cpu_twins = {d: got(t) for d, t in cpu_twins.items()}
     for d in (False, True):
         if C.scheduled(twins[d], twins[d]) \
                 != C.scheduled(cpu_twins[d], cpu_twins[d]):
@@ -4389,7 +4546,7 @@ def chaos_matrix(dev) -> dict:
             t0 = time.time()
             c = C.run_case(point, kind, device=dev)
             sec = time.time() - t0
-            cpu = C.run_case(point, kind, device="cpu")
+            cpu = got(cpu_cases[(point, kind)])
             twin, cpu_twin = twins[point == "overlay_apply"], \
                 cpu_twins[point == "overlay_apply"]
             v = C.grade(c, twin, point, kind)
@@ -4520,10 +4677,12 @@ def chaos_phase(card: str, probes_13b: dict) -> dict:
 # churn while serving, and a shared-slot burst that outgrows its class
 # with host serving during the background rebuild
 MN_DEVICES, MN_DP = 8, 2
-MN_FILTERS = 100_000
+MN_FILTERS = PART_FILTERS     # 100,000 before QUIC
 MN_BATCH = 128
 MN_BATCHES = 40
-MN_CHURN_ROUNDS = 4          # x 32 subscribes (10 before phase 20)
+MN_CHURN_ROUNDS = 2          # x 32 subscribes (10 before phase 20, 4
+                             # before QUIC)
+MN_MSGS = 8_000              # 14b's flood (16,000 before QUIC)
 MN_WARM_TRIES = 5            # tools/sharded_bench.py:127-140
 # 14b: phase 8's population and flood through a multichip node (max_batch
 # 256, the reference's default); 14c: one counted mesh_exchange fault in a
@@ -4533,7 +4692,8 @@ MN_FAULT_AFTER = 5
 # the single-chip engine's incremental capture at phase 8's population:
 # the filters churned between the two captures
 CAPTURE_CHURN = 512
-CAPTURE_PAIRS = 5            # full / incremental captures of one state
+CAPTURE_PAIRS = 3            # full / incremental captures of one state
+                             # (5 before QUIC)
 
 
 class _Count:
@@ -4823,9 +4983,9 @@ def mesh_fatal_check(dev) -> dict:
     return out
 
 
-def mesh_node_drive(dev, n_filters: int = E2E_FILTERS,
+def mesh_node_drive(dev, n_filters: int = PART_FILTERS,
                     n_sub: int = E2E_SUB_CONNS, n_pub: int = E2E_PUB_CONNS,
-                    total: int = E2E_MSGS, fault_msgs: int = MN_FAULT_MSGS,
+                    total: int = MN_MSGS, fault_msgs: int = MN_FAULT_MSGS,
                     fault_after: int = MN_FAULT_AFTER,
                     seed: int = SEED) -> dict:
     """Phases 14b and 14c: a multichip node (dp=2 x route=4 shards on the
@@ -5008,7 +5168,8 @@ def mesh_node_drive(dev, n_filters: int = E2E_FILTERS,
     return asyncio.run(run())
 
 
-def capture_drive(dev, n_filters: int = E2E_FILTERS, n_sub: int = E2E_SUB_CONNS,
+def capture_drive(dev, n_filters: int = PART_FILTERS,
+                  n_sub: int = E2E_SUB_CONNS,
                   churn: int = CAPTURE_CHURN, seed: int = SEED) -> dict:
     """The single-chip engine's incremental capture at phase 8's
     population: a node at the reference's defaults (overlay on), its
@@ -5189,15 +5350,21 @@ def mesh_node_phase(dev, card: str) -> dict:
 # the repo's shipped configuration
 BOOT_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "etc",
                          "emqx.conf")
-BOOT_PUBS = (("tcp", 4), ("ssl", 2), ("ws", 2))   # publishers by transport
+BOOT_PUBS = (("tcp", 4), ("ssl", 2), ("ws", 2),    # publishers by
+             ("quic", 2))                          # transport
+BOOT_QUIC_SUBS = 2                   # 15a's subscriber connections on QUIC
 BOOT_MSGS = E2E_MSGS                 # 15a's flood
+BOOT_FLOOD_S = 240.0                 # 15a's flood, QUIC included, at most
+BOOT_LOSSY_MSGS = 20                 # 15e: QoS 1 through the dropper
+BOOT_LOSSY_EVERY = 3                 # 15e: every 3rd datagram dropped
 BOOT_BAN_S = 2.0                     # 15b's ban duration
 BOOT_SUSTAIN_S = 1                   # conn_congestion's sustain in 15b
 BOOT_SLOW_MSGS = 5_000               # 15b's QoS 0 burst to a stalled reader
 BOOT_SLOW_PAYLOAD = 8192
-BOOT_DENSE_MSGS = 16_000             # 15c's floods, dense and CSR
-BOOT_MESH_MSGS = 4_000               # 15c's mesh leg
-BOOT_HOST_MSGS = 16_000              # 15d's flood
+BOOT_DENSE_MSGS = 4_000              # 15c's floods, dense and CSR (16,000
+                                     # before QUIC)
+BOOT_MESH_MSGS = 2_000               # 15c's mesh leg (4,000 before QUIC)
+BOOT_HOST_MSGS = 8_000               # 15d's flood (16,000 before QUIC)
 BOOT_TIMEOUT_S = 30.0
 # the latency objective the override sets: at the 2 ms default every
 # message of a flood beyond the node's rate breaches, and the governor
@@ -5214,6 +5381,7 @@ def boot_override(certs: dict) -> str:
     of the shipped file in a temp dir) 15a boots with: the shipped
     listeners on
     127.0.0.1 port 0, the commented ``ssl_default`` listener with fresh
+    certificates, the commented ``quic_default`` listener on the same
     certificates, the congestion alarm on with a short sustain, and an
     end-to-end objective a max-rate flood can keep (BOOT_SLO_MS)."""
     return (
@@ -5225,6 +5393,9 @@ def boot_override(certs: dict) -> str:
         f'          keyfile = "{certs["keyfile"]}"\n'
         f'          cacertfile = "{certs["cacertfile"]}"\n'
         "          verify = verify_none } }\n"
+        '  quic_default { type = quic, bind = "127.0.0.1", port = 0\n'
+        f'    ssl {{ certfile = "{certs["certfile"]}"\n'
+        f'          keyfile = "{certs["keyfile"]}" }} }}\n'
         "}\n"
         "conn_congestion { enable_alarm = true, "
         f"min_alarm_sustain_duration = {BOOT_SUSTAIN_S}s }}\n"
@@ -5236,14 +5407,199 @@ def _boot_ports(node) -> dict:
     out = {}
     for lst in node.listeners:
         kind = getattr(lst, "protocol", None) or lst.name.split(":")[0]
-        out[{"mqtt:ws": "ws", "mqtt:wss": "wss"}.get(kind, kind)] = lst.port
+        out[{"mqtt:ws": "ws", "mqtt:wss": "wss",
+             "mqtt:quic": "quic"}.get(kind, kind)] = lst.port
+    return out
+
+
+def _quic_listener(node):
+    return next(x for x in node.listeners
+                if getattr(x, "protocol", "") == "mqtt:quic")
+
+
+def _quic_conn(port: int, certs: dict, **kw):
+    """A QUIC client connection to the booted node's quic listener, its
+    certificate chain and hostname verified against the run's CA."""
+    from emqx_tpu_torch.quic import QuicClientConnection
+    kw.setdefault("cafile", certs["cacertfile"])
+    kw.setdefault("server_name", "localhost")
+    return QuicClientConnection(port=port, **kw)
+
+
+async def _quic_dial(qc) -> None:
+    """Handshake under a deadline; then the client's socket asks for
+    EXT_RCVBUF, as phase 20's UDP clients do (the listener keeps the
+    reference's socket)."""
+    import asyncio
+    import socket
+    await asyncio.wait_for(qc.connect(), BOOT_TIMEOUT_S)
+    qc.transport.get_extra_info("socket").setsockopt(
+        socket.SOL_SOCKET, socket.SO_RCVBUF, EXT_RCVBUF)
+
+
+class _Udp:
+    """A QUIC connection's socket as its connection sees it: every
+    datagram handed to it counted, every `drop_every`-th dropped (none
+    at 0), the rest sent."""
+
+    def __init__(self, inner, drop_every: int = 0):
+        self.inner = inner
+        self.drop_every = drop_every
+        self.sent = self.dropped = 0
+
+    def sendto(self, data, addr=None):
+        self.sent += 1
+        if self.drop_every and self.sent % self.drop_every == 0:
+            self.dropped += 1
+            return
+        self.inner.sendto(data, addr)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def _udp_drops(port: int):
+    """The kernel's receive drops on the UDP socket bound to local port
+    `port` (/proc/net/udp's last column; None where it is not listed)."""
+    try:
+        with open("/proc/net/udp") as fh:
+            rows = fh.read().splitlines()[1:]
+    except OSError:
+        return None
+    for row in rows:
+        f = row.split()
+        if int(f[1].split(":")[1], 16) == port:
+            return int(f[-1])
+    return None
+
+
+class _QuicTally:
+    """One QUIC connection's counts (either side), taken around the
+    instance's own methods and its socket: NewReno halvings (each starts
+    a recovery window), retransmitted packets, datagrams sent and
+    received; ``read`` adds cwnd, ssthresh, the bytes still blocked
+    behind cwnd or flow control, and the kernel's drops on the local
+    socket (`port`; the listener's socket is every server connection's)."""
+
+    def __init__(self, conn, port: int, drop_every: int = 0):
+        self.conn, self.port = conn, port
+        self.halvings = self.retransmits = self.received = 0
+        congestion, retransmit, received = (
+            conn._congestion_event, conn._retransmit, conn.datagram_received)
+
+        def congestion_event(sent_ts):
+            was = conn._recovery_until
+            congestion(sent_ts)
+            self.halvings += conn._recovery_until != was
+
+        def retransmitted(*a):
+            self.retransmits += 1
+            retransmit(*a)
+
+        def datagram_received(*a):
+            self.received += 1
+            received(*a)
+        conn._congestion_event = congestion_event
+        conn._retransmit = retransmitted
+        conn.datagram_received = datagram_received
+        self.udp = conn.transport = _Udp(conn.transport, drop_every)
+
+    def read(self) -> dict:
+        q = quic_state(self.conn)
+        return {"cwnd": q["cwnd"], "ssthresh": q["ssthresh"],
+                "halvings": self.halvings, "retransmits": self.retransmits,
+                "sent": self.udp.sent, "received": self.received,
+                "dropped": self.udp.dropped,
+                "socket_drops": _udp_drops(self.port),
+                "blocked_bytes": q["blocked_bytes"]}
+
+
+def quic_state(conn) -> dict:
+    """What a QUIC connection (either side) holds: closed or not and why,
+    cwnd, ssthresh, bytes in flight, unacked packets by level, bytes
+    blocked, stream bytes sent against the peer's MAX_DATA, seconds since
+    it last heard from its peer, and its 1-RTT packet numbers."""
+    app = conn.spaces[2]
+    return {"closed": conn.closed, "reason": conn.close_reason,
+            "cwnd": conn.cwnd,
+            "ssthresh": None if conn.ssthresh == float("inf")
+            else conn.ssthresh,
+            "in_flight": conn.bytes_in_flight,
+            "unacked": [len(conn.spaces[lvl].unacked) for lvl in (0, 1, 2)],
+            "blocked_bytes": sum(len(d) for d, _fin
+                                 in conn._blocked_tx.values()),
+            "tx_total": conn._tx_total, "peer_max_data": conn.peer_max_data,
+            "quiet_s": round(time.monotonic() - conn.last_rx, 3),
+            "app": {"next_pn": app.next_pn, "largest_rx": app.largest_rx,
+                    "rx_floor": app.rx_floor, "rx_above": len(app.rx_pns),
+                    "unacked_pns": [min(app.unacked, default=None),
+                                    max(app.unacked, default=None)]}}
+
+
+def _quic_report(where: str, tallies: dict) -> None:
+    """Log every tallied QUIC connection's state and counts (a failed
+    flood's last lines)."""
+    log(f"phase {where}: the flood failed; QUIC connections (client / "
+        f"listener side) " + json.dumps({
+            cid: {side: dict(quic_state(t.conn), **t.read())
+                  for side, t in sides.items()}
+            for cid, sides in tallies.items()}))
+
+
+def _server_conn(lst, qc):
+    """The listener's connection for client connection `qc` (by the
+    client socket's port)."""
+    port = qc.transport.get_extra_info("sockname")[1]
+    return next(c for c in set(lst._conns.values()) if c.addr[1] == port)
+
+
+def _quic_tallies(lst, conns: dict, drop_every: int = 0) -> dict:
+    """{name: {"client": tally, "server": tally}} for each client QUIC
+    connection of `conns` ({name: connection}) and its listener side."""
+    out = {}
+    for name, qc in conns.items():
+        out[name] = {
+            "client": _QuicTally(qc, qc.transport.get_extra_info(
+                "sockname")[1], drop_every),
+            "server": _QuicTally(_server_conn(lst, qc), lst.port,
+                                 drop_every)}
+    return out
+
+
+def _tally_delta(tallies: dict, before: dict) -> dict:
+    """Each connection's counts since `before` (a ``read`` of each), its
+    cwnd, ssthresh and blocked bytes as they stand."""
+    out = {}
+    for cid, sides in tallies.items():
+        out[cid] = {}
+        for side, t in sides.items():
+            now, b = t.read(), before[cid][side]
+            for k in ("halvings", "retransmits", "sent", "received",
+                      "dropped"):
+                now[k] -= b[k]
+            if now["socket_drops"] is not None \
+                    and b["socket_drops"] is not None:
+                now["socket_drops"] -= b["socket_drops"]
+            out[cid][side] = now
     return out
 
 
 def _boot_client(ports: dict, transport: str, certs: dict, **kw):
-    """A port Client over one of the booted node's transports."""
+    """A port Client over one of the booted node's transports; a QUIC
+    one dials on its first CONNECT (one stream on its own connection,
+    ``cl.quic``)."""
     from emqx_tpu_torch.broker.ws import open_ws_connection
     from emqx_tpu_torch.client import Client
+    if transport == "quic":
+        qc = _quic_conn(ports["quic"], certs)
+
+        async def stream():
+            if not qc.handshake_done.done():
+                await _quic_dial(qc)
+            return qc.open_stream()
+        cl = Client(conn_factory=stream, **kw)
+        cl.quic = qc
+        return cl
     if transport == "ws":
         port = ports["ws"]
         return Client(conn_factory=lambda: open_ws_connection(
@@ -5255,13 +5611,14 @@ def _boot_client(ports: dict, transport: str, certs: dict, **kw):
 
 async def _boot_pubs(ports: dict, certs: dict, tag: str) -> tuple:
     """BOOT_PUBS' publishers, connected; (clients, {transport: indices})."""
+    import asyncio
     pubs, groups = [], {}
     for tr, n in BOOT_PUBS:
         for _ in range(n):
             groups.setdefault(tr, []).append(len(pubs))
             cl = _boot_client(ports, tr, certs,
                               clientid=f"{tag}pub{len(pubs)}")
-            await cl.connect()
+            await asyncio.wait_for(cl.connect(), BOOT_TIMEOUT_S)
             pubs.append(cl)
     return pubs, groups
 
@@ -5341,17 +5698,21 @@ async def _boot_flood(node, subs, pubs, ids, nums, total, seed, groups=None,
 
 async def _boot_conn(node, certs, ports, tr, clientid, **kw):
     """CONNECT (v5 unless `kw` says otherwise) over transport `tr`; the
-    CONNACK reason code."""
+    CONNACK reason code. A QUIC client's connection closes after it."""
+    import asyncio
+
     from emqx_tpu_torch.client import MqttError
     from emqx_tpu_torch.mqtt import constants as C
     kw.setdefault("proto_ver", C.MQTT_V5)
     cl = _boot_client(ports, tr, certs, clientid=clientid, **kw)
     try:
-        await cl.connect()
+        await asyncio.wait_for(cl.connect(), BOOT_TIMEOUT_S)
     except MqttError:
         pass
     rc = cl.connack.reason_code if cl.connack is not None else None
-    await cl.disconnect()
+    await asyncio.wait_for(cl.disconnect(), BOOT_TIMEOUT_S)
+    if getattr(cl, "quic", None) is not None:
+        cl.quic.close(0, "", app=True)
     return rc
 
 
@@ -5460,6 +5821,152 @@ async def _boot_layers(node, certs, ports, pub) -> dict:
     return out
 
 
+# 15e: each refused handshake and what its error must say
+BOOT_REFUSALS = {"untrusted_ca": "not issued by trusted CA",
+                 "hostname_mismatch": "hostname",
+                 "no_common_alpn": "no common ALPN protocol"}
+
+
+async def _quic_client(ports, certs, clientid: str, qc=None, **kw):
+    """A port Client on one stream of QUIC connection `qc` (dialled here
+    when None), connected (v5) under a deadline; (client, qc)."""
+    import asyncio
+
+    from emqx_tpu_torch.client import Client
+    from emqx_tpu_torch.mqtt import constants as C
+    if qc is None:
+        qc = _quic_conn(ports["quic"], certs)
+        await _quic_dial(qc)
+
+    async def stream():
+        return qc.open_stream()
+    cl = Client(clientid=clientid, proto_ver=C.MQTT_V5, conn_factory=stream,
+                **kw)
+    ack = await asyncio.wait_for(cl.connect(), BOOT_TIMEOUT_S)
+    if ack.reason_code != 0:
+        raise AssertionError(f"phase 15e: {clientid} CONNACK "
+                             f"{ack.reason_code:#x}")
+    return cl, qc
+
+
+async def _boot_quic(node, certs, ports, tmp: str,
+                     lossy_msgs: int = BOOT_LOSSY_MSGS) -> dict:
+    """15e on the booted node's quic listener: the TLS engine's three
+    refusals (an untrusted CA, a hostname mismatch, no common ALPN), each
+    leaving no connection behind; a Retry round trip (the listener's
+    address validation turned on for it); `lossy_msgs` QoS 1 messages
+    through a connection that drops every BOOT_LOSSY_EVERY-th datagram
+    both ways, delivered once and in order; and idle reaping of a client
+    gone silent (its last receive dated back past IDLE_TIMEOUT_S)."""
+    import asyncio
+
+    from emqx_tpu_torch.quic import connection as QC
+    from emqx_tpu_torch.utils.tls import generate_self_signed
+    lst = _quic_listener(node)
+    out = {"governor_wait_s": await _below_overload(node)}
+    base = lst.current_conns
+    other = generate_self_signed(os.path.join(tmp, "evil"), ca_cn="evil-ca")
+    refused = {}
+    for case, kw in (("untrusted_ca", {"cafile": other["cacertfile"]}),
+                     ("hostname_mismatch",
+                      {"server_name": "evil.example.com"}),
+                     ("no_common_alpn", {})):
+        qc = _quic_conn(ports["quic"], certs, **kw)
+        if case == "no_common_alpn":
+            qc.tls._alpn = ["h3"]
+        try:
+            await _quic_dial(qc)
+            refused[case] = None
+        except (ConnectionError, asyncio.TimeoutError) as e:
+            refused[case] = f"{type(e).__name__}: {e}"
+        finally:
+            qc.close(0, "", app=True)
+    out["refused"] = refused
+    out["refused_left_s"] = await _until(
+        lambda: lst.current_conns == base, BOOT_TIMEOUT_S)
+    if any(r is None or BOOT_REFUSALS[c] not in r
+           for c, r in refused.items()):
+        raise AssertionError(f"phase 15e: refusals {refused}")
+    # a Retry round trip: the client follows the Retry (a new CID and a
+    # token) and serves MQTT on the connection it validated
+    lst.retry = True
+    try:
+        cl, qc = await _quic_client(ports, certs, "boot-retry")
+    finally:
+        lst.retry = False
+    out["retry"] = {"saw_retry": qc._saw_retry,
+                    "token_bytes": len(qc.initial_token)}
+    await asyncio.wait_for(cl.disconnect(), BOOT_TIMEOUT_S)
+    qc.close(0, "", app=True)
+    if not qc._saw_retry or not qc.initial_token:
+        raise AssertionError(f"phase 15e: retry {out['retry']}")
+    # QoS 1 through a dropper: every BOOT_LOSSY_EVERY-th datagram lost in
+    # each direction, recovered by the packet threshold and the PTO
+    qc = _quic_conn(ports["quic"], certs)
+    await _quic_dial(qc)
+    tallies = _quic_tallies(lst, {"boot-lossy": qc}, BOOT_LOSSY_EVERY)
+    t0 = time.perf_counter()
+    cl, _qc = await _quic_client(ports, certs, "boot-lossy", qc)
+    await cl.subscribe("boot/lossy/t", qos=1, timeout=BOOT_TIMEOUT_S)
+    acks = [cl.publish_start("boot/lossy/t", b"m%d" % i, qos=1)
+            for i in range(lossy_msgs)]
+    done, owed = await asyncio.wait(acks, timeout=BOOT_TIMEOUT_S)
+    if owed:
+        raise AssertionError(f"phase 15e: {len(owed)} of {lossy_msgs} "
+                             f"PUBACKs owed through the dropper; QUIC "
+                             f"{json.dumps(quic_state(qc))}")
+    for a in done:
+        a.result()
+    got = [(await asyncio.wait_for(cl.messages.get(),
+                                   BOOT_TIMEOUT_S)).payload
+           for _ in range(lossy_msgs)]
+    await asyncio.sleep(0.2)             # a duplicate would land by now
+    dup = cl.messages.qsize()
+    lossy_s = time.perf_counter() - t0
+    conns = {side: t.read() for side, t in tallies["boot-lossy"].items()}
+    await asyncio.wait_for(cl.disconnect(), BOOT_TIMEOUT_S)
+    qc.close(0, "", app=True)
+    out["lossy"] = {"msgs": lossy_msgs, "every": BOOT_LOSSY_EVERY,
+                    "s": lossy_s, "duplicates": dup, "connections": conns}
+    if got != [b"m%d" % i for i in range(lossy_msgs)] or dup \
+            or not all(c["dropped"] for c in conns.values()):
+        raise AssertionError(f"phase 15e: lossy {got} {out['lossy']}")
+    # idle reaping: the client goes silent; its server connection, last
+    # heard from longer ago than IDLE_TIMEOUT_S, is closed on the next
+    # PTO tick and forgotten (the lossy connection's close may have been
+    # dropped: it stays until the listener stops)
+    qc = _quic_conn(ports["quic"], certs)
+    await _quic_dial(qc)
+    conn = _server_conn(lst, qc)
+    await _until(lambda: conn.handshake_done.done(), BOOT_TIMEOUT_S)
+    qc.transport.close()
+    qc.transport = None
+    await asyncio.sleep(0.1)       # what the client sent before has landed
+    conn.last_rx -= QC.IDLE_TIMEOUT_S
+    out["idle_reaped_s"] = await _until(
+        lambda: conn.closed and conn not in lst._conns.values(),
+        BOOT_TIMEOUT_S)
+    out["idle_reason"] = conn.close_reason
+    qc.close(0, "", app=True)
+    return out
+
+
+def _quic_stopped(lst, conns: list, tasks: list) -> dict:
+    """What ``stop_listeners`` left of the quic listener: its UDP socket,
+    the connections and MQTT tasks it had before the stop."""
+    out = {"socket_closed": lst._transport.is_closing(),
+           "connections": len(conns),
+           "open": sum(not c.closed for c in conns),
+           "listed": len(lst._conns), "current_conns": lst.current_conns,
+           "mqtt_tasks": len(tasks),
+           "tasks_running": sum(not t.done() for t in tasks)
+           + len(lst._mqtt_tasks)}
+    if not out["socket_closed"] or out["open"] or out["listed"] \
+            or out["current_conns"] or out["tasks_running"]:
+        raise AssertionError(f"phase 15e: stop_listeners left {out}")
+    return out
+
+
 def _burst_counter():
     """Count columnar-burst rows by the listener port they came in on
     (the channel's sockname): the burst share by transport."""
@@ -5474,26 +5981,39 @@ def _burst_counter():
     return rows, orig, counted
 
 
-async def _boot_node_drive(node, certs, n_filters, n_sub, pin_device, tag):
+async def _boot_node_drive(node, certs, n_filters, n_sub, pin_device, tag,
+                           quic_subs: int = 0):
     """Start the node's listeners, connect BOOT_PUBS' publishers and
-    subscribe phase 8's population over TCP (every connection before the
-    first SUBSCRIBE, see _subscribe_population); returns (ports, subs,
-    pubs, groups, ids, nums, shared filters, subscriptions)."""
-    await node.start_listeners()
+    subscribe phase 8's population over TCP, the first `quic_subs`
+    subscriber connections over QUIC (every connection before the first
+    SUBSCRIBE, see _subscribe_population); returns (ports, subs, pubs,
+    groups, ids, nums, shared filters, subscriptions)."""
+    import asyncio
+    await asyncio.wait_for(node.start_listeners(), BOOT_TIMEOUT_S)
     ports = _boot_ports(node)
     pubs, groups = await _boot_pubs(ports, certs, tag)
     subs, ids, nums, n_shared, n_entries = \
-        await _subscribe_population(ports["tcp"], n_filters, n_sub)
+        await _subscribe_population(
+            ports["tcp"], n_filters, n_sub, make=lambda c, cid: _boot_client(
+                ports, "quic", certs, clientid=cid) if c < quic_subs
+            else None)
     if pin_device and node.publish_batcher is not None:
         node.publish_batcher._device_worth_it = lambda: True
     return ports, subs, pubs, groups, ids, nums, n_shared, n_entries
 
 
 async def _boot_stop(node, clients) -> None:
+    """Disconnect the clients, stop the timers and the listeners (each
+    under a deadline), close the clients' QUIC connections and the
+    batcher."""
+    import asyncio
     for cl in clients:
-        await cl.disconnect()
+        await asyncio.wait_for(cl.disconnect(), BOOT_TIMEOUT_S)
     node.stop_timers()
-    await node.stop_listeners()
+    await asyncio.wait_for(node.stop_listeners(), BOOT_TIMEOUT_S)
+    for cl in clients:
+        if getattr(cl, "quic", None) is not None:
+            cl.quic.close(0, "", app=True)
     if node.publish_batcher is not None:
         await node.publish_batcher.stop()
         node.publish_batcher.close()
@@ -5582,17 +6102,21 @@ def boot_drive(dev, n_filters: int = E2E_FILTERS,
                dense_total: int = BOOT_DENSE_MSGS,
                mesh_total: int = BOOT_MESH_MSGS,
                host_total: int = BOOT_HOST_MSGS, seed: int = SEED,
-               pin_device: bool = False, conf_path: str = BOOT_CONF) -> dict:
+               pin_device: bool = False, conf_path: str = BOOT_CONF,
+               lossy_msgs: int = BOOT_LOSSY_MSGS) -> dict:
     """Phase 15: the default node booted from the repo's ``etc/emqx.conf``,
     copied unchanged to a temp dir with ``emqx_override.conf`` beside it
     (``Config.load_file``, then ``Node.from_config_file``,
     ``start_listeners`` and ``start_timers``):
-    15a phase 8's population over TCP and a flood from publishers over
-    TCP, TLS and WebSocket; 15b the banned table, the OS monitor and the
-    congestion alarm on that node; 15c the dense readback against the
-    CSR one (a TCP flood on a ``compact_readback: false`` node against
-    the booted one, then a mesh node and its CSR twin); 15d the host-only
-    node (``device_route: false``). ``pin_device`` pins the chooser (a
+    15a phase 8's population over TCP and QUIC and a flood from
+    publishers over TCP, TLS, WebSocket and QUIC; 15b the banned table,
+    the OS monitor and the congestion alarm on that node; 15c the dense
+    readback against the CSR one (a flood on a ``compact_readback:
+    false`` node against the booted one, then a mesh node and its CSR
+    twin, at a quarter of the population); 15d the host-only node
+    (``device_route: false``, a quarter of the population); 15e the
+    booted node's quic listener (``_boot_quic``, then what
+    ``stop_listeners`` leaves of it). ``pin_device`` pins the chooser (a
     CPU rehearsal only). Raises on any failed check."""
     import asyncio
     import shutil
@@ -5619,7 +6143,7 @@ def boot_drive(dev, n_filters: int = E2E_FILTERS,
         with open(os.path.join(tmp, "emqx_override.conf"), "w") as fh:
             fh.write(boot_override(certs))
         conf = Config.load_file(path)
-        want = {"tcp_default", "ws_default", "ssl_default"}
+        want = {"tcp_default", "ws_default", "ssl_default", "quic_default"}
         if set(conf.get("listeners")) != want:
             raise AssertionError(f"phase 15a: listeners "
                                  f"{sorted(conf.get('listeners'))}")
@@ -5631,10 +6155,16 @@ def boot_drive(dev, n_filters: int = E2E_FILTERS,
             t0 = time.time()
             ports, subs, pubs, groups, ids, nums, n_shared, n_entries = \
                 await _boot_node_drive(node, certs, n_filters, n_sub,
-                                       pin_device, "a")
+                                       pin_device, "a", BOOT_QUIC_SUBS)
             clients += subs + pubs
+            lst_q = _quic_listener(node)
+            tallies = _quic_tallies(lst_q, {
+                cl.clientid: cl.quic for cl in subs + pubs
+                if getattr(cl, "quic", None) is not None})
             node.start_timers()
             out["a"] = {"filters": ids * nums, "shared_filters": n_shared,
+                        "connections": n_sub,
+                        "quic_connections": min(BOOT_QUIC_SUBS, n_sub),
                         "subscriptions": n_entries,
                         "subscribe_s": time.time() - t0,
                         "listeners": sorted(
@@ -5649,15 +6179,22 @@ def boot_drive(dev, n_filters: int = E2E_FILTERS,
             gc.freeze()
             rows, orig, counted = _burst_counter()
             CH.Channel.handle_publish_burst = counted
+            q0 = {cid: {side: t.read() for side, t in sides.items()}
+                  for cid, sides in tallies.items()}
             try:
-                f = await _boot_flood(node, subs, pubs, ids, nums, total,
-                                      seed, groups, where="phase 15a")
+                f = await asyncio.wait_for(_boot_flood(
+                    node, subs, pubs, ids, nums, total, seed, groups,
+                    where="phase 15a"), BOOT_FLOOD_S)
+            except (AssertionError, asyncio.TimeoutError):
+                _quic_report("15a", tallies)
+                raise
             finally:
                 CH.Channel.handle_publish_burst = orig
             for tr, g in f["by_group"].items():
                 g["burst_share"] = rows.get(ports[tr], 0) / g["sent"]
             f.pop("got")
             out["a"]["flood"] = f
+            out["a"]["quic"] = _tally_delta(tallies, q0)
             out["a"]["supervise"] = check_supervised(node, "phase 15a")
             gov = node.overload_governor
             out["a"]["governor"] = {"grade": gov.state()["grade"],
@@ -5669,13 +6206,22 @@ def boot_drive(dev, n_filters: int = E2E_FILTERS,
             out["b"]["governor"] = {"grade": gov.state()["grade"],
                                     "grade_changes": gov.grade_changes}
             # 15c, the CSR side: the booted (default) node's flood
-            csr = await _boot_flood(node, subs, pubs, ids, nums,
-                                    dense_total, seed + 300, min_share=0,
-                                    where="phase 15c csr")
+            try:
+                csr = await asyncio.wait_for(_boot_flood(
+                    node, subs, pubs, ids, nums, dense_total, seed + 300,
+                    min_share=0, where="phase 15c csr"), BOOT_FLOOD_S)
+            except (AssertionError, asyncio.TimeoutError):
+                _quic_report("15c csr", tallies)
+                raise
             out["c"] = {"csr": csr}
+            # 15e on the same node
+            out["e"] = await _boot_quic(node, certs, ports, tmp, lossy_msgs)
+            q_conns = list(set(lst_q._conns.values()))
+            q_tasks = list(lst_q._mqtt_tasks)
         finally:
             gc.unfreeze()
             await _boot_stop(node, clients)
+        out["e"]["stopped"] = _quic_stopped(lst_q, q_conns, q_tasks)
         # 15c: a compact_readback: false node, the same flood
         dconf = Config.load_file(path)
         dconf.update(("broker", "compact_readback"), False, persist=False)
@@ -5722,8 +6268,8 @@ def boot_drive(dev, n_filters: int = E2E_FILTERS,
         clients = []
         try:
             ports, subs, pubs, groups, ids, nums, _s, _e = \
-                await _boot_node_drive(host_node, certs, n_filters, n_sub,
-                                       False, "d")
+                await _boot_node_drive(host_node, certs, n_filters // 4,
+                                       n_sub, False, "d")
             clients += subs + pubs
             gc.collect()
             gc.freeze()
@@ -5751,7 +6297,7 @@ def boot_drive(dev, n_filters: int = E2E_FILTERS,
         out = asyncio.run(run())
         out["c"]["mesh"] = _mesh_leg(
             dev, lambda: Config.load_file(os.path.join(tmp, "emqx.conf")),
-            n_filters, n_sub, mesh_total, seed + 500)
+            n_filters // 4, n_sub, mesh_total, seed + 500)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -5767,14 +6313,15 @@ def boot_phase(dev, card: str) -> dict:
     """Phase 15 on the card; prints its lines."""
     t0 = time.time()
     r = boot_drive(dev)
-    a, b, c, d = r["a"], r["b"], r["c"], r["d"]
+    a, b, c, d, e = r["a"], r["b"], r["c"], r["d"], r["e"]
     f = a["flood"]
     log(f"phase 15a: booted etc/emqx.conf with a runtime override "
         f"(certificates made by generate_self_signed in "
         f"{r['certs_s']:.2f} s); listeners {a['listeners']}; "
         f"{a['filters']} filters ({a['shared_filters']} shared) subscribed "
-        f"over TCP in {a['subscribe_s']:.1f} s, warm-up "
-        f"{a['warm_up_s']:.1f} s; logger handlers {a['log_handlers']}")
+        f"over TCP and QUIC ({a['quic_connections']} of "
+        f"{a['connections']} connections) in {a['subscribe_s']:.1f} s, "
+        f"warm-up {a['warm_up_s']:.1f} s; logger handlers {a['log_handlers']}")
     log(f"phase 15a: {f['sent']} PUBLISHes from "
         f"{', '.join(f'{n} {tr}' for tr, n in BOOT_PUBS)}: {f['per_sec']} "
         f"msgs/s, every message once and in order; client p50 "
@@ -5782,10 +6329,20 @@ def boot_phase(dev, card: str) -> dict:
         f"share {f['device_share']:.4f} over {f['windows']} windows "
         f"({f['batches']} batches); {card}")
     for tr, g in f["by_group"].items():
+        conns = "" if tr != "quic" else (
+            f"; per connection over the flood (client / listener side: "
+            f"cwnd, ssthresh, halvings, retransmits, datagrams sent, "
+            f"received, dropped by the socket, bytes blocked) "
+            + "; ".join(f"{cid} " + " / ".join(
+                f"{q['cwnd']}, {q['ssthresh']}, {q['halvings']}, "
+                f"{q['retransmits']}, {q['sent']}, {q['received']}, "
+                f"{q['socket_drops']}, {q['blocked_bytes']}"
+                for q in (sides["client"], sides["server"]))
+                for cid, sides in a["quic"].items()))
         log(f"phase 15a {tr}: {g['sent']} msgs from {g['publishers']} "
             f"publishers, {g['per_sec']} msgs/s delivered, p50 "
             f"{g['lat_p50_ms']:.1f} / p99 {g['lat_p99_ms']:.1f} ms, burst "
-            f"share {g['burst_share']:.3f}")
+            f"share {g['burst_share']:.3f}{conns}")
     log(f"phase 15a: launches {f['launches']}; a window: shape_match "
         f"{_shape_rates(f['fold_shapes'], f['windows'])}, prefix_sum "
         f"{_shape_rates(f['scan_shapes'], f['windows'])}")
@@ -5813,6 +6370,14 @@ def boot_phase(dev, card: str) -> dict:
         f"every message once and in order; launches {d['launches']}; "
         f"memory_allocated delta {d['memory_allocated_delta']} B; client "
         f"p50 {d['lat_p50_ms']:.1f} / p99 {d['lat_p99_ms']:.1f} ms")
+    lo = e["lossy"]
+    log(f"phase 15e: refused {json.dumps(e['refused'])}, no connection left "
+        f"after {e['refused_left_s']:.2f} s; retry {json.dumps(e['retry'])}"
+        f"; {lo['msgs']} QoS 1 with every {lo['every']}rd datagram dropped "
+        f"both ways, delivered once and in order in {lo['s']:.2f} s "
+        f"(client / listener side {json.dumps(lo['connections'])}); a "
+        f"silent client reaped in {e['idle_reaped_s']:.2f} s "
+        f"({e['idle_reason']}); stop_listeners {json.dumps(e['stopped'])}")
     r["seconds"] = time.time() - t0
     log(f"phase 15: {r['seconds']:.1f} s; {card}")
     return r
@@ -5821,7 +6386,9 @@ def boot_phase(dev, card: str) -> dict:
 # ---- phase 16: the feature apps and the management API ------------------
 
 APPS_RETAIN_EVERY = 8                # 16a: every 8th PUBLISH retained
-APPS_RETAINED = 100_000              # 16b: CONFIG5_10M.json's retained
+APPS_MSGS = 8_000                    # 16a's flood (16,000 before QUIC)
+APPS_RETAINED = 50_000               # 16b: half CONFIG5_10M.json's retained
+                                     # (all 100,000 before QUIC)
 APPS_RETAINED_GROUPS = 64            # 16b: c5r/{i % 64}/k{i}
 # 16a's topic metrics: two filters of the flood's shape (its topics are
 # device/d{i}/x/n{n}/t), over 1/ids and 1/nums of it (~50 of 16,000)
@@ -6299,9 +6866,9 @@ async def _apps_operator_leg(node, ports, late: dict, ids: int, nums: int,
     return out
 
 
-def apps_drive(dev, n_filters: int = E2E_FILTERS,
+def apps_drive(dev, n_filters: int = PART_FILTERS,
                n_sub: int = E2E_SUB_CONNS, n_pub: int = E2E_PUB_CONNS,
-               total: int = E2E_MSGS, retained: int = APPS_RETAINED,
+               total: int = APPS_MSGS, retained: int = APPS_RETAINED,
                pin_device: bool = False, warm_stress: bool = False) -> dict:
     """Phase 16: the shipped file booted with its apps (``Node.
     from_config_file`` on `dev`, ``start_listeners``, ``start_apps``,
@@ -6540,11 +7107,10 @@ def apps_phase(dev, card: str, batch_form_15a=None) -> dict:
     return r
 
 
-def apps_main(warm_stress: bool = False) -> int:
-    """``--apps``: build the kernels and run phase 16 alone on a card,
-    then print its results as one JSON line. ``--warm-stress``: 16a, then
-    16b's stream beside looped class warms (``_apps_warm_stress``); it
-    exits 1 where the fault shows."""
+def warm_stress_main() -> int:
+    """``--warm-stress``: build the kernels, then 16a and 16b's stream
+    beside looped class warms (``_apps_warm_stress``); it exits 1 where
+    the fault shows (a reproducer, not a phase of the run: no deadline)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6555,18 +7121,13 @@ def apps_main(warm_stress: bool = False) -> int:
     log(build().strip())
     if not native.available():
         raise AssertionError("the host native library did not build")
-    if warm_stress:
-        w = apps_drive(torch.device("cuda"), warm_stress=True)["warm_stress"]
-        x = w["stream"]
-        log(f"warm-stress: {w['warms']} class warms ({w['captures']} graph "
-            f"captures) of {w['classes']} beside "
-            f"{x['retained']} retained PUBLISHes in {x['publish_s']:.2f} s "
-            f"({x['windows']} device windows); no warm and no engine "
-            f"failed; {card}")
-        log(card)
-        return 0
-    apps = apps_phase(torch.device("cuda"), card)
-    log(json.dumps({"apps": _boot_out(apps)}))
+    w = apps_drive(torch.device("cuda"), warm_stress=True)["warm_stress"]
+    x = w["stream"]
+    log(f"warm-stress: {w['warms']} class warms ({w['captures']} graph "
+        f"captures) of {w['classes']} beside "
+        f"{x['retained']} retained PUBLISHes in {x['publish_s']:.2f} s "
+        f"({x['windows']} device windows); no warm and no engine "
+        f"failed; {card}")
     log(card)
     return 0
 
@@ -6574,19 +7135,20 @@ def apps_main(warm_stress: bool = False) -> int:
 # ---------------------------------------------------------------------
 # Phase 17: the cluster on the card
 # ---------------------------------------------------------------------
-CL_MSGS = 16_000                     # 17a's flood (bench's 32,000, cut)
+CL_MSGS = 8_000                      # 17a's flood (bench's 32,000, cut;
+                                     # 16,000 before QUIC)
 CL_PUBS_PER_NODE = 4
 CL_HEARTBEAT_S = 1.0                 # bench.py:1031-1044's beats
 CL_SINGLE_ADDS = 100                 # bench.py:1084-1110
 CL_CHAOS_CYCLES = 1                  # two before phase 20 took the time
 CL_CHAOS_LAX = 2.0                   # tools/chaos_cluster.py's bounds x2
-# 17a, 17c and 17d: phase 8's population halved, 17c: half of 16b's
-# 100,000 retained (both cut for phase 20's time)
-CL_FILTERS = E2E_FILTERS // 2
+# 17a, 17c and 17d: a quarter of phase 8's population (158 x 158 = 24,964
+# filters; a half before QUIC), 17c: half of 16b's 50,000 retained
+CL_FILTERS = E2E_FILTERS // 4
 CL_RETAINED = APPS_RETAINED // 2
 CL_WAL_OPS = 1_000                   # 17c: route adds and retained sets
-CL_RESTORE_MSGS = 4_000              # 17c's floods
-CL_MESH_MSGS = 4_000                 # 17d: 15c's mesh twin's
+CL_RESTORE_MSGS = 2_000              # 17c's floods (4,000 before QUIC)
+CL_MESH_MSGS = BOOT_MESH_MSGS        # 17d: 15c's mesh twin's
 CL_TIMEOUT_S = 120.0
 
 
@@ -6640,7 +7202,8 @@ async def _cluster_pair(dev, n_filters: int, n_sub: int, total: int,
     on each node); the route sync read as bench.py:1048-1110 reads it;
     the warm-up on each node; `total` PUBLISHes from CL_PUBS_PER_NODE
     publishers on each node, every 4th QoS 1, held to exactly once and
-    per-topic order across the cluster (``_flood``)."""
+    per-topic order across the cluster (``_flood``). Its steps' seconds
+    as ``steps_s``."""
     import asyncio
 
     from emqx_tpu_torch.broker.connection import Listener
@@ -6650,6 +7213,8 @@ async def _cluster_pair(dev, n_filters: int, n_sub: int, total: int,
     from emqx_tpu_torch.cluster.cluster import T_ROUTE, T_SHARED
     nodes, cns, clients = [], [], []
     out: dict = {}
+    steps = out["steps_s"] = {}
+    t_step = time.perf_counter()
     try:
         for k in range(2):
             node = Node(device=dev, name=f"cl{k}@127.0.0.1")
@@ -6663,6 +7228,7 @@ async def _cluster_pair(dev, n_filters: int, n_sub: int, total: int,
             nodes.append(node)
             cns.append(cn)
         await cns[1].join(*cns[0].address)
+        steps["start"] = time.perf_counter() - t_step
         ports = [n.listeners[0].port for n in nodes]
         fwd = [_count_forwards(cn) for cn in cns]
         launches = [_per_node_launches(n.device_engine) for n in nodes]
@@ -6727,6 +7293,8 @@ async def _cluster_pair(dev, n_filters: int, n_sub: int, total: int,
             "p99_ms": float(np.percentile(lat_ms, 99))}
         for i in range(CL_SINGLE_ADDS):
             b0.unsubscribe(sid, f"cl-lat/{i}/+")
+        steps["subscribe_sync_adds"] = \
+            time.perf_counter() - t_step - steps["start"]
 
         pubs = []
         for p in range(2 * CL_PUBS_PER_NODE):
@@ -6737,7 +7305,7 @@ async def _cluster_pair(dev, n_filters: int, n_sub: int, total: int,
         t0 = time.perf_counter()
         for k, node in enumerate(nodes):
             await _warm_up(node, pubs[k], subs, nums)
-        out["warm_up_s"] = time.perf_counter() - t0
+        out["warm_up_s"] = steps["warm_up"] = time.perf_counter() - t0
         snap = []
         for node in nodes:
             b = node.device_engine._built
@@ -6782,6 +7350,7 @@ async def _cluster_pair(dev, n_filters: int, n_sub: int, total: int,
                 "launches": lk,
                 "launches_per_window": {n: lk[n] / wins for n in lk}})
         out["flood"] = {k: v for k, v in f.items() if k != "got"}
+        steps["flood"] = f["wall_s"]
         out["nodes"] = per_node
         out.update(filters=ids * nums, shared_filters=n_shared,
                    subscriptions=n_entries)
@@ -6800,18 +7369,22 @@ async def _cluster_pair(dev, n_filters: int, n_sub: int, total: int,
                                      f"kernel 1 or 2: {p['launches']}")
         return out
     finally:
+        # the cluster first: the clients' sessions then end without
+        # replicating the population's route deletes to the peer
+        t_stop = time.perf_counter()
+        for cn in cns:
+            await cn.stop()
         for cl in clients:
             try:
                 await cl.disconnect()
             except Exception:  # noqa: BLE001 — teardown
                 pass
-        for cn in cns:
-            await cn.stop()
         for node in nodes:
             await node.stop_listeners()
             if node.publish_batcher is not None:
                 await node.publish_batcher.stop()
                 node.publish_batcher.close()
+        steps["stop"] = time.perf_counter() - t_stop
 
 
 def _populate_sessions(node, ids: int, nums: int, n_sub: int):
@@ -7234,17 +7807,30 @@ def cluster_drive(dev, n_filters: int = CL_FILTERS,
     cluster (``_mesh_under_cluster``). ``pin_device`` pins 17a's choosers
     to the device (a CPU rehearsal; never in the measured run)."""
     import asyncio
+    import concurrent.futures as cf
 
     from emqx_tpu_torch import chaos_cluster
     out = {}
     t0 = time.time()
-    out["a"] = asyncio.run(_cluster_pair(dev, n_filters, n_sub, total,
-                                         seed, pin_device))
-    out["a"]["phase_s"] = time.time() - t0
-    t0 = time.time()
-    out["b"] = {"cycles": chaos_cluster.run(
-        cycles, lax=CL_CHAOS_LAX, device=dev.type), "lax": CL_CHAOS_LAX}
-    out["b"]["phase_s"] = time.time() - t0
+    # 17b's three node processes start (one after another, each joining
+    # the seed once it is READY) while 17a runs in this one
+    procs: list = []
+    ex = cf.ThreadPoolExecutor(1)
+    started = ex.submit(chaos_cluster.spawn_nodes, dev.type, procs)
+    try:
+        out["a"] = asyncio.run(_cluster_pair(dev, n_filters, n_sub, total,
+                                             seed, pin_device))
+        out["a"]["phase_s"] = time.time() - t0
+        t0 = time.time()
+        nodes = started.result()
+        wait_s = time.time() - t0
+        out["b"] = {"cycles": chaos_cluster.run(
+            cycles, lax=CL_CHAOS_LAX, device=dev.type, nodes=nodes,
+            procs=procs), "lax": CL_CHAOS_LAX, "nodes_wait_s": wait_s}
+        out["b"]["phase_s"] = time.time() - t0
+    finally:
+        ex.shutdown()       # a spawn under way ends before the reap
+        chaos_cluster.reap(procs)
     t0 = time.time()
     out["c"] = asyncio.run(_restore(dev, n_filters, n_sub, restore_total,
                                     retained, wal_ops, seed))
@@ -7284,7 +7870,10 @@ def cluster_phase(dev, card: str) -> dict:
     log(f"phase 17a: {f['sent']} PUBLISHes from {2 * CL_PUBS_PER_NODE} "
         f"publishers (4 a node), every one delivered once, order per topic "
         f"held: {f['per_sec']} msgs/s, client p50 {f['lat_p50_ms']:.1f} ms, "
-        f"p99 {f['lat_p99_ms']:.1f} ms; {card}")
+        f"p99 {f['lat_p99_ms']:.1f} ms; steps (s) "
+        f"{json.dumps({k: round(v, 2) for k, v in a['steps_s'].items()})}; "
+        f"17b's three node processes started meanwhile (waited "
+        f"{c['b']['nodes_wait_s']:.2f} s after 17a); {card}")
     for cyc in c["b"]["cycles"]:
         log(f"phase 17b: cycle {cyc['cycle']} kill -9 {cyc['victim']}: "
             f"re-homed CONNECT {cyc['connect_s']:.3f} s, PUBACK gap "
@@ -7321,29 +7910,13 @@ def cluster_phase(dev, card: str) -> dict:
     return c
 
 
-def cluster_main() -> int:
-    """``--cluster``: build the kernels and run phase 17 alone on a card,
-    then print its results as one JSON line."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from emqx_tpu_torch import native
-    from emqx_tpu_torch.ops.build import build
-    card = card_line()
-    log(build().strip())
-    if not native.available():
-        raise AssertionError("the host native library did not build")
-    c = cluster_phase(torch.device("cuda"), card)
-    log(json.dumps({"cluster": _boot_out(c)}))
-    log(card)
-    return 0
 
 
 # ---------------------------------------------------------------------
 # Phase 18: the secured node (authn, authz, the rule engine)
 # ---------------------------------------------------------------------
-SEC_MSGS = 16_000                    # 18a's flood (bench's 32,000, cut)
+SEC_MSGS = 8_000                     # 18a's flood (bench's 32,000, cut;
+                                     # 16,000 before QUIC)
 SEC_FORBIDDEN = 100                  # 18a: QoS 1 PUBLISHes the ACL denies
 SEC_JWT_PUBS = 2                     # publishers that log in with a JWT
 SEC_JWT_SECRET = "chip-smoke-phase-18-hs256"
@@ -7566,7 +8139,7 @@ async def _secure_api(node, srv, pubs, nums: int) -> dict:
     return out
 
 
-def secure_drive(dev, n_filters: int = E2E_FILTERS,
+def secure_drive(dev, n_filters: int = PART_FILTERS,
                  n_sub: int = E2E_SUB_CONNS, n_pub: int = E2E_PUB_CONNS,
                  total: int = SEC_MSGS, forbidden: int = SEC_FORBIDDEN,
                  window=(8, 1024), pin_device: bool = False) -> dict:
@@ -7761,34 +8334,19 @@ def secure_phase(dev, card: str, f15a=None, f16a=None) -> dict:
     return r
 
 
-def secure_main() -> int:
-    """``--secure``: build the kernels and run phase 18 alone on a card,
-    then print its results as one JSON line."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from emqx_tpu_torch import native
-    from emqx_tpu_torch.ops.build import build
-    card = card_line()
-    log(build().strip())
-    if not native.available():
-        raise AssertionError("the host native library did not build")
-    r = secure_phase(torch.device("cuda"), card)
-    log(json.dumps({"secure": _boot_out(r)}))
-    log(card)
-    return 0
 
 
 # ---------------------------------------------------------------------
 # Phase 19: the database-backed node (the DB arms of authn and authz, a
 # data_to_* rule action, the MQTT bridge)
 # ---------------------------------------------------------------------
-DB_MSGS = 16_000                     # 19a's flood (bench's 32,000, cut)
+DB_MSGS = 8_000                      # 19a's flood (bench's 32,000, cut;
+                                     # 16,000 before QUIC)
 DB_FORBIDDEN = 100                   # 19a: QoS 1 PUBLISHes the ACL denies
-DB_BRIDGE_UP = 2_000                 # 19b: forwarded with the remote up
-DB_BRIDGE_DOWN = 1_000               # 19b: queued while it is down
-DB_BRIDGE_IN = 100                   # 19b: the remote's cmd/# PUBLISHes
+DB_BRIDGE_UP = 1_000                 # 19b: forwarded with the remote up
+DB_BRIDGE_DOWN = 500                 # 19b: queued while it is down
+DB_BRIDGE_IN = 50                    # 19b: the remote's cmd/# PUBLISHes
+                                     # (each halved before QUIC)
 DB_TIMEOUT_S = 60.0
 DB_LDAP_USER = ("lduser", "ld-pencil")
 DB_LDAP_DN = "uid=lduser,ou=people,dc=emqx"
@@ -8023,7 +8581,7 @@ async def _db_bridge(node, remote, rport: int, pub, bsub, tmp: str) -> dict:
     return out
 
 
-def db_drive(dev, n_filters: int = E2E_FILTERS,
+def db_drive(dev, n_filters: int = PART_FILTERS,
              n_sub: int = E2E_SUB_CONNS, n_pub: int = E2E_PUB_CONNS,
              total: int = DB_MSGS, forbidden: int = DB_FORBIDDEN,
              window=(8, 1024), pin_device: bool = False) -> dict:
@@ -8318,23 +8876,6 @@ def db_phase(dev, card: str, f18a=None) -> dict:
     return r
 
 
-def db_main() -> int:
-    """``--db``: build the kernels and run phase 19 alone on a card, then
-    print its results as one JSON line."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from emqx_tpu_torch import native
-    from emqx_tpu_torch.ops.build import build
-    card = card_line()
-    log(build().strip())
-    if not native.available():
-        raise AssertionError("the host native library did not build")
-    r = db_phase(torch.device("cuda"), card)
-    log(json.dumps({"db": _boot_out(r)}))
-    log(card)
-    return 0
 
 
 # ---------------------------------------------------------------------
@@ -8342,7 +8883,8 @@ def db_main() -> int:
 # plugins, the Prometheus and StatsD exporters, telemetry, STOMP,
 # MQTT-SN, CoAP, LwM2M and, where grpc imports, ExProto)
 # ---------------------------------------------------------------------
-EXT_MSGS = 16_000                    # 20a's flood (bench's 32,000, cut)
+EXT_MSGS = 8_000                     # 20a's flood (bench's 32,000, cut;
+                                     # 16,000 before QUIC)
 EXT_STOMP, EXT_SN, EXT_COAP = 8, 4, 2   # 20a's gateway subscribers
 EXT_IN = {"stomp": 1_000, "mqttsn": 1_000, "coap": 200}   # 20b
 EXT_LWM2M_READS = 100                # 20c
@@ -8920,7 +9462,7 @@ async def _ext_lwm2m(node, dev, loc: list, lwctl, lwup) -> dict:
     return out
 
 
-def ext_drive(dev, n_filters: int = E2E_FILTERS,
+def ext_drive(dev, n_filters: int = PART_FILTERS,
               n_sub: int = E2E_SUB_CONNS, n_pub: int = E2E_PUB_CONNS,
               total: int = EXT_MSGS, window=(8, 1024)) -> dict:
     """Phase 20: the shipped file booted under ``ext_override`` on `dev`:
@@ -9393,32 +9935,18 @@ def ext_phase(dev, card: str, f19a=None) -> dict:
     return r
 
 
-def ext_main() -> int:
-    """``--ext``: build the kernels and run phase 20 alone on a card, then
-    print its results as one JSON line."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from emqx_tpu_torch import native
-    from emqx_tpu_torch.ops.build import build
-    card = card_line()
-    log(build().strip())
-    if not native.available():
-        raise AssertionError("the host native library did not build")
-    r = ext_phase(torch.device("cuda"), card)
-    log(json.dumps({"ext": _boot_out(r)}))
-    log(card)
-    return 0
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from emqx_tpu_torch.ops.build import build
     t_all = time.time()
+    arm_deadline("1-3", t_all)
     card = card_line()
     log(f"phase 1: python {sys.version.split()[0]}, torch "
         f"{torch.__version__}, cuda {torch.version.cuda}, "
@@ -9455,6 +9983,7 @@ def main() -> int:
     err_scan = check_prefix_sum(dev)
     err_fold = pattern_check(dev)
     wall("3")
+    arm_deadline("4", t_all)
     b = bench_engine(dev, SUBS, BATCH, WINDOW, SEED)
     torch.cuda.synchronize()
     st = b["eng"].tables.shapes
@@ -9504,43 +10033,61 @@ def main() -> int:
     del b, r
     torch.cuda.empty_cache()
     wall("4")
+    arm_deadline("6-7", t_all)
     ring, mesh, mesh_scan_shapes = mesh_phase(dev)
     torch.cuda.empty_cache()
     wall("6-7")
+    arm_deadline("8", t_all)
     e2e = e2e_phase(dev, card)
     torch.cuda.empty_cache()
     wall("8")
+    arm_deadline("9", t_all)
     layers = layers_phase(dev, card)
     torch.cuda.empty_cache()
     wall("9")
+    arm_deadline("10", t_all)
     cover = cover_phase(dev, card)
     wall("10")
+    arm_deadline("11", t_all)
+    # phase 12's two processes load while phase 11 runs
+    kids12 = [_Child("--overload"), _Child("--overload")]
     ingress = ingress_phase(card)
     wall("11")
-    overload = overload_phase(card)
+    arm_deadline("12", t_all)
+    overload = overload_phase(card, kids12)
     wall("12")
+    arm_deadline("13", t_all)
     chaos = chaos_phase(card, e2e["chaos"]["probe_launches"])
     wall("13")
+    arm_deadline("14", t_all)
     mesh_node = mesh_node_phase(dev, card)
     torch.cuda.empty_cache()
     wall("14")
+    arm_deadline("15", t_all)
     boot = boot_phase(dev, card)
     torch.cuda.empty_cache()
     wall("15")
+    arm_deadline("16", t_all)
     apps = apps_phase(dev, card, boot["a"]["flood"]["batch_form"])
     torch.cuda.empty_cache()
     wall("16")
+    arm_deadline("17", t_all)
     cluster = cluster_phase(dev, card)
     torch.cuda.empty_cache()
     wall("17")
+    arm_deadline("18", t_all)
     secure = secure_phase(dev, card, boot["a"]["flood"], apps["a"]["flood"])
     wall("18")
+    arm_deadline("19", t_all)
     db = db_phase(dev, card, secure["a"]["flood"])
     torch.cuda.empty_cache()
     wall("19")
+    arm_deadline("20", t_all)
+    kid5 = _Child("--scan-shapes")    # loads while phase 20 runs
     ext = ext_phase(dev, card, db["a"]["flood"])
     torch.cuda.empty_cache()
     wall("20")
+    arm_deadline("5", t_all)
     timed = {tuple(d["shape"]) for d in scan_shapes + mesh_scan_shapes}
     groups = []           # (where, {shape: launches a window}), new shapes
     for cell, n in (("skew", "windows"), ("churn", "batches")):
@@ -9584,7 +10131,7 @@ def main() -> int:
                                         cnt / max(1, f["windows"]))
     timed |= set(new)
     groups.append(("boot", new))
-    layer_scan_shapes = time_scan_shapes_apart(groups)
+    layer_scan_shapes = time_scan_shapes_apart(groups, kid5)
     layers_err = max(layers["churn"]["hold_skew_err"],
                      layers["churn"]["hold_err"],
                      *(c["hold_err"] for c in cover.values()),
@@ -9740,6 +10287,7 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    faulthandler.cancel_dump_traceback_later()
     return 0
 
 
@@ -9754,61 +10302,85 @@ def _boot_out(boot: dict) -> dict:
     return fix(boot)
 
 
-def boot_main() -> int:
-    """``--boot``: build the kernels and run phase 15 alone on a card,
-    then print its results as one JSON line."""
+
+
+def child_main(flag: str) -> int:
+    """``--ingress``, ``--overload``, ``--scan-shapes``: one phase-11
+    configuration, one phase-12 twin, or kernel 2 at the groups' shapes
+    (phase 5's, or phase 7's) on a card; its JSON line last. The JSON
+    argument follows the flag, or, where it does not, comes on stdin once
+    the child is loaded (``_Child``); end-of-file there ends it unrun."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if len(sys.argv) == 3:
+        arg = sys.argv[2]
+    else:
+        _child_ready()
+        arg = sys.stdin.readline()
+        if not arg:
+            return 0
+    a = json.loads(arg)
+    arm_deadline({"--ingress": "11", "--overload": "12",
+                  "--scan-shapes": "5"}[flag], time.time(), say=False)
+    if flag == "--ingress":
+        out = ingress_one("cuda", a["conns"], a["columnar"])
+    elif flag == "--overload":
+        out = overload_one("cuda", a["governor"], a["rate"])
+    else:
+        out = []
+        for g in a["groups"]:
+            shapes = {tuple(k): v for k, v in g["shapes"]}
+            out += time_scan_shapes(torch.device("cuda"), shapes,
+                                    g["where"])
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def phase_main(flag: str) -> int:
+    """``--boot``, ``--apps``, ``--cluster``, ``--secure``, ``--db``,
+    ``--ext``: build the kernels and run phase 15, 16, 17, 18, 19 or 20
+    alone on a card under that phase's deadline, then print its results
+    as one JSON line."""
+    import faulthandler
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from emqx_tpu_torch import native
     from emqx_tpu_torch.ops.build import build
+    phase, run, key = {"--boot": ("15", boot_phase, "boot"),
+                       "--apps": ("16", apps_phase, "apps"),
+                       "--cluster": ("17", cluster_phase, "cluster"),
+                       "--secure": ("18", secure_phase, "secure"),
+                       "--db": ("19", db_phase, "db"),
+                       "--ext": ("20", ext_phase, "ext")}[flag]
+    t0 = time.time()
     card = card_line()
     log(build().strip())
     if not native.available():
         raise AssertionError("the host native library did not build")
-    boot = boot_phase(torch.device("cuda"), card)
-    log(json.dumps({"boot": _boot_out(boot)}))
+    arm_deadline(phase, t0)
+    r = run(torch.device("cuda"), card)
+    log(json.dumps({key: _boot_out(r)}))
     log(card)
+    faulthandler.cancel_dump_traceback_later()
     return 0
 
 
-def scan_shapes_main(arg: str) -> int:
-    """``--scan-shapes``: time_scan_shapes at each group's shapes on a
-    card, the per-shape lines and then one JSON line of the results."""
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    out = []
-    for g in json.loads(arg)["groups"]:
-        shapes = {tuple(k): v for k, v in g["shapes"]}
-        out += time_scan_shapes(torch.device("cuda"), shapes, g["where"])
-    print(json.dumps(out), flush=True)
-    return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--scan-shapes":
-        sys.exit(scan_shapes_main(sys.argv[2]))
-    if len(sys.argv) == 3 and sys.argv[1] == "--ingress":
-        sys.exit(ingress_main(sys.argv[2]))
-    if len(sys.argv) == 3 and sys.argv[1] == "--overload":
-        sys.exit(overload_main(sys.argv[2]))
+    if len(sys.argv) in (2, 3) and sys.argv[1] in (
+            "--scan-shapes", "--ingress", "--overload"):
+        sys.exit(child_main(sys.argv[1]))
     if len(sys.argv) == 2 and sys.argv[1] == "--trace-cost":
         sys.exit(trace_cost_main())
-    if len(sys.argv) == 2 and sys.argv[1] == "--boot":
-        sys.exit(boot_main())
     if len(sys.argv) == 2 and sys.argv[1] == "--warm-stress":
-        sys.exit(apps_main(warm_stress=True))
-    if len(sys.argv) == 2 and sys.argv[1] == "--apps":
-        sys.exit(apps_main())
-    if len(sys.argv) == 2 and sys.argv[1] == "--cluster":
-        sys.exit(cluster_main())
-    if len(sys.argv) == 2 and sys.argv[1] == "--secure":
-        sys.exit(secure_main())
-    if len(sys.argv) == 2 and sys.argv[1] == "--db":
-        sys.exit(db_main())
-    if len(sys.argv) == 2 and sys.argv[1] == "--ext":
-        sys.exit(ext_main())
+        sys.exit(warm_stress_main())
+    if len(sys.argv) == 2 and sys.argv[1] in (
+            "--boot", "--apps", "--cluster", "--secure", "--db", "--ext"):
+        sys.exit(phase_main(sys.argv[1]))
     sys.exit(main())

@@ -24,7 +24,9 @@ but allocates nothing there.
 HOCON file (``Config.load_file``, with the ``emqx_override.conf`` beside
 it on top) and ``start_listeners`` starts every listener under ``listeners``:
 ``tcp`` and ``ssl`` (``broker/connection.Listener``), ``ws`` and ``wss``
-(``broker/ws.WsListener``); a TLS type needs its ``ssl`` block.
+(``broker/ws.WsListener``) and ``quic`` (``quic.QuicListener``); a TLS
+type needs its ``ssl`` block, ``quic`` its ``ssl.certfile`` and
+``ssl.keyfile``.
 ``start_apps`` boots the feature apps the file declares
 (``apps/boot.start_apps``: the retainer and delayed publish, on by
 default, rewrite, topic metrics, event messages and flapping detection)
@@ -33,8 +35,7 @@ and ``start_dashboard`` the ``/api/v5`` REST surface with the web UI
 after the governor's poll. ``start_gateways`` boots each enabled block
 of the ``gateway`` section (``gateway/registry.GatewayRegistry``: stomp,
 mqttsn, coap, lwm2m, and exproto where ``grpc`` imports) and
-``stop_listeners`` stops them with the listeners. The QUIC listener is
-ROADMAP.md Queue A item 20(d): a file that enables one raises.
+``stop_listeners`` stops them with the listeners.
 
 Config keys read under ``broker.``, with the reference's names and
 defaults: ``batch_window_us`` (200), ``max_publish_batch`` (1024),
@@ -302,9 +303,16 @@ class Node:
             elif ltype in ("tcp", "ssl"):
                 lst = Listener(self, name=f"{ltype}:{name}", **common)
             elif ltype == "quic":
-                raise ValueError(
-                    f"listener {name!r}: MQTT over QUIC is not part of "
-                    f"emqx_tpu_torch (ROADMAP.md Queue A item 20(d))")
+                from emqx_tpu_torch.quic import QuicListener
+                ssl_opts = lc.get("ssl") or {}
+                if not ssl_opts.get("certfile") or \
+                        not ssl_opts.get("keyfile"):
+                    raise ValueError(
+                        f"quic listener {name!r} needs ssl.certfile and "
+                        f"ssl.keyfile")
+                common.pop("ssl_opts", None)
+                lst = QuicListener(self, certfile=ssl_opts["certfile"],
+                                   keyfile=ssl_opts["keyfile"], **common)
             else:
                 raise ValueError(f"unknown listener type {ltype!r}")
             await lst.start()

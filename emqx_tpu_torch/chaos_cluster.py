@@ -122,15 +122,24 @@ QOS = 1
 SEED = 42           # the victims' draw
 
 
-async def drive(cycles: int, procs: list, lax: float = 1.0,
-                device="cuda") -> list:
-    from emqx_tpu_torch.cluster.rpc import RpcNode
-    from emqx_tpu_torch.mqtt import packet as P
-
+def spawn_nodes(device="cuda", procs=None) -> tuple:
+    """The drive's three nodes, each started once the one before it is
+    READY (b and c join the seed): (seed, b, c)."""
     seed_node = spawn_node("a@127.0.0.1", device=device, procs=procs)
     join = f"127.0.0.1:{seed_node['rpc']}"
     b = spawn_node("b@127.0.0.1", join=join, device=device, procs=procs)
     c = spawn_node("c@127.0.0.1", join=join, device=device, procs=procs)
+    return seed_node, b, c
+
+
+async def drive(cycles: int, procs: list, lax: float = 1.0,
+                device="cuda", nodes=None) -> list:
+    """The kill cycles over `nodes` (``spawn_nodes``' three; started here
+    when None)."""
+    from emqx_tpu_torch.cluster.rpc import RpcNode
+    from emqx_tpu_torch.mqtt import packet as P
+
+    seed_node, b, c = nodes or spawn_nodes(device, procs)
     others = {"b@127.0.0.1": b, "c@127.0.0.1": c}
     rng = random.Random(SEED)
     readings: list = []
@@ -333,11 +342,15 @@ async def drive(cycles: int, procs: list, lax: float = 1.0,
     return readings
 
 
-def run(cycles: int = 6, lax: float = 1.0, device="cuda") -> list:
-    """The whole drive; every node it started is gone when it returns."""
-    procs: list = []
+def run(cycles: int = 6, lax: float = 1.0, device="cuda", nodes=None,
+        procs=None) -> list:
+    """The whole drive (over `nodes`, started by the caller with
+    ``spawn_nodes`` into `procs`, where given); every node it started, or
+    was given, is gone when it returns."""
+    procs = [] if procs is None else procs
     try:
-        return asyncio.run(drive(cycles, procs, lax=lax, device=device))
+        return asyncio.run(drive(cycles, procs, lax=lax, device=device,
+                                 nodes=nodes))
     finally:
         reap(procs)
 

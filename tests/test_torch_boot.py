@@ -349,8 +349,8 @@ def test_tls_contexts_equal_reference(certs):
 @pytest.mark.parametrize("ltype", ["ssl", "wss", "quic"])
 def test_listener_without_its_block_raises(tmp_path, ltype):
     """A TLS listener without an ssl block raises in both packages (never
-    a plaintext downgrade); quic raises in the port, which has no QUIC
-    listener."""
+    a plaintext downgrade); a quic listener without its certificate and
+    key raises the reference's message."""
     path = tmp_path / "emqx.conf"
     path.write_text(f"listeners.bad {{ type = {ltype}, port = 0 }}\n")
 
@@ -362,9 +362,6 @@ def test_listener_without_its_block_raises(tmp_path, ltype):
         finally:
             await stop(node)
     got = run(go(TNode.from_config_file(str(path), device="cpu")))
-    if ltype == "quic":
-        assert "QUIC" in got and "20(d)" in got
-        return
     assert got == run(go(JNode.from_config_file(str(path),
                                                 use_device=False)))
 
@@ -661,20 +658,31 @@ def test_host_only_node_equals_reference(tmp_path):
 
 def test_chip_smoke_boot_on_cpu():
     """chip_smoke.py's phase 15 rehearsed on the CPU at a reduced size
-    (1,000 filters, 4 subscriber connections, 400-message floods, the
-    chooser pinned to the device engine): the booted node serves over
-    TCP, TLS and WebSocket, 15b's ban, monitor and congestion checks
+    (1,000 filters, 4 subscriber connections, two of them on QUIC,
+    400-message floods, the chooser pinned to the device engine, 6
+    messages through 15e's dropper): the booted node serves over TCP,
+    TLS, WebSocket and QUIC, 15b's ban, monitor and congestion checks
     pass, the dense node delivers as the CSR one (the mesh twins too),
-    and the host-only node routes with nothing on the device path."""
+    the host-only node routes with nothing on the device path, and 15e's
+    refusals, Retry, lossy delivery, idle reaping and listener stop
+    pass."""
     r = cs.boot_drive(torch.device("cpu"), n_filters=1000, n_sub=4,
                       total=400, dense_total=400, mesh_total=256,
-                      host_total=400, pin_device=True)
+                      host_total=400, pin_device=True, lossy_msgs=6)
     a = r["a"]["flood"]
-    assert a["delivered"] == 400 and set(a["by_group"]) == {"tcp", "ssl",
-                                                            "ws"}
+    assert a["delivered"] == 400 and set(a["by_group"]) == {
+        "tcp", "ssl", "ws", "quic"}
+    quic = r["a"]["quic"]
+    assert sorted(quic) == ["apub8", "apub9", "esub0", "esub1"]
+    assert all(q["received"] and q["sent"] for sides in quic.values()
+               for q in sides.values())
     assert r["b"]["congestion"]["congested"] >= 1
     c = r["c"]
     assert c["dense"]["readback"]["pipeline.readback.windows.compact"] == 0
     assert c["csr"]["delivered"] == c["dense"]["delivered"] == 400
     assert c["mesh"]["dense"]["delivered"] == c["mesh"]["csr"]["delivered"]
     assert r["d"]["device_routed"] == 0 and r["d"]["delivered"] == 400
+    e = r["e"]
+    assert all(e["refused"].values()) and e["retry"]["saw_retry"]
+    assert e["lossy"]["duplicates"] == 0 and e["idle_reason"]
+    assert e["stopped"]["socket_closed"] and e["stopped"]["connections"]

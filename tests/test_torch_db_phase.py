@@ -35,9 +35,10 @@ def test_chip_smoke_db_on_cpu():
     assert a["r_up"] == {"sql.matched": a["r_up"]["sql.matched"],
                          "sql.passed": q1, "actions.success": q1}
     assert a["window_err"] == 0
-    assert b["queued_in_outage"] == 1000 and b["remote_during_outage"] == 2000
-    assert b["remote_got"] == 3000 and b["in_order_once"] and b["topics_ok"]
-    assert b["ingress"] == 100
+    assert b["queued_in_outage"] == cs.DB_BRIDGE_DOWN == 500
+    assert b["remote_during_outage"] == cs.DB_BRIDGE_UP == 1000
+    assert b["remote_got"] == 1500 and b["in_order_once"] and b["topics_ok"]
+    assert b["ingress"] == cs.DB_BRIDGE_IN == 50
     assert c["connacks"] == {"ldap_ok": 0, "ldap_wrong": 0x86,
                              "mysql_wrong": 0x86}
     assert c["resources_after_stop"] == 0

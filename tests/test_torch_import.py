@@ -89,7 +89,10 @@ MODULES = [
     "emqx_tpu_torch.gateway.lwm2m_objects", "emqx_tpu_torch.gateway.lwm2m",
     "emqx_tpu_torch.gateway.protos",
     "emqx_tpu_torch.gateway.protos.exproto_pb2",
-    "emqx_tpu_torch.gateway.exproto", "tests.test_torch_fake_db",
+    "emqx_tpu_torch.gateway.exproto", "emqx_tpu_torch.quic",
+    "emqx_tpu_torch.quic.packet", "emqx_tpu_torch.quic.frames",
+    "emqx_tpu_torch.quic.tls13", "emqx_tpu_torch.quic.connection",
+    "emqx_tpu_torch.quic.client", "tests.test_torch_fake_db",
     "chip_smoke",
 ]
 # the modules that need grpc and protobuf: a host without them (the card's
