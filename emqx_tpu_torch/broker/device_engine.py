@@ -1853,8 +1853,7 @@ class DeviceRouteEngine:
         """The graph-class registry the telemetry snapshot embeds: the
         graph classes held now and one row per class label ever captured
         (captures, capture seconds, replays, static-buffer bytes held
-        now). flops and bytes_accessed are null: a graph replay has no
-        compiler cost analysis (see broker/telemetry.py)."""
+        now)."""
         led = self.ledger
         rows = {}
         for label, r in sorted(self._graph_rows.items()):
@@ -1863,8 +1862,7 @@ class DeviceRouteEngine:
                 "capture_s": round(r["capture_s"], 4),
                 "replays": r["replays"],
                 "static_bytes": led.owner_bytes("pipeline_buffers", label)
-                if led is not None else None,
-                "flops": None, "bytes_accessed": None}
+                if led is not None else None}
         return {"graph_classes": len(self._graphs), "rows": rows}
 
     @staticmethod

@@ -33,10 +33,45 @@ class. ``jit_cache`` becomes the number of graph classes the engine holds
 now, and the reference's jit-program cost registry becomes a graph-class
 registry (``program_costs``, from the engine's ``graph_registry``): one
 row per captured class with its captures, capture seconds, replays and
-the static-buffer bytes the HBM ledger holds for it. Its ``flops`` and
-``bytes_accessed`` stay null: a replay has no compiler cost analysis to
-read (XLA's ``cost_analysis`` has no CUDA-graph counterpart), and the
-kernels' own bounds are in chip_smoke.py's kernel table.
+the static-buffer bytes the HBM ledger holds for it.
+
+Route-window ranges. ``emqx_tpu_torch.device.span(name)`` opens a
+``torch.profiler`` range (``record_function``) only while a profiler
+records on the calling thread, and is a no-op otherwise: with no
+profiler running it enters no ``record_function`` and records nothing.
+``RouteEngine.route_encoded`` (``engine.py``) and
+``models/router_engine.route_window`` open these ranges for each window,
+on the same clock as the CUDA kernels and copies of the same trace, so a
+profiler capture splits the window's host time by stage and names the
+stage open at each idle gap of the card:
+
+    route.window    the whole of one ``route_encoded`` call; the seven
+                    stage ranges below partition it
+    route.upload    the host arrays' uploads to the device
+    route.match     kernel 1 (``csrc/shape_match.cu``) and its cover
+                    expansion
+    route.expand    normal fan-out and shared-slot expansion, once over
+                    the W x B lanes
+    route.picks     the W cursor-threaded member picks and their stacks
+    route.compact   the CSR compaction (kernel 2's offsets, hole closing,
+                    payload scatter)
+    route.readback  the cursor hand-off and every copy into host memory,
+                    the dense fallback included
+    route.wait      inside route.readback, first: the host blocked until
+                    the window's device work is done
+
+``route_window`` and ``route_window_cached`` (the node's deduplicated
+windows; there ``route.match`` also holds the merge of the cached rows
+and their gather to window width) run inside the node's dispatch too, so
+their match, expand, picks and compact ranges nest under the node's
+``route_step#<trace id>`` range there. The delta overlay of the
+``route_window_delta*`` programs and their compactions open no range and
+fall to ``route_step#``; a CUDA graph replay runs none of them (the
+window is one replay), nor does a window run on another thread than the
+one that started the profiler. To see them: ``trace device start`` /
+``trace device stop`` on a node (``mgmt/cli.py``), or any
+``torch.profiler.profile`` around ``RouteEngine`` calls, read from its
+Chrome export (``user_annotation`` events).
 
 The flight recorder (``recorder``), the latency observatory
 (``observatory``) and the overload governor (``overload_state_fn``) add
@@ -71,7 +106,6 @@ STAGES = ("enqueue", "batch_form", "dispatch", "dispatch_cached",
 _STAGE_LO, _STAGE_BUCKETS, _STAGE_SUBSTEPS = 1e-6, 112, 4
 # occupancy histograms: fill fraction 1/256 .. 1.0 in 9 log2 buckets
 _OCC_LO, _OCC_BUCKETS = 1.0 / 256, 9
-
 
 class PipelineTelemetry:
     """Per-node pipeline telemetry registry. Node wires one up as

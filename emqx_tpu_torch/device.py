@@ -1,4 +1,5 @@
-"""Device resolution and kernel launch counters.
+"""Device resolution, kernel launch counters and the gated profiler range
+(``span``).
 
 Rule: an entry point runs on ``cuda`` unless the caller asks for the CPU.
 With no CUDA device and no explicit CPU request it raises — it never
@@ -74,3 +75,16 @@ def recording_launches():
         yield calls
     finally:
         _capture.calls = outer
+
+
+_profiling = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler records
+    on this thread; otherwise a no-op that enters no ``record_function``
+    (entering one costs microseconds even with no profiler running)."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from emqx_tpu_torch.convert import tables_from_numpy
-from emqx_tpu_torch.device import resolve_device
+from emqx_tpu_torch.device import resolve_device, span
 from emqx_tpu_torch.models.router_engine import route_window
 from emqx_tpu_torch.ops.compact import csr_slices
 from emqx_tpu_torch.ops.fanout import build_subtable
@@ -213,20 +213,34 @@ class RouteEngine:
                       msg_hash) -> WindowReadback:
         """Route one encoded window ([W, B, L] topics, [W, B] lens, dollar
         flags and hashes; numpy or tensors) and read it back. Advances
-        the engine's cursors."""
+        the engine's cursors. The call runs inside a ``route.window``
+        range whose stages (``route.upload``, the window's own,
+        ``route.readback`` with ``route.wait`` first inside it) partition
+        it (``device.span``)."""
         dev = self.device
+        with span("route.window"):
+            with span("route.upload"):
+                ins = [torch.as_tensor(x).to(device=dev, dtype=dt)
+                       for x, dt in ((topics, torch.int32),
+                                     (lens, torch.int32),
+                                     (is_dollar, torch.bool),
+                                     (msg_hash, torch.int32))]
+            out = route_window(
+                self.tables, self.cursors, *ins, self.strategy,
+                fanout_cap=self.fanout_cap, slot_cap=self.slot_cap,
+                payload_cap=self.payload_cap)
+            with span("route.readback"):
+                return self._readback(out)
 
-        def on(x, dtype):
-            return torch.as_tensor(x).to(device=dev, dtype=dtype)
-
-        out = route_window(
-            self.tables, self.cursors, on(topics, torch.int32),
-            on(lens, torch.int32), on(is_dollar, torch.bool),
-            on(msg_hash, torch.int32), self.strategy,
-            fanout_cap=self.fanout_cap, slot_cap=self.slot_cap,
-            payload_cap=self.payload_cap)
+    def _readback(self, out) -> WindowReadback:
+        """Hand the window's cursors on, wait for its device work, and
+        copy its CSR planes (the dense ones on a payload overflow) into
+        host memory."""
         res, cp = out.res, out.compact
         self.cursors = res.new_cursors[-1].clone()
+        with span("route.wait"):
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
         offsets = cp.offsets.cpu().numpy()
         used = int(offsets[:, -1].max(initial=0))
         row_overflow = cp.row_overflow.cpu().numpy()

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from emqx_tpu_torch.device import span
 from emqx_tpu_torch.ops.compact import CompactPlanes, compact_result
 from emqx_tpu_torch.ops.fanout import SubTable, fanout_normal, shared_slots
 from emqx_tpu_torch.ops.delta import (DeltaPlanes, DeltaTables,
@@ -158,30 +159,36 @@ def _post_window(subs: SubTable, mr: MatchResult, cursors: torch.Tensor,
                  fanout_cap: int, slot_cap: int, scan) -> RouteResult:
     """post_match over a window's W×B flattened match rows: fan-out and
     slot expansion once over every lane, the member picks per step with
-    the cursors threaded; every field stacked [W, ...]."""
-    fr = fanout_normal(subs, mr.matches, fanout_cap=fanout_cap, scan=scan)
-    sids, slot_oflow = shared_slots(subs, mr.matches, slot_cap=slot_cap,
-                                    scan=scan)
+    the cursors threaded; every field stacked [W, ...]. The two halves
+    run inside the ``route.expand`` and ``route.picks`` ranges."""
 
     def per_step(x):
         return x.reshape((W, B) + x.shape[1:])
 
+    with span("route.expand"):
+        fr = fanout_normal(subs, mr.matches, fanout_cap=fanout_cap,
+                           scan=scan)
+        sids, slot_oflow = shared_slots(subs, mr.matches, slot_cap=slot_cap,
+                                        scan=scan)
+        overflow = mr.overflow | fr.overflow | slot_oflow
     sids_w = per_step(sids)
-    picks, cur = [], cursors
-    for k in range(W):
-        sp = pick_members(subs, cur, sids_w[k], strategy, msg_hash[k],
-                          scan=scan)
-        picks.append(sp)
-        cur = sp.new_cursors
+    with span("route.picks"):
+        picks, cur = [], cursors
+        for k in range(W):
+            sp = pick_members(subs, cur, sids_w[k], strategy, msg_hash[k],
+                              scan=scan)
+            picks.append(sp)
+            cur = sp.new_cursors
+        shared_rows = torch.stack([p.rows for p in picks])
+        shared_opts = torch.stack([p.opts for p in picks])
+        new_cursors = torch.stack([p.new_cursors for p in picks])
+        occur = torch.stack([p.occur for p in picks])
     return RouteResult(
         matches=per_step(mr.matches), match_counts=per_step(mr.counts),
         rows=per_step(fr.rows), opts=per_step(fr.opts),
         fan_counts=per_step(fr.counts), shared_sids=sids_w,
-        shared_rows=torch.stack([p.rows for p in picks]),
-        shared_opts=torch.stack([p.opts for p in picks]),
-        overflow=per_step(mr.overflow | fr.overflow | slot_oflow),
-        new_cursors=torch.stack([p.new_cursors for p in picks]),
-        occur=torch.stack([p.occur for p in picks]))
+        shared_rows=shared_rows, shared_opts=shared_opts,
+        overflow=per_step(overflow), new_cursors=new_cursors, occur=occur)
 
 
 def _compact(r: RouteResult, payload_cap: int, match_holes: bool,
@@ -205,16 +212,20 @@ def route_window(tables: ShapeRouterTables, cursors: torch.Tensor,
     compaction of ``route_window_full_compact`` rides along. ``match`` and
     ``scan`` default to the kernel wrappers; passing the plain versions
     (``shape_match_ref``, ``prefix_sum_ref``) gives the reference path on
-    the same device.
+    the same device. The stages run inside the ``route.match``,
+    ``route.expand``, ``route.picks`` and ``route.compact`` ranges
+    (``device.span``).
     """
     W, B, L = topics.shape
-    mr = match(tables.shapes, topics.reshape(W * B, L), lens.reshape(W * B),
-               is_dollar.reshape(W * B))
+    with span("route.match"):
+        mr = match(tables.shapes, topics.reshape(W * B, L),
+                   lens.reshape(W * B), is_dollar.reshape(W * B))
     res = _post_window(tables.subs, mr, cursors, msg_hash, W, B, strategy,
                        fanout_cap=fanout_cap, slot_cap=slot_cap, scan=scan)
     cp = None
     if payload_cap is not None:
-        cp = _compact(res, payload_cap, True, scan)
+        with span("route.compact"):
+            cp = _compact(res, payload_cap, True, scan)
     return CompactRouteResult(res=res, compact=cp)
 
 
@@ -282,17 +293,20 @@ def route_window_cached(tables: ShapeRouterTables, cursors, miss_topics,
     (``route_window_cached`` :162, with ``payload_cap`` its ``_compact``
     twin :299): kernel 1 runs once over the [Bm] miss lanes, ``inv``
     [W, B] gathers the merged unique rows back to window width, and the
-    post stage threads the cursors through the W steps."""
+    post stage threads the cursors through the W steps. The merge and
+    gather run inside ``route.match`` with kernel 1, the rest inside the
+    ranges of ``route_window``."""
     W, B = inv.shape
-    mr = match(tables.shapes, miss_topics, miss_lens, miss_dollar)
-    um = merge_match_results(base_matches, base_counts, base_overflow, mr,
-                             miss_pos)
-    res = _post_window(tables.subs, _gather(um, inv), cursors, msg_hash, W,
-                       B, strategy, fanout_cap=fanout_cap,
-                       slot_cap=slot_cap, scan=scan)
+    with span("route.match"):
+        mr = match(tables.shapes, miss_topics, miss_lens, miss_dollar)
+        um = _gather(merge_match_results(base_matches, base_counts,
+                                         base_overflow, mr, miss_pos), inv)
+    res = _post_window(tables.subs, um, cursors, msg_hash, W, B, strategy,
+                       fanout_cap=fanout_cap, slot_cap=slot_cap, scan=scan)
     cp = None
     if payload_cap is not None:
-        cp = _compact(res, payload_cap, True, scan)
+        with span("route.compact"):
+            cp = _compact(res, payload_cap, True, scan)
     return CompactRouteResult(res=res, compact=cp)
 
 
