@@ -52,7 +52,9 @@ stage open at each idle gap of the card:
                     expansion
     route.expand    normal fan-out and shared-slot expansion, once over
                     the W x B lanes
-    route.picks     the W cursor-threaded member picks and their stacks
+    route.picks     the member picks of the W steps in one pass: one sort
+                    and one rank scan over the window, the cursors
+                    threaded along the steps by a scan
     route.compact   the CSR compaction (kernel 2's offsets, hole closing,
                     payload scatter)
     route.readback  the cursor hand-off and every copy into host memory,

@@ -13,12 +13,12 @@ eight ``route_{step,window}_delta[_cached][_compact]`` variants.
 
 ``route_window`` routes W sub-batches in one call. The match, the normal
 fan-out and the shared-slot expansion do not depend on the cursors, so
-they run once over the flattened W×B lanes; the member picks then thread
-the cursors through the W sub-batches in order, exactly as the
-reference's ``lax.scan`` does, so row k of ``new_cursors``/``occur`` is
-the state after sub-batch k. A window program takes its payload class
-as ``payload_cap`` (None: dense planes only), where the reference has a
-``_compact`` twin of each.
+they run once over the flattened W×B lanes; the member picks of the W
+sub-batches then run as one pass over the window (``pick_window``) with
+the results of the reference's ``lax.scan`` over the steps, so row k of
+``new_cursors``/``occur`` is the state after sub-batch k. A window
+program takes its payload class as ``payload_cap`` (None: dense planes
+only), where the reference has a ``_compact`` twin of each.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from emqx_tpu_torch.ops.match import (MatchResult, match_batch,
                                       merge_match_results)
 from emqx_tpu_torch.ops.scan import prefix_sum
 from emqx_tpu_torch.ops.shapes import ShapeTables, shape_match
-from emqx_tpu_torch.ops.shared import pick_members
+from emqx_tpu_torch.ops.shared import pick_members, pick_window
 from emqx_tpu_torch.ops.trie import TrieTables
 
 
@@ -158,9 +158,11 @@ def _post_window(subs: SubTable, mr: MatchResult, cursors: torch.Tensor,
                  msg_hash: torch.Tensor, W: int, B: int, strategy: int, *,
                  fanout_cap: int, slot_cap: int, scan) -> RouteResult:
     """post_match over a window's W×B flattened match rows: fan-out and
-    slot expansion once over every lane, the member picks per step with
-    the cursors threaded; every field stacked [W, ...]. The two halves
-    run inside the ``route.expand`` and ``route.picks`` ranges."""
+    slot expansion once over every lane, then the member picks of all W
+    steps in one pass (``ops/shared.pick_window``: one sort and one rank
+    scan over the window, the cursors threaded along the steps by a scan);
+    every field stacked [W, ...]. The two halves run inside the
+    ``route.expand`` and ``route.picks`` ranges."""
 
     def per_step(x):
         return x.reshape((W, B) + x.shape[1:])
@@ -173,22 +175,15 @@ def _post_window(subs: SubTable, mr: MatchResult, cursors: torch.Tensor,
         overflow = mr.overflow | fr.overflow | slot_oflow
     sids_w = per_step(sids)
     with span("route.picks"):
-        picks, cur = [], cursors
-        for k in range(W):
-            sp = pick_members(subs, cur, sids_w[k], strategy, msg_hash[k],
-                              scan=scan)
-            picks.append(sp)
-            cur = sp.new_cursors
-        shared_rows = torch.stack([p.rows for p in picks])
-        shared_opts = torch.stack([p.opts for p in picks])
-        new_cursors = torch.stack([p.new_cursors for p in picks])
-        occur = torch.stack([p.occur for p in picks])
+        sp = pick_window(subs, cursors, sids_w, strategy, msg_hash,
+                         scan=scan)
     return RouteResult(
         matches=per_step(mr.matches), match_counts=per_step(mr.counts),
         rows=per_step(fr.rows), opts=per_step(fr.opts),
         fan_counts=per_step(fr.counts), shared_sids=sids_w,
-        shared_rows=shared_rows, shared_opts=shared_opts,
-        overflow=per_step(overflow), new_cursors=new_cursors, occur=occur)
+        shared_rows=sp.rows, shared_opts=sp.opts,
+        overflow=per_step(overflow), new_cursors=sp.new_cursors,
+        occur=sp.occur)
 
 
 def _compact(r: RouteResult, payload_cap: int, match_holes: bool,

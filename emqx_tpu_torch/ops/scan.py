@@ -6,13 +6,15 @@ body ``_scan_kernel``) and stands in for its XLA twin
 it serves every scan: the compaction's batch-axis offsets
 (``ops/compact.py``, ``[W, B]``) and its hole closing (``[W*B, M]``), the
 fan-out segment offsets (``ops/fanout.py``, ``[W*B, M]``), the
-shared-subscription run ids (``ops/shared.py``, ``[B*K]``), the trie
-NFA's emission and rank scans (``ops/match.py``) and the mesh exchange's
-segment and rank scans (``parallel/sharded.py``). The CUDA source
-(``csrc/prefix_sum.cu``) holds the design and its bound; this module holds
-the launch plan (``scan_plan``), so the CPU tests can check it, and the
-look-back status words, one buffer per (device, stream) — or, for a launch
-captured into a CUDA graph, one of its own that the graph re-zeroes.
+shared-subscription run ids (``ops/shared.py``, ``[W*B*K]`` a window,
+``[B*K]`` a step) and the window's cursor sums along its steps
+(``[G, W]``), the trie NFA's emission and rank scans (``ops/match.py``)
+and the mesh exchange's segment and rank scans (``parallel/sharded.py``).
+The CUDA source (``csrc/prefix_sum.cu``) holds the design and its bound;
+this module holds the launch plan (``scan_plan``), so the CPU tests can
+check it, and the look-back status words, one buffer per (device,
+stream) — or, for a launch captured into a CUDA graph, one of its own
+that the graph re-zeroes.
 
 Contract shared with the reference: int32 in, int32 out, exact while the
 running total stays below 2^24 (past it both wrap modulo 2^32, as

@@ -9,6 +9,14 @@ The rank is computed in the sorted form (counterpart of
 as a prefix sum — which goes through kernel 2 (``ops/scan.py``). It
 equals the reference's blocked form (``_rank_and_occur_blocked``),
 including rank 0 for ``-1`` entries.
+
+``pick_window`` picks a whole window of W sub-batches in one pass, with
+the results of W chained ``pick_members`` calls (the reference's
+``lax.scan``): the cursor that step k reads is the window's cursor plus
+the slot's occurrences in steps before k, so one rank over the window
+flattened step-major gives every pick, and int32 adds wrap alike in
+either order. The per-step occurrences are counted once per (slot,
+step) and their running sum along the steps is one more kernel-2 scan.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from emqx_tpu_torch.ops import scan as kernel2
 from emqx_tpu_torch.ops.fanout import SubTable, take
 from emqx_tpu_torch.ops.scan import prefix_sum
 
@@ -43,11 +52,10 @@ class SharedPickResult(NamedTuple):
     occur: torch.Tensor        # [G] occurrences of each slot in this batch
 
 
-def rank_and_occur(sids: torch.Tensor, n_slots: int, *, scan=prefix_sum):
-    """rank[b,k] = #occurrences of sids[b,k] earlier in flattened batch
-    order (0 for -1 entries); occur[g] = occurrences of slot g."""
-    B, K = sids.shape
-    flat = sids.reshape(-1)
+def _sorted_rank(flat: torch.Tensor, *, scan):
+    """Stable sort of 1-D slot ids and each lane's rank: the number of
+    equal ids before it (0 for -1 lanes). Returns (sorted ids, rank in
+    sorted order, run ends in sorted order, rank in lane order)."""
     n = flat.shape[0]
     dev = flat.device
     sorted_sids, order = torch.sort(flat, stable=True)
@@ -65,18 +73,51 @@ def rank_and_occur(sids: torch.Tensor, n_slots: int, *, scan=prefix_sum):
     rank = torch.zeros(n, dtype=torch.int32, device=dev)
     rank[order] = rank_sorted
     rank = torch.where(flat >= 0, rank, 0)
-    # occur: at each run END the rank is (count-1); slots are unique there
-    occur = torch.zeros(n_slots + 1, dtype=torch.int32, device=dev)
+    return sorted_sids, rank_sorted, is_end, rank
+
+
+def _run_occur(sorted_sids, rank_sorted, is_end, n_slots: int):
+    """occur[g] = occurrences of slot g: at each run END the rank is
+    (count-1), and the slots are unique there."""
+    occur = torch.zeros(n_slots + 1, dtype=torch.int32,
+                        device=sorted_sids.device)
     last = is_end & (sorted_sids >= 0) & (sorted_sids < n_slots)
     occur.scatter_(0, torch.where(last, sorted_sids, n_slots).long(),
                    rank_sorted + 1)
-    return rank.reshape(B, K), occur[:n_slots]
+    return occur[:n_slots]
+
+
+def rank_and_occur(sids: torch.Tensor, n_slots: int, *, scan=prefix_sum):
+    """rank[b,k] = #occurrences of sids[b,k] earlier in flattened batch
+    order (0 for -1 entries); occur[g] = occurrences of slot g."""
+    sorted_sids, rank_sorted, is_end, rank = _sorted_rank(
+        sids.reshape(-1), scan=scan)
+    return (rank.reshape(sids.shape),
+            _run_occur(sorted_sids, rank_sorted, is_end, n_slots))
+
+
+def _step_occur(sids: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """[G, W] occurrences of each slot in each step of a [W, B, K]
+    window: one scatter-add of ones at slot·W + step. Each -1 or
+    out-of-range lane adds to a spare element of its own past the G·W
+    counts: atomic adds to one address run one at a time."""
+    W = sids.shape[0]
+    dev = sids.device
+    flat = sids.reshape(W, -1)
+    n, GW = flat.numel(), n_slots * W
+    key = flat.long() * W + torch.arange(W, device=dev)[:, None]
+    keep = (flat >= 0) & (flat < n_slots)
+    spare = torch.arange(GW, GW + n, device=dev).view(W, -1)
+    occ = torch.zeros(GW + n, dtype=torch.int32, device=dev)
+    occ.scatter_add_(0, torch.where(keep, key, spare).reshape(-1),
+                     torch.ones(n, dtype=torch.int32, device=dev))
+    return occ[:GW].view(n_slots, W)
 
 
 def hash_base(msg_hash: torch.Tensor, safe: torch.Tensor) -> torch.Tensor:
     """abs(int32((uint32(msg_hash) * 0x9E3779B1) ^ uint32(slot))), with
     abs(INT32_MIN) == INT32_MIN as in int32 arithmetic."""
-    m = msg_hash.long()[:, None] & 0xFFFFFFFF
+    m = msg_hash.long()[..., None] & 0xFFFFFFFF
     lo, hi = 0x79B1, 0x9E37          # 0x9E3779B1 in 16-bit halves
     x = (m * lo + (((m * hi) & 0xFFFF) << 16)) & 0xFFFFFFFF
     x = x ^ (safe.long() & 0xFFFFFFFF)
@@ -94,13 +135,47 @@ def pick_members(table: SubTable, cursors: torch.Tensor, sids: torch.Tensor,
     strategy: STRATEGY_* id. msg_hash: [B] int32 per-message hash, used by
       the random/hash strategies.
     """
+    r = pick_window(table, cursors, sids[None], strategy, msg_hash[None],
+                    scan=scan)
+    return SharedPickResult(*(x[0] for x in r))
+
+
+def pick_window(table: SubTable, cursors: torch.Tensor, sids: torch.Tensor,
+                strategy: int, msg_hash: torch.Tensor, *,
+                scan=prefix_sum) -> SharedPickResult:
+    """``pick_members`` over a window of W sub-batches, the cursors
+    threaded through them in order: sids [W, B, K], msg_hash [W, B]; every
+    field comes back stacked [W, ...], row k of ``new_cursors`` and
+    ``occur`` the state after sub-batch k.
+
+    One stable sort and one run-id scan at [W·B·K] rank the whole window;
+    the per-step occurrences take one scatter-add and one scan at [G, W].
+    A window longer than kernel 2's ``MAX_LEN`` runs as the fewest groups
+    of whole steps that fit, the cursors threaded between them. W = 1 is
+    ``pick_members``' own pass: the run ends give ``occur``. Nothing
+    syncs with the host, so the pass can be captured into a CUDA graph.
+    Slot ids index the cursors (< G), as ``shared_slots`` gives them.
+    """
+    W, B, K = sids.shape
+    fit = max(1, kernel2.MAX_LEN // (B * K))
+    if W > fit:
+        parts, cur = [], cursors
+        for k in range(0, W, fit):
+            p = pick_window(table, cur, sids[k:k + fit], strategy,
+                            msg_hash[k:k + fit], scan=scan)
+            parts.append(p)
+            cur = p.new_cursors[-1]
+        return SharedPickResult(*(torch.cat(x) for x in zip(*parts)))
+    G = cursors.shape[0]
     valid = sids >= 0
     safe = sids.clamp(min=0)
     lo = take(table.shared_start, safe)
-    size = take(table.shared_start, safe + 1) - lo   # [B, K] members
+    size = take(table.shared_start, safe + 1) - lo   # [W, B, K] members
     nonempty = valid & (size > 0)
 
-    rank, occur = rank_and_occur(sids, cursors.shape[0], scan=scan)
+    sorted_sids, rank_sorted, is_end, rank = _sorted_rank(
+        sids.reshape(-1), scan=scan)
+    rank = rank.view(sids.shape)
     cur = take(cursors, safe)
     if strategy == STRATEGY_ROUND_ROBIN:
         base = cur + rank   # int32 add: wraps like the reference's
@@ -115,7 +190,17 @@ def pick_members(table: SubTable, cursors: torch.Tensor, sids: torch.Tensor,
     opts = torch.where(nonempty, take(table.shared_opts, idx),
                        torch.zeros((), dtype=table.shared_opts.dtype,
                                    device=sids.device))
-    new_cursors = cursors + occur if strategy == STRATEGY_ROUND_ROBIN \
-        else cursors.clone()
+    rr = strategy == STRATEGY_ROUND_ROBIN
+    if W == 1:
+        occur = _run_occur(sorted_sids, rank_sorted, is_end, G)
+        new_cursors = cursors + occur if rr else cursors.clone()
+        occur, new_cursors = occur[None], new_cursors[None]
+    else:
+        # the state after step k: the window's cursors plus the slot's
+        # occurrences through step k (kernel 2 along the steps)
+        occ = _step_occur(sids, G)                     # [G, W]
+        new_cursors = (cursors[:, None] + scan(occ)).t().contiguous() if rr \
+            else cursors.expand(W, G).contiguous()
+        occur = occ.t().contiguous()
     return SharedPickResult(rows=rows, opts=opts, new_cursors=new_cursors,
                             occur=occur)

@@ -37,7 +37,8 @@ def cuda():
                                    (300, 32), (300, 33), (300, 64),
                                    (300, 1024), (300, 1025), (262144,),
                                    (1 << 20,), (8, 65536), (8, 65536 + 17),
-                                   (524288, 4), (8, 4)])
+                                   (524288, 4), (8, 4), (1 << 21,),
+                                   (312446, 8)])
 def test_prefix_sum_kernel(cuda, shape):
     x = torch.randint(-3, 4, shape, device=cuda, dtype=torch.int32)
     before = LAUNCHES["prefix_sum"]
@@ -132,6 +133,54 @@ def test_prefix_sum_in_cuda_graph(cuda):
         torch.cuda.synchronize()
         assert torch.equal(out, prefix_sum_ref(x))
     assert LAUNCHES["prefix_sum"] == before + len(xs)
+
+
+def test_pick_window_in_cuda_graph(cuda):
+    """The shape-hash window's one-pass picks at the benchmark's size (W =
+    8 steps of 131,072 x 2 slot lanes over 312,446 slots) captured into a
+    CUDA graph: two kernel-2 launches, [2097152] and [312446, 8], and each
+    replay with new slot ids and cursors equal to the plain pass."""
+    from emqx_tpu_torch.device import recording_launches
+    from emqx_tpu_torch.ops.shared import STRATEGY_ROUND_ROBIN, pick_window
+    W, B, K, G = 8, 131072, 2, 312446
+    starts = torch.arange(0, 8 * (G + 1), 8, dtype=torch.int32, device=cuda)
+    starts[G // 2:] -= 8                       # an empty group
+    members = starts[-1].item()
+    subs = build_subtable(1, {}, {}, {}, slot_cap=1)._replace(
+        shared_start=starts,
+        shared_row=torch.arange(members, dtype=torch.int32, device=cuda),
+        shared_opts=torch.zeros(members, dtype=torch.int8, device=cuda))
+
+    def window(seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        sids = torch.randint(-1, G, (W, B, K), generator=g, device=cuda,
+                             dtype=torch.int32)
+        cur = torch.randint(-(1 << 31), (1 << 31) - 1, (G,), generator=g,
+                            device=cuda, dtype=torch.int32)
+        mh = torch.randint(0, 1 << 31, (W, B), generator=g, device=cuda,
+                           dtype=torch.int32)
+        return sids, cur, mh
+
+    static = window(0)
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    graph = torch.cuda.CUDAGraph()
+    with recording_launches() as calls, torch.cuda.stream(stream):
+        graph.capture_begin()
+        out = pick_window(subs, static[1], static[0], STRATEGY_ROUND_ROBIN,
+                          static[2])
+        graph.capture_end()
+    assert calls == [("prefix_sum", (W * B * K,)), ("prefix_sum", (G, W))]
+    for seed in (1, 2, 3):
+        x = window(seed)
+        for a, b in zip(static, x):
+            a.copy_(b)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = pick_window(subs, x[1], x[0], STRATEGY_ROUND_ROBIN, x[2],
+                           scan=prefix_sum_ref)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
 
 
 def _pattern_tables(dev, seed, n_filters=3000, n_topics=5000):

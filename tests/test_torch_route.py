@@ -23,8 +23,9 @@ from emqx_tpu.utils import topic as JT
 from emqx_tpu_torch.convert import tables_from_numpy
 from emqx_tpu_torch.engine import RouteEngine
 from emqx_tpu_torch.models import router_engine as TR
-from emqx_tpu_torch.ops.shared import (STRATEGY_RANDOM, STRATEGY_ROUND_ROBIN,
-                                       STRATEGY_STICKY)
+from emqx_tpu_torch.ops.shared import (STRATEGY_HASH_CLIENT,
+                                       STRATEGY_HASH_TOPIC, STRATEGY_RANDOM,
+                                       STRATEGY_ROUND_ROBIN, STRATEGY_STICKY)
 from emqx_tpu_torch.workloads import pattern_population
 from tests.test_trie_match import rand_filter, rand_topic
 
@@ -33,9 +34,11 @@ from tests.test_trie_match import rand_filter, rand_topic
 torch.set_num_threads(1)
 
 
-def window_fixture(seed, W=3, B=24):
+def window_fixture(seed, W=3, B=24, hot=False):
     """JAX-built tables over the six-pattern population, random normal and
-    shared subscribers, and a [W, B] window of encoded topics."""
+    shared subscribers, and a [W, B] window of encoded topics. ``hot``:
+    every filter also feeds slots 1-3, so each is hit in every step, and
+    the cursors start within 16 of 2^31, so the int32 add wraps."""
     rng = np.random.default_rng(seed)
     _i, words, flens, t, tl, dol = pattern_population(rng, 300, W * B)
     F = len(flens)
@@ -46,6 +49,9 @@ def window_fixture(seed, W=3, B=24):
     filter_slots = {f: sorted(r.choice(G, r.randint(1, 3),
                                        replace=False).tolist())
                     for f in range(F) if r.rand() < 0.4}
+    if hot:
+        filter_slots = {f: sorted({1, 2, 3} | set(filter_slots.get(f, [])))
+                        for f in range(F)}
     shared = {g: [(2000 + 8 * g + j, int(r.randint(64)))
                   for j in range(r.randint(0, 5))] for g in range(G)}
     tables = JR.ShapeRouterTables(
@@ -53,25 +59,30 @@ def window_fixture(seed, W=3, B=24):
         subs=j_build_subtable(F, normal, filter_slots, shared, slot_cap=G))
     msg_hash = r.randint(0, 1 << 31, (W, B)).astype(np.int32)
     cursors = r.randint(0, 7, G).astype(np.int32)
+    if hot:
+        cursors = ((1 << 31) - 1 - r.randint(0, 16, G)).astype(np.int32)
     return (tables, cursors, t.reshape(W, B, -1), tl.reshape(W, B).copy(),
             dol.reshape(W, B), msg_hash)
 
 
 CASES = {
-    # name: (fanout_cap, slot_cap, payload_cap, empty rows of sub-batch 2)
-    "full": (8, 4, 4096, 0),
-    "underfilled": (8, 4, 4096, 24),     # sub-batch 2 all padding
-    "row_overflow": (8, 4, 24, 0),
-    "cap_overflow": (1, 1, 4096, 5),
+    # name: (fanout_cap, slot_cap, payload_cap, empty rows of sub-batch 2,
+    #        window fixture's W and hot slots)
+    "full": (8, 4, 4096, 0, 3, False),
+    "underfilled": (8, 4, 4096, 24, 3, False),     # sub-batch 2 all padding
+    "row_overflow": (8, 4, 24, 0, 3, False),
+    "cap_overflow": (1, 1, 4096, 5, 3, False),
+    "hot_wrap8": (8, 6, 4096, 0, 8, True),
 }
 
 
 @pytest.mark.parametrize("strategy", [STRATEGY_ROUND_ROBIN, STRATEGY_RANDOM,
-                                      STRATEGY_STICKY])
+                                      STRATEGY_STICKY, STRATEGY_HASH_TOPIC,
+                                      STRATEGY_HASH_CLIENT])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_window_equals_jax(case, strategy):
-    fan, slot, pcap, empty = CASES[case]
-    tables, cursors, t, tl, dol, mh = window_fixture(len(case))
+    fan, slot, pcap, empty, W, hot = CASES[case]
+    tables, cursors, t, tl, dol, mh = window_fixture(len(case), W=W, hot=hot)
     if empty:
         tl[2, -empty:] = 0                 # padding lanes match nothing
     kw = dict(fanout_cap=fan, slot_cap=slot, payload_cap=pcap)
@@ -94,6 +105,11 @@ def test_window_equals_jax(case, strategy):
     assert ro.any() == (case == "row_overflow")
     if case == "cap_overflow":
         assert got.res.overflow.any()
+    if hot:
+        # slots 1-3 recur in every step, and round robin wraps past 2^31
+        assert (got.res.occur.numpy()[:, 1:4] > 0).all()
+        if strategy == STRATEGY_ROUND_ROBIN:
+            assert (got.res.new_cursors.numpy()[-1, 1:4] < 0).all()
 
 
 def test_step_equals_first_window_row():

@@ -59,14 +59,16 @@ def test_row_kinds_equal_pallas(shape):
 
 
 # the cases of the card tests, then every shape the two main paths launch
-# (shape-hash window: [1048576, 1] x3, [262144] x8, [8, 131072]; mesh:
+# (shape-hash window: [1048576, 1] x3, the picks' [2097152] run ids and
+# [312446, 8] cursor sums, [8, 131072]; a step's [262144] run ids; mesh:
 # [1048576], NFA [524288, 2-32], [524288, 64], the exchange's stacked
 # [32, 65536]); (R, n)
 PLAN_SHAPES = [(1, 262144), (1, 1 << 20), (8, 65536), (8, 65536 + 17),
                (524288, 4), (8, 4), (1, 1), (1, 7), (1, 1000), (1, 1 << 24),
                (1 << 20, 1), (8, 131072), (524288, 2), (524288, 16),
                (524288, 32), (524288, 64), (32, 65536), (300, 33),
-               (300, 1024), (300, 1025), (1000, 1025), (3, 10000)]
+               (300, 1024), (300, 1025), (1000, 1025), (3, 10000),
+               (1, 1 << 21), (312446, 8)]
 
 
 def _covers(p, R, n):
@@ -110,11 +112,25 @@ def test_launch_plan(R, n):
 
 
 def test_launch_plan_rank_scan():
-    """The shape-hash window's rank scan gets at least 128 tiles of at
-    most 2048 elements, one block each."""
+    """A step's rank scan gets at least 128 tiles of at most 2048
+    elements, one block each."""
     p = scan_plan(1, 262144, True)
     assert p.tiles >= 128 and scan.THREADS * p.items <= 2048
     assert (p.path, p.grid, p.vec) == ("long", p.tiles, True)
+
+
+def test_launch_plan_window_pick_scans():
+    """The shape-hash window's picks: the [2097152] rank scan gets tiles
+    of at most 2048 elements within MAX_TILES, no more look-back words
+    than its tiles; the [312446, 8] cursor sums take the short path, one
+    row a thread, with no status words."""
+    p = scan_plan(1, 1 << 21, True)
+    assert (p.path, p.grid, p.vec) == ("long", p.tiles, True)
+    assert scan.THREADS * p.items <= 2048 and p.tiles <= scan.MAX_TILES
+    assert p.state_words == scan.STRIDE * p.tiles
+    q = scan_plan(312446, 8, True)
+    assert (q.path, q.items, q.state_words) == ("short", 8, 0)
+    assert q.grid == -(-312446 // scan.THREADS)
 
 
 def test_state_buffer_grows_and_wraps(monkeypatch):
