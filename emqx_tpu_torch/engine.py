@@ -13,7 +13,8 @@ Fallbacks are the reference's own semantics, not device fallbacks:
   grows to fit for the next window;
 - a topic deeper than ``max_levels`` (``too_long``) or one whose fan-out
   or shared slots overflow their caps is completed on the host from the
-  engine's filter list with ``utils.topic.match``.
+  engine's filter list with ``utils.topic.match``; an overflowing topic
+  keeps the picks the window made for it, which its cursors count.
 """
 
 from __future__ import annotations
@@ -107,7 +108,10 @@ class RouteEngine:
         self.max_levels = max_levels
         self.payload_cap = payload_cap or _next_pow2(2 * batch)
         self.generator = torch.Generator().manual_seed(seed)
-        self.stats = {"windows": 0, "dense_windows": 0, "host_messages": 0}
+        # csr_entries: payload entries the windows used (offsets[:, -1]);
+        # d2h_bytes: bytes every readback copied into host memory
+        self.stats = {"windows": 0, "dense_windows": 0, "host_messages": 0,
+                      "csr_entries": 0, "d2h_bytes": 0}
 
     # --- build -----------------------------------------------------------
 
@@ -241,23 +245,39 @@ class RouteEngine:
         with span("route.wait"):
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
-        offsets = cp.offsets.cpu().numpy()
+        host = self._host
+        offsets = host(cp.offsets)
         used = int(offsets[:, -1].max(initial=0))
-        row_overflow = cp.row_overflow.cpu().numpy()
+        row_overflow = host(cp.row_overflow)
         dense = None
         if row_overflow.any():
             self.stats["dense_windows"] += 1
-            dense = tuple(x.cpu().numpy() for x in (
+            dense = tuple(host(x) for x in (
                 res.matches, res.rows, res.opts, res.fan_counts,
                 res.shared_sids, res.shared_rows, res.shared_opts))
             # learn the capacity upward so the next window fits
             self.payload_cap = _next_pow2(used)
-        self.stats["windows"] += 1
-        return WindowReadback(
-            offsets=offsets, counts3=cp.counts3.cpu().numpy(),
-            payload=cp.payload[:, :used].cpu().numpy(),
-            row_overflow=row_overflow, overflow=res.overflow.cpu().numpy(),
+        rb = WindowReadback(
+            offsets=offsets, counts3=host(cp.counts3),
+            payload=host(cp.payload[:, :used]),
+            row_overflow=row_overflow, overflow=host(res.overflow),
             dense=dense)
+        self.stats["windows"] += 1
+        self.stats["csr_entries"] += int(offsets[:, -1].sum())
+        self.stats["d2h_bytes"] += sum(
+            x.nbytes for x in (*rb[:5], *(dense or ())))
+        return rb
+
+    def _host(self, x: torch.Tensor) -> np.ndarray:
+        """``x`` in host memory. On the card the copy lands in page-locked
+        memory from the caching host allocator: the copy engine writes it
+        at the host link's rate, with no staging copy and no page faults
+        on fresh pages, and the block goes back to the cache when the
+        array is dropped."""
+        if self.device.type != "cuda":
+            return x.cpu().numpy()
+        return torch.empty(x.shape, dtype=x.dtype,
+                           pin_memory=True).copy_(x).numpy()
 
     def _decode(self, rb: WindowReadback, topics: list,
                 too_long: np.ndarray, mh: np.ndarray) -> list:
@@ -265,18 +285,32 @@ class RouteEngine:
         plans = []
         for g, topic in enumerate(topics):
             k, i = divmod(g, B)
-            if too_long[g] or rb.overflow[k, i]:
+            if too_long[g]:
                 plans.append(self._host_plan(topic, int(mh[g])))
-            elif rb.row_overflow[k]:
-                m, r, o, fc, ss, sr, so = (x[k, i] for x in rb.dense)
-                cf = min(int(fc), r.shape[0])
-                cs = int((ss >= 0).sum())
-                plans.append(Plan(m[m >= 0], r[:cf], o[:cf].astype(np.int32),
-                                  ss[:cs], sr[:cs], so[:cs].astype(np.int32)))
-            else:
-                plans.append(Plan(*csr_slices(rb.offsets[k], rb.counts3[k],
-                                              rb.payload[k], i)))
+                continue
+            plan = self._device_plan(rb, k, i)
+            if rb.overflow[k, i]:
+                # the window ranked this message's first slot_cap slots
+                # and counted them in the cursors: the host keeps those
+                # picks and completes the rest
+                picked = {int(s): (int(r), int(o)) for s, r, o in zip(
+                    plan.shared_slots, plan.shared_rows, plan.shared_opts)}
+                plan = self._host_plan(topic, int(mh[g]), picked)
+            plans.append(plan)
         return plans
+
+    @staticmethod
+    def _device_plan(rb: WindowReadback, k: int, i: int) -> Plan:
+        """Message i of step k as the window planned it: from the dense
+        planes of a step whose payload overflowed, else its CSR row."""
+        if rb.row_overflow[k]:
+            m, r, o, fc, ss, sr, so = (x[k, i] for x in rb.dense)
+            cf = min(int(fc), r.shape[0])
+            cs = int((ss >= 0).sum())
+            return Plan(m[m >= 0], r[:cf], o[:cf].astype(np.int32),
+                        ss[:cs], sr[:cs], so[:cs].astype(np.int32))
+        return Plan(*csr_slices(rb.offsets[k], rb.counts3[k], rb.payload[k],
+                                i))
 
     # --- host fallback ---------------------------------------------------
 
@@ -293,9 +327,12 @@ class RouteEngine:
                              torch.tensor([[slot]])))
         return lo + base % size
 
-    def _host_plan(self, topic: str, mh: int) -> Plan:
+    def _host_plan(self, topic: str, mh: int,
+                   picked: Optional[dict] = None) -> Plan:
         """Complete one message on the host: brute-force match over the
-        filter list, then every subscriber and one pick per shared slot."""
+        filter list, then every subscriber and one pick per shared slot;
+        ``picked`` maps the slots the window already picked for it to
+        their (row, opts)."""
         self.stats["host_messages"] += 1
         st = self.subs_host
         fids, rows, opts, slots, srows, sopts = [], [], [], [], [], []
@@ -312,6 +349,10 @@ class RouteEngine:
                 lo = int(st.shared_start[s])
                 size = int(st.shared_start[s + 1]) - lo
                 slots.append(s)
+                if picked and s in picked:
+                    srows.append(picked[s][0])
+                    sopts.append(picked[s][1])
+                    continue
                 if size == 0:
                     srows.append(-1)
                     sopts.append(0)

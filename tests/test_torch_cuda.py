@@ -231,6 +231,44 @@ def test_route_window_kernel_vs_plain(cuda):
         assert torch.equal(a, b)
 
 
+def test_route_engine_readbacks_are_pinned_and_their_own(cuda):
+    """RouteEngine reads each window back into page-locked blocks of its
+    own: a readback held across later windows keeps its planes, and each
+    equals the plain copy of its window."""
+    from emqx_tpu_torch.engine import RouteEngine
+
+    subs = {f"plant/{g}/+/#": [(g, 1)] for g in range(40)}
+    subs["$share/h/plant/#"] = [(100 + m, 1) for m in range(8)]
+    subs["plant/#"] = [(200, 0), (201, 1)]
+    eng = RouteEngine.from_subscriptions(subs, device=cuda, batch=256,
+                                         window=2, fanout_cap=8, slot_cap=2,
+                                         max_levels=8, payload_cap=1 << 12)
+    topics = [f"plant/{k % 40}/n{k}/d{k % 3}" for k in range(512)]
+    first = eng.route(topics[:256])
+    kept = eng.route_encoded(*_encoded_window(eng, topics))
+    snap = [a.copy() for a in kept[:5]]
+    for _ in range(3):
+        eng.route_encoded(*_encoded_window(eng, topics[::-1]))
+    for a, b in zip(kept[:5], snap):
+        assert np.array_equal(a, b)
+    assert torch.from_numpy(kept.payload).is_pinned()
+    assert [p.fids.tolist() for p in first] == [
+        p.fids.tolist() for p in RouteEngine.from_subscriptions(
+            subs, device="cpu", batch=256, window=2, fanout_cap=8,
+            slot_cap=2, max_levels=8).route(topics[:256])]
+
+
+def _encoded_window(eng, topics):
+    """``topics`` as one encoded [W, B] window of ``eng``."""
+    from emqx_tpu_torch.ops.match import encode_topics_str
+
+    enc, lens, dollar, _long = encode_topics_str(eng.intern, topics,
+                                                 eng.max_levels)
+    W, B = eng.window, eng.batch
+    return (enc.reshape(W, B, -1), lens.reshape(W, B), dollar.reshape(W, B),
+            np.zeros((W, B), np.int32))
+
+
 @pytest.mark.parametrize("rows", [24576, 1001])
 @pytest.mark.parametrize("k", [1, 2, 3])
 def test_ring_rotate_kernel(cuda, rows, k):

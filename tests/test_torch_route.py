@@ -219,5 +219,9 @@ def test_chip_smoke_main_path_on_cpu():
     assert r["launches"] == {"shape_match": 0, "prefix_sum": 0,
                              "ring_rotate": 0}
     assert tuple(r["n_entries"].shape) == (3, 256)
-    assert b["eng"].stats == {"windows": 4, "dense_windows": 0,
-                              "host_messages": 0}
+    stats = b["eng"].stats
+    assert {k: stats[k] for k in ("windows", "dense_windows",
+                                  "host_messages")} == {
+        "windows": 4, "dense_windows": 0, "host_messages": 0}
+    # the readback counters: every window's payload entries and bytes
+    assert 0 < 4 * stats["csr_entries"] < stats["d2h_bytes"]
